@@ -1,0 +1,305 @@
+"""Leaf layers and combinators, eval path (counterpart of convnets_tpu/nn/layers.py).
+
+Children carry the JAX variable-path names: Sequential children '0',
+'1', …; ConvBNReLU '0' conv, '1' BN, '2' ReLU; Add '0' body, '1' shortcut.
+Activations are NHWC. In eval mode every ConvBNReLU and Conv2d runs the
+conv kernel and every MaxPool2d the pool kernel (`ops.kernels`); what the
+port does not have yet (train mode, grouped or dilated convs) raises
+NotImplementedError naming the ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+
+from convnets_tpu_torch import ops
+from convnets_tpu_torch.core import shapes
+from convnets_tpu_torch.nn.module import Module
+from convnets_tpu_torch.ops import initializers as init
+from convnets_tpu_torch.ops import kernels
+
+
+def not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+
+
+_TRAIN_STEP = "modules item 4 and kernels conv2d_stats / conv_bn_relu_train"
+
+
+def _check_conv_envelope(conv: "Conv2d") -> None:
+    if kernels.fits_conv(conv.stride, conv.dilation, conv.groups):
+        return
+    if conv.groups > 1:
+        raise not_ported(f"grouped conv (groups={conv.groups})",
+                         "kernels depthwise_conv2d / grouped_conv2d_train")
+    raise not_ported(f"conv with stride {conv.stride}, dilation {conv.dilation}",
+                     "kernels conv2d_fused envelope (stride 1 or 2, no dilation)")
+
+
+class Conv2d(Module):
+    """2-D convolution; `weight` is HWIO (kh, kw, Cin/groups, Cout).
+
+    init_mode 'he': He normal (fan_out) and zero bias; 'default': the
+    torch constructor's uniform distributions."""
+
+    JAX_LEAVES = {"weight": ("params", "w"), "bias": ("params", "b")}
+
+    def __init__(self, out_channels, kernel, stride=1, padding=0, dilation=1,
+                 groups=1, bias=True, init_mode="he"):
+        super().__init__()
+        self.out_channels = int(out_channels)
+        self.kernel = shapes.to_pair(kernel)
+        self.stride = shapes.to_pair(stride)
+        self.padding = shapes.to_pair(padding)
+        self.dilation = shapes.to_pair(dilation)
+        self.groups = int(groups)
+        self.use_bias = bool(bias)
+        self.init_mode = init_mode
+        self.weight = self.bias = None
+
+    def init(self, generator, in_shape):
+        cin = in_shape[-1]
+        assert cin % self.groups == 0, f"C={cin} not divisible by groups={self.groups}"
+        kh, kw = self.kernel
+        wshape = (kh, kw, cin // self.groups, self.out_channels)
+        dtype = self.policy.param_dtype
+        if self.init_mode == "he":
+            w = init.he_normal_conv(wshape, generator, dtype)
+            b = torch.zeros(self.out_channels, dtype=dtype)
+        else:
+            w = init.he_uniform_conv_default(wshape, generator, dtype)
+            b = init.conv_bias_default((self.out_channels,), (cin // self.groups) * kh * kw,
+                                       generator, dtype)
+        self.weight = torch.nn.Parameter(w)
+        self.bias = torch.nn.Parameter(b) if self.use_bias else None
+
+    def out_shape(self, in_shape):
+        return shapes.conv2d_out_shape(in_shape, self.out_channels, self.kernel,
+                                       self.stride, self.padding, self.dilation)
+
+    def forward(self, x):
+        if self.training:
+            raise not_ported("train-mode Conv2d", "kernels conv2d_train")
+        _check_conv_envelope(self)
+        cd = self.policy.compute_dtype
+        y = kernels.conv2d_fused(x.to(cd), self.weight.to(cd), stride=self.stride,
+                                 padding=self.padding)
+        if self.bias is not None:
+            y = y + self.bias.to(cd)
+        return y
+
+    def extra_repr(self):
+        return (f"{self.out_channels}, k={self.kernel}, s={self.stride}, "
+                f"p={self.padding}, d={self.dilation}, g={self.groups}")
+
+
+class BatchNorm2d(Module):
+    """Inference batch norm; `weight`/`bias` are the JAX scale/bias and the
+    running buffers the JAX state mean/var."""
+
+    JAX_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                  "running_mean": ("state", "mean"), "running_var": ("state", "var")}
+
+    def __init__(self, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = self.bias = None
+        self.register_buffer("running_mean", None)
+        self.register_buffer("running_var", None)
+
+    def init(self, generator, in_shape):
+        c = in_shape[-1]
+        dtype = self.policy.param_dtype
+        self.weight = torch.nn.Parameter(torch.ones(c, dtype=dtype))
+        self.bias = torch.nn.Parameter(torch.zeros(c, dtype=dtype))
+        self.running_mean = torch.zeros(c, dtype=torch.float32)
+        self.running_var = torch.ones(c, dtype=torch.float32)
+
+    def folded(self):
+        """(s, shift) in fp32: BN as y·s + shift, s = scale·rsqrt(var + eps)."""
+        s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        return s, self.bias.float() - self.running_mean.float() * s
+
+    def forward(self, x):
+        if self.training:
+            raise not_ported("train-mode BatchNorm2d", "modules item 2 (ops/norm.py)")
+        return ops.batch_norm_inference(x, self.running_mean, self.running_var,
+                                        self.weight, self.bias, eps=self.eps)
+
+
+class Linear(Module):
+    """Dense layer; `weight` is (in, out) as in JAX. init_mode 'normal' = N(0, 0.01)."""
+
+    JAX_LEAVES = {"weight": ("params", "w"), "bias": ("params", "b")}
+
+    def __init__(self, out_features, bias=True, init_mode="normal"):
+        super().__init__()
+        self.out_features = int(out_features)
+        self.use_bias = bool(bias)
+        self.init_mode = init_mode
+        self.weight = self.bias = None
+
+    def init(self, generator, in_shape):
+        fan_in = in_shape[-1]
+        shape = (fan_in, self.out_features)
+        dtype = self.policy.param_dtype
+        if self.init_mode == "normal":
+            w = init.normal_linear(shape, generator, dtype)
+            b = torch.zeros(self.out_features, dtype=dtype)
+        else:
+            w = init.linear_default(shape, generator, dtype)
+            b = init.conv_bias_default((self.out_features,), fan_in, generator, dtype)
+        self.weight = torch.nn.Parameter(w)
+        self.bias = torch.nn.Parameter(b) if self.use_bias else None
+
+    def out_shape(self, in_shape):
+        return (*in_shape[:-1], self.out_features)
+
+    def forward(self, x):
+        cd = self.policy.compute_dtype
+        return ops.linear(x.to(cd), self.weight.to(cd),
+                          None if self.bias is None else self.bias.to(cd))
+
+
+class ReLU(Module):
+    def forward(self, x):
+        return ops.relu(x)
+
+
+class Dropout(Module):
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        return ops.dropout(x, self.rate, train=self.training)
+
+
+class MaxPool2d(Module):
+    def __init__(self, kernel, stride=None, padding=0):
+        super().__init__()
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+
+    def out_shape(self, in_shape):
+        return shapes.pool2d_out_shape(in_shape, self.kernel, self.stride, self.padding)
+
+    def forward(self, x):
+        if self.training:
+            raise not_ported("train-mode MaxPool2d", "kernels pool2d_train")
+        return kernels.max_pool2d(x, self.kernel, self.stride, self.padding)
+
+
+class GlobalAvgPool2d(Module):
+    def out_shape(self, in_shape):
+        *lead, h, w, c = in_shape
+        return (*lead, c)
+
+    def forward(self, x):
+        return ops.global_avg_pool2d(x)
+
+
+class Identity(Module):
+    def forward(self, x):
+        return x
+
+
+def _named(mods) -> Dict[str, Module]:
+    if isinstance(mods, dict):
+        return dict(mods)
+    return {str(i): m for i, m in enumerate(mods)}
+
+
+class Sequential(Module):
+    """Ordered composition; children named '0', '1', … or by the given names."""
+
+    def __init__(self, layers: Sequence[Module] | Dict[str, Module]):
+        super().__init__()
+        for name, layer in _named(layers).items():
+            self.add_module(name, layer)
+
+    def init(self, generator, in_shape):
+        shape = tuple(in_shape)
+        for layer in self._modules.values():
+            layer.init(generator, shape)
+            shape = layer.out_shape(shape)
+
+    def out_shape(self, in_shape):
+        shape = tuple(in_shape)
+        for layer in self._modules.values():
+            shape = layer.out_shape(shape)
+        return shape
+
+    def forward(self, x):
+        for layer in self._modules.values():
+            x = layer(x)
+        return x
+
+
+class Add(Module):
+    """Parallel branches summed in the compute dtype; optional post-ReLU."""
+
+    def __init__(self, branches, post_relu=False):
+        super().__init__()
+        for name, branch in _named(branches).items():
+            self.add_module(name, branch)
+        self.post_relu = post_relu
+
+    def init(self, generator, in_shape):
+        for branch in self._modules.values():
+            branch.init(generator, in_shape)
+
+    def out_shape(self, in_shape):
+        return next(iter(self._modules.values())).out_shape(in_shape)
+
+    def forward(self, x):
+        outs = [branch(x) for branch in self._modules.values()]
+        y = outs[0]
+        for o in outs[1:]:
+            y = y + o
+        if self.post_relu:
+            y = ops.relu(y)
+        return y
+
+
+class ConvBNReLU(Sequential):
+    """conv → BN → [ReLU] with inference BN folded into the conv kernel's
+    epilogue: s = scale·rsqrt(var + eps) and shift = bias − mean·s in fp32,
+    applied after the fp32 accumulation (never folded into the weights),
+    then one rounding to the compute dtype. Children stay '0' Conv2d,
+    '1' BatchNorm2d, ('2' ReLU), so the variable tree is the unfused one."""
+
+    def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
+        layers: List[Module] = [conv, bn]
+        if act:
+            layers.append(ReLU())
+        super().__init__(layers)
+        self.act = act
+
+    def forward(self, x):
+        if self.training:
+            raise not_ported("train-mode ConvBNReLU", _TRAIN_STEP)
+        conv, bn = self._modules["0"], self._modules["1"]
+        if conv.bias is not None:
+            return super().forward(x)
+        _check_conv_envelope(conv)
+        cd = conv.policy.compute_dtype
+        s, sh = bn.folded()
+        return kernels.conv2d_fused(x.to(cd), conv.weight.to(cd), s, sh,
+                                    stride=conv.stride, padding=conv.padding,
+                                    relu=self.act)
+
+
+def conv_block(out_channels, kernel, stride=1, padding=0, dilation=1, groups=1,
+               batch_norm=True, act=True, init_mode="he") -> Sequential:
+    """conv → [BN] → [ReLU], bias off iff BN on."""
+    conv = Conv2d(out_channels, kernel, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=not batch_norm,
+                  init_mode=init_mode)
+    if batch_norm:
+        return ConvBNReLU(conv, BatchNorm2d(), act)
+    layers: List[Module] = [conv]
+    if act:
+        layers.append(ReLU())
+    return Sequential(layers)

@@ -1,0 +1,51 @@
+"""Module base (counterpart of convnets_tpu/nn/module.py).
+
+A port module is a `torch.nn.Module` that, like its JAX counterpart,
+captures the dtype policy when it is constructed (`use_policy`) and
+creates its parameters from the input shape: `init(generator, in_shape)`
+mirrors the JAX `init(key, in_shape)`, and `out_shape` is analytic, so no
+layer needs its input width at construction.
+
+`JAX_LEAVES` maps each parameter or buffer name to the (collection, leaf)
+the JAX variables hold it under; `bridge.py` reads it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from convnets_tpu_torch.core.precision import DEFAULT_POLICY, Policy
+
+_POLICY_STACK = [DEFAULT_POLICY]
+
+
+@contextlib.contextmanager
+def use_policy(policy: Policy):
+    """Layers constructed inside this context compute in policy.compute_dtype."""
+    _POLICY_STACK.append(policy)
+    try:
+        yield policy
+    finally:
+        _POLICY_STACK.pop()
+
+
+def current_policy() -> Policy:
+    return _POLICY_STACK[-1]
+
+
+class Module(torch.nn.Module):
+    JAX_LEAVES: Dict[str, Tuple[str, str]] = {}
+
+    def __init__(self):
+        super().__init__()
+        self.policy = current_policy()
+
+    def init(self, generator: torch.Generator, in_shape: Sequence[int]) -> None:
+        """Create (or re-create) this module's parameters for `in_shape`."""
+        del generator, in_shape
+
+    def out_shape(self, in_shape: Sequence[int]) -> Tuple[int, ...]:
+        return tuple(in_shape)

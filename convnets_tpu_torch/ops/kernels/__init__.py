@@ -1,0 +1,151 @@
+"""Hand-written CUDA kernels for Hopper (counterpart of convnets_tpu/ops/pallas).
+
+Sources live in `convnets_tpu_torch/csrc/*.cu`. They are compiled with
+nvcc for sm_90a into one shared library with a plain C interface
+(`build/libconvnets_kernels.so`) at first use, rebuilt when a source is
+newer than the library, and bound with ctypes. Nothing is compiled when
+this package is imported.
+
+Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
+for a CUDA tensor launches its kernel or raises: there is no fallback on
+the card. `LAUNCHES` counts kernel launches per wrapper, so a run can show
+that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from convnets_tpu_torch.core.shapes import to_pair
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libconvnets_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "max_pool2d": 0}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, relu, stream
+    "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
+    "max_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in _sources())
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return found
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale; return the
+    compiler's output (register and shared-memory use when `verbose`)."""
+    with _lock:
+        if not _stale():
+            return ""
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, *_sources()]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+            os.replace(tmp, LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return r.stdout + r.stderr
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        build()
+        with _lock:
+            if _lib is None:
+                handle = ctypes.CDLL(LIB_PATH)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = handle
+    return _lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, dtype=None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of a dtype the kernels
+    take (and of `dtype`, when given) whose offsets fit in 32 bits."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if dtype is None and t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (float32, bfloat16)")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed the kernels' 32-bit indexing")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fits_conv(stride, dilation, groups: int) -> bool:
+    """Envelope of conv2d_fused: dense, undilated, stride 1 or 2."""
+    sh, sw = to_pair(stride)
+    dh, dw = to_pair(dilation)
+    return groups == 1 and (dh, dw) == (1, 1) and (sh, sw) in ((1, 1), (2, 2))
+
+
+from convnets_tpu_torch.ops.kernels.conv import conv2d_fused, conv2d_fused_plain  # noqa: E402
+from convnets_tpu_torch.ops.kernels.pool import max_pool2d, max_pool2d_plain  # noqa: E402
+
+__all__ = [
+    "LAUNCHES", "build", "conv2d_fused", "conv2d_fused_plain", "fits_conv", "lib",
+    "max_pool2d", "max_pool2d_plain", "reset_launches",
+]

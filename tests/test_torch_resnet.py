@@ -1,0 +1,175 @@
+"""The port's ResNet eval path against the JAX package, on the CPU.
+
+Weights are made by the JAX init, their BN parameters and statistics
+randomized with numpy, and carried into the port by the bridge; inputs are
+numpy arrays from a seed. fp32 throughout, at the bar of
+tests/test_model_parity.py:223 (atol/rtol 1e-4).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from convnets_tpu.models import build_model as jax_build_model
+from convnets_tpu.serve.export import _metadata as jax_metadata
+from convnets_tpu.serve.export import _serving_forward as jax_serving_forward
+from convnets_tpu.settings import Settings
+from convnets_tpu.train.checkpoint import save_checkpoint
+from convnets_tpu_torch import bridge, nn
+from convnets_tpu_torch.models import build_model
+from convnets_tpu_torch.serve import ServingModel
+from convnets_tpu_torch.train import load_jax_checkpoint
+
+TOL = 1e-4
+STATS = (np.array([0.49, 0.48, 0.45], np.float32), np.array([0.25, 0.24, 0.26], np.float32))
+
+
+def _randomize_bn(tree, rng, path=()):
+    """Non-trivial BN scale/bias/mean/var, so the epilogue fold is exercised
+    (a fresh init has scale 1, bias 0, mean 0, var 1)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _randomize_bn(v, rng, path + (k,))
+        elif k in ("scale", "var"):
+            out[k] = rng.uniform(0.7, 1.3, v.shape).astype(np.float32)
+        elif k in ("bias", "mean"):
+            out[k] = (0.1 * rng.randn(*v.shape)).astype(np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model(kind):
+    setting = Settings(kind=kind, input_size=(3, 32, 32), num_classes=10,
+                       mixed_precision=False)
+    jm = jax_build_model("resnet", setting)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.key(0)))
+    rng = np.random.RandomState(int(kind))
+    variables = {"params": _randomize_bn(variables["params"], rng),
+                 "state": _randomize_bn(variables["state"], rng)}
+    return setting, jm, variables
+
+
+def _port(kind, variables=None):
+    setting, _, jvars = _jax_model(kind)
+    model = build_model("resnet", setting)
+    bridge.load_jax_variables(model, jvars if variables is None else variables)
+    return model
+
+
+def _images(n=2, seed=1):
+    return np.random.RandomState(seed).rand(n, 32, 32, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["18", "26"])
+def test_eval_logits_match_jax(kind):
+    _, jm, variables = _jax_model(kind)
+    x = _images()
+    want, _ = jm.apply(variables, jnp.asarray(x), train=False)
+    got = _port(kind)(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (2, 10)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("input_dtype,output", [("uint8", "logits"), ("float32", "probs")])
+def test_serving_forward_matches_jax(input_dtype, output):
+    _, jm, variables = _jax_model("18")
+    rng = np.random.RandomState(2)
+    if input_dtype == "uint8":
+        x = rng.randint(0, 256, (3, 32, 32, 3)).astype(np.uint8)
+    else:
+        x = rng.rand(3, 32, 32, 3).astype(np.float32)
+    fwd = jax_serving_forward(jm, variables, output, STATS, input_dtype)
+    want = np.asarray(jax.jit(fwd)(jnp.asarray(x)))
+    server = ServingModel(_port("18"), output=output, stats=STATS, input_dtype=input_dtype)
+    got = server(x).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    assert (server.predict(x) == want.argmax(-1)).all()
+    assert server(x[0]).shape == (1, 10)  # one HWC image gains the batch axis
+
+
+def test_serving_metadata_has_the_jax_keys():
+    setting, jm, _ = _jax_model("18")
+    want = jax_metadata(jm, output="logits", batch_size=None, platforms=["cpu"],
+                        stats=STATS, input_dtype="uint8")
+    got = ServingModel(_port("18"), stats=STATS, input_dtype="uint8").meta
+    assert set(got) - {"torch_version"} == set(want) - {"jax_version"}
+    for key in set(want) - {"jax_version"}:
+        assert got[key] == want[key], key
+
+
+def test_class_names_predict():
+    names = [f"c{i}" for i in range(10)]
+    server = ServingModel(_port("18"), class_names=names)
+    x = _images(3, seed=3)
+    idx = server(x).argmax(-1).numpy()
+    assert server.predict(x) == [names[i] for i in idx]
+
+
+def test_jax_checkpoint_loads_into_the_port(tmp_path):
+    setting, jm, variables = _jax_model("26")
+    path = str(tmp_path / "ResNet26-1-best_score.ckpt.npz")
+    save_checkpoint(path, params=variables["params"], model_state=variables["state"],
+                    opt_state={}, lr=0.01, loss_scale=1.0, epoch_results={},
+                    settings_dict=setting.to_dict(), scheduler_state={},
+                    optimizer_name="adam")
+    loaded = load_jax_checkpoint(path)
+    x = _images(seed=4)
+    want, _ = jm.apply(variables, jnp.asarray(x), train=False)
+    got = _port("26", loaded)(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def _edit(variables, edit):
+    v = jax.tree.map(np.copy, variables)
+    edit(v)
+    return v
+
+
+@pytest.mark.parametrize("case,match", [
+    ("missing", "missing leaves"), ("misshaped", "shape"), ("unmapped", "unmapped leaves")])
+def test_bridge_raises_on_a_bad_leaf(case, match):
+    _, _, variables = _jax_model("18")
+    edits = {
+        "missing": lambda v: v["state"]["0"]["1"].pop("var"),
+        "misshaped": lambda v: v["params"]["0"]["0"].update(
+            w=np.transpose(v["params"]["0"]["0"]["w"], (3, 2, 0, 1))),
+        "unmapped": lambda v: v["params"]["0"]["0"].update(b=np.zeros(64, np.float32)),
+    }
+    with pytest.raises(ValueError, match=match):
+        _port("18", _edit(variables, edits[case]))
+
+
+def test_rn50_at_224_has_the_jax_variable_layout():
+    """The bridge layout of the served configuration equals the tree the
+    JAX init builds (shapes only: nothing is computed)."""
+    setting = Settings(kind="50", input_size=(3, 224, 224), num_classes=1000,
+                       mixed_precision=True)
+    jm = jax_build_model("resnet", setting)
+    tree = jax.eval_shape(lambda k: jm.module.init(k, (1, 224, 224, 3)), jax.random.key(0))
+    want = {tuple(str(getattr(p, "key", p)) for p in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    model = build_model("resnet", setting)
+    got = {path: tuple(getattr(mod, name).shape)
+           for path, (mod, name) in bridge.jax_layout(model).items()}
+    assert got == want
+    assert sum(isinstance(m, nn.ConvBNReLU) for m in model.modules()) == 53
+    assert model.policy.compute_dtype == torch.bfloat16
+
+
+def test_outside_the_slice_raises_not_implemented():
+    model = _port("18")
+    x = torch.from_numpy(_images())
+    model.train()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model(x)
+    grouped = nn.conv_block(8, 3, padding=1, groups=2)
+    grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        grouped.eval()(torch.zeros(1, 8, 8, 4))
