@@ -1,4 +1,4 @@
 from convnets_tpu_torch.core.precision import (  # noqa: F401
-    DEFAULT_POLICY, MIXED_POLICY, Policy, policy_from_setting,
+    DEFAULT_POLICY, MIXED_POLICY, LossScale, Policy, policy_from_setting,
 )
 from convnets_tpu_torch.core import shapes  # noqa: F401

@@ -28,3 +28,30 @@ MIXED_POLICY = Policy(compute_dtype=torch.bfloat16)
 def policy_from_setting(setting) -> Policy:
     """The `mixed_precision` flag selects bf16 compute."""
     return MIXED_POLICY if getattr(setting, "mixed_precision", False) else DEFAULT_POLICY
+
+
+@dataclasses.dataclass
+class LossScale:
+    """Loss-scale shim (counterpart of convnets_tpu/core/precision.py
+    LossScale): bf16 has fp32's exponent range, so the scale stays 1.0 and
+    is a no-op; it is kept so the train step and a checkpoint carry the
+    same field as the JAX package's."""
+
+    scale: float = 1.0
+
+    def scale_loss(self, loss):
+        return loss * self.scale
+
+    def unscale_grads(self, grads):
+        """grads: name → tensor dict."""
+        if self.scale == 1.0:
+            return grads
+        inv = 1.0 / self.scale
+        return {k: g * inv for k, g in grads.items()}
+
+    def to_state(self):
+        return {"scale": self.scale}
+
+    @classmethod
+    def from_state(cls, state):
+        return cls(scale=float(state["scale"]))

@@ -1,12 +1,24 @@
-// Implicit-GEMM 2-D convolution with a fused per-channel scale/shift
-// (inference BatchNorm folded in) and optional ReLU epilogue.
+// Implicit-GEMM 2-D convolution with two epilogues, chosen by a template
+// parameter over one main loop:
 //
-// Replaces convnets_tpu/ops/pallas/conv.py:conv2d_fused (_conv_kernel and
-// the slab-tiled _conv_tiled_kernel). Same contract: x NHWC, w HWIO
-// flattened to (kh*kw*Cin, Cout), fp32 accumulation, y = acc*scale + shift
-// in fp32, optional ReLU, ONE rounding to the output dtype. Strides and
-// padding are addressed directly: there is no space-to-depth rewrite, no
-// 1x1 decimation and no padded copy of the input.
+//  * conv_fused (STATS = false): per-channel scale/shift (inference
+//    BatchNorm folded in) and optional ReLU. Replaces
+//    convnets_tpu/ops/pallas/conv.py:conv2d_fused (_conv_kernel and the
+//    slab-tiled _conv_tiled_kernel). Contract: x NHWC, w HWIO flattened to
+//    (kh*kw*Cin, Cout), fp32 accumulation, y = acc*scale + shift in fp32,
+//    optional ReLU, ONE rounding to the output dtype.
+//  * conv_stats (STATS = true): y rounded once to the output dtype and
+//    stored, plus the per-channel sum and sum of squares of the STORED
+//    (rounded) values over N*OH*OW -- the train-mode BatchNorm statistics
+//    pass fused into the conv. Replaces convnets_tpu/ops/pallas/conv.py:
+//    conv2d_stats (_conv_stats_kernel, _conv_tiled_stats_kernel). The TPU
+//    grid ran in order and carried the sums in a resident block; Hopper
+//    blocks run in no order, so each block writes its own (2, Cout)
+//    partial sums and stats_reduce_kernel adds the partials in a fixed
+//    order. No atomics: a step is bit-reproducible on one card.
+//
+// Strides and padding are addressed directly: there is no space-to-depth
+// rewrite, no 1x1 decimation and no padded copy of the input.
 //
 // GEMM view: rows M = N*OH*OW output pixels, columns Cout, depth
 // K = kh*kw*Cin. A block owns a BM x BN output tile and walks K in BK
@@ -17,8 +29,11 @@
 //
 // What bounds it on the H100: the FMAs run on the CUDA cores (fp32 SIMT),
 // so at RN50 widths it is compute-bound at a fraction of the tensor-core
-// rate. Left for later: wgmma on bf16 tiles fed by TMA through a
-// multi-stage shared-memory ring, and a persistent tile scheduler.
+// rate. The stats epilogue adds 8 KB of shared memory per block and
+// writes ceil(M/BM)*2*Cout floats of partials, which stats_reduce_kernel
+// reads once: small beside the conv at every RN50 shape. Left for later:
+// wgmma on bf16 tiles fed by TMA through a multi-stage shared-memory
+// ring, and a persistent tile scheduler.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,12 +66,15 @@ struct ConvShape {
   int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw;
 };
 
-template <typename T>
+// STATS = false: scale/shift/relu epilogue, `partial` unused.
+// STATS = true: no scale/shift/relu; partial[blockIdx.x][0|1][c] receives
+// this block's sum and sum of squares of the rounded y of channel c.
+template <typename T, bool STATS>
 __global__ void __launch_bounds__(THREADS)
-conv_fused_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                  const float* __restrict__ scale,
-                  const float* __restrict__ shift, T* __restrict__ y,
-                  ConvShape s, int relu) {
+conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+            const float* __restrict__ scale, const float* __restrict__ shift,
+            T* __restrict__ y, float* __restrict__ partial, ConvShape s,
+            int relu) {
   __shared__ __align__(16) float As[BK][APAD];
   __shared__ __align__(16) float Bs[BK][BPAD];
 
@@ -151,26 +169,122 @@ conv_fused_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     __syncthreads();
   }
 
-  // epilogue: fp32 scale/shift, ReLU, one rounding to T
+  if constexpr (!STATS) {
+    // epilogue: fp32 scale/shift, ReLU, one rounding to T
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int c = n0 + tx * TN + j;
-    if (c >= s.cout) continue;
-    const float sc = scale ? scale[c] : 1.f;
-    const float sf = shift ? shift[c] : 0.f;
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx * TN + j;
+      if (c >= s.cout) continue;
+      const float sc = scale ? scale[c] : 1.f;
+      const float sf = shift ? shift[c] : 0.f;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty * TM + i;
-      if (m >= M) continue;
-      float v = acc[i][j];
-      if (scale) v = v * sc + sf;
-      if (relu) v = fmaxf(v, 0.f);
-      y[m * s.cout + c] = from_f<T>(v);
+      for (int i = 0; i < TM; ++i) {
+        const int m = m0 + ty * TM + i;
+        if (m >= M) continue;
+        float v = acc[i][j];
+        if (scale) v = v * sc + sf;
+        if (relu) v = fmaxf(v, 0.f);
+        y[m * s.cout + c] = from_f<T>(v);
+      }
+    }
+  } else {
+    // epilogue: one rounding to T, then the sums of the rounded values.
+    // Rows past M and columns past Cout contribute nothing. Each thread
+    // sums its TM rows, then thread c of the block adds the BM/TM row
+    // groups of column c in order.
+    __shared__ float red[2][BM / TM][BN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx * TN + j;
+      float s1 = 0.f, s2 = 0.f;
+      if (c < s.cout) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int m = m0 + ty * TM + i;
+          if (m >= M) continue;
+          const T v = from_f<T>(acc[i][j]);
+          y[m * s.cout + c] = v;
+          const float r = to_f(v);
+          s1 += r;
+          s2 = fmaf(r, r, s2);
+        }
+      }
+      red[0][ty][tx * TN + j] = s1;
+      red[1][ty][tx * TN + j] = s2;
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int st = tid / BN;
+      const int cl = tid % BN;
+      float t = 0.f;
+#pragma unroll
+      for (int r = 0; r < BM / TM; ++r) t += red[st][r][cl];
+      if (n0 + cl < s.cout)
+        partial[(static_cast<size_t>(blockIdx.x) * 2 + st) * s.cout + n0 + cl] = t;
     }
   }
 }
 
+// (blocks, 2, Cout) partial sums -> (2, Cout), in a fixed order: thread
+// (cx, ry) adds rows ry, ry + RY, ... of channel blockIdx.x*RC + cx, then
+// the RY lanes are added as a fixed tree. Grid (ceil(Cout/RC), 2).
+constexpr int RC = 32;
+constexpr int RY = 32;
+
+__global__ void __launch_bounds__(RC * RY)
+stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                    int blocks, int cout) {
+  __shared__ float buf[RY][RC + 1];
+  const int cx = threadIdx.x;
+  const int ry = threadIdx.y;
+  const int c = blockIdx.x * RC + cx;
+  const int st = blockIdx.y;
+  float t = 0.f;
+  if (c < cout) {
+#pragma unroll 8
+    for (int b = ry; b < blocks; b += RY)
+      t += partial[(static_cast<size_t>(b) * 2 + st) * cout + c];
+  }
+  buf[ry][cx] = t;
+  __syncthreads();
+#pragma unroll
+  for (int h = RY / 2; h > 0; h >>= 1) {
+    if (ry < h) buf[ry][cx] += buf[ry + h][cx];
+    __syncthreads();
+  }
+  if (ry == 0 && c < cout) out[st * cout + c] = buf[0][cx];
+}
+
+template <bool STATS>
+int launch_conv(int dtype, const void* x, const void* w, const void* scale,
+                const void* shift, void* y, void* partial, const ConvShape& s,
+                int relu, void* stream) {
+  const int M = s.n * s.oh * s.ow;
+  const dim3 grid((M + BM - 1) / BM, (s.cout + BN - 1) / BN);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sf = static_cast<const float*>(shift);
+  float* part = static_cast<float*>(partial);
+  if (dtype == 0) {
+    conv_kernel<float, STATS><<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), sc, sf,
+        static_cast<float*>(y), part, s, relu);
+  } else if (dtype == 1) {
+    conv_kernel<__nv_bfloat16, STATS><<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), sc, sf,
+        static_cast<__nv_bfloat16*>(y), part, s, relu);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// Output pixels per block: conv_stats writes ceil(N*OH*OW / this) rows of
+// partial sums.
+extern "C" int conv_block_rows() { return BM; }
 
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (no epilogue)
 // or both (Cout,) fp32. Returns cudaGetLastError() after the launch.
@@ -180,22 +294,27 @@ extern "C" int conv_fused_launch(int dtype, const void* x, const void* w,
                                  int cout, int kh, int kw, int sh, int sw,
                                  int ph, int pw, int relu, void* stream) {
   const ConvShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
-  const int M = n * oh * ow;
-  const dim3 grid((M + BM - 1) / BM, (cout + BN - 1) / BN);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* sf = static_cast<const float*>(shift);
-  if (dtype == 0) {
-    conv_fused_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sf,
-        static_cast<float*>(y), s, relu);
-  } else if (dtype == 1) {
-    conv_fused_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), sc, sf,
-        static_cast<__nv_bfloat16*>(y), s, relu);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_conv<false>(dtype, x, w, scale, shift, y, nullptr, s, relu, stream);
+}
+
+// y = conv(x, w) in x's dtype, and partial (ceil(M / conv_block_rows()),
+// 2, Cout) fp32 per-block sums of y and y*y. Returns cudaGetLastError().
+extern "C" int conv_stats_launch(int dtype, const void* x, const void* w,
+                                 void* y, void* partial, int n, int h, int wd,
+                                 int cin, int oh, int ow, int cout, int kh,
+                                 int kw, int sh, int sw, int ph, int pw,
+                                 void* stream) {
+  const ConvShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+  return launch_conv<true>(dtype, x, w, nullptr, nullptr, y, partial, s, 0, stream);
+}
+
+// out (2, Cout) fp32 = the `blocks` partial rows of conv_stats_launch
+// added in a fixed order. Returns cudaGetLastError().
+extern "C" int stats_reduce_launch(const void* partial, void* out, int blocks,
+                                   int cout, void* stream) {
+  const dim3 grid((cout + RC - 1) / RC, 2);
+  const dim3 block(RC, RY);
+  stats_reduce_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), blocks, cout);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,10 @@
 
 `build_model(arch, setting)` takes a `convnets_tpu.settings.Settings` or
 any object with the fields the builders read: kind, input_size (C, H, W),
-num_classes, batch_norm, init_params, dropout_rate, mixed_precision and
-seed. The model comes back initialized and in eval mode; the port serves
-only, so `.train()` followed by a forward raises.
+num_classes, batch_norm, init_params, dropout_rate, mixed_precision,
+remat and seed. The model comes back initialized and in eval mode;
+`.train()` switches it to the train-mode forward that
+`train.engine.build_train_step` drives.
 """
 
 from __future__ import annotations

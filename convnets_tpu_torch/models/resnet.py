@@ -43,7 +43,10 @@ def _residual_block(b: Builder, block_type: str, filters: int, expansion: int, s
             b.conv_block(out_ch, activation=False, kernel=1),
         ])
     b.in_channels = out_ch
-    return nn.Add([body, shortcut], post_relu=True)
+    block = nn.Add([body, shortcut], post_relu=True)
+    if getattr(b.setting, "remat", False):
+        block = nn.Remat(block)  # eval only: train-mode Remat raises
+    return block
 
 
 def build_trunk(b: Builder, block_type: str, stages, expansion: int):

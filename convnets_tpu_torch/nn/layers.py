@@ -1,11 +1,14 @@
-"""Leaf layers and combinators, eval path (counterpart of convnets_tpu/nn/layers.py).
+"""Leaf layers and combinators (counterpart of convnets_tpu/nn/layers.py).
 
 Children carry the JAX variable-path names: Sequential children '0',
 '1', …; ConvBNReLU '0' conv, '1' BN, '2' ReLU; Add '0' body, '1' shortcut.
-Activations are NHWC. In eval mode every ConvBNReLU and Conv2d runs the
-conv kernel and every MaxPool2d the pool kernel (`ops.kernels`); what the
-port does not have yet (train mode, grouped or dilated convs) raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+Activations are NHWC. Every ConvBNReLU, Conv2d and MaxPool2d runs a
+kernel of `ops.kernels` in both modes: in eval mode conv2d_fused (BN
+folded into its epilogue) and max_pool2d; in train mode
+conv_bn_relu_train (conv2d_stats), conv2d_train and pool2d_train. Train
+mode updates the BN running statistics in place, once per forward. What
+the port does not have yet (grouped or dilated convs, Remat in train
+mode) raises NotImplementedError naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -16,16 +19,14 @@ import torch
 
 from convnets_tpu_torch import ops
 from convnets_tpu_torch.core import shapes
-from convnets_tpu_torch.nn.module import Module
+from convnets_tpu_torch.nn.module import Module, current_generator
 from convnets_tpu_torch.ops import initializers as init
 from convnets_tpu_torch.ops import kernels
+from convnets_tpu_torch.ops.norm import running_update
 
 
 def not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
-
-
-_TRAIN_STEP = "modules item 4 and kernels conv2d_stats / conv_bn_relu_train"
 
 
 def _check_conv_envelope(conv: "Conv2d") -> None:
@@ -80,12 +81,13 @@ class Conv2d(Module):
                                        self.stride, self.padding, self.dilation)
 
     def forward(self, x):
-        if self.training:
-            raise not_ported("train-mode Conv2d", "kernels conv2d_train")
         _check_conv_envelope(self)
         cd = self.policy.compute_dtype
-        y = kernels.conv2d_fused(x.to(cd), self.weight.to(cd), stride=self.stride,
-                                 padding=self.padding)
+        if self.training:
+            y = kernels.conv2d_train(x.to(cd), self.weight.to(cd), self.stride, self.padding)
+        else:
+            y = kernels.conv2d_fused(x.to(cd), self.weight.to(cd), stride=self.stride,
+                                     padding=self.padding)
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y
@@ -96,15 +98,17 @@ class Conv2d(Module):
 
 
 class BatchNorm2d(Module):
-    """Inference batch norm; `weight`/`bias` are the JAX scale/bias and the
-    running buffers the JAX state mean/var."""
+    """torch-parity batch norm (eps 1e-5, momentum 0.1, unbiased running
+    var); `weight`/`bias` are the JAX scale/bias and the running buffers
+    the JAX state mean/var."""
 
     JAX_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
                   "running_mean": ("state", "mean"), "running_var": ("state", "var")}
 
-    def __init__(self, eps=1e-5):
+    def __init__(self, eps=1e-5, momentum=0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = self.bias = None
         self.register_buffer("running_mean", None)
         self.register_buffer("running_var", None)
@@ -122,9 +126,23 @@ class BatchNorm2d(Module):
         s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         return s, self.bias.float() - self.running_mean.float() * s
 
+    def update_running(self, mean, var, n: int) -> None:
+        """The running-statistics update, in place and outside autograd."""
+        with torch.no_grad():
+            new_mean, new_var = running_update(self.running_mean, self.running_var,
+                                               mean.detach(), var.detach(), n, self.momentum)
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+
     def forward(self, x):
         if self.training:
-            raise not_ported("train-mode BatchNorm2d", "modules item 2 (ops/norm.py)")
+            y, new_mean, new_var = ops.batch_norm_train(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                eps=self.eps, momentum=self.momentum)
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+            return y
         return ops.batch_norm_inference(x, self.running_mean, self.running_var,
                                         self.weight, self.bias, eps=self.eps)
 
@@ -174,7 +192,9 @@ class Dropout(Module):
         self.rate = float(rate)
 
     def forward(self, x):
-        return ops.dropout(x, self.rate, train=self.training)
+        """At train time the mask comes from the generator of the enclosing
+        `use_generator` context."""
+        return ops.dropout(x, self.rate, current_generator(), train=self.training)
 
 
 class MaxPool2d(Module):
@@ -187,7 +207,7 @@ class MaxPool2d(Module):
 
     def forward(self, x):
         if self.training:
-            raise not_ported("train-mode MaxPool2d", "kernels pool2d_train")
+            return kernels.pool2d_train(x, "max", self.kernel, self.stride, self.padding)
         return kernels.max_pool2d(x, self.kernel, self.stride, self.padding)
 
 
@@ -237,6 +257,32 @@ class Sequential(Module):
         return x
 
 
+class Remat(Module):
+    """Rematerialization wrapper (nn/layers.py:Remat in the JAX package):
+    its child's variables sit at the child's own paths. Eval mode runs the
+    child. Train mode is not ported: under torch.utils.checkpoint the
+    recomputed forward would apply every BN running update a second time,
+    which JAX's functional state never does."""
+
+    JAX_TRANSPARENT = True
+
+    def __init__(self, child: Module):
+        super().__init__()
+        self.child = child
+
+    def init(self, generator, in_shape):
+        self.child.init(generator, in_shape)
+
+    def out_shape(self, in_shape):
+        return self.child.out_shape(in_shape)
+
+    def forward(self, x):
+        if self.training:
+            raise not_ported("train-mode Remat (a recompute would update the BN running "
+                             "statistics twice)", "modules item 3, Remat")
+        return self.child(x)
+
+
 class Add(Module):
     """Parallel branches summed in the compute dtype; optional post-ReLU."""
 
@@ -264,11 +310,14 @@ class Add(Module):
 
 
 class ConvBNReLU(Sequential):
-    """conv → BN → [ReLU] with inference BN folded into the conv kernel's
-    epilogue: s = scale·rsqrt(var + eps) and shift = bias − mean·s in fp32,
-    applied after the fp32 accumulation (never folded into the weights),
-    then one rounding to the compute dtype. Children stay '0' Conv2d,
-    '1' BatchNorm2d, ('2' ReLU), so the variable tree is the unfused one."""
+    """conv → BN → [ReLU] on the kernels. Eval mode folds BN into the conv
+    kernel's epilogue: s = scale·rsqrt(var + eps) and shift = bias − mean·s
+    in fp32, applied after the fp32 accumulation (never folded into the
+    weights), then one rounding to the compute dtype. Train mode runs
+    conv_bn_relu_train (the conv2d_stats kernel, batch statistics, ReLU)
+    and then the running update of the JAX layer (:574-583). Children stay
+    '0' Conv2d, '1' BatchNorm2d, ('2' ReLU), so the variable tree is the
+    unfused one."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]
@@ -278,13 +327,17 @@ class ConvBNReLU(Sequential):
         self.act = act
 
     def forward(self, x):
-        if self.training:
-            raise not_ported("train-mode ConvBNReLU", _TRAIN_STEP)
         conv, bn = self._modules["0"], self._modules["1"]
         if conv.bias is not None:
             return super().forward(x)
         _check_conv_envelope(conv)
         cd = conv.policy.compute_dtype
+        if self.training:
+            out, mean, var = kernels.conv_bn_relu_train(
+                x.to(cd), conv.weight.to(cd), bn.weight, bn.bias, conv.stride,
+                conv.padding, bn.eps, self.act)
+            bn.update_running(mean, var, out.shape[0] * out.shape[1] * out.shape[2])
+            return out
         s, sh = bn.folded()
         return kernels.conv2d_fused(x.to(cd), conv.weight.to(cd), s, sh,
                                     stride=conv.stride, padding=conv.padding,

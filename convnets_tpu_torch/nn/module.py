@@ -7,13 +7,18 @@ mirrors the JAX `init(key, in_shape)`, and `out_shape` is analytic, so no
 layer needs its input width at construction.
 
 `JAX_LEAVES` maps each parameter or buffer name to the (collection, leaf)
-the JAX variables hold it under; `bridge.py` reads it.
+the JAX variables hold it under; `bridge.py` reads it. A module whose
+`JAX_TRANSPARENT` is true adds no level to its children's JAX paths.
+
+Random numbers at train time come from an explicit `torch.Generator`
+handed to the step with `use_generator`, the counterpart of the JAX
+package's per-step `rng` key; there is no global RNG.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,8 +41,27 @@ def current_policy() -> Policy:
     return _POLICY_STACK[-1]
 
 
+_GENERATOR_STACK: list = [None]
+
+
+@contextlib.contextmanager
+def use_generator(generator: Optional[torch.Generator]):
+    """Forwards run inside this context draw their random numbers (the
+    dropout masks) from `generator`."""
+    _GENERATOR_STACK.append(generator)
+    try:
+        yield generator
+    finally:
+        _GENERATOR_STACK.pop()
+
+
+def current_generator() -> Optional[torch.Generator]:
+    return _GENERATOR_STACK[-1]
+
+
 class Module(torch.nn.Module):
     JAX_LEAVES: Dict[str, Tuple[str, str]] = {}
+    JAX_TRANSPARENT = False
 
     def __init__(self):
         super().__init__()

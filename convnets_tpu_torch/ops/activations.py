@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -13,10 +15,16 @@ def softmax(x, dim=-1):
     return torch.softmax(x, dim=dim)
 
 
-def dropout(x, rate: float, *, train: bool):
-    """Inverted dropout; eval mode (and rate 0) is the identity. The
-    train-mode mask is ROADMAP modules item 4 (train step)."""
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None, *, train: bool):
+    """Inverted dropout, torch semantics: at train time each element is
+    kept with probability 1 - rate and scaled by 1/(1 - rate). The mask
+    comes from `generator` (on x's device); eval mode and rate 0 are the
+    identity. The masks cannot equal JAX's bits: the streams differ."""
     if not train or rate <= 0.0:
         return x
-    raise NotImplementedError(
-        "train-mode dropout is not ported yet (ROADMAP.md modules item 4, train step)")
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator at train time")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))

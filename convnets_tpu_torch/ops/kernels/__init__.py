@@ -10,6 +10,11 @@ Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises: there is no fallback on
 the card. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels.
+
+The trainable functions (`conv2d_train`, `conv_bn_relu_train`,
+`pool2d_train`) are `torch.autograd.Function`s: their forwards go through
+the wrappers above, and their backwards are plain PyTorch, as the JAX
+package leaves its backwards to XLA.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ LIB_PATH = os.path.join(BUILD_DIR, "libconvnets_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "max_pool2d": 0}
+LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
+                             "max_pool2d": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +51,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, relu, stream
     "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, stream
+    "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    # partial, out, blocks, cout, stream
+    "stats_reduce_launch": [_P, _P, _I, _I, _P],
+    "conv_block_rows": [],
     # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
     "max_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
 }
@@ -142,10 +153,16 @@ def fits_conv(stride, dilation, groups: int) -> bool:
     return groups == 1 and (dh, dw) == (1, 1) and (sh, sw) in ((1, 1), (2, 2))
 
 
-from convnets_tpu_torch.ops.kernels.conv import conv2d_fused, conv2d_fused_plain  # noqa: E402
-from convnets_tpu_torch.ops.kernels.pool import max_pool2d, max_pool2d_plain  # noqa: E402
+from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
+    conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
+)
+from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
+    max_pool2d, max_pool2d_plain, pool2d_train,
+)
+from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
 
 __all__ = [
-    "LAUNCHES", "build", "conv2d_fused", "conv2d_fused_plain", "fits_conv", "lib",
-    "max_pool2d", "max_pool2d_plain", "reset_launches",
+    "LAUNCHES", "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats",
+    "conv2d_stats_plain", "conv2d_train", "conv_bn_relu_train", "fits_conv", "lib",
+    "max_pool2d", "max_pool2d_plain", "pool2d_train", "reset_launches",
 ]

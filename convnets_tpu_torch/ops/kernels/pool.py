@@ -1,8 +1,10 @@
-"""Max pool: the wrapper of csrc/pool.cu and its plain PyTorch version.
+"""Max pool: the wrapper of csrc/pool.cu, its plain PyTorch version, and
+the trainable pool.
 
-Replaces convnets_tpu/ops/pallas/pool.py:max_pool2d. The kernel runs one
-thread per output element with the channel innermost; padding taps are
--inf. It is memory-bound on the H100 (one read of x, one write of y).
+Replaces convnets_tpu/ops/pallas/pool.py:max_pool2d (:88) and, in max
+mode, pool2d_train (:100). The kernel runs one thread per output element
+with the channel innermost; padding taps are -inf. It is memory-bound on
+the H100 (one read of x, one write of y).
 """
 
 from __future__ import annotations
@@ -36,3 +38,33 @@ def max_pool2d(x, kernel, stride=None, padding=0):
     _k.check_launch("max_pool2d", rc)
     _k.LAUNCHES["max_pool2d"] += 1
     return y
+
+
+class _MaxPool2dTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, stride, padding):
+        ctx.save_for_backward(x)
+        ctx.conf = (kernel, stride, padding)
+        return _k.max_pool2d(x, kernel, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the plain max-pool VJP recomputed from x (pool.py:111-116): each
+        # window's gradient goes to its first maximum in row-major order,
+        # as XLA's select-and-scatter routes ties
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            y = ops.max_pool2d(xr, *ctx.conf)
+            (dx,) = torch.autograd.grad(y, xr, g.to(x.dtype))
+        return dx.contiguous(), None, None, None
+
+
+def pool2d_train(x, mode: str, kernel, stride=None, padding=0):
+    """Trainable pool: forward through the max_pool2d kernel, backward the
+    plain max-pool VJP. Mode "avg" needs the avg_pool2d kernel."""
+    if mode != "max":
+        raise NotImplementedError(
+            f"pool2d_train mode {mode!r}: the avg_pool2d kernel (PERF.md kernel table "
+            f"row 3) is not ported yet (ROADMAP.md: kernels avg_pool2d)")
+    return _MaxPool2dTrain.apply(x, kernel, stride, padding)

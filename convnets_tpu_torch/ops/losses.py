@@ -1,0 +1,32 @@
+"""Losses and scoring (counterpart of convnets_tpu/ops/losses.py).
+
+The reference's CrossEntropyLoss(reduction='sum'): a per-batch SUM over
+examples, always in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy_sum(logits, labels, weights=None, label_smoothing: float = 0.0):
+    """Sum of per-example CE. logits (N, C), labels (N,) int.
+
+    weights: optional (N,) 0/1 mask of real examples. label_smoothing ε:
+    targets (1-ε)·onehot + ε/C (torch's convention)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    if label_smoothing:
+        eps = float(label_smoothing)
+        nll = (1.0 - eps) * nll + eps * (-logp.mean(dim=-1))
+    if weights is not None:
+        nll = nll * weights.float()
+    return nll.sum()
+
+
+def correct_count(logits, labels, weights=None):
+    """Number of correct argmax predictions, as an fp32 scalar."""
+    correct = (logits.argmax(dim=-1) == labels.long()).float()
+    if weights is not None:
+        correct = correct * weights.float()
+    return correct.sum()

@@ -1,7 +1,9 @@
-"""Inference batch norm, NHWC (counterpart of convnets_tpu/ops/norm.py:23-47).
+"""Batch normalization, NHWC (counterpart of convnets_tpu/ops/norm.py).
 
-Train-mode BN (batch statistics, running update, hand-written backward) is
-ROADMAP modules item 2.
+torch.nn.BatchNorm2d semantics: eps 1e-5, momentum 0.1 with
+new_running = (1 - momentum)·running + momentum·batch_stat, the biased
+batch variance for normalizing and the unbiased one in running_var.
+Statistics are always fp32, whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -31,3 +33,73 @@ def batch_norm_inference(x, running_mean, running_var, scale, bias, *, eps=1e-5)
     """Normalize with running statistics (eval mode)."""
     inv = torch.rsqrt(running_var.float() + eps)
     return _apply_norm(x, running_mean.float(), inv, scale, bias).to(x.dtype)
+
+
+def bn_input_grad(dy, xhat, scale, inv, n: int):
+    """The textbook batch-norm gradient of norm.py:_bn_core_bwd (:77-95):
+        dx = γ·inv · (dy − mean(dy) − x̂·mean(dy·x̂))
+    with the two per-channel reductions in fp32 and the elementwise work
+    in dy's dtype. Returns (dx, Σdy·x̂, Σdy); the last two are the scale and
+    bias gradients in fp32."""
+    cd = dy.dtype
+    axes = tuple(range(dy.ndim - 1))
+    dyf = dy.float()
+    sum_dy = dyf.sum(axes)
+    sum_dy_xhat = (dyf * xhat.float()).sum(axes)
+    g = scale.float() * inv
+    dx = (g.to(cd) * (dy
+                      - (sum_dy / n).to(cd)
+                      - xhat * (sum_dy_xhat / n).to(cd))).to(cd)
+    return dx, sum_dy_xhat, sum_dy
+
+
+class _BNCore(torch.autograd.Function):
+    """(y, mean, biased var) with batch statistics; the backward is the
+    hand-written VJP of norm.py:_bn_core (the statistics outputs carry no
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        axes = tuple(range(x.ndim - 1))
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        y = _apply_norm(x, mean, inv, scale, bias).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, inv, scale = ctx.saved_tensors
+        cd = x.dtype
+        n = x.numel() // x.shape[-1]
+        xhat = (x - mean.to(cd)) * inv.to(cd)
+        dx, dscale, dbias = bn_input_grad(dy.to(cd), xhat, scale, inv, n)
+        return dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None
+
+
+def running_update(running_mean, running_var, mean, var, n: int, momentum: float):
+    """torch's running-statistics update in fp32, with the unbiased
+    variance: (1 - m)·r + m·stat, written out (not lerp) as the JAX
+    package writes it, so the last ulp agrees."""
+    unbiased = var * (n / max(n - 1, 1))
+    new_mean = (1.0 - momentum) * running_mean.float() + momentum * mean
+    new_var = (1.0 - momentum) * running_var.float() + momentum * unbiased
+    return new_mean, new_var
+
+
+def batch_norm_train(x, running_mean, running_var, scale, bias, *, eps=1e-5, momentum=0.1):
+    """Normalize with batch statistics over (N, H, W); return (y,
+    new_running_mean, new_running_var). Missing affine parameters are
+    replaced by ones / zeros, as in the JAX package."""
+    c = x.shape[-1]
+    if scale is None:
+        scale = torch.ones(c, dtype=torch.float32, device=x.device)
+    if bias is None:
+        bias = torch.zeros(c, dtype=torch.float32, device=x.device)
+    out, mean, var = _BNCore.apply(x, scale, bias, eps)
+    n = x.numel() // c
+    new_mean, new_var = running_update(running_mean, running_var, mean, var, n, momentum)
+    return out, new_mean, new_var

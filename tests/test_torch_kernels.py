@@ -120,7 +120,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ref = kernels.conv2d_fused_plain(xt, wt, st, sh, stride=2, padding=1, relu=True)
     assert torch.equal(got, ref)
     assert torch.equal(kernels.max_pool2d(xt, 3, 2, 1), kernels.max_pool2d_plain(xt, 3, 2, 1))
-    assert kernels.LAUNCHES == {"conv2d_fused": 0, "max_pool2d": 0}
+    for a, b in zip(kernels.conv2d_stats(xt, wt, stride=2, padding=1),
+                    kernels.conv2d_stats_plain(xt, wt, stride=2, padding=1)):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
+                                "max_pool2d": 0}
 
 
 def test_non_cpu_non_cuda_tensor_is_refused():
@@ -131,6 +135,8 @@ def test_non_cpu_non_cuda_tensor_is_refused():
         kernels.conv2d_fused(x, w, stride=1, padding=1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.max_pool2d(x, 3, 2, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.conv2d_stats(x, w, stride=1, padding=1)
 
 
 @pytest.mark.parametrize("stride,dilation,groups,fits", [

@@ -77,9 +77,12 @@ def test_max_pool2d_and_relu_match_jax():
 
 
 def test_eval_dropout_is_identity_and_train_dropout_raises():
+    """Eval mode and rate 0 are the identity; train mode without a generator
+    raises, as the JAX Dropout does without an rng key."""
     x = _t(X)
     assert ops.dropout(x, 0.5, train=False) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert ops.dropout(x, 0.0, train=True) is x
+    with pytest.raises(ValueError, match="Generator"):
         ops.dropout(x, 0.5, train=True)
 
 

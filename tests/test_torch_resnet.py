@@ -21,8 +21,9 @@ from convnets_tpu.settings import Settings
 from convnets_tpu.train.checkpoint import save_checkpoint
 from convnets_tpu_torch import bridge, nn
 from convnets_tpu_torch.models import build_model
+from convnets_tpu_torch.ops import kernels
 from convnets_tpu_torch.serve import ServingModel
-from convnets_tpu_torch.train import load_jax_checkpoint
+from convnets_tpu_torch.train import build_train_step, create_train_state, load_jax_checkpoint
 
 TOL = 1e-4
 STATS = (np.array([0.49, 0.48, 0.45], np.float32), np.array([0.25, 0.24, 0.26], np.float32))
@@ -164,11 +165,22 @@ def test_rn50_at_224_has_the_jax_variable_layout():
 
 
 def test_outside_the_slice_raises_not_implemented():
-    model = _port("18")
+    """Train mode runs; what is still outside it raises, naming ROADMAP.md:
+    Remat in train mode, the avg-pool train kernel, mixup, and (eval or
+    train) grouped convs."""
+    remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
+                                           mixed_precision=False, remat=True))
+    assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
     x = torch.from_numpy(_images())
-    model.train()
+    remat(x)  # eval mode runs the wrapped blocks
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(x)
+        remat.train()(x)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kernels.pool2d_train(x, "avg", 3, 2, 1)
+    mixup = Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
+                     mixup=0.2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_train_step(create_train_state(build_model("resnet", mixup)))
     grouped = nn.conv_block(8, 3, padding=1, groups=2)
     grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
