@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ResNet-50 serving and train paths on one NVIDIA GPU.
+"""Drive the PyTorch port's ResNet-50, MobileNet-v1 and DenseNet-121 serving
+and train paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -37,7 +38,26 @@ final line:
      the count of distinct classes and the share served as the learned
      label; an fp32 forward vs plain; serving img/s at batch 64 and 256
      (kernel and plain paths in turns) and a torch.profiler table.
-  last line: {"ok": true, "device": {...}}.
+  6. this slice's kernels vs plain, batch 8, fp32 (TF32 off) and bf16:
+     depthwise_conv2d at the 9 distinct MobileNet-v1@224 depthwise shapes,
+     avg_pool2d at the 3 DenseNet-121@224 transitions; depthwise_train
+     forward and dx/dw at a stride-1 and a stride-2 shape; pool2d_train in
+     avg mode, forward and dx, at the first transition.
+  7. MobileNet-v1 and DenseNet-121 at 3x224x224, 1000 classes, weights
+     from --seed in the JAX layout, each as phases 5 and 3 drive RN50:
+     (i) the fp32 SGD step at batch 8, kernel vs plain, with the
+     perturbed-weight control; (ii) ten bf16 Adam steps on one batch of
+     32, the loss must fall; (iii) serving that trained model: uint8
+     requests at batch 8 and 64 (exact launches per forward: MobileNet 14
+     conv2d_fused + 13 depthwise_conv2d; DenseNet-121 120 conv2d_fused + 1
+     max_pool2d + 3 avg_pool2d), argmax agreement with the plain path,
+     distinct classes, an fp32 forward vs plain, serving img/s at batch
+     256; (iv) bench.py's train step at TRAIN_BATCH[arch] (exact launches
+     per step: MobileNet 14 conv2d_stats + 14 reductions + 13 depthwise;
+     DenseNet-121 1 conv2d_stats + 1 reduction + 119 conv2d_fused + 1
+     max_pool2d + 3 avg_pool2d), img/s on both paths in turns, peak memory
+     and a profiler split.
+  last lines: the kernels JSON line, then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -65,27 +85,52 @@ STATS_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # max-based error (printed beside) cannot carry the check, while the L2
 # error moves by ~1e-3 per flip. A wrong formula moves it by O(1).
 GRAD_TOL = {"float32": 1e-2, "bfloat16": 5e-2}
-# the whole fp32 RN50 step at init is ill-conditioned: the plain path
-# against itself with its conv weights perturbed by 1e-7 relative (the
-# "control", run beside the check) differs by ~2e-2 per gradient leaf in
-# L2; the bar sits above that, far below the O(1) of a wrong formula
+# the whole fp32 step at init is ill-conditioned: the plain path against
+# itself with its conv weights perturbed by 1e-7 relative (the "control",
+# run beside the check) differs by ~2e-2 per gradient leaf in L2 for RN50;
+# the bar sits above that, far below the O(1) of a wrong formula
 STEP_GRAD_TOL = 0.1
 CONTROL_PERTURBATION = 1e-7
 POOL_TOL = 0.0  # a max of the same values is exact in either dtype
+# avg pool: fp32 max|Δ| / max|ref| (only the fp32 summation order may
+# differ); bf16: one ulp of each element (both round the same fp32 sum)
+AVG_POOL_TOL = 1e-6
 ARGMAX_MIN = 0.99
-SERVE_BATCHES = (1, 8, 64)
-THROUGHPUT_BATCHES = (64, 256)
-CONV_PER_FORWARD, POOL_PER_FORWARD = 53, 1
+SERVE_BATCHES = (1, 8, 64)  # RN50
+ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121
+THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (256,), "densenet": (256,)}
 IMAGENET_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 REPS = 10  # timed launches per kernel measurement
 IMAGE = 224
 KERNEL_BATCH = 8
-STEP_BATCH = 8  # phase 5 (i)
-LEARN_BATCH, LEARN_STEPS = 32, 10  # phase 5 (ii)
-SETTLE_STEPS = 40  # zero-lr steps that bring (ii)'s BN running stats up to date
-TRAIN_BATCH, WARMUP, TIMED = 256, 5, 20  # phase 5 (iii), bench.py's protocol
+STEP_BATCH = 8  # phases 5 (i), 7 (i)
+LEARN_BATCH, LEARN_STEPS = 32, 10  # phases 5 (ii), 7 (ii)
+# zero-lr steps that bring (ii)'s BN running statistics to its batch's:
+# momentum 0.1 leaves 0.9^k of the initial running var (~1), which must be
+# small beside a layer's true var. MobileNet's depthwise outputs (He
+# fan-out init, std sqrt(2/(9C))) have var far below 1: after 40 steps the
+# 1.5% left over dominated them and eval mode served every image as one
+# class (train mode had learned all 32). 0.9^200 ≈ 7e-10.
+SETTLE_STEPS = 200
+WARMUP, TIMED = 5, 20  # bench.py's protocol
+# bench.py's batch per family (its first choice, 256, fits on an 80 GB card
+# for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
+TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256}
 NOBN_BATCH = 32  # phase 5 (iv)
-RN50_GFLOP_TRAIN = 3 * 8.174  # per image: forward convs ×3 (PERF.md §4)
+FAMILIES = {"resnet": "50", "mobilenet_v1": "v1", "densenet": "121"}
+# kernel launches per forward (serving) and per train step, per family
+SERVE_LAUNCHES = {
+    "resnet": {"conv2d_fused": 53, "max_pool2d": 1},
+    "mobilenet_v1": {"conv2d_fused": 14, "depthwise_conv2d": 13},
+    "densenet": {"conv2d_fused": 120, "max_pool2d": 1, "avg_pool2d": 3},
+}
+TRAIN_LAUNCHES = {
+    "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1},
+    "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13},
+    "densenet": {"conv2d_stats": 1, "conv2d_stats_reduce": 1, "conv2d_fused": 119,
+                 "max_pool2d": 1, "avg_pool2d": 3},
+}
+OUR_KERNELS = ("conv_kernel<", "stats_reduce_kernel", "pool_kernel<", "depthwise_kernel<")
 DEVICE = "cuda"
 
 
@@ -120,39 +165,71 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def rn50_layers(model):
-    """(kind, H, W, Cin, Cout, k, stride, pad, relu) of every ConvBNReLU and
-    MaxPool2d of the model, in forward order, from its own modules."""
+def launches_of(counts: dict) -> dict:
+    """A full LAUNCHES dict: `counts`, zero for every other kernel."""
+    from convnets_tpu_torch.ops import kernels
+
+    return {k: counts.get(k, 0) for k in kernels.LAUNCHES}
+
+
+def model_layers(model):
+    """(kind, H, W, Cin, Cout, k, stride, pad, relu) of every conv and pool
+    of the model, in forward order, from its own modules. kind: "conv" (a
+    fused ConvBNReLU), "dwconv" (a depthwise conv), "plainconv" (a Conv2d
+    outside a ConvBNReLU), "maxpool", "avgpool"."""
     from convnets_tpu_torch import nn
 
     out = []
 
+    def conv(kind, c, shape, relu):
+        out.append((kind, shape[1], shape[2], shape[3], c.out_channels, c.kernel[0],
+                    c.stride[0], c.padding[0], relu))
+
     def walk(mod, shape):
         if isinstance(mod, nn.ConvBNReLU):
             c = mod._modules["0"]
-            out.append(("conv", shape[1], shape[2], shape[3], c.out_channels,
-                        c.kernel[0], c.stride[0], c.padding[0], mod.act))
-        elif isinstance(mod, nn.MaxPool2d):
-            out.append(("pool", shape[1], shape[2], shape[3], shape[3],
-                        mod.kernel, mod.stride, mod.padding, False))
-        elif isinstance(mod, nn.Add):
+            conv("dwconv" if c.groups > 1 else "conv", c, shape, mod.act)
+        elif isinstance(mod, nn.Conv2d):
+            conv("dwconv" if mod.groups > 1 else "plainconv", mod, shape, False)
+        elif isinstance(mod, (nn.MaxPool2d, nn.AvgPool2d)):
+            kind = "maxpool" if isinstance(mod, nn.MaxPool2d) else "avgpool"
+            stride = mod.kernel if mod.stride is None else mod.stride
+            out.append((kind, shape[1], shape[2], shape[3], shape[3], mod.kernel, stride,
+                        mod.padding, False))
+        elif isinstance(mod, (nn.Add, nn.Concat)):
             for branch in mod._modules.values():
                 walk(branch, shape)
         elif isinstance(mod, nn.Sequential):
             for child in mod._modules.values():
                 walk(child, shape)
                 shape = child.out_shape(shape)
+        elif isinstance(mod, nn.Remat):
+            walk(mod.child, shape)
 
     walk(model.module, model.batch_shape(1))
     return out
 
 
-def distinct_convs(model):
+def distinct_shapes(model, kinds=("conv",)):
     """{(H, W, Cin, Cout, k, stride, pad): [relu flag of each layer]}."""
     distinct = {}
-    for _, h, w, cin, cout, k, s, p, relu in (l for l in rn50_layers(model) if l[0] == "conv"):
+    for _, h, w, cin, cout, k, s, p, relu in (l for l in model_layers(model) if l[0] in kinds):
         distinct.setdefault((h, w, cin, cout, k, s, p), []).append(relu)
     return distinct
+
+
+def forward_gflop(model) -> float:
+    """Multiply-adds ×2 of the model's convs per image, counted from its
+    modules (the pools, BN and the linear add < 0.1%)."""
+    from convnets_tpu_torch.core.shapes import conv_out_size
+
+    total = 0
+    for kind, h, w, cin, cout, k, s, p, _ in model_layers(model):
+        if kind.endswith("pool"):
+            continue
+        depth = 1 if kind == "dwconv" else cin
+        total += 2 * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p) * cout * k * k * depth
+    return total / 1e9
 
 
 def random_jax_variables(model, seed: int, conv_gain=None) -> dict:
@@ -185,7 +262,8 @@ def random_jax_variables(model, seed: int, conv_gain=None) -> dict:
 
 
 PLAIN = {"conv2d_fused": "conv2d_fused_plain", "conv2d_stats": "conv2d_stats_plain",
-         "max_pool2d": "max_pool2d_plain"}
+         "max_pool2d": "max_pool2d_plain", "avg_pool2d": "avg_pool2d_plain",
+         "depthwise_conv2d": "depthwise_conv2d_plain"}
 
 
 @contextlib.contextmanager
@@ -210,6 +288,10 @@ def within(got, ref, atol, rtol) -> bool:
     return bool(((got.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all())
 
 
+def dname_of(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def phase_kernels(model, failures):
     """Kernel vs plain at every distinct RN50@224 conv shape and the stem
     pool, batch 8. Returns the per-kernel summary for the JSON line."""
@@ -218,12 +300,13 @@ def phase_kernels(model, failures):
 
     from convnets_tpu_torch.ops import kernels
 
-    layers = rn50_layers(model)
+    layers = model_layers(model)
     convs = [l for l in layers if l[0] == "conv"]
-    pools = [l for l in layers if l[0] == "pool"]
-    if len(convs) != CONV_PER_FORWARD or len(pools) != POOL_PER_FORWARD:
+    pools = [l for l in layers if l[0] == "maxpool"]
+    want = SERVE_LAUNCHES["resnet"]
+    if len(convs) != want["conv2d_fused"] or len(pools) != want["max_pool2d"]:
         failures.append(f"RN50 walk found {len(convs)} convs, {len(pools)} pools")
-    distinct = distinct_convs(model)
+    distinct = distinct_shapes(model)
 
     g = torch.Generator(device=DEVICE).manual_seed(0)
     n = KERNEL_BATCH
@@ -238,7 +321,7 @@ def phase_kernels(model, failures):
         shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
         for dtype in (torch.float32, torch.bfloat16):
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
-            dname = str(dtype).split(".")[-1]
+            dname = dname_of(dtype)
             atol, rtol = CONV_TOL[dname]
             # the same conv through cuDNN in bf16 (channels_last): a library
             # time for context, not a contract check
@@ -280,7 +363,7 @@ def phase_kernels(model, failures):
         ok = got.shape == ref.shape and err <= POOL_TOL
         k_ms = time_ms(lambda: kernels.max_pool2d(x, k, s, p), REPS)
         p_ms = time_ms(lambda: kernels.max_pool2d_plain(x, k, s, p), REPS)
-        dname = str(dtype).split(".")[-1]
+        dname = dname_of(dtype)
         say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {'ok' if ok else 'FAIL'} | "
             f"{k_ms:.4f} {p_ms:.4f}")
         if not ok:
@@ -293,20 +376,21 @@ def phase_kernels(model, failures):
     return summary
 
 
-def rn50_setting(seed, mixed, **kw):
-    fields = dict(kind="50", input_size=(3, IMAGE, IMAGE), num_classes=1000, batch_norm=True,
-                  init_params=True, dropout_rate=0.5, mixed_precision=mixed, seed=seed,
-                  learning_rate=0.01, weight_decay=1e-4, optimizer="adam")
+def model_setting(arch, seed, mixed, **kw):
+    fields = dict(kind=FAMILIES[arch], input_size=(3, IMAGE, IMAGE), num_classes=1000,
+                  batch_norm=True, init_params=True, dropout_rate=0.5, mixed_precision=mixed,
+                  seed=seed, learning_rate=0.01, weight_decay=1e-4, optimizer="adam")
     fields.update(kw)
     return types.SimpleNamespace(**fields)
 
 
-def make_rn50(seed, mixed, conv_gain=None, **kw):
-    """RN50 on the card with numpy weights from `seed` loaded by the bridge."""
+def make_model(arch, seed, mixed, conv_gain=None, **kw):
+    """The family's model at 224² on the card, numpy weights from `seed`
+    loaded by the bridge."""
     from convnets_tpu_torch import bridge
     from convnets_tpu_torch.models import build_model
 
-    model = build_model("resnet", rn50_setting(seed, mixed, **kw), device=DEVICE)
+    model = build_model(arch, model_setting(arch, seed, mixed, **kw), device=DEVICE)
     bridge.load_jax_variables(model, random_jax_variables(model, seed, conv_gain))
     return model
 
@@ -319,6 +403,48 @@ def l2_err(got, ref) -> float:
     return float((got.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30))
 
 
+def check_trainable(name, label, fn, args, dname, g, summary, failures, out_tol):
+    """Forward and every gradient of fn(*args), the kernel path against the
+    same function with the plain versions swapped in; fwd+bwd times."""
+    import torch
+
+    cot = None
+
+    def run():
+        nonlocal cot
+        ins = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*ins)
+        if cot is None or cot.shape != out.shape:
+            cot = torch.randn(out.shape, device=DEVICE, generator=g).to(out.dtype)
+        return [out.detach(), *torch.autograd.grad(out, ins, cot)]
+
+    got = run()
+    with plain_kernels():
+        ref = run()
+    sync()
+    out_err = rel_err(got[0], ref[0])
+    grad_l2 = [l2_err(a, b) for a, b in zip(got[1:], ref[1:])]
+    grad_max = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
+    flips = int(((got[0] > 0) != (ref[0] > 0)).sum())
+    ok = (out_err <= out_tol and max(grad_l2) <= GRAD_TOL[dname]
+          and all(bool(torch.isfinite(t).all()) for t in got))
+    k_ms = time_ms(run, 3)
+    with plain_kernels():
+        p_ms = time_ms(run, 3)
+    say(f"  {name} {label} | {dname} | {out_err:.2e} ({out_tol:g}) | "
+        f"{' '.join(f'{e:.2e}' for e in grad_l2)} ({GRAD_TOL[dname]:g}) "
+        f"[{' '.join(f'{e:.1e}' for e in grad_max)}] | {flips} {'ok' if ok else 'FAIL'} | "
+        f"{k_ms:.4f} {p_ms:.4f}")
+    if not ok:
+        failures.append(f"{name} {label} {dname}: out {out_err:.2e}, gradients {grad_l2}")
+    entry = summary.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    entry["err"] = max(entry["err"], max(float((a.float() - b.float()).abs().max())
+                                         for a, b in zip(got, ref)))
+    if dname == "bfloat16":
+        entry["ms"] += k_ms
+        entry["plain_ms"] += p_ms
+
+
 def phase_train_kernels(model, failures):
     """conv2d_stats at every distinct RN50@224 conv shape; conv_bn_relu_train,
     conv2d_train and pool2d_train forward + gradients, kernel vs plain."""
@@ -329,16 +455,15 @@ def phase_train_kernels(model, failures):
     lib = kernels.lib()
     g = torch.Generator(device=DEVICE).manual_seed(1)
     n = KERNEL_BATCH
-    names = ("conv2d_stats", "conv2d_stats_reduce", "conv_bn_relu_train", "conv2d_train",
-             "pool2d_train")
+    names = ("conv2d_stats", "conv2d_stats_reduce", "pool2d_train")
     summary = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
     say("conv2d_stats (N=8): H W Cin Cout k s p | dtype | y_err tol, Σ rel, Σ² rel (tol) | "
         "kernel_ms plain_ms | reduce: blocks err kernel_ms plain_ms | uses")
-    for (h, w, cin, cout, k, s, p), relus in sorted(distinct_convs(model).items()):
+    for (h, w, cin, cout, k, s, p), relus in sorted(distinct_shapes(model).items()):
         x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
         w32 = torch.randn(k, k, cin, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cin)
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
+            dname = dname_of(dtype)
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
             kw = dict(stride=s, padding=p)
             y, s1, s2 = kernels.conv2d_stats(x, wt, **kw)
@@ -396,55 +521,20 @@ def phase_train_kernels(model, failures):
         sc32 = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
         bi32 = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
+            dname = dname_of(dtype)
             x, wt = x32.to(dtype), w32.to(dtype)
-            fns = {
-                "conv_bn_relu_train": (lambda a, b, c, d: kernels.conv_bn_relu_train(
-                    a, b, c, d, s, p)[0], [x, wt, sc32, bi32]),
-                "conv2d_train": (lambda a, b: kernels.conv2d_train(a, b, s, p), [x, wt]),
-            }
-            cot = None
-            for name, (fn, args) in fns.items():
-                def run():
-                    nonlocal cot
-                    ins = [a.detach().clone().requires_grad_() for a in args]
-                    out = fn(*ins)
-                    if cot is None or cot.shape != out.shape:
-                        cot = torch.randn(out.shape, device=DEVICE, generator=g).to(out.dtype)
-                    return [out.detach(), *torch.autograd.grad(out, ins, cot)]
-
-                got = run()
-                with plain_kernels():
-                    ref = run()
-                sync()
-                out_err = rel_err(got[0], ref[0])
-                grad_l2 = [l2_err(a, b) for a, b in zip(got[1:], ref[1:])]
-                grad_max = [rel_err(a, b) for a, b in zip(got[1:], ref[1:])]
-                flips = int(((got[0] > 0) != (ref[0] > 0)).sum())
-                ok = (out_err <= CONV_TOL[dname][1] and max(grad_l2) <= GRAD_TOL[dname]
-                      and all(bool(torch.isfinite(t).all()) for t in got))
-                k_ms = time_ms(run, 3)
-                with plain_kernels():
-                    p_ms = time_ms(run, 3)
-                say(f"  {name} {h} {cin} {cout} {k} {s} | {dname} | {out_err:.2e} "
-                    f"({CONV_TOL[dname][1]:g}) | {' '.join(f'{e:.2e}' for e in grad_l2)} "
-                    f"({GRAD_TOL[dname]:g}) [{' '.join(f'{e:.1e}' for e in grad_max)}] | "
-                    f"{flips} {'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f}")
-                if not ok:
-                    failures.append(f"{name} {h}x{w} {cin}->{cout} k{k} {dname}: out {out_err:.2e}"
-                                    f", gradients {grad_l2}")
-                summary[name]["err"] = max(summary[name]["err"],
-                                           max(float((a.float() - b.float()).abs().max())
-                                               for a, b in zip(got, ref)))
-                if dtype == torch.bfloat16:
-                    summary[name]["ms"] += k_ms
-                    summary[name]["plain_ms"] += p_ms
+            label = f"{h} {cin} {cout} {k} {s}"
+            check_trainable("conv_bn_relu_train", label, lambda a, b, c, d: kernels.conv_bn_relu_train(
+                a, b, c, d, s, p)[0], [x, wt, sc32, bi32], dname, g, summary, failures,
+                CONV_TOL[dname][1])
+            check_trainable("conv2d_train", label, lambda a, b: kernels.conv2d_train(a, b, s, p),
+                            [x, wt], dname, g, summary, failures, CONV_TOL[dname][1])
 
     # the stem pool's dx: the same VJP on the same forward, so exactly equal
-    _, h, w, c, _, k, s, p, _ = [l for l in rn50_layers(model) if l[0] == "pool"][0]
+    _, h, w, c, _, k, s, p, _ = [l for l in model_layers(model) if l[0] == "maxpool"][0]
     x32 = torch.relu(torch.randn(n, h, w, c, device=DEVICE, generator=g))  # tied zeros
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
+        dname = dname_of(dtype)
 
         def run():
             xi = x32.to(dtype).requires_grad_()
@@ -469,6 +559,123 @@ def phase_train_kernels(model, failures):
     return summary
 
 
+def avg_pool_ok(got, ref, dname):
+    """(ok, error as bounded): fp32 max|Δ| / max|ref|; bf16 max |Δ| / ulp(ref)."""
+    d = (got.float() - ref.float()).abs()
+    if dname == "float32":
+        err = float(d.max() / ref.float().abs().max().clamp_min(1e-30))
+        return err <= AVG_POOL_TOL, err
+    err = float((d / bf16_ulp(ref)).max())
+    return err <= 1.0, err
+
+
+def bf16_ulp(ref):
+    """The bf16 ulp of each element of ref: 2^(floor(log2|ref|) - 7)."""
+    import torch
+
+    mag = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_zoo_kernels(failures):
+    """This slice's kernels vs plain at batch 8: depthwise_conv2d at every
+    distinct MobileNet-v1@224 depthwise shape, avg_pool2d at DenseNet-121's
+    transitions, and the trainable depthwise conv and avg pool."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+
+    mobilenet = build_model("mobilenet_v1", model_setting("mobilenet_v1", 0, True))
+    densenet = build_model("densenet", model_setting("densenet", 0, True))
+    dw = distinct_shapes(mobilenet, ("dwconv",))
+    pools = distinct_shapes(densenet, ("avgpool",))
+    n_dw = sum(len(v) for v in dw.values())
+    n_avg = sum(len(v) for v in pools.values())
+    if (len(dw), n_dw, len(pools), n_avg) != (9, SERVE_LAUNCHES["mobilenet_v1"]["depthwise_conv2d"],
+                                              3, SERVE_LAUNCHES["densenet"]["avg_pool2d"]):
+        failures.append(f"zoo walk found {len(dw)} depthwise shapes ({n_dw} layers), "
+                        f"{len(pools)} avg pools ({n_avg} layers)")
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    n = KERNEL_BATCH
+    summary = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               for k in ("depthwise_conv2d", "avg_pool2d")}
+    say("depthwise_conv2d (N=8): H W C k s p | dtype | max_abs_err tol | kernel_ms plain_ms | uses")
+    for (h, w, c, _, k, s, p), uses in sorted(dw.items()):
+        x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+        w32 = torch.randn(k, k, 1, c, device=DEVICE, generator=g) / k
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            x, wt = x32.to(dtype), w32.to(dtype)
+            kw = dict(stride=s, padding=p)
+            got = kernels.depthwise_conv2d(x, wt, **kw)
+            ref = kernels.depthwise_conv2d_plain(x, wt, **kw)
+            sync()
+            atol, rtol = CONV_TOL[dname]
+            err = float((got.float() - ref.float()).abs().max())
+            ok = within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+            k_ms = time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw), REPS)
+            p_ms = time_ms(lambda: kernels.depthwise_conv2d_plain(x, wt, **kw), REPS)
+            say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {atol:g}+{rtol:g}|ref| "
+                f"{'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f} | {len(uses)}")
+            if not ok:
+                failures.append(f"depthwise_conv2d {h}x{w} C{c} s{s} {dname}: err {err:.3e}")
+            summary["depthwise_conv2d"]["err"] = max(summary["depthwise_conv2d"]["err"], err)
+            if dtype == torch.bfloat16:
+                summary["depthwise_conv2d"]["ms"] += len(uses) * k_ms
+                summary["depthwise_conv2d"]["plain_ms"] += len(uses) * p_ms
+
+    say(f"avg_pool2d (N=8): H W C k s p | dtype | error (fp32: max|Δ|/max|ref| ≤ {AVG_POOL_TOL:g}; "
+        f"bf16: max |Δ|/ulp ≤ 1) | kernel_ms plain_ms | uses")
+    for (h, w, c, _, k, s, p), uses in sorted(pools.items()):
+        x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            x = x32.to(dtype)
+            got = kernels.avg_pool2d(x, k, s, p)
+            ref = kernels.avg_pool2d_plain(x, k, s, p)
+            sync()
+            ok, err = avg_pool_ok(got, ref, dname)
+            ok = ok and got.shape == ref.shape
+            k_ms = time_ms(lambda: kernels.avg_pool2d(x, k, s, p), REPS)
+            p_ms = time_ms(lambda: kernels.avg_pool2d_plain(x, k, s, p), REPS)
+            say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {'ok' if ok else 'FAIL'} | "
+                f"{k_ms:.4f} {p_ms:.4f} | {len(uses)}")
+            if not ok:
+                failures.append(f"avg_pool2d {h}x{w} C{c} {dname}: err {err:.3e}")
+            summary["avg_pool2d"]["err"] = max(summary["avg_pool2d"]["err"],
+                                               float((got.float() - ref.float()).abs().max()))
+            if dtype == torch.bfloat16:
+                summary["avg_pool2d"]["ms"] += len(uses) * k_ms
+                summary["avg_pool2d"]["plain_ms"] += len(uses) * p_ms
+    say(f"MobileNet-v1 depthwise layers at N=8 bf16, summed over the 13 layers: kernel "
+        f"{summary['depthwise_conv2d']['ms']:.4f} ms, plain "
+        f"{summary['depthwise_conv2d']['plain_ms']:.4f} ms; DenseNet-121 avg pools, summed over "
+        f"the 3: kernel {summary['avg_pool2d']['ms']:.4f} ms, plain "
+        f"{summary['avg_pool2d']['plain_ms']:.4f} ms")
+
+    say("trainable functions (N=8): fn H C s | dtype | out max|Δ|/max|ref| (tol) | "
+        "gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | sign flips | fwd+bwd kernel_ms plain_ms")
+    for h, c, s in ((IMAGE // 4, 128, 1), (IMAGE // 4, 128, 2)):
+        x32 = torch.randn(n, h, h, c, device=DEVICE, generator=g)
+        w32 = torch.randn(3, 3, 1, c, device=DEVICE, generator=g) / 3
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            check_trainable("depthwise_train", f"{h} {c} {s}",
+                            lambda a, b: kernels.depthwise_train(a, b, s, 1),
+                            [x32.to(dtype), w32.to(dtype)], dname, g, summary, failures,
+                            CONV_TOL[dname][1])
+    (h, w, c, _, k, s, p), _ = sorted(pools.items())[-1]  # the first transition, 56²
+    x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = dname_of(dtype)
+        check_trainable("pool2d_train_avg", f"{h} {c} {k} {s}",
+                        lambda a: kernels.pool2d_train(a, "avg", k, s, p), [x32.to(dtype)],
+                        dname, g, summary, failures,
+                        AVG_POOL_TOL if dname == "float32" else 2.0 ** -7)
+    return summary
+
+
 def train_state(model, **kw):
     from convnets_tpu_torch.train import build_train_step, create_train_state
 
@@ -476,30 +683,37 @@ def train_state(model, **kw):
     return state, build_train_step(state, **kw)
 
 
-def phase_train_step(seed, failures):
-    """(i) fp32 one SGD step, kernel path vs plain path; (ii) bf16 loss falls;
-    (iv) the batch_norm=False step. Returns the no-BN step's launches and,
-    for phase 3, (ii)'s kernel-path model with its batch and labels."""
+def relu_outputs(model):
+    """The modules whose outputs are ReLU outputs: fused ConvBNReLUs with
+    ReLU, Adds with post-ReLU, and ReLU layers outside a ConvBNReLU."""
+    from convnets_tpu_torch import nn
+
+    inner = {id(m._modules["2"]) for m in model.modules()
+             if isinstance(m, nn.ConvBNReLU) and m.act}
+    return [m for m in model.modules()
+            if (isinstance(m, nn.ConvBNReLU) and m.act) or getattr(m, "post_relu", False)
+            or (isinstance(m, nn.ReLU) and id(m) not in inner)]
+
+
+def step_check(arch, seed, failures):
+    """(i) one fp32 SGD step at batch 8 with dropout 0: kernel path vs plain
+    path, and the plain path against itself with perturbed conv weights."""
     import torch
 
-    from convnets_tpu_torch import bridge, nn
-    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch import bridge
 
     rng = np.random.default_rng(seed + 2)
-
-    def batch(b):
-        x = torch.from_numpy(rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)).to(DEVICE)
-        return x, torch.from_numpy(rng.integers(0, 1000, b)).to(DEVICE)
-
-    # (i) SGD with no momentum or decay at lr 2^20: the update lr·g is exact
-    # and dwarfs p, so (p_before - p_after) / lr reads the step's gradients
-    # back to fp32 rounding
+    x = torch.from_numpy(rng.integers(0, 256, (STEP_BATCH, IMAGE, IMAGE, 3),
+                                      dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, 1000, STEP_BATCH)).to(DEVICE)
+    # SGD with no momentum or decay at lr 2^20: the update lr·g is exact and
+    # dwarfs p, so (p_before - p_after) / lr reads the step's gradients back
+    # to fp32 rounding
     lr = 2.0 ** 20
-    x, y = batch(STEP_BATCH)
     results, masks = {}, {}
     for path in ("kernel", "plain", "control"):
-        model = make_rn50(seed, False, dropout_rate=0.0, optimizer="sgd", learning_rate=lr,
-                          momentum=0.0, weight_decay=0.0)
+        model = make_model(arch, seed, False, dropout_rate=0.0, optimizer="sgd",
+                           learning_rate=lr, momentum=0.0, weight_decay=0.0)
         if path == "control":
             gen = torch.Generator(device=DEVICE).manual_seed(seed)
             with torch.no_grad():
@@ -509,10 +723,8 @@ def phase_train_step(seed, failures):
                             p.shape, device=DEVICE, generator=gen))
         before = {k: p.detach().clone() for k, p in model.named_parameters()}
         masks[path] = []
-        for mod in model.modules():  # every ReLU's mask: ConvBNReLU outputs, post-add ReLUs
-            if isinstance(mod, (nn.ConvBNReLU, nn.Add)) and getattr(
-                    mod, "act", getattr(mod, "post_relu", False)):
-                mod.register_forward_hook(lambda m, i, o, out=masks[path]: out.append(o > 0))
+        for mod in relu_outputs(model):
+            mod.register_forward_hook(lambda m, i, o, out=masks[path]: out.append(o > 0))
         state, step = train_state(model)
         with plain_kernels() if path != "kernel" else contextlib.nullcontext():
             loss, _ = step(state, x, y)
@@ -536,7 +748,7 @@ def phase_train_step(seed, failures):
                 for k in flat_p)
     ok = (loss_rel <= 1e-4 and g_l2[worst_l2] <= STEP_GRAD_TOL and s_err <= 1e-4
           and np.isfinite(lk) and all(bool(torch.isfinite(t).all()) for t in gk.values()))
-    say(f"(i) fp32 RN50 SGD step (batch {STEP_BATCH}), kernel vs plain path: loss {lk:.6f} vs "
+    say(f"(i) fp32 {arch} SGD step (batch {STEP_BATCH}), kernel vs plain path: loss {lk:.6f} vs "
         f"{lp:.6f} (rel {loss_rel:.2e}, tol 1e-4); ReLU mask flips {flips['kernel']} of "
         f"{relu_elems}; gradients over {len(gp)} leaves: worst "
         f"‖Δ‖/‖g‖ {g_l2[worst_l2]:.2e} at {worst_l2} (tol {STEP_GRAD_TOL:g}), worst "
@@ -547,68 +759,88 @@ def phase_train_step(seed, failures):
         f"×(1 + {CONTROL_PERTURBATION:g}·N(0,1)): loss {results['control'][0]:.6f}, "
         f"{flips['control']} flips, ‖Δ‖/‖g‖ median {c_l2[len(c_l2) // 2]:.2e} max {c_l2[-1]:.2e}")
     if not ok:
-        failures.append(f"fp32 train step: loss {loss_rel:.2e}, grads {g_l2[worst_l2]:.2e}, "
-                        f"BN {s_err:.2e}")
+        failures.append(f"fp32 {arch} train step: loss {loss_rel:.2e}, grads "
+                        f"{g_l2[worst_l2]:.2e}, BN {s_err:.2e}")
 
-    # (ii) bf16 learning check: ten Adam steps on one batch, both paths, with
-    # the normalization phase 3 serves with
-    x, y = batch(LEARN_BATCH)
+
+def learn_check(arch, seed, failures):
+    """(ii) bf16 learning check: ten Adam steps on one batch of 32, both
+    paths, with the normalization the serving check bakes in. Returns the
+    kernel path's model with its batch and labels, its BN running
+    statistics brought to that batch, to be served."""
+    import torch
+
+    rng = np.random.default_rng(seed + 3)
+    x = torch.from_numpy(rng.integers(0, 256, (LEARN_BATCH, IMAGE, IMAGE, 3),
+                                      dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, 1000, LEARN_BATCH)).to(DEVICE)
     losses = {}
     for path in ("plain", "kernel"):
-        model = make_rn50(seed, True, dropout_rate=0.0, learning_rate=1e-3)
+        model = make_model(arch, seed, True, dropout_rate=0.0, learning_rate=1e-3)
         state, step = train_state(model, norm=True, stats=IMAGENET_STATS)
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
             losses[path] = [float(step(state, x, y)[0]) for _ in range(LEARN_STEPS)]
-    # the kernel path's model is served in phase 3: steps at lr 0 leave its
-    # weights as they are and bring its BN running statistics (momentum
-    # 0.1) to this batch's, so eval mode computes what train mode learned
+    # steps at lr 0 leave the weights as they are and bring the BN running
+    # statistics (momentum 0.1) to this batch's, so eval mode computes what
+    # train mode learned
     state.lr = 0.0
     for _ in range(SETTLE_STEPS):
         step(state, x, y)
-    served = (model, x.cpu().numpy(), y.cpu().numpy())
     del state
     falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
-    say(f"(ii) bf16 RN50, {LEARN_STEPS} Adam steps (lr 1e-3) on one batch of {LEARN_BATCH}, "
+    say(f"(ii) bf16 {arch}, {LEARN_STEPS} Adam steps (lr 1e-3) on one batch of {LEARN_BATCH}, "
         f"loss per step:\n  kernel {[round(v, 3) for v in losses['kernel']]}\n"
         f"  plain  {[round(v, 3) for v in losses['plain']]}\n"
         f"  kernel path's loss falls: {'ok' if falls else 'FAIL'}")
     if not falls:
-        failures.append(f"bf16 loss did not fall: {losses['kernel']}")
+        failures.append(f"bf16 {arch} loss did not fall: {losses['kernel']}")
+    return model, x.cpu().numpy(), y.cpu().numpy()
 
-    # (iv) the batch_norm=False configuration: conv2d_train on every conv
-    model = make_rn50(seed, True, conv_gain=0.5, batch_norm=False)
+
+def nobn_check(seed, failures):
+    """(iv) the batch_norm=False RN50: conv2d_train on every conv."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    model = make_model("resnet", seed, True, conv_gain=0.5, batch_norm=False)
     state, step = train_state(model, debug=True)
-    x, y = batch(NOBN_BATCH)
+    rng = np.random.default_rng(seed + 4)
+    x = torch.from_numpy(rng.integers(0, 256, (NOBN_BATCH, IMAGE, IMAGE, 3),
+                                      dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, 1000, NOBN_BATCH)).to(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     sync()
     kernels.reset_launches()
     loss, _, gnorm = step(state, x, y, generator=gen)
     sync()
     launches = dict(kernels.LAUNCHES)
-    want = {"conv2d_fused": CONV_PER_FORWARD, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
-            "max_pool2d": POOL_PER_FORWARD}
+    want = launches_of({"conv2d_fused": SERVE_LAUNCHES["resnet"]["conv2d_fused"],
+                        "max_pool2d": SERVE_LAUNCHES["resnet"]["max_pool2d"]})
     ok = launches == want and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss))
     say(f"(iv) bf16 RN50 batch_norm=False, one Adam step at batch {NOBN_BATCH}: launches "
         f"{launches} (expected {want}); loss {float(loss):.4f}, gradient global norm "
         f"{float(gnorm):.4e} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"no-BN step: launches {launches}, loss {float(loss)}, |g| {float(gnorm)}")
-    return launches, served
+    return launches
 
 
-def phase_train_throughput(seed, failures):
-    """(iii) bench.py's RN50@224 b256 bf16 train step, kernel and plain paths
-    in turns on one model; returns (model, per-run launches, img/s)."""
+def train_throughput(arch, seed, failures):
+    """bench.py's train step at TRAIN_BATCH[arch], bf16, kernel and plain
+    paths in turns on one model; returns (launches of one kernel run, img/s)."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
 
-    model = make_rn50(seed, True)
+    batch = TRAIN_BATCH[arch]
+    model = make_model(arch, seed, True)
+    gflop_train = 3 * forward_gflop(model)
     state, step = train_state(model)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    x = torch.randint(0, 256, (TRAIN_BATCH, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+    x = torch.randint(0, 256, (batch, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
                       generator=gen)
-    y = torch.randint(0, 1000, (TRAIN_BATCH,), device=DEVICE, generator=gen)
+    y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
 
     def seconds_per_step():
         for _ in range(WARMUP):
@@ -619,13 +851,12 @@ def phase_train_throughput(seed, failures):
             loss, _ = step(state, x, y, generator=gen)
         sync()
         if not bool(torch.isfinite(loss)):
-            failures.append(f"b{TRAIN_BATCH} train step: loss {float(loss)}")
+            failures.append(f"{arch} b{batch} train step: loss {float(loss)}")
         return (time.perf_counter() - t0) / TIMED
 
     runs = {"kernel": [], "plain": []}
     launch_runs, peak = [], 0
-    want = {"conv2d_fused": 0, "conv2d_stats": CONV_PER_FORWARD,
-            "conv2d_stats_reduce": CONV_PER_FORWARD, "max_pool2d": POOL_PER_FORWARD}
+    want = launches_of(TRAIN_LAUNCHES[arch])
     for path in ("plain", "kernel", "kernel", "plain"):  # in turns, one card
         if path == "kernel":
             torch.cuda.reset_peak_memory_stats()
@@ -637,19 +868,19 @@ def phase_train_throughput(seed, failures):
             launch_runs.append(dict(kernels.LAUNCHES))
             per_step = {k: v / (WARMUP + TIMED) for k, v in launch_runs[-1].items()}
             if per_step != want:
-                failures.append(f"b{TRAIN_BATCH} train launches per step {per_step} != {want}")
+                failures.append(f"{arch} b{batch} train launches per step {per_step} != {want}")
     dt, dt_plain = (float(np.mean(runs[p])) for p in ("kernel", "plain"))
-    rate = TRAIN_BATCH / dt
-    say(f"(iii) train RN50@224 bf16 b{TRAIN_BATCH} (Adam, wd 1e-4, dropout 0.5, uint8 batch on "
+    rate = batch / dt
+    say(f"(iii/iv) train {arch}@224 bf16 b{batch} (Adam, wd 1e-4, dropout 0.5, uint8 batch on "
         f"the card): kernel path {rate:.1f} img/s ({1e3 * dt:.2f} ms/step; runs "
         f"{[round(1e3 * t, 2) for t in runs['kernel']]} ms), plain path "
-        f"{TRAIN_BATCH / dt_plain:.1f} img/s ({1e3 * dt_plain:.2f} ms/step; runs "
+        f"{batch / dt_plain:.1f} img/s ({1e3 * dt_plain:.2f} ms/step; runs "
         f"{[round(1e3 * t, 2) for t in runs['plain']]} ms); peak memory (kernel path) "
-        f"{peak / 2 ** 30:.2f} GiB; {rate * RN50_GFLOP_TRAIN / 1e3:.2f} TFLOP/s of model "
-        f"arithmetic ({RN50_GFLOP_TRAIN:.3f} GFLOP/img)")
+        f"{peak / 2 ** 30:.2f} GiB; {rate * gflop_train / 1e3:.2f} TFLOP/s of model "
+        f"arithmetic ({gflop_train:.3f} GFLOP/img: 3 × the forward convs)")
     say(f"    launches per kernel run of {WARMUP + TIMED} steps: {launch_runs} "
         f"(per step expected {want})")
-    print_train_profile(step, state, x, y, gen)
+    print_train_profile(arch, step, state, x, y, gen)
     return launch_runs[0], rate
 
 
@@ -677,30 +908,33 @@ def print_table(prof, what):
         say("  " + line)
 
 
-def print_train_profile(step, state, x, y, gen):
+def print_train_profile(arch, step, state, x, y, gen):
     """torch.profiler over 3 train steps: device time of the port's forward
     kernels, of the backward convs (aten::convolution_backward), and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     step(state, x, y, generator=gen)
     sync()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             step(state, x, y, generator=gen)
         sync()
-    print_table(prof, f"train b{TRAIN_BATCH} x 3")
-    device, ours, bwd = device_split(
-        prof, ("conv_kernel<", "stats_reduce_kernel", "max_pool_kernel"))
-    say(f"train device time over 3 steps: {device / 1e3:.3f} ms; forward kernels (conv_kernel, "
-        f"stats_reduce_kernel, max_pool_kernel) {ours / 1e3:.3f} ms "
+    host = time.perf_counter() - t0
+    print_table(prof, f"{arch} train b{x.shape[0]} x 3")
+    device, ours, bwd = device_split(prof, OUR_KERNELS)
+    say(f"{arch} train device time over 3 steps: {device / 1e3:.3f} ms (host clock under the "
+        f"profiler {1e3 * host:.1f} ms); the port's forward kernels "
+        f"({', '.join(OUR_KERNELS)}) {ours / 1e3:.3f} ms "
         f"({100 * ours / max(device, 1e-9):.2f}%); backward convs (aten::convolution_backward, "
         f"cuDNN) {bwd / 1e3:.3f} ms ({100 * bwd / max(device, 1e-9):.2f}%); everything else "
         f"{(device - ours - bwd) / 1e3:.3f} ms")
 
 
-def phase_serve(served, seed, failures):
-    """Serve RN50@224 uint8 requests through the port: the model phase 5 (ii)
-    trained, on the images it learned; returns launch counts."""
+def serve_check(served, arch, seed, serve_batches, failures):
+    """Serve the family's model that learn_check trained, on the images it
+    learned, as uint8 requests; returns the launch counts of those
+    requests."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
@@ -709,8 +943,8 @@ def phase_serve(served, seed, failures):
     model, images, labels = served
     server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
     rng = np.random.default_rng(seed + 1)
-    order = np.concatenate([np.arange(len(images))] * -(-max(SERVE_BATCHES) // len(images)))
-    requests = [images[order[:b]] for b in SERVE_BATCHES]
+    order = np.concatenate([np.arange(len(images))] * -(-max(serve_batches) // len(images)))
+    requests = [images[order[:b]] for b in serve_batches]
     server(requests[0])  # first call: kernels loaded, allocator warm
     sync()
 
@@ -719,23 +953,21 @@ def phase_serve(served, seed, failures):
     sync()
     launches = dict(kernels.LAUNCHES)
 
-    n_fwd = len(SERVE_BATCHES)
-    want = {"conv2d_fused": CONV_PER_FORWARD * n_fwd, "conv2d_stats": 0,
-            "conv2d_stats_reduce": 0, "max_pool2d": POOL_PER_FORWARD * n_fwd}
-    say(f"served batches {SERVE_BATCHES}: launches {launches} (expected {want})")
+    want = launches_of({k: v * len(serve_batches) for k, v in SERVE_LAUNCHES[arch].items()})
+    say(f"{arch} served batches {serve_batches}: launches {launches} (expected {want})")
     if launches != want:
-        failures.append(f"launch counts {launches} != {want}")
-    for b, y in zip(SERVE_BATCHES, outs):
+        failures.append(f"{arch} launch counts {launches} != {want}")
+    for b, y in zip(serve_batches, outs):
         if tuple(y.shape) != (b, 1000) or y.dtype != torch.float32:
-            failures.append(f"batch {b}: logits {tuple(y.shape)} {y.dtype}")
+            failures.append(f"{arch} batch {b}: logits {tuple(y.shape)} {y.dtype}")
         if not bool(torch.isfinite(y).all()):
-            failures.append(f"batch {b}: non-finite logits")
+            failures.append(f"{arch} batch {b}: non-finite logits")
 
     with plain_kernels():
         refs = [server(r) for r in requests]
     sync()
     if dict(kernels.LAUNCHES) != launches:
-        failures.append("the plain comparison launched kernels")
+        failures.append(f"{arch}: the plain comparison launched kernels")
     got = torch.cat([o.argmax(-1) for o in outs])
     ref = torch.cat([o.argmax(-1) for o in refs])
     agree = float((got == ref).float().mean())
@@ -744,26 +976,26 @@ def phase_serve(served, seed, failures):
     top2 = torch.cat([r.topk(2, dim=-1).values for r in refs])
     gap = float((top2[:, 0] - top2[:, 1]).min())
     learned = float((got.cpu() == torch.from_numpy(labels[np.concatenate(
-        [order[:b] for b in SERVE_BATCHES])]).long()).float().mean())
-    say(f"bf16 serving of the trained RN50 vs plain on the card: argmax agreement {agree:.4f} "
-        f"over {got.numel()} images (min {ARGMAX_MIN}); distinct argmax classes "
+        [order[:b] for b in serve_batches])]).long()).float().mean())
+    say(f"bf16 serving of the trained {arch} vs plain on the card: argmax agreement "
+        f"{agree:.4f} over {got.numel()} images (min {ARGMAX_MIN}); distinct argmax classes "
         f"{ref.unique().numel()} (plain) / {got.unique().numel()} (kernel); served class = "
         f"learned label for {learned:.4f} of them; smallest top-2 gap {gap:.4e}, max |logit "
         f"diff| {diff:.4e} (max |logit| {scale:.4e})")
     if agree < ARGMAX_MIN:
-        failures.append(f"argmax agreement {agree:.4f} < {ARGMAX_MIN}")
+        failures.append(f"{arch} argmax agreement {agree:.4f} < {ARGMAX_MIN}")
 
     # the same network in fp32 (TF32 off): kernel path vs plain path, tight
-    model32 = make_rn50(seed, False)
-    x = torch.from_numpy(requests[1]).to(DEVICE).float() / 255.0
+    model32 = make_model(arch, seed, False)
+    x = torch.from_numpy(images[:8]).to(DEVICE).float() / 255.0
     with torch.inference_mode():
         y32 = model32(x)
         with plain_kernels():
             r32 = model32(x)
     rel = float((y32 - r32).abs().max() / r32.abs().max())
-    say(f"fp32 RN50 forward (batch 8) vs plain: max |diff| / max |logit| = {rel:.3e} (tol 1e-4)")
+    say(f"fp32 {arch} forward (batch 8) vs plain: max |diff| / max |logit| = {rel:.3e} (tol 1e-4)")
     if not (rel <= 1e-4 and bool(torch.isfinite(y32).all())):
-        failures.append(f"fp32 RN50 relative diff {rel:.3e}")
+        failures.append(f"fp32 {arch} relative diff {rel:.3e}")
     del model32
 
     def seconds_per_batch(req, iters=10):
@@ -776,14 +1008,14 @@ def phase_serve(served, seed, failures):
         sync()
         return (time.perf_counter() - t0) / iters
 
-    for b in THROUGHPUT_BATCHES:
+    for b in THROUGHPUT_BATCHES[arch]:
         req = rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
         runs = {"kernel": [], "plain": []}
         for path in ("plain", "kernel", "kernel", "plain"):  # in turns, one card
             with plain_kernels() if path == "plain" else contextlib.nullcontext():
                 runs[path].append(seconds_per_batch(req))
         dt, dt_plain = (float(np.mean(runs[p])) for p in ("kernel", "plain"))
-        say(f"serving RN50@224 bf16, uint8 requests from host, batch {b}: "
+        say(f"serving {arch}@224 bf16, uint8 requests from host, batch {b}: "
             f"{b / dt:.1f} img/s ({1e3 * dt:.2f} ms/batch; runs "
             f"{[round(1e3 * t, 2) for t in runs['kernel']]} ms); through the plain "
             f"versions {b / dt_plain:.1f} img/s ({1e3 * dt_plain:.2f} ms/batch)")
@@ -797,13 +1029,31 @@ def phase_serve(served, seed, failures):
         for _ in range(3):
             server(req)
         sync()
-    print_table(prof, "serving batch 64 x 3")
+    print_table(prof, f"{arch} serving batch 64 x 3")
     return launches
+
+
+def phase_family(arch, seed, failures):
+    """Phase 7 for one family: (i) the fp32 step check, (ii) the bf16
+    learning check, (iii) serving the model (ii) trained, (iv) bench.py's
+    train step. Returns (serving launches, train launches)."""
+    from convnets_tpu_torch.models import build_model
+
+    probe = build_model(arch, model_setting(arch, seed, True))
+    say(f"{arch}@224: forward convs {forward_gflop(probe):.4f} GFLOP/img (mul+add = 2)")
+    del probe
+    step_check(arch, seed, failures)
+    served = learn_check(arch, seed, failures)
+    serve_launches = serve_check(served, arch, seed, ZOO_SERVE_BATCHES, failures)
+    del served
+    train_launches, _ = train_throughput(arch, seed, failures)
+    return serve_launches, train_launches
 
 
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_fused.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
+    "avg_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:94"),
     "conv2d_stats": ("convnets_tpu_torch/csrc/conv_fused.cu", "convnets_tpu/ops/pallas/conv.py:543"),
     "conv2d_stats_reduce": ("convnets_tpu_torch/csrc/conv_fused.cu",
                             "convnets_tpu/ops/pallas/conv.py:543"),
@@ -811,6 +1061,12 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                            "convnets_tpu/ops/pallas/fused.py:35"),
     "conv2d_train": ("convnets_tpu_torch/ops/kernels/conv.py", "convnets_tpu/ops/pallas/conv.py:675"),
     "pool2d_train": ("convnets_tpu_torch/ops/kernels/pool.py", "convnets_tpu/ops/pallas/pool.py:100"),
+    "pool2d_train_avg": ("convnets_tpu_torch/ops/kernels/pool.py",
+                         "convnets_tpu/ops/pallas/pool.py:100"),
+    "depthwise_conv2d": ("convnets_tpu_torch/csrc/depthwise.cu",
+                         "convnets_tpu/ops/pallas/conv.py:755"),
+    "depthwise_train": ("convnets_tpu_torch/ops/kernels/depthwise.py",
+                        "convnets_tpu/ops/pallas/conv.py:702"),
 }
 
 
@@ -842,19 +1098,19 @@ def main():
     say(card)
 
     # phase 1: build
-    t0 = time.perf_counter()
+    t_all = t0 = time.perf_counter()
     log = kernels.build(verbose=True)
     kernels.lib()
     say(f"build: {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas: " + line.strip())
 
     failures = []
     from convnets_tpu_torch.models import build_model
 
     t0 = time.perf_counter()
-    probe = build_model("resnet", rn50_setting(args.seed, True))
+    probe = build_model("resnet", model_setting("resnet", args.seed, True))
     summary = phase_kernels(probe, failures)
     say(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
@@ -862,22 +1118,38 @@ def main():
     del probe
     say(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    nobn_launches, served = phase_train_step(args.seed, failures)
-    train_launches, _ = phase_train_throughput(args.seed, failures)
+    step_check("resnet", args.seed, failures)
+    served = learn_check("resnet", args.seed, failures)
+    nobn_launches = nobn_check(args.seed, failures)
+    train = {"resnet": train_throughput("resnet", args.seed, failures)[0]}
     say(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    serve_launches = phase_serve(served, args.seed, failures)
+    serve = {"resnet": serve_check(served, "resnet", args.seed, SERVE_BATCHES, failures)}
+    del served
     say(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    summary.update(phase_zoo_kernels(failures))
+    say(f"[phase 6: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    for arch in ("mobilenet_v1", "densenet"):
+        serve[arch], train[arch] = phase_family(arch, args.seed, failures)
+    say(f"[phase 7: {time.perf_counter() - t0:.1f} s]")
+    say(f"[all phases: {time.perf_counter() - t_all:.1f} s]")
 
-    # launches, each from the path that runs the kernel: serving (rows 1, 2),
-    # the b256 train run (rows 4, 5, 6) and the batch_norm=False step (row 7)
-    launches = {"conv2d_fused": serve_launches["conv2d_fused"],
-                "max_pool2d": serve_launches["max_pool2d"],
-                "conv2d_stats": train_launches["conv2d_stats"],
-                "conv2d_stats_reduce": train_launches["conv2d_stats_reduce"],
-                "conv_bn_relu_train": train_launches["conv2d_stats"],
-                "pool2d_train": train_launches["max_pool2d"],
-                "conv2d_train": nobn_launches["conv2d_fused"]}
+    # launches, each from the path that runs the kernel: serving (rows 1, 2,
+    # 3, 9), the b256 train runs (rows 4, 5, 6, 9's depthwise_train) and the
+    # batch_norm=False step (row 7)
+    launches = {"conv2d_fused": serve["resnet"]["conv2d_fused"],
+                "max_pool2d": serve["resnet"]["max_pool2d"],
+                "avg_pool2d": serve["densenet"]["avg_pool2d"],
+                "conv2d_stats": train["resnet"]["conv2d_stats"],
+                "conv2d_stats_reduce": train["resnet"]["conv2d_stats_reduce"],
+                "conv_bn_relu_train": train["resnet"]["conv2d_stats"],
+                "pool2d_train": train["resnet"]["max_pool2d"],
+                "pool2d_train_avg": train["densenet"]["avg_pool2d"],
+                "conv2d_train": nobn_launches["conv2d_fused"],
+                "depthwise_conv2d": serve["mobilenet_v1"]["depthwise_conv2d"],
+                "depthwise_train": train["mobilenet_v1"]["depthwise_conv2d"]}
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -59,6 +59,11 @@ class Builder:
         self.conv_init = "he" if init_params else "default"
         self.linear_init = "normal" if init_params else "default"
 
+    def conv(self, num_filters, **kw) -> nn.Conv2d:
+        """A bare conv, bias off iff BN on."""
+        self.in_channels = num_filters
+        return nn.Conv2d(num_filters, bias=not self.bn, init_mode=self.conv_init, **kw)
+
     def conv_block(self, num_filters, activation=True, set_output=True, groups=1,
                    kernel=3, stride=1, padding=0, dilation=1) -> nn.Sequential:
         block = nn.conv_block(num_filters, kernel, stride=stride, padding=padding,
@@ -67,6 +72,14 @@ class Builder:
         if set_output:
             self.in_channels = num_filters
         return block
+
+    def conv_block_depthwise(self, kernel=3, stride=1, padding=0,
+                             activation=True) -> nn.Sequential:
+        """Depthwise conv (+BN+ReLU): groups = the current channel count,
+        multiplier 1."""
+        c = self.in_channels
+        return self.conv_block(c, kernel=kernel, stride=stride, padding=padding, groups=c,
+                               activation=activation)
 
     def linear(self, out_features) -> nn.Linear:
         return nn.Linear(out_features, init_mode=self.linear_init)

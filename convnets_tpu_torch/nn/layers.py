@@ -1,14 +1,17 @@
 """Leaf layers and combinators (counterpart of convnets_tpu/nn/layers.py).
 
 Children carry the JAX variable-path names: Sequential children '0',
-'1', …; ConvBNReLU '0' conv, '1' BN, '2' ReLU; Add '0' body, '1' shortcut.
-Activations are NHWC. Every ConvBNReLU, Conv2d and MaxPool2d runs a
-kernel of `ops.kernels` in both modes: in eval mode conv2d_fused (BN
-folded into its epilogue) and max_pool2d; in train mode
-conv_bn_relu_train (conv2d_stats), conv2d_train and pool2d_train. Train
-mode updates the BN running statistics in place, once per forward. What
-the port does not have yet (grouped or dilated convs, Remat in train
-mode) raises NotImplementedError naming the ROADMAP.md item that ports it.
+'1', …; ConvBNReLU '0' conv, '1' BN, '2' ReLU; Add and Concat '0', '1', …
+in branch order. Activations are NHWC. Every conv and pool runs a kernel
+of `ops.kernels` in both modes: in eval mode conv2d_fused (BN folded into
+its epilogue), depthwise_conv2d, max_pool2d and avg_pool2d; in train mode
+conv_bn_relu_train (conv2d_stats), conv2d_train, depthwise_train and
+pool2d_train. A depthwise ConvBNReLU runs unfused, as in the JAX package:
+the depthwise kernel, then BatchNorm2d, then ReLU. Train mode updates the
+BN running statistics in place, once per forward. What the port does not
+have yet (grouped convs other than depthwise, dilated convs, Remat in
+train mode) raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -29,12 +32,16 @@ def not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
-def _check_conv_envelope(conv: "Conv2d") -> None:
+def _check_conv_envelope(conv: "Conv2d", cin: int) -> bool:
+    """True for a depthwise conv (the depthwise_conv2d kernel), False for a
+    dense one (conv2d_fused); raises for what no ported kernel takes."""
     if kernels.fits_conv(conv.stride, conv.dilation, conv.groups):
-        return
+        return False
+    if kernels.fits_depthwise(cin, conv.out_channels, conv.dilation, conv.groups):
+        return True
     if conv.groups > 1:
-        raise not_ported(f"grouped conv (groups={conv.groups})",
-                         "kernels depthwise_conv2d / grouped_conv2d_train")
+        raise not_ported(f"grouped conv (groups={conv.groups}, Cin={cin})",
+                         "Pallas kernels row 8, grouped_conv2d_train")
     raise not_ported(f"conv with stride {conv.stride}, dilation {conv.dilation}",
                      "kernels conv2d_fused envelope (stride 1 or 2, no dilation)")
 
@@ -81,13 +88,17 @@ class Conv2d(Module):
                                        self.stride, self.padding, self.dilation)
 
     def forward(self, x):
-        _check_conv_envelope(self)
+        depthwise = _check_conv_envelope(self, x.shape[-1])
         cd = self.policy.compute_dtype
-        if self.training:
-            y = kernels.conv2d_train(x.to(cd), self.weight.to(cd), self.stride, self.padding)
+        x, w = x.to(cd), self.weight.to(cd)
+        if depthwise and self.training:
+            y = kernels.depthwise_train(x, w, self.stride, self.padding)
+        elif depthwise:
+            y = kernels.depthwise_conv2d(x, w, stride=self.stride, padding=self.padding)
+        elif self.training:
+            y = kernels.conv2d_train(x, w, self.stride, self.padding)
         else:
-            y = kernels.conv2d_fused(x.to(cd), self.weight.to(cd), stride=self.stride,
-                                     padding=self.padding)
+            y = kernels.conv2d_fused(x, w, stride=self.stride, padding=self.padding)
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y
@@ -197,7 +208,9 @@ class Dropout(Module):
         return ops.dropout(x, self.rate, current_generator(), train=self.training)
 
 
-class MaxPool2d(Module):
+class _Pool2d(Module):
+    MODE = ""
+
     def __init__(self, kernel, stride=None, padding=0):
         super().__init__()
         self.kernel, self.stride, self.padding = kernel, stride, padding
@@ -207,8 +220,19 @@ class MaxPool2d(Module):
 
     def forward(self, x):
         if self.training:
-            return kernels.pool2d_train(x, "max", self.kernel, self.stride, self.padding)
-        return kernels.max_pool2d(x, self.kernel, self.stride, self.padding)
+            return kernels.pool2d_train(x, self.MODE, self.kernel, self.stride, self.padding)
+        pool = kernels.max_pool2d if self.MODE == "max" else kernels.avg_pool2d
+        return pool(x, self.kernel, self.stride, self.padding)
+
+
+class MaxPool2d(_Pool2d):
+    """-inf padded max pool (torch MaxPool2d)."""
+    MODE = "max"
+
+
+class AvgPool2d(_Pool2d):
+    """count_include_pad average pool (torch AvgPool2d)."""
+    MODE = "avg"
 
 
 class GlobalAvgPool2d(Module):
@@ -283,18 +307,36 @@ class Remat(Module):
         return self.child(x)
 
 
-class Add(Module):
-    """Parallel branches summed in the compute dtype; optional post-ReLU."""
+class _MultiBranch(Module):
+    """Parallel branches over one input, children named '0', '1', …"""
 
-    def __init__(self, branches, post_relu=False):
+    def __init__(self, branches):
         super().__init__()
         for name, branch in _named(branches).items():
             self.add_module(name, branch)
-        self.post_relu = post_relu
 
     def init(self, generator, in_shape):
         for branch in self._modules.values():
             branch.init(generator, in_shape)
+
+
+class Concat(_MultiBranch):
+    """Parallel branches concatenated on the channel (last) axis in branch order."""
+
+    def out_shape(self, in_shape):
+        outs = [branch.out_shape(in_shape) for branch in self._modules.values()]
+        return (*outs[0][:-1], sum(o[-1] for o in outs))
+
+    def forward(self, x):
+        return torch.cat([branch(x) for branch in self._modules.values()], dim=-1)
+
+
+class Add(_MultiBranch):
+    """Parallel branches summed in the compute dtype; optional post-ReLU."""
+
+    def __init__(self, branches, post_relu=False):
+        super().__init__(branches)
+        self.post_relu = post_relu
 
     def out_shape(self, in_shape):
         return next(iter(self._modules.values())).out_shape(in_shape)
@@ -317,7 +359,9 @@ class ConvBNReLU(Sequential):
     conv_bn_relu_train (the conv2d_stats kernel, batch statistics, ReLU)
     and then the running update of the JAX layer (:574-583). Children stay
     '0' Conv2d, '1' BatchNorm2d, ('2' ReLU), so the variable tree is the
-    unfused one."""
+    unfused one. A conv with a bias, and a depthwise conv (which fits
+    neither fused kernel in the JAX package either, :539-547), runs the
+    unfused composition."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]
@@ -328,9 +372,8 @@ class ConvBNReLU(Sequential):
 
     def forward(self, x):
         conv, bn = self._modules["0"], self._modules["1"]
-        if conv.bias is not None:
+        if conv.bias is not None or _check_conv_envelope(conv, x.shape[-1]):
             return super().forward(x)
-        _check_conv_envelope(conv)
         cd = conv.policy.compute_dtype
         if self.training:
             out, mean, var = kernels.conv_bn_relu_train(

@@ -14,11 +14,16 @@ import torch.nn.functional as F
 from convnets_tpu_torch.core.shapes import to_pair
 
 
-def conv2d(x, w, *, stride=1, padding=0):
-    """x (N, H, W, C), w (kh, kw, C, O). Returns (N, H', W', O) in x.dtype."""
+def conv2d(x, w, *, stride=1, padding=0, groups=1):
+    """x (N, H, W, C), w (kh, kw, C/groups, O). Returns (N, H', W', O) in x.dtype."""
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                 stride=to_pair(stride), padding=to_pair(padding))
+                 stride=to_pair(stride), padding=to_pair(padding), groups=groups)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def conv2d_depthwise(x, w, *, stride=1, padding=0):
+    """One filter per input channel (groups = C): w (kh, kw, 1, C·multiplier)."""
+    return conv2d(x, w, stride=stride, padding=padding, groups=x.shape[-1])
 
 
 def linear(x, w, b=None):

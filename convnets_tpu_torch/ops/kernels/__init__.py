@@ -12,7 +12,7 @@ the card. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels.
 
 The trainable functions (`conv2d_train`, `conv_bn_relu_train`,
-`pool2d_train`) are `torch.autograd.Function`s: their forwards go through
+`depthwise_train`, `pool2d_train`) are `torch.autograd.Function`s: their forwards go through
 the wrappers above, and their backwards are plain PyTorch, as the JAX
 package leaves its backwards to XLA.
 """
@@ -39,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
-                             "max_pool2d": 0}
+                             "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,6 +58,9 @@ _SIGNATURES = {
     "conv_block_rows": [],
     # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
     "max_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
+    "avg_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
+    # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
+    "depthwise_launch": [_I, _P, _P, _P] + [_I] * 12 + [_P],
 }
 
 
@@ -153,16 +156,28 @@ def fits_conv(stride, dilation, groups: int) -> bool:
     return groups == 1 and (dh, dw) == (1, 1) and (sh, sw) in ((1, 1), (2, 2))
 
 
+def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
+    """Envelope of depthwise_conv2d: one filter per channel, multiplier 1
+    (cout == cin), undilated; any stride."""
+    dh, dw = to_pair(dilation)
+    return groups == cin and cout == cin and (dh, dw) == (1, 1)
+
+
 from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
     conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
-    max_pool2d, max_pool2d_plain, pool2d_train,
+    avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_train,
+)
+from convnets_tpu_torch.ops.kernels.depthwise import (  # noqa: E402
+    depthwise_conv2d, depthwise_conv2d_plain, depthwise_train,
 )
 from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
 
 __all__ = [
-    "LAUNCHES", "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats",
-    "conv2d_stats_plain", "conv2d_train", "conv_bn_relu_train", "fits_conv", "lib",
-    "max_pool2d", "max_pool2d_plain", "pool2d_train", "reset_launches",
+    "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "build", "conv2d_fused",
+    "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain", "conv2d_train",
+    "conv_bn_relu_train", "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_train",
+    "fits_conv", "fits_depthwise", "lib", "max_pool2d", "max_pool2d_plain", "pool2d_train",
+    "reset_launches",
 ]

@@ -134,16 +134,16 @@ def conv2d_stats(x, w, *, stride=1, padding=0):
     return y, sums[0], sums[1]
 
 
-def conv2d_backward(x, w, g, stride, padding, need=(True, True)):
+def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
     """(dx, dw) of y = conv(x, w) for the cotangent g, NHWC / HWIO in
     x.dtype; an entry is None where `need` says so. Plain PyTorch
     (aten.convolution_backward on channels_last views; cuDNN on the card):
     the JAX package leaves these transposed convs to XLA (conv.py:688-695,
-    fused.py:99-102), outside any Pallas kernel."""
+    :712-719, fused.py:99-102), outside any Pallas kernel."""
     wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
     dx, dw, _ = torch.ops.aten.convolution_backward(
         g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None,
-        list(to_pair(stride)), list(to_pair(padding)), [1, 1], False, [0, 0], 1,
+        list(to_pair(stride)), list(to_pair(padding)), [1, 1], False, [0, 0], groups,
         [bool(need[0]), bool(need[1]), False])
     if dx is not None:
         dx = dx.permute(0, 2, 3, 1).contiguous()

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch.nn.functional as F
 
 from convnets_tpu_torch.core.shapes import to_pair
@@ -12,6 +13,18 @@ def max_pool2d(x, kernel, stride=None, padding=0):
     y = F.max_pool2d(x.permute(0, 3, 1, 2), to_pair(kernel),
                      to_pair(kernel if stride is None else stride), to_pair(padding))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def avg_pool2d(x, kernel, stride=None, padding=0):
+    """torch AvgPool2d semantics (count_include_pad: the divisor is always
+    kh·kw). The window sum is taken in fp32 and multiplied, not divided, by
+    fp32 1/(kh·kw), then cast back once, as convnets_tpu/ops/pool.py:41-52."""
+    kh, kw = to_pair(kernel)
+    summed = F.avg_pool2d(x.float().permute(0, 3, 1, 2), (kh, kw),
+                          to_pair(kernel if stride is None else stride), to_pair(padding),
+                          divisor_override=1)
+    y = summed * np.float32(1.0 / (kh * kw))
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
 def global_avg_pool2d(x):

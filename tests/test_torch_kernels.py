@@ -12,7 +12,9 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from convnets_tpu.ops.pallas import avg_pool2d as jax_avg_pool2d
 from convnets_tpu.ops.pallas import conv2d_fused as jax_conv2d_fused
+from convnets_tpu.ops.pallas import depthwise_conv2d as jax_depthwise_conv2d
 from convnets_tpu.ops.pallas import max_pool2d as jax_max_pool2d
 from convnets_tpu_torch.ops import kernels
 
@@ -111,6 +113,41 @@ def test_max_pool2d_all_negative_uses_neg_inf_padding(dtype):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,stride,padding", [(2, 2, 0), (3, 1, 1), (3, 2, 1)])
+def test_avg_pool2d_matches_jax(k, stride, padding, dtype):
+    """fp32 window sum × fp32 1/(k·k), one rounding; padding taps count as
+    zeros. fp32: only the summation order may differ; bf16: both round the
+    same fp32 value, one ulp (2^-8 relative) where the orders round apart."""
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    x = np.random.RandomState(7).randn(2, 16, 16, 8).astype(np.float32)
+    want = np.asarray(jax_avg_pool2d(jnp.asarray(x).astype(jd), k, stride, padding,
+                                     interpret=True).astype(jnp.float32))
+    got = kernels.avg_pool2d(torch.from_numpy(x).to(td), k, stride, padding)
+    assert got.dtype == td and got.is_contiguous() and got.shape == want.shape
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_depthwise_conv2d_matches_jax(stride, dtype):
+    """fp32 products accumulated in (i, j) order, one rounding to x.dtype:
+    fp32 to the accumulation order, bf16 to one ulp (2^-8 relative)."""
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 15, 15, 24).astype(np.float32)
+    w = (0.3 * rng.randn(3, 3, 1, 24)).astype(np.float32)
+    want = np.asarray(jax_depthwise_conv2d(jnp.asarray(x).astype(jd), jnp.asarray(w).astype(jd),
+                                           stride=stride, padding=1,
+                                           interpret=True).astype(jnp.float32))
+    got = kernels.depthwise_conv2d(torch.from_numpy(x).to(td), torch.from_numpy(w).to(td),
+                                   stride=stride, padding=1)
+    assert got.dtype == td and got.is_contiguous() and got.shape == want.shape
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     kernels.reset_launches()
     x, w, scale, shift = _conv_inputs(6, 8, 3)
@@ -120,11 +157,15 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     ref = kernels.conv2d_fused_plain(xt, wt, st, sh, stride=2, padding=1, relu=True)
     assert torch.equal(got, ref)
     assert torch.equal(kernels.max_pool2d(xt, 3, 2, 1), kernels.max_pool2d_plain(xt, 3, 2, 1))
+    assert torch.equal(kernels.avg_pool2d(xt, 2, 2), kernels.avg_pool2d_plain(xt, 2, 2))
+    wd = torch.from_numpy(np.random.RandomState(9).randn(3, 3, 1, 8).astype(np.float32))
+    assert torch.equal(kernels.depthwise_conv2d(xt, wd, stride=2, padding=1),
+                       kernels.depthwise_conv2d_plain(xt, wd, stride=2, padding=1))
     for a, b in zip(kernels.conv2d_stats(xt, wt, stride=2, padding=1),
                     kernels.conv2d_stats_plain(xt, wt, stride=2, padding=1)):
         assert torch.equal(a, b)
     assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
-                                "max_pool2d": 0}
+                                "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0}
 
 
 def test_non_cpu_non_cuda_tensor_is_refused():
@@ -136,6 +177,10 @@ def test_non_cpu_non_cuda_tensor_is_refused():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.max_pool2d(x, 3, 2, 1)
     with pytest.raises(ValueError, match="CUDA"):
+        kernels.avg_pool2d(x, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.depthwise_conv2d(x, torch.empty(3, 3, 1, 4, device="meta"), padding=1)
+    with pytest.raises(ValueError, match="CUDA"):
         kernels.conv2d_stats(x, w, stride=1, padding=1)
 
 
@@ -144,6 +189,14 @@ def test_non_cpu_non_cuda_tensor_is_refused():
     (1, 2, 1, False), (1, 1, 4, False)])
 def test_fits_conv(stride, dilation, groups, fits):
     assert kernels.fits_conv(stride, dilation, groups) is fits
+
+
+@pytest.mark.parametrize("cin,cout,dilation,groups,fits", [
+    (32, 32, 1, 32, True), (1024, 1024, (1, 1), 1024, True), (32, 64, 1, 32, False),
+    (32, 32, 2, 32, False), (32, 32, 1, 16, False), (8, 8, 1, 1, False)])
+def test_fits_depthwise(cin, cout, dilation, groups, fits):
+    """The envelope of convnets_tpu/ops/pallas/__init__.py:fits_depthwise."""
+    assert kernels.fits_depthwise(cin, cout, dilation, groups) is fits
 
 
 def test_nothing_is_built_on_import_or_cpu_use():

@@ -21,7 +21,6 @@ from convnets_tpu.settings import Settings
 from convnets_tpu.train.checkpoint import save_checkpoint
 from convnets_tpu_torch import bridge, nn
 from convnets_tpu_torch.models import build_model
-from convnets_tpu_torch.ops import kernels
 from convnets_tpu_torch.serve import ServingModel
 from convnets_tpu_torch.train import build_train_step, create_train_state, load_jax_checkpoint
 
@@ -147,27 +146,29 @@ def test_bridge_raises_on_a_bad_leaf(case, match):
         _port("18", _edit(variables, edits[case]))
 
 
-def test_rn50_at_224_has_the_jax_variable_layout():
-    """The bridge layout of the served configuration equals the tree the
-    JAX init builds (shapes only: nothing is computed)."""
-    setting = Settings(kind="50", input_size=(3, 224, 224), num_classes=1000,
+@pytest.mark.parametrize("arch,kind,conv_bn_relus", [
+    ("resnet", "50", 53), ("mobilenet_v1", "v1", 27), ("densenet", "121", 1)])
+def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
+    """The bridge layout of each served configuration at 224² equals the
+    tree the JAX init builds (shapes only: nothing is computed)."""
+    setting = Settings(kind=kind, input_size=(3, 224, 224), num_classes=1000,
                        mixed_precision=True)
-    jm = jax_build_model("resnet", setting)
+    jm = jax_build_model(arch, setting)
     tree = jax.eval_shape(lambda k: jm.module.init(k, (1, 224, 224, 3)), jax.random.key(0))
     want = {tuple(str(getattr(p, "key", p)) for p in path): tuple(leaf.shape)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
-    model = build_model("resnet", setting)
+    model = build_model(arch, setting)
     got = {path: tuple(getattr(mod, name).shape)
            for path, (mod, name) in bridge.jax_layout(model).items()}
     assert got == want
-    assert sum(isinstance(m, nn.ConvBNReLU) for m in model.modules()) == 53
+    assert sum(isinstance(m, nn.ConvBNReLU) for m in model.modules()) == conv_bn_relus
     assert model.policy.compute_dtype == torch.bfloat16
 
 
-def test_outside_the_slice_raises_not_implemented():
+def test_outside_the_slice_raises_not_implemented(monkeypatch):
     """Train mode runs; what is still outside it raises, naming ROADMAP.md:
-    Remat in train mode, the avg-pool train kernel, mixup, and (eval or
-    train) grouped convs."""
+    Remat in train mode, DenseNet's shared-statistics block, mixup, and
+    (eval or train) grouped convs other than depthwise."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
                                            mixed_precision=False, remat=True))
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
@@ -175,8 +176,11 @@ def test_outside_the_slice_raises_not_implemented():
     remat(x)  # eval mode runs the wrapped blocks
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         remat.train()(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kernels.pool2d_train(x, "avg", 3, 2, 1)
+    with monkeypatch.context() as m:
+        m.setenv("CONVNETS_TPU_DENSENET_FUSED", "1")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_model("densenet", Settings(kind="121", input_size=(3, 32, 32),
+                                             num_classes=10))
     mixup = Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
                      mixup=0.2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -183,8 +183,8 @@ def test_dropout_keep_rate_and_scale():
 
 # --- the whole step -------------------------------------------------------
 
-def _settings(optimizer, lr, batch_norm=True):
-    return Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
+def _settings(optimizer, lr, batch_norm=True, kind="18"):
+    return Settings(kind=kind, input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
                     dropout_rate=0.0, optimizer=optimizer, learning_rate=lr, weight_decay=1e-4,
                     batch_norm=batch_norm, data_augment=False, data_norm=True, nesterov=True)
 
@@ -197,12 +197,12 @@ def _batches(steps):
             for _ in range(steps)]
 
 
-def _run_both(setting, steps):
+def _run_both(setting, steps, arch="resnet"):
     """(jax final state, jax [(loss, correct)], port model, port state, port [(loss, correct)])."""
-    trainer = Trainer(jax_build_model("resnet", setting), use_mesh=False)
+    trainer = Trainer(jax_build_model(arch, setting), use_mesh=False)
     trainer.init_state()
     step = trainer._get_train_step(augment=False, norm=True)
-    model = build_model("resnet", setting)
+    model = build_model(arch, setting)
     bridge.load_jax_variables(model, {"params": jax.tree.map(np.asarray, trainer.state.params),
                                       "state": jax.tree.map(np.asarray, trainer.state.model_state)})
     state = create_train_state(model)

@@ -1,6 +1,6 @@
 """The port's trainable kernel functions (conv2d_stats, conv_bn_relu_train,
-pool2d_train, conv2d_train) against the JAX Pallas functions run in
-interpret mode on the CPU, forward and VJP.
+pool2d_train, conv2d_train, depthwise_train) against the JAX Pallas
+functions run in interpret mode on the CPU, forward and VJP.
 
 On the CPU the wrappers answer with their plain PyTorch versions; the CUDA
 kernels are compared with the same plain versions on the card by
@@ -17,6 +17,7 @@ import torch
 from convnets_tpu.ops.pallas import conv2d_stats as jax_conv2d_stats
 from convnets_tpu.ops.pallas import conv2d_train as jax_conv2d_train
 from convnets_tpu.ops.pallas import conv_bn_relu_train as jax_conv_bn_relu_train
+from convnets_tpu.ops.pallas import depthwise_train as jax_depthwise_train
 from convnets_tpu.ops.pallas import pool2d_train as jax_pool2d_train
 from convnets_tpu_torch.ops import kernels
 
@@ -160,6 +161,57 @@ def test_conv2d_train_matches_jax(stride, padding, k, cin):
     np.testing.assert_allclose(_np(tdw), _np(jdw), rtol=1e-4, atol=1e-4)
 
 
-def test_pool2d_train_avg_is_not_ported():
-    with pytest.raises(NotImplementedError, match="avg_pool2d"):
-        kernels.pool2d_train(torch.zeros(1, 4, 4, 2), "avg", 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,stride,padding", [(2, 2, 0), (3, 2, 1)])
+def test_pool2d_train_avg_matches_jax(k, stride, padding, dtype):
+    """Avg mode: forward through the avg_pool2d wrapper, dx the plain avg
+    pool's VJP with the cotangent cast to x.dtype (pool.py:111-116): g·1/k²
+    spread over each window, padding taps included in the divisor."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x = _rand(7, (2, 12, 12, 8))
+    want, vjp = jax.vjp(lambda a: jax_pool2d_train(a, "avg", k, stride, padding, True),
+                        jnp.asarray(x, jd))
+    g = _rand(8, want.shape)
+    (jdx,) = vjp(jnp.asarray(g, jd))
+    xt = _t(x, dtype, True)
+    got = kernels.pool2d_train(xt, "avg", k, stride, padding)
+    (tdx,) = torch.autograd.grad(got, xt, _t(g, dtype))
+    assert got.dtype == tdx.dtype == dtype
+    # fp32: summation order only; bf16: one ulp (2^-8 relative) of a rounding
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(tdx), _np(jdx), rtol=tol, atol=tol)
+
+
+def test_pool2d_train_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="mode"):
+        kernels.pool2d_train(torch.zeros(1, 4, 4, 2), "sum", 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_depthwise_train_matches_jax(stride, dtype):
+    """Forward through the depthwise kernel's wrapper, dx/dw the grouped
+    conv's VJP with the cotangent cast to x.dtype (conv.py:712-719)."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x = _rand(0, (2, 13, 13, 16))
+    w = _rand(1, (3, 3, 1, 16), 0.3)
+    want, vjp = jax.vjp(lambda a, b: jax_depthwise_train(a, b, stride, 1, True),
+                        jnp.asarray(x, jd), jnp.asarray(w, jd))
+    g = _rand(2, want.shape)
+    jdx, jdw = vjp(jnp.asarray(g, jd))
+    xt, wt = _t(x, dtype, True), _t(w, dtype, True)
+    got = kernels.depthwise_train(xt, wt, stride, 1)
+    tdx, tdw = torch.autograd.grad(got, (xt, wt), _t(g, dtype))
+    assert got.dtype == tdx.dtype == tdw.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(tdx), _np(jdx), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_np(tdw), _np(jdw), rtol=1e-4, atol=1e-4)
+        return
+    # bf16: one ulp (2^-8 relative) where the accumulation orders round y
+    # apart; the gradients (bf16 convs in both) to 1e-2 of their largest element
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2 ** -7, atol=2 ** -7)
+    for a, b, name in ((tdx, jdx, "dx"), (tdw, jdw, "dw")):
+        scale = float(np.abs(_np(b)).max())
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-2 * scale, err_msg=name)
