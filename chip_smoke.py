@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ResNet-50, MobileNet-v1 and DenseNet-121 serving
-and train paths on one NVIDIA GPU.
+"""Drive the PyTorch port's ResNet-50, MobileNet-v1, DenseNet-121 and
+ResNeXt-50 serving and train paths, and the whole-bottleneck-block kernel,
+on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -8,7 +9,8 @@ Phases, in the order they run; any failure exits non-zero without the
 final line:
   0. device: needs CUDA (no CPU fallback); prints the card's name and
      power limit as nvidia-smi reports them.
-  1. build: compiles convnets_tpu_torch/csrc/*.cu with nvcc (sm_90a).
+  1. build: compiles convnets_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+     compiler per source, all started together.
   2. serving kernels vs plain: every distinct conv shape of the port's own
      RN50@224 modules, at batch 8, fp32 (TF32 off) and bf16, with and
      without ReLU, plus the stem max-pool, each against its plain PyTorch
@@ -57,7 +59,28 @@ final line:
      DenseNet-121 1 conv2d_stats + 1 reduction + 119 conv2d_fused + 1
      max_pool2d + 3 avg_pool2d), img/s on both paths in turns, peak memory
      and a profiler split.
-  last lines: the kernels JSON line, then {"ok": true, "device": {...}}.
+  8. this slice's kernels vs plain, fp32 (TF32 off) and bf16: the grouped
+     conv at the 7 distinct ResNeXt-50@224 grouped shapes at batch 8, both
+     epilogues (y with and without scale/shift/ReLU; y, Σy, Σy²);
+     grouped_conv2d_train and grouped conv_bn_relu_train forward and
+     gradients at a stride-1 and a stride-2 shape; bottleneck_block at
+     RN50's 14²×1024/256 and 28²×512/128 at batch 8; then the block A/B of
+     scripts/tpu_block_ab.py at batch 256, chains of 6 and 4 blocks: the
+     kernel, its plain version, the port's serving composition (three
+     conv2d_fused launches, the add and the ReLU) and three cuDNN convs,
+     with ms per chain, TFLOP/s and each arm's ratio to the kernel.
+  9. ResNeXt-50 (32x4d) at 3x224x224, 1000 classes, weights from --seed in
+     the JAX layout, as phase 7 drives its families (exact launches per
+     forward: 37 conv2d_fused + 16 grouped_conv2d_fused + 1 max_pool2d;
+     per step: 37 conv2d_stats + 16 grouped_conv2d_stats + 53 reductions +
+     1 max_pool2d), then (v) one step of the batch_norm=False ResNeXt-50 at
+     batch 32 (16 grouped_conv2d_train forwards, finite gradients).
+  last lines: the card's name and power limit, the kernels JSON line (per
+  kernel: launches on its main path, max error against the plain version,
+  kernel, plain and library-call ms, and the bound: the larger of the
+  bytes it must move over 3.35 TB/s and its operations over the peak rate
+  of their type, 989 TFLOP/s for bf16 products, 67 TFLOP/s for other
+  arithmetic), then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,14 +120,20 @@ POOL_TOL = 0.0  # a max of the same values is exact in either dtype
 AVG_POOL_TOL = 1e-6
 ARGMAX_MIN = 0.99
 SERVE_BATCHES = (1, 8, 64)  # RN50
-ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121
-THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (256,), "densenet": (256,)}
+ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121, ResNeXt-50
+THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (256,), "densenet": (256,),
+                      "resnext": (256,)}
 IMAGENET_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 REPS = 10  # timed launches per kernel measurement
 IMAGE = 224
 KERNEL_BATCH = 8
 STEP_BATCH = 8  # phases 5 (i), 7 (i)
-LEARN_BATCH, LEARN_STEPS = 32, 10  # phases 5 (ii), 7 (ii)
+LEARN_BATCH, LEARN_STEPS = 32, 10  # phases 5 (ii), 7 (ii), 9 (ii)
+# (ii)'s Adam learning rate. ResNeXt's classifier reads 100,352 non-negative
+# features (no global pool): an Adam step moves each weight by ~lr, so each
+# logit by ~lr·Σx, which at 1e-3 is tens of logits per step and the loss
+# climbs after three steps on both paths; the others read ≤ 2048.
+LEARN_LR = {"resnet": 1e-3, "mobilenet_v1": 1e-3, "densenet": 1e-3, "resnext": 1e-4}
 # zero-lr steps that bring (ii)'s BN running statistics to its batch's:
 # momentum 0.1 leaves 0.9^k of the initial running var (~1), which must be
 # small beside a layer's true var. MobileNet's depthwise outputs (He
@@ -115,22 +144,38 @@ SETTLE_STEPS = 200
 WARMUP, TIMED = 5, 20  # bench.py's protocol
 # bench.py's batch per family (its first choice, 256, fits on an 80 GB card
 # for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
-TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256}
-NOBN_BATCH = 32  # phase 5 (iv)
-FAMILIES = {"resnet": "50", "mobilenet_v1": "v1", "densenet": "121"}
+TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256, "resnext": 256}
+NOBN_BATCH = 32  # phases 5 (iv), 9 (v)
+FAMILIES = {"resnet": "50", "mobilenet_v1": "v1", "densenet": "121", "resnext": "50"}
 # kernel launches per forward (serving) and per train step, per family
 SERVE_LAUNCHES = {
     "resnet": {"conv2d_fused": 53, "max_pool2d": 1},
     "mobilenet_v1": {"conv2d_fused": 14, "depthwise_conv2d": 13},
     "densenet": {"conv2d_fused": 120, "max_pool2d": 1, "avg_pool2d": 3},
+    "resnext": {"conv2d_fused": 37, "grouped_conv2d_fused": 16, "max_pool2d": 1},
 }
 TRAIN_LAUNCHES = {
     "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1},
     "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13},
     "densenet": {"conv2d_stats": 1, "conv2d_stats_reduce": 1, "conv2d_fused": 119,
                  "max_pool2d": 1, "avg_pool2d": 3},
+    "resnext": {"conv2d_stats": 37, "grouped_conv2d_stats": 16, "conv2d_stats_reduce": 53,
+                "max_pool2d": 1},
 }
-OUR_KERNELS = ("conv_kernel<", "stats_reduce_kernel", "pool_kernel<", "depthwise_kernel<")
+OUR_KERNELS = ("conv_kernel<", "stats_reduce_kernel", "pool_kernel<", "depthwise_kernel<",
+               "grouped_conv_kernel<", "bottleneck_kernel<")
+# the block A/B of scripts/tpu_block_ab.py: (H, Cin, Cmid, blocks RN50 chains there)
+BLOCK_SHAPES = ((14, 1024, 256, 6), (28, 512, 128, 4))
+BLOCK_BATCH = 256
+# bottleneck_block vs its plain version: fp32 sums in another order; bf16
+# also h1/h2 roundings one ulp apart (the bar of tests/test_block_kernel.py)
+BLOCK_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)}
+# the bound of a kernel: the H100 SXM's published peaks at 700 W: bf16
+# tensor-core products, other arithmetic at the fp32 CUDA-core rate, device
+# memory
+PEAK_BF16 = 989e12
+PEAK_OTHER = 67e12
+HBM_BPS = 3.35e12
 DEVICE = "cuda"
 
 
@@ -173,29 +218,31 @@ def launches_of(counts: dict) -> dict:
 
 
 def model_layers(model):
-    """(kind, H, W, Cin, Cout, k, stride, pad, relu) of every conv and pool
-    of the model, in forward order, from its own modules. kind: "conv" (a
-    fused ConvBNReLU), "dwconv" (a depthwise conv), "plainconv" (a Conv2d
-    outside a ConvBNReLU), "maxpool", "avgpool"."""
+    """(kind, H, W, Cin, Cout, k, stride, pad, relu, groups) of every conv
+    and pool of the model, in forward order, from its own modules. kind:
+    "conv" (a fused ConvBNReLU), "gconv" (a grouped one), "dwconv" (a
+    depthwise conv), "plainconv" (a Conv2d outside a ConvBNReLU), "maxpool",
+    "avgpool"."""
     from convnets_tpu_torch import nn
 
     out = []
 
     def conv(kind, c, shape, relu):
+        if c.groups > 1:
+            kind = "dwconv" if c.groups == shape[3] else "gconv"
         out.append((kind, shape[1], shape[2], shape[3], c.out_channels, c.kernel[0],
-                    c.stride[0], c.padding[0], relu))
+                    c.stride[0], c.padding[0], relu, c.groups))
 
     def walk(mod, shape):
         if isinstance(mod, nn.ConvBNReLU):
-            c = mod._modules["0"]
-            conv("dwconv" if c.groups > 1 else "conv", c, shape, mod.act)
+            conv("conv", mod._modules["0"], shape, mod.act)
         elif isinstance(mod, nn.Conv2d):
-            conv("dwconv" if mod.groups > 1 else "plainconv", mod, shape, False)
+            conv("plainconv", mod, shape, False)
         elif isinstance(mod, (nn.MaxPool2d, nn.AvgPool2d)):
             kind = "maxpool" if isinstance(mod, nn.MaxPool2d) else "avgpool"
             stride = mod.kernel if mod.stride is None else mod.stride
             out.append((kind, shape[1], shape[2], shape[3], shape[3], mod.kernel, stride,
-                        mod.padding, False))
+                        mod.padding, False, 1))
         elif isinstance(mod, (nn.Add, nn.Concat)):
             for branch in mod._modules.values():
                 walk(branch, shape)
@@ -211,25 +258,74 @@ def model_layers(model):
 
 
 def distinct_shapes(model, kinds=("conv",)):
-    """{(H, W, Cin, Cout, k, stride, pad): [relu flag of each layer]}."""
+    """{(H, W, Cin, Cout, k, stride, pad, groups): [relu flag of each layer]}."""
     distinct = {}
-    for _, h, w, cin, cout, k, s, p, relu in (l for l in model_layers(model) if l[0] in kinds):
-        distinct.setdefault((h, w, cin, cout, k, s, p), []).append(relu)
+    for _, h, w, cin, cout, k, s, p, relu, g in (l for l in model_layers(model)
+                                                 if l[0] in kinds):
+        distinct.setdefault((h, w, cin, cout, k, s, p, g), []).append(relu)
     return distinct
+
+
+def conv_work(n, h, w, cin, cout, k, s, p, groups=1, itemsize=2):
+    """(FLOPs, bytes) of one conv call: 2·M·(k²·Cin/G)·Cout multiply-adds,
+    and x and w read once, y written once, in the dtype of `itemsize`."""
+    from convnets_tpu_torch.core.shapes import conv_out_size
+
+    oh, ow = conv_out_size(h, k, s, p), conv_out_size(w, k, s, p)
+    flops = 2 * n * oh * ow * cout * k * k * (cin // groups)
+    return flops, itemsize * (n * h * w * cin + k * k * (cin // groups) * cout + n * oh * ow * cout)
 
 
 def forward_gflop(model) -> float:
     """Multiply-adds ×2 of the model's convs per image, counted from its
-    modules (the pools, BN and the linear add < 0.1%)."""
-    from convnets_tpu_torch.core.shapes import conv_out_size
-
+    modules (the pools, BN and the linear add < 0.1%, except ResNeXt's
+    100,352 → 1000 classifier, which forward_linear_gflop counts)."""
     total = 0
-    for kind, h, w, cin, cout, k, s, p, _ in model_layers(model):
-        if kind.endswith("pool"):
-            continue
-        depth = 1 if kind == "dwconv" else cin
-        total += 2 * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p) * cout * k * k * depth
+    for kind, h, w, cin, cout, k, s, p, _, g in model_layers(model):
+        if not kind.endswith("pool"):
+            total += conv_work(1, h, w, cin, cout, k, s, p, g)[0]
     return total / 1e9
+
+
+def forward_linear_gflop(model) -> float:
+    """2·in·out of the model's classifier per image."""
+    from convnets_tpu_torch import nn
+
+    return sum(2 * m.weight.numel() for m in model.modules() if isinstance(m, nn.Linear)) / 1e9
+
+
+def entry(summary, name):
+    """A kernel's row of the JSON line: max error, the kernel's, plain
+    version's and library call's ms, and its bound, each summed over the
+    calls added to it."""
+    return summary.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                                     "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
+
+
+def add_times(row, uses, k_ms, p_ms, flops, nbytes, lib_ms=None, peak=PEAK_BF16):
+    """Add `uses` calls of one shape to a row: measured ms, and the bound
+    max(flops / peak, bytes / HBM) of each call."""
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / HBM_BPS
+    row["ms"] += uses * k_ms
+    row["plain_ms"] += uses * p_ms
+    row["ops_ms"] += uses * ops_ms
+    row["bytes_ms"] += uses * bytes_ms
+    row["bound_ms"] += uses * max(ops_ms, bytes_ms)
+    if lib_ms is not None:
+        row["library_ms"] = (row["library_ms"] or 0.0) + uses * lib_ms
+
+
+def nchw(t):
+    """The NCHW view of an NHWC tensor (channels_last in memory), as cuDNN
+    and F's pools take it."""
+    return t.permute(0, 3, 1, 2)
+
+
+def oihw(w):
+    """An HWIO weight as a channels_last OIHW tensor."""
+    import torch
+
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
 
 
 def random_jax_variables(model, seed: int, conv_gain=None) -> dict:
@@ -263,7 +359,10 @@ def random_jax_variables(model, seed: int, conv_gain=None) -> dict:
 
 PLAIN = {"conv2d_fused": "conv2d_fused_plain", "conv2d_stats": "conv2d_stats_plain",
          "max_pool2d": "max_pool2d_plain", "avg_pool2d": "avg_pool2d_plain",
-         "depthwise_conv2d": "depthwise_conv2d_plain"}
+         "depthwise_conv2d": "depthwise_conv2d_plain",
+         "grouped_conv2d_fused": "grouped_conv2d_fused_plain",
+         "grouped_conv2d_stats": "grouped_conv2d_stats_plain",
+         "bottleneck_block": "bottleneck_block_plain"}
 
 
 @contextlib.contextmanager
@@ -310,11 +409,11 @@ def phase_kernels(model, failures):
 
     g = torch.Generator(device=DEVICE).manual_seed(0)
     n = KERNEL_BATCH
-    summary = {"conv2d_fused": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0},
-               "max_pool2d": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    summary = {}
+    conv_row, pool_row = entry(summary, "conv2d_fused"), entry(summary, "max_pool2d")
     say("conv shapes (N=8): H W Cin Cout k s p | dtype relu | max_abs_err tol | "
         "kernel_ms plain_ms cudnn_bf16_ms | uses")
-    for (h, w, cin, cout, k, s, p), relus in sorted(distinct.items()):
+    for (h, w, cin, cout, k, s, p, _), relus in sorted(distinct.items()):
         x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
         w32 = torch.randn(k, k, cin, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cin)
         scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
@@ -323,11 +422,9 @@ def phase_kernels(model, failures):
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
             dname = dname_of(dtype)
             atol, rtol = CONV_TOL[dname]
-            # the same conv through cuDNN in bf16 (channels_last): a library
-            # time for context, not a contract check
-            xc = x32.to(torch.bfloat16).permute(0, 3, 1, 2)
-            wc = w32.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
+            # the same conv through cuDNN in bf16 (channels_last): the
+            # library time, not a contract check
+            xc, wc = nchw(x32.to(torch.bfloat16)), oihw(w32.to(torch.bfloat16))
             cudnn_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p), REPS)
             for relu in (False, True):
                 args = (x, wt, scale, shift)
@@ -346,14 +443,15 @@ def phase_kernels(model, failures):
                 if not ok:
                     failures.append(f"conv {h}x{w} {cin}->{cout} k{k} s{s} {dname} relu={relu}: "
                                     f"err {err:.3e}")
-                summary["conv2d_fused"]["err"] = max(summary["conv2d_fused"]["err"], err)
+                conv_row["err"] = max(conv_row["err"], err)
                 if dtype == torch.bfloat16:
-                    summary["conv2d_fused"]["ms"] += uses * k_ms
-                    summary["conv2d_fused"]["plain_ms"] += uses * p_ms
+                    flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p)
+                    add_times(conv_row, uses, k_ms, p_ms, flops, nbytes + 8 * cout, cudnn_ms)
 
-    _, h, w, c, _, k, s, p, _ = pools[0]
+    _, h, w, c, _, k, s, p, _, _ = pools[0]
     x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
-    say("stem max-pool (N=8): H W C k s p | dtype | max_abs_err | kernel_ms plain_ms")
+    say("stem max-pool (N=8): H W C k s p | dtype | max_abs_err | kernel_ms plain_ms "
+        "F.max_pool2d_ms")
     for dtype in (torch.float32, torch.bfloat16):
         x = x32.to(dtype)
         got = kernels.max_pool2d(x, k, s, p)
@@ -363,16 +461,19 @@ def phase_kernels(model, failures):
         ok = got.shape == ref.shape and err <= POOL_TOL
         k_ms = time_ms(lambda: kernels.max_pool2d(x, k, s, p), REPS)
         p_ms = time_ms(lambda: kernels.max_pool2d_plain(x, k, s, p), REPS)
+        lib_ms = time_ms(lambda: F.max_pool2d(nchw(x), k, s, p), REPS)
         dname = dname_of(dtype)
         say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {'ok' if ok else 'FAIL'} | "
-            f"{k_ms:.4f} {p_ms:.4f}")
+            f"{k_ms:.4f} {p_ms:.4f} {lib_ms:.4f}")
         if not ok:
             failures.append(f"max_pool2d {dname}: err {err:.3e}")
-        summary["max_pool2d"]["err"] = max(summary["max_pool2d"]["err"], err)
+        pool_row["err"] = max(pool_row["err"], err)
         if dtype == torch.bfloat16:
-            summary["max_pool2d"]["ms"], summary["max_pool2d"]["plain_ms"] = k_ms, p_ms
+            add_times(pool_row, 1, k_ms, p_ms, k * k * got.numel(),
+                      2 * (x.numel() + got.numel()), lib_ms, PEAK_OTHER)
     say(f"RN50 conv layers at N=8 bf16, summed over the 53 layers: kernel "
-        f"{summary['conv2d_fused']['ms']:.3f} ms, plain {summary['conv2d_fused']['plain_ms']:.3f} ms")
+        f"{conv_row['ms']:.3f} ms, plain {conv_row['plain_ms']:.3f} ms, cuDNN bf16 "
+        f"{conv_row['library_ms']:.3f} ms, bound {conv_row['bound_ms']:.4f} ms")
     return summary
 
 
@@ -403,17 +504,20 @@ def l2_err(got, ref) -> float:
     return float((got.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30))
 
 
-def check_trainable(name, label, fn, args, dname, g, summary, failures, out_tol):
+def check_trainable(name, label, fn, args, dname, g, summary, failures, out_tol,
+                    work=(0, 0), lib=None, peak=PEAK_BF16):
     """Forward and every gradient of fn(*args), the kernel path against the
-    same function with the plain versions swapped in; fwd+bwd times."""
+    same function with the plain versions swapped in; fwd+bwd times, and
+    those of `lib` (the same function as one PyTorch call, NHWC in and out)
+    where there is one. work: (FLOPs, bytes) of one fwd+bwd in bf16."""
     import torch
 
     cot = None
 
-    def run():
+    def run(f=fn):
         nonlocal cot
         ins = [a.detach().clone().requires_grad_() for a in args]
-        out = fn(*ins)
+        out = f(*ins)
         if cot is None or cot.shape != out.shape:
             cot = torch.randn(out.shape, device=DEVICE, generator=g).to(out.dtype)
         return [out.detach(), *torch.autograd.grad(out, ins, cot)]
@@ -431,18 +535,41 @@ def check_trainable(name, label, fn, args, dname, g, summary, failures, out_tol)
     k_ms = time_ms(run, 3)
     with plain_kernels():
         p_ms = time_ms(run, 3)
+    lib_ms = None if lib is None else time_ms(lambda: run(lib), 3)
     say(f"  {name} {label} | {dname} | {out_err:.2e} ({out_tol:g}) | "
         f"{' '.join(f'{e:.2e}' for e in grad_l2)} ({GRAD_TOL[dname]:g}) "
         f"[{' '.join(f'{e:.1e}' for e in grad_max)}] | {flips} {'ok' if ok else 'FAIL'} | "
-        f"{k_ms:.4f} {p_ms:.4f}")
+        f"{k_ms:.4f} {p_ms:.4f} {'-' if lib_ms is None else f'{lib_ms:.4f}'}")
     if not ok:
         failures.append(f"{name} {label} {dname}: out {out_err:.2e}, gradients {grad_l2}")
-    entry = summary.setdefault(name, {"err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-    entry["err"] = max(entry["err"], max(float((a.float() - b.float()).abs().max())
-                                         for a, b in zip(got, ref)))
+    row = entry(summary, name)
+    row["err"] = max(row["err"], max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, ref)))
     if dname == "bfloat16":
-        entry["ms"] += k_ms
-        entry["plain_ms"] += p_ms
+        add_times(row, 1, k_ms, p_ms, *work, lib_ms, peak)
+
+
+def conv_train_work(n, h, w, cin, cout, k, s, p, groups=1):
+    """(FLOPs, bytes) of a bf16 conv's fwd+bwd: three products (y, dx, dw);
+    x, w and the cotangent read, y, dx and dw written."""
+    flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups)
+    return 3 * flops, 2 * nbytes
+
+
+def conv_lib(s, p, groups=1):
+    """F.conv2d (cuDNN on the card) on NHWC x and HWIO w, NHWC out."""
+    import torch.nn.functional as F
+
+    return lambda a, b: F.conv2d(nchw(a), b.permute(3, 2, 0, 1), stride=s, padding=p,
+                                 groups=groups).permute(0, 2, 3, 1)
+
+
+def pool_lib(mode, k, s, p):
+    """F.max_pool2d / F.avg_pool2d on NHWC x, NHWC out."""
+    import torch.nn.functional as F
+
+    pool = F.max_pool2d if mode == "max" else F.avg_pool2d
+    return lambda a: pool(nchw(a), k, s, p).permute(0, 2, 3, 1)
 
 
 def phase_train_kernels(model, failures):
@@ -452,16 +579,20 @@ def phase_train_kernels(model, failures):
 
     from convnets_tpu_torch.ops import kernels
 
+    import torch.nn.functional as F
+
     lib = kernels.lib()
     g = torch.Generator(device=DEVICE).manual_seed(1)
     n = KERNEL_BATCH
-    names = ("conv2d_stats", "conv2d_stats_reduce", "pool2d_train")
-    summary = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
+    summary = {}
+    stats_row, reduce_row = entry(summary, "conv2d_stats"), entry(summary, "conv2d_stats_reduce")
     say("conv2d_stats (N=8): H W Cin Cout k s p | dtype | y_err tol, Σ rel, Σ² rel (tol) | "
-        "kernel_ms plain_ms | reduce: blocks err kernel_ms plain_ms | uses")
-    for (h, w, cin, cout, k, s, p), relus in sorted(distinct_shapes(model).items()):
+        "kernel_ms plain_ms cudnn_bf16_ms | reduce: blocks err kernel_ms plain_ms | uses")
+    for (h, w, cin, cout, k, s, p, _), relus in sorted(distinct_shapes(model).items()):
         x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
         w32 = torch.randn(k, k, cin, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cin)
+        xc, wc = nchw(x32.to(torch.bfloat16)), oihw(w32.to(torch.bfloat16))
+        cudnn_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p), REPS)
         for dtype in (torch.float32, torch.bfloat16):
             dname = dname_of(dtype)
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
@@ -494,27 +625,31 @@ def phase_train_kernels(model, failures):
             rp_ms = time_ms(lambda: part.sum(0), REPS)
             say(f"  {h} {w} {cin} {cout} {k} {s} {p} | {dname} | {err:.3e} {atol:g}+{rtol:g}|ref|, "
                 f"{e1:.2e}, {e2:.2e} ({STATS_TOL[dname]:g}) {'ok' if ok and r_ok else 'FAIL'} | "
-                f"{k_ms:.4f} {p_ms:.4f} | {blocks} {r_err:.2e} {r_ms:.4f} {rp_ms:.4f} | {len(relus)}")
+                f"{k_ms:.4f} {p_ms:.4f} {cudnn_ms:.4f} | {blocks} {r_err:.2e} {r_ms:.4f} "
+                f"{rp_ms:.4f} | {len(relus)}")
             if not (ok and r_ok):
                 failures.append(f"conv2d_stats {h}x{w} {cin}->{cout} k{k} s{s} {dname}: y {err:.3e}"
                                 f" Σ {e1:.2e} Σ² {e2:.2e} reduce {r_err:.2e}")
-            summary["conv2d_stats"]["err"] = max(summary["conv2d_stats"]["err"], err)
-            summary["conv2d_stats_reduce"]["err"] = max(summary["conv2d_stats_reduce"]["err"], r_err)
+            stats_row["err"] = max(stats_row["err"], err)
+            reduce_row["err"] = max(reduce_row["err"], r_err)
             if dtype == torch.bfloat16:
-                for key, (a, b) in (("conv2d_stats", (k_ms, p_ms)),
-                                    ("conv2d_stats_reduce", (r_ms, rp_ms))):
-                    summary[key]["ms"] += len(relus) * a
-                    summary[key]["plain_ms"] += len(relus) * b
+                flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p)
+                add_times(stats_row, len(relus), k_ms, p_ms, flops, nbytes + 8 * cout, cudnn_ms)
+                # the partials read once, the sums written once; part.sum(0)
+                # is both the plain version and the library call
+                add_times(reduce_row, len(relus), r_ms, rp_ms, part.numel(),
+                          4 * (part.numel() + out.numel()), rp_ms, PEAK_OTHER)
     say(f"RN50 conv2d_stats at N=8 bf16, summed over the 53 layers: kernel "
-        f"{summary['conv2d_stats']['ms']:.3f} ms (reduction alone "
-        f"{summary['conv2d_stats_reduce']['ms']:.3f}), plain "
-        f"{summary['conv2d_stats']['plain_ms']:.3f} ms")
+        f"{stats_row['ms']:.3f} ms (reduction alone {reduce_row['ms']:.3f}), plain "
+        f"{stats_row['plain_ms']:.3f} ms, cuDNN bf16 conv {stats_row['library_ms']:.3f} ms, "
+        f"bound {stats_row['bound_ms']:.4f} ms")
 
     # the trainable functions: forward and every gradient, the kernel path
     # against the same function with the plain versions swapped in
     shapes = [(IMAGE, IMAGE, 3, 64, 7, 2, 3), (IMAGE // 4, IMAGE // 4, 128, 128, 3, 2, 1)]
     say("trainable functions (N=8): fn H Cin Cout k s | dtype | out max|Δ|/max|ref| (tol) | "
-        "gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms plain_ms")
+        "gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms "
+        "plain_ms library_ms")
     for h, w, cin, cout, k, s, p in shapes:
         x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
         w32 = torch.randn(k, k, cin, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cin)
@@ -524,14 +659,17 @@ def phase_train_kernels(model, failures):
             dname = dname_of(dtype)
             x, wt = x32.to(dtype), w32.to(dtype)
             label = f"{h} {cin} {cout} {k} {s}"
+            work = conv_train_work(n, h, w, cin, cout, k, s, p)
             check_trainable("conv_bn_relu_train", label, lambda a, b, c, d: kernels.conv_bn_relu_train(
                 a, b, c, d, s, p)[0], [x, wt, sc32, bi32], dname, g, summary, failures,
-                CONV_TOL[dname][1])
+                CONV_TOL[dname][1], work)
             check_trainable("conv2d_train", label, lambda a, b: kernels.conv2d_train(a, b, s, p),
-                            [x, wt], dname, g, summary, failures, CONV_TOL[dname][1])
+                            [x, wt], dname, g, summary, failures, CONV_TOL[dname][1], work,
+                            conv_lib(s, p))
 
     # the stem pool's dx: the same VJP on the same forward, so exactly equal
-    _, h, w, c, _, k, s, p, _ = [l for l in model_layers(model) if l[0] == "maxpool"][0]
+    _, h, w, c, _, k, s, p, _, _ = [l for l in model_layers(model) if l[0] == "maxpool"][0]
+    pool_row = entry(summary, "pool2d_train")
     x32 = torch.relu(torch.randn(n, h, w, c, device=DEVICE, generator=g))  # tied zeros
     for dtype in (torch.float32, torch.bfloat16):
         dname = dname_of(dtype)
@@ -539,6 +677,11 @@ def phase_train_kernels(model, failures):
         def run():
             xi = x32.to(dtype).requires_grad_()
             out = kernels.pool2d_train(xi, "max", k, s, p)
+            return [out.detach(), *torch.autograd.grad(out, xi, torch.ones_like(out))]
+
+        def run_lib():
+            xi = x32.to(dtype).requires_grad_()
+            out = pool_lib("max", k, s, p)(xi)
             return [out.detach(), *torch.autograd.grad(out, xi, torch.ones_like(out))]
 
         got = run()
@@ -549,13 +692,16 @@ def phase_train_kernels(model, failures):
         k_ms = time_ms(run, REPS)
         with plain_kernels():
             p_ms = time_ms(run, REPS)
+        lib_ms = time_ms(run_lib, REPS)
         say(f"  pool2d_train {h} {c} {k} {s} | {dname} | out and dx max|Δ| {err:.3e} "
-            f"(exact) {'ok' if err <= POOL_TOL else 'FAIL'} | {k_ms:.4f} {p_ms:.4f}")
+            f"(exact) {'ok' if err <= POOL_TOL else 'FAIL'} | {k_ms:.4f} {p_ms:.4f} {lib_ms:.4f}")
         if err > POOL_TOL:
             failures.append(f"pool2d_train {dname}: err {err:.3e}")
-        summary["pool2d_train"]["err"] = max(summary["pool2d_train"]["err"], err)
+        pool_row["err"] = max(pool_row["err"], err)
         if dtype == torch.bfloat16:
-            summary["pool2d_train"]["ms"], summary["pool2d_train"]["plain_ms"] = k_ms, p_ms
+            # x and the cotangent read, y and dx written; k² compares each way
+            add_times(pool_row, 1, k_ms, p_ms, 2 * k * k * got[0].numel(),
+                      4 * (x32.numel() + got[0].numel()), lib_ms, PEAK_OTHER)
     return summary
 
 
@@ -582,12 +728,13 @@ def phase_zoo_kernels(failures):
     distinct MobileNet-v1@224 depthwise shape, avg_pool2d at DenseNet-121's
     transitions, and the trainable depthwise conv and avg pool."""
     import torch
+    import torch.nn.functional as F
 
     from convnets_tpu_torch.models import build_model
     from convnets_tpu_torch.ops import kernels
 
-    mobilenet = build_model("mobilenet_v1", model_setting("mobilenet_v1", 0, True))
-    densenet = build_model("densenet", model_setting("densenet", 0, True))
+    mobilenet = build_model("mobilenet_v1", model_setting("mobilenet_v1", 0, True), device=DEVICE)
+    densenet = build_model("densenet", model_setting("densenet", 0, True), device=DEVICE)
     dw = distinct_shapes(mobilenet, ("dwconv",))
     pools = distinct_shapes(densenet, ("avgpool",))
     n_dw = sum(len(v) for v in dw.values())
@@ -598,12 +745,15 @@ def phase_zoo_kernels(failures):
                         f"{len(pools)} avg pools ({n_avg} layers)")
     g = torch.Generator(device=DEVICE).manual_seed(2)
     n = KERNEL_BATCH
-    summary = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in ("depthwise_conv2d", "avg_pool2d")}
-    say("depthwise_conv2d (N=8): H W C k s p | dtype | max_abs_err tol | kernel_ms plain_ms | uses")
-    for (h, w, c, _, k, s, p), uses in sorted(dw.items()):
+    summary = {}
+    dw_row, avg_row = entry(summary, "depthwise_conv2d"), entry(summary, "avg_pool2d")
+    say("depthwise_conv2d (N=8): H W C k s p | dtype | max_abs_err tol | kernel_ms plain_ms "
+        "cudnn_bf16_ms | uses")
+    for (h, w, c, _, k, s, p, _), uses in sorted(dw.items()):
         x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
         w32 = torch.randn(k, k, 1, c, device=DEVICE, generator=g) / k
+        xc, wc = nchw(x32.to(torch.bfloat16)), oihw(w32.to(torch.bfloat16))
+        cudnn_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, groups=c), REPS)
         for dtype in (torch.float32, torch.bfloat16):
             dname = dname_of(dtype)
             x, wt = x32.to(dtype), w32.to(dtype)
@@ -617,17 +767,17 @@ def phase_zoo_kernels(failures):
             k_ms = time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw), REPS)
             p_ms = time_ms(lambda: kernels.depthwise_conv2d_plain(x, wt, **kw), REPS)
             say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {atol:g}+{rtol:g}|ref| "
-                f"{'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f} | {len(uses)}")
+                f"{'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f} {cudnn_ms:.4f} | {len(uses)}")
             if not ok:
                 failures.append(f"depthwise_conv2d {h}x{w} C{c} s{s} {dname}: err {err:.3e}")
-            summary["depthwise_conv2d"]["err"] = max(summary["depthwise_conv2d"]["err"], err)
+            dw_row["err"] = max(dw_row["err"], err)
             if dtype == torch.bfloat16:
-                summary["depthwise_conv2d"]["ms"] += len(uses) * k_ms
-                summary["depthwise_conv2d"]["plain_ms"] += len(uses) * p_ms
+                add_times(dw_row, len(uses), k_ms, p_ms,
+                          *conv_work(n, h, w, c, c, k, s, p, groups=c), cudnn_ms)
 
     say(f"avg_pool2d (N=8): H W C k s p | dtype | error (fp32: max|Δ|/max|ref| ≤ {AVG_POOL_TOL:g}; "
-        f"bf16: max |Δ|/ulp ≤ 1) | kernel_ms plain_ms | uses")
-    for (h, w, c, _, k, s, p), uses in sorted(pools.items()):
+        f"bf16: max |Δ|/ulp ≤ 1) | kernel_ms plain_ms F.avg_pool2d_ms | uses")
+    for (h, w, c, _, k, s, p, _), uses in sorted(pools.items()):
         x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
         for dtype in (torch.float32, torch.bfloat16):
             dname = dname_of(dtype)
@@ -639,23 +789,24 @@ def phase_zoo_kernels(failures):
             ok = ok and got.shape == ref.shape
             k_ms = time_ms(lambda: kernels.avg_pool2d(x, k, s, p), REPS)
             p_ms = time_ms(lambda: kernels.avg_pool2d_plain(x, k, s, p), REPS)
+            lib_ms = time_ms(lambda: F.avg_pool2d(nchw(x), k, s, p), REPS)
             say(f"  {h} {w} {c} {k} {s} {p} | {dname} | {err:.3e} {'ok' if ok else 'FAIL'} | "
-                f"{k_ms:.4f} {p_ms:.4f} | {len(uses)}")
+                f"{k_ms:.4f} {p_ms:.4f} {lib_ms:.4f} | {len(uses)}")
             if not ok:
                 failures.append(f"avg_pool2d {h}x{w} C{c} {dname}: err {err:.3e}")
-            summary["avg_pool2d"]["err"] = max(summary["avg_pool2d"]["err"],
-                                               float((got.float() - ref.float()).abs().max()))
+            avg_row["err"] = max(avg_row["err"], float((got.float() - ref.float()).abs().max()))
             if dtype == torch.bfloat16:
-                summary["avg_pool2d"]["ms"] += len(uses) * k_ms
-                summary["avg_pool2d"]["plain_ms"] += len(uses) * p_ms
+                add_times(avg_row, len(uses), k_ms, p_ms, k * k * got.numel(),
+                          2 * (x.numel() + got.numel()), lib_ms, PEAK_OTHER)
     say(f"MobileNet-v1 depthwise layers at N=8 bf16, summed over the 13 layers: kernel "
-        f"{summary['depthwise_conv2d']['ms']:.4f} ms, plain "
-        f"{summary['depthwise_conv2d']['plain_ms']:.4f} ms; DenseNet-121 avg pools, summed over "
-        f"the 3: kernel {summary['avg_pool2d']['ms']:.4f} ms, plain "
-        f"{summary['avg_pool2d']['plain_ms']:.4f} ms")
+        f"{dw_row['ms']:.4f} ms, plain {dw_row['plain_ms']:.4f} ms, cuDNN bf16 "
+        f"{dw_row['library_ms']:.4f} ms, bound {dw_row['bound_ms']:.4f} ms; DenseNet-121 avg "
+        f"pools, summed over the 3: kernel {avg_row['ms']:.4f} ms, plain "
+        f"{avg_row['plain_ms']:.4f} ms, F.avg_pool2d {avg_row['library_ms']:.4f} ms")
 
     say("trainable functions (N=8): fn H C s | dtype | out max|Δ|/max|ref| (tol) | "
-        "gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | sign flips | fwd+bwd kernel_ms plain_ms")
+        "gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | sign flips | fwd+bwd kernel_ms plain_ms "
+        "library_ms")
     for h, c, s in ((IMAGE // 4, 128, 1), (IMAGE // 4, 128, 2)):
         x32 = torch.randn(n, h, h, c, device=DEVICE, generator=g)
         w32 = torch.randn(3, 3, 1, c, device=DEVICE, generator=g) / 3
@@ -664,15 +815,19 @@ def phase_zoo_kernels(failures):
             check_trainable("depthwise_train", f"{h} {c} {s}",
                             lambda a, b: kernels.depthwise_train(a, b, s, 1),
                             [x32.to(dtype), w32.to(dtype)], dname, g, summary, failures,
-                            CONV_TOL[dname][1])
-    (h, w, c, _, k, s, p), _ = sorted(pools.items())[-1]  # the first transition, 56²
+                            CONV_TOL[dname][1], conv_train_work(n, h, h, c, c, 3, s, 1, c),
+                            conv_lib(s, 1, c))
+    (h, w, c, _, k, s, p, _), _ = sorted(pools.items())[-1]  # the first transition, 56²
     x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+    out_numel = n * (h // s) * (w // s) * c
     for dtype in (torch.float32, torch.bfloat16):
         dname = dname_of(dtype)
         check_trainable("pool2d_train_avg", f"{h} {c} {k} {s}",
                         lambda a: kernels.pool2d_train(a, "avg", k, s, p), [x32.to(dtype)],
                         dname, g, summary, failures,
-                        AVG_POOL_TOL if dname == "float32" else 2.0 ** -7)
+                        AVG_POOL_TOL if dname == "float32" else 2.0 ** -7,
+                        (2 * k * k * out_numel, 4 * (x32.numel() + out_numel)),
+                        pool_lib("avg", k, s, p), PEAK_OTHER)
     return summary
 
 
@@ -776,7 +931,7 @@ def learn_check(arch, seed, failures):
     y = torch.from_numpy(rng.integers(0, 1000, LEARN_BATCH)).to(DEVICE)
     losses = {}
     for path in ("plain", "kernel"):
-        model = make_model(arch, seed, True, dropout_rate=0.0, learning_rate=1e-3)
+        model = make_model(arch, seed, True, dropout_rate=0.0, learning_rate=LEARN_LR[arch])
         state, step = train_state(model, norm=True, stats=IMAGENET_STATS)
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
             losses[path] = [float(step(state, x, y)[0]) for _ in range(LEARN_STEPS)]
@@ -788,7 +943,8 @@ def learn_check(arch, seed, failures):
         step(state, x, y)
     del state
     falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
-    say(f"(ii) bf16 {arch}, {LEARN_STEPS} Adam steps (lr 1e-3) on one batch of {LEARN_BATCH}, "
+    say(f"(ii) bf16 {arch}, {LEARN_STEPS} Adam steps (lr {LEARN_LR[arch]:g}) on one batch of "
+        f"{LEARN_BATCH}, "
         f"loss per step:\n  kernel {[round(v, 3) for v in losses['kernel']]}\n"
         f"  plain  {[round(v, 3) for v in losses['plain']]}\n"
         f"  kernel path's loss falls: {'ok' if falls else 'FAIL'}")
@@ -797,13 +953,16 @@ def learn_check(arch, seed, failures):
     return model, x.cpu().numpy(), y.cpu().numpy()
 
 
-def nobn_check(seed, failures):
-    """(iv) the batch_norm=False RN50: conv2d_train on every conv."""
+def nobn_check(arch, seed, failures):
+    """The batch_norm=False net, one bf16 Adam step: conv2d_train on every
+    dense conv, grouped_conv2d_train on every grouped one (RN50: phase 5
+    (iv); ResNeXt-50: phase 9 (v)). Its launches are those of the served
+    forward."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
 
-    model = make_model("resnet", seed, True, conv_gain=0.5, batch_norm=False)
+    model = make_model(arch, seed, True, conv_gain=0.5, batch_norm=False)
     state, step = train_state(model, debug=True)
     rng = np.random.default_rng(seed + 4)
     x = torch.from_numpy(rng.integers(0, 256, (NOBN_BATCH, IMAGE, IMAGE, 3),
@@ -815,14 +974,14 @@ def nobn_check(seed, failures):
     loss, _, gnorm = step(state, x, y, generator=gen)
     sync()
     launches = dict(kernels.LAUNCHES)
-    want = launches_of({"conv2d_fused": SERVE_LAUNCHES["resnet"]["conv2d_fused"],
-                        "max_pool2d": SERVE_LAUNCHES["resnet"]["max_pool2d"]})
+    want = launches_of(SERVE_LAUNCHES[arch])
     ok = launches == want and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss))
-    say(f"(iv) bf16 RN50 batch_norm=False, one Adam step at batch {NOBN_BATCH}: launches "
+    say(f"bf16 {arch} batch_norm=False, one Adam step at batch {NOBN_BATCH}: launches "
         f"{launches} (expected {want}); loss {float(loss):.4f}, gradient global norm "
         f"{float(gnorm):.4e} {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"no-BN step: launches {launches}, loss {float(loss)}, |g| {float(gnorm)}")
+        failures.append(f"{arch} no-BN step: launches {launches}, loss {float(loss)}, "
+                        f"|g| {float(gnorm)}")
     return launches
 
 
@@ -835,7 +994,7 @@ def train_throughput(arch, seed, failures):
 
     batch = TRAIN_BATCH[arch]
     model = make_model(arch, seed, True)
-    gflop_train = 3 * forward_gflop(model)
+    gflop_train = 3 * (forward_gflop(model) + forward_linear_gflop(model))
     state, step = train_state(model)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randint(0, 256, (batch, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
@@ -877,7 +1036,7 @@ def train_throughput(arch, seed, failures):
         f"{batch / dt_plain:.1f} img/s ({1e3 * dt_plain:.2f} ms/step; runs "
         f"{[round(1e3 * t, 2) for t in runs['plain']]} ms); peak memory (kernel path) "
         f"{peak / 2 ** 30:.2f} GiB; {rate * gflop_train / 1e3:.2f} TFLOP/s of model "
-        f"arithmetic ({gflop_train:.3f} GFLOP/img: 3 × the forward convs)")
+        f"arithmetic ({gflop_train:.3f} GFLOP/img: 3 × the forward convs and classifier)")
     say(f"    launches per kernel run of {WARMUP + TIMED} steps: {launch_runs} "
         f"(per step expected {want})")
     print_train_profile(arch, step, state, x, y, gen)
@@ -1039,8 +1198,9 @@ def phase_family(arch, seed, failures):
     train step. Returns (serving launches, train launches)."""
     from convnets_tpu_torch.models import build_model
 
-    probe = build_model(arch, model_setting(arch, seed, True))
-    say(f"{arch}@224: forward convs {forward_gflop(probe):.4f} GFLOP/img (mul+add = 2)")
+    probe = build_model(arch, model_setting(arch, seed, True), device=DEVICE)
+    say(f"{arch}@224: forward convs {forward_gflop(probe):.4f} GFLOP/img, classifier "
+        f"{forward_linear_gflop(probe):.4f} (mul+add = 2)")
     del probe
     step_check(arch, seed, failures)
     served = learn_check(arch, seed, failures)
@@ -1048,6 +1208,234 @@ def phase_family(arch, seed, failures):
     del served
     train_launches, _ = train_throughput(arch, seed, failures)
     return serve_launches, train_launches
+
+
+def phase_grouped_kernels(failures):
+    """Phase 8, grouped conv: both epilogues at every distinct
+    ResNeXt-50@224 grouped shape at batch 8, fp32 and bf16, and the two
+    trainable grouped functions at a stride-1 and a stride-2 shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+
+    model = build_model("resnext", model_setting("resnext", 0, True), device=DEVICE)
+    distinct = distinct_shapes(model, ("gconv",))
+    del model
+    n_layers = sum(len(v) for v in distinct.values())
+    if (len(distinct), n_layers) != (7, SERVE_LAUNCHES["resnext"]["grouped_conv2d_fused"]):
+        failures.append(f"ResNeXt-50 walk found {len(distinct)} grouped shapes ({n_layers} layers)")
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    n = KERNEL_BATCH
+    summary = {}
+    fused_row = entry(summary, "grouped_conv2d_fused")
+    stats_row = entry(summary, "grouped_conv2d_stats")
+    say("grouped conv (N=8): H W Cin Cout k s p G | dtype | fused y err, relu=0 / 1 (tol) | "
+        "stats y err, Σ rel, Σ² rel (tol) | fused kernel_ms plain_ms, stats kernel_ms "
+        "plain_ms, cudnn_bf16_ms | uses")
+    for (h, w, cin, cout, k, s, p, groups), relus in sorted(distinct.items()):
+        cg = cin // groups
+        x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
+        w32 = torch.randn(k, k, cg, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cg)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        xc, wc = nchw(x32.to(torch.bfloat16)), oihw(w32.to(torch.bfloat16))
+        cudnn_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, groups=groups), REPS)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            atol, rtol = CONV_TOL[dname]
+            x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
+            errs, ok = [], True
+            for relu in (False, True):
+                kw = dict(stride=s, padding=p, relu=relu)
+                got = kernels.grouped_conv2d_fused(x, wt, groups, scale, shift, **kw)
+                ref = kernels.grouped_conv2d_fused_plain(x, wt, groups, scale, shift, **kw)
+                sync()
+                errs.append(float((got.float() - ref.float()).abs().max()))
+                ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+            kw = dict(stride=s, padding=p)
+            y, s1, s2 = kernels.grouped_conv2d_stats(x, wt, groups, **kw)
+            ry, r1, r2 = kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw)
+            sync()
+            y_err = float((y.float() - ry.float()).abs().max())
+            e1 = float((s1 - r1).abs().max() / ry.float().abs().sum(dim=(0, 1, 2)).max())
+            e2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
+            s_ok = (within(y, ry, atol, rtol) and max(e1, e2) <= STATS_TOL[dname]
+                    and bool(torch.isfinite(s2).all()))
+            relu = relus[0]
+            fk = time_ms(lambda: kernels.grouped_conv2d_fused(x, wt, groups, scale, shift,
+                                                              stride=s, padding=p, relu=relu),
+                         REPS)
+            fp = time_ms(lambda: kernels.grouped_conv2d_fused_plain(
+                x, wt, groups, scale, shift, stride=s, padding=p, relu=relu), REPS)
+            sk = time_ms(lambda: kernels.grouped_conv2d_stats(x, wt, groups, **kw), REPS)
+            sp = time_ms(lambda: kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw), REPS)
+            say(f"  {h} {w} {cin} {cout} {k} {s} {p} {groups} | {dname} | {errs[0]:.3e} / "
+                f"{errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | {y_err:.3e}, "
+                f"{e1:.2e}, {e2:.2e} ({STATS_TOL[dname]:g}) {'ok' if s_ok else 'FAIL'} | "
+                f"{fk:.4f} {fp:.4f}, {sk:.4f} {sp:.4f}, {cudnn_ms:.4f} | {len(relus)}")
+            if not (ok and s_ok):
+                failures.append(f"grouped conv {h}x{w} {cin}->{cout} s{s} G{groups} {dname}: "
+                                f"fused {errs}, stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}")
+            fused_row["err"] = max(fused_row["err"], *errs)
+            stats_row["err"] = max(stats_row["err"], y_err)
+            if dtype == torch.bfloat16:
+                flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups)
+                add_times(fused_row, len(relus), fk, fp, flops, nbytes + 8 * cout, cudnn_ms)
+                add_times(stats_row, len(relus), sk, sp, flops, nbytes + 8 * cout, cudnn_ms)
+    say(f"ResNeXt-50 grouped convs at N=8 bf16, summed over the 16 layers: fused kernel "
+        f"{fused_row['ms']:.4f} ms (plain {fused_row['plain_ms']:.4f}), stats kernel "
+        f"{stats_row['ms']:.4f} ms (plain {stats_row['plain_ms']:.4f}), cuDNN bf16 grouped conv "
+        f"{fused_row['library_ms']:.4f} ms, bound {fused_row['bound_ms']:.4f} ms")
+
+    say("trainable grouped functions (N=8): fn H Cin Cout s G | dtype | out max|Δ|/max|ref| "
+        "(tol) | gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd "
+        "kernel_ms plain_ms library_ms")
+    groups = 32
+    for h, c, s in ((IMAGE // 4, 128, 1), (IMAGE // 4, 256, 2)):
+        x32 = torch.randn(n, h, h, c, device=DEVICE, generator=g)
+        w32 = torch.randn(3, 3, c // groups, c, device=DEVICE, generator=g) / np.sqrt(9 * c // groups)
+        sc32 = 1.0 + 0.1 * torch.randn(c, device=DEVICE, generator=g)
+        bi32 = 0.1 * torch.randn(c, device=DEVICE, generator=g)
+        work = conv_train_work(n, h, h, c, c, 3, s, 1, groups)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            x, wt = x32.to(dtype), w32.to(dtype)
+            label = f"{h} {c} {c} {s} {groups}"
+            check_trainable("grouped_conv2d_train", label,
+                            lambda a, b: kernels.grouped_conv2d_train(a, b, groups, s, 1),
+                            [x, wt], dname, g, summary, failures, CONV_TOL[dname][1], work,
+                            conv_lib(s, 1, groups))
+            check_trainable("conv_bn_relu_train_grouped", label,
+                            lambda a, b, c_, d: kernels.conv_bn_relu_train(
+                                a, b, c_, d, s, 1, groups=groups)[0],
+                            [x, wt, sc32, bi32], dname, g, summary, failures,
+                            CONV_TOL[dname][1], work)
+    return summary
+
+
+def block_args(n, h, cin, cmid, dtype, g):
+    """A random identity bottleneck of tpu_block_ab.py's construction: x,
+    w1 (Cin, Cmid), s1, b1, w2 (3, 3, Cmid, Cmid), s2, b2, w3 (Cmid, Cin),
+    s3, b3; weights in `dtype`, scales U(0.9, 1.1), shifts N(0, 0.01)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=g)
+
+    def uni(c):
+        return 0.9 + 0.2 * torch.rand(c, device=DEVICE, generator=g)
+
+    return [rnd(n, h, h, cin).to(dtype), (rnd(cin, cmid) / np.sqrt(cin)).to(dtype), uni(cmid),
+            0.01 * rnd(cmid), (rnd(3, 3, cmid, cmid) / np.sqrt(9 * cmid)).to(dtype), uni(cmid),
+            0.01 * rnd(cmid), (rnd(cmid, cin) / np.sqrt(cmid)).to(dtype), uni(cin),
+            0.01 * rnd(cin)]
+
+
+def block_work(n, h, cin, cmid):
+    """(FLOPs, bytes) of one bf16 block: three products; x and the weights
+    read once, out written once (h1 and h2 stay on chip)."""
+    flops = 2 * n * h * h * (2 * cin * cmid + 9 * cmid * cmid)
+    return flops, 2 * (2 * n * h * h * cin + 2 * cin * cmid + 9 * cmid * cmid)
+
+
+def serving_composition(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """The block as the port serves RN50 today: three conv2d_fused launches
+    (BN folded into their epilogues), the residual add and the ReLU in
+    x.dtype."""
+    from convnets_tpu_torch.ops import kernels
+
+    cin, cmid = w1.shape
+    h1 = kernels.conv2d_fused(x, w1.reshape(1, 1, cin, cmid), s1, b1, relu=True)
+    h2 = kernels.conv2d_fused(h1, w2, s2, b2, padding=1, relu=True)
+    y = kernels.conv2d_fused(h2, w3.reshape(1, 1, cmid, cin), s3, b3)
+    return (y + x).clamp_min(0)
+
+
+def cudnn_composition(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """The same block through three cuDNN bf16 convs (channels_last) and
+    eager epilogues: a library yardstick, never the port's path."""
+    import torch.nn.functional as F
+
+    cin, cmid = w1.shape
+    xc = nchw(x)
+
+    def bn(y, sc, sh):
+        return y * sc.view(1, -1, 1, 1).to(y.dtype) + sh.view(1, -1, 1, 1).to(y.dtype)
+
+    h1 = bn(F.conv2d(xc, oihw(w1.reshape(1, 1, cin, cmid))), s1, b1).clamp_min(0)
+    h2 = bn(F.conv2d(h1, oihw(w2), padding=1), s2, b2).clamp_min(0)
+    out = (bn(F.conv2d(h2, oihw(w3.reshape(1, 1, cmid, cin))), s3, b3) + xc).clamp_min(0)
+    return out.permute(0, 2, 3, 1)  # NHWC, channels_last in memory
+
+
+def phase_block(failures):
+    """Phase 8, bottleneck_block: checked against its plain version at
+    batch 8 in fp32 and bf16, then the A/B of scripts/tpu_block_ab.py at
+    batch 256 (chains of 6 and 4 blocks). Returns (summary, launches of
+    the kernel arm's timed chains)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    summary = {}
+    row = entry(summary, "bottleneck_block")
+    say("bottleneck_block (N=8): H Cin Cmid | dtype | max_abs_err (tol) | kernel_ms plain_ms")
+    for h, cin, cmid, _ in BLOCK_SHAPES:
+        args32 = block_args(KERNEL_BATCH, h, cin, cmid, torch.float32, g)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            args = [a.to(dtype) if i in (0, 1, 4, 7) else a for i, a in enumerate(args32)]
+            got = kernels.bottleneck_block(*args)
+            ref = kernels.bottleneck_block_plain(*args)
+            sync()
+            err = float((got.float() - ref.float()).abs().max())
+            atol, rtol = BLOCK_TOL[dname]
+            ok = within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+            k_ms = time_ms(lambda: kernels.bottleneck_block(*args), REPS)
+            p_ms = time_ms(lambda: kernels.bottleneck_block_plain(*args), REPS)
+            say(f"  {h} {cin} {cmid} | {dname} | {err:.3e} ({atol:g}+{rtol:g}|ref|) "
+                f"{'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f}")
+            if not ok:
+                failures.append(f"bottleneck_block {h}x{cin}/{cmid} {dname}: err {err:.3e}")
+            row["err"] = max(row["err"], err)
+
+    # the A/B: each arm runs the chain of blocks RN50 runs at that shape
+    arms = {"kernel": kernels.bottleneck_block, "plain": kernels.bottleneck_block_plain,
+            "serving": serving_composition, "cudnn": cudnn_composition}
+    say(f"block A/B (scripts/tpu_block_ab.py's, batch {BLOCK_BATCH}, bf16): shape | arm "
+        f"ms/chain TFLOP/s ratio-to-kernel")
+    launches = 0
+    for h, cin, cmid, chain in BLOCK_SHAPES:
+        args = block_args(BLOCK_BATCH, h, cin, cmid, torch.bfloat16, g)
+
+        def run(block):
+            v = args[0]
+            for _ in range(chain):
+                v = block(v, *args[1:])
+            return v
+
+        times = {}
+        for arm in ("plain", "kernel", "serving", "cudnn"):
+            if arm == "kernel":
+                sync()
+                kernels.reset_launches()
+            with torch.inference_mode():
+                times[arm] = time_ms(lambda: run(arms[arm]), 3)
+            if arm == "kernel":
+                sync()
+                launches += kernels.LAUNCHES["bottleneck_block"]
+        flops, nbytes = block_work(BLOCK_BATCH, h, cin, cmid)
+        for arm, ms in times.items():
+            say(f"  {h}x{cin}/{cmid} x{chain} | {arm} {ms:.3f} {chain * flops / ms / 1e9:.2f} "
+                f"{ms / times['kernel']:.3f}")
+        add_times(row, chain, times["kernel"] / chain, times["plain"] / chain, flops, nbytes,
+                  times["cudnn"] / chain)
+        row.setdefault("serving_ms", 0.0)
+        row["serving_ms"] += times["serving"]
+    return summary, launches
 
 
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
@@ -1067,6 +1455,15 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                          "convnets_tpu/ops/pallas/conv.py:755"),
     "depthwise_train": ("convnets_tpu_torch/ops/kernels/depthwise.py",
                         "convnets_tpu/ops/pallas/conv.py:702"),
+    "grouped_conv2d_fused": ("convnets_tpu_torch/csrc/grouped_conv.cu",
+                             "convnets_tpu/ops/pallas/conv.py:391"),
+    "grouped_conv2d_stats": ("convnets_tpu_torch/csrc/grouped_conv.cu",
+                             "convnets_tpu/ops/pallas/conv.py:543"),
+    "grouped_conv2d_train": ("convnets_tpu_torch/ops/kernels/conv.py",
+                             "convnets_tpu/ops/pallas/conv.py:647"),
+    "conv_bn_relu_train_grouped": ("convnets_tpu_torch/ops/kernels/fused.py",
+                                   "convnets_tpu/ops/pallas/fused.py:35"),
+    "bottleneck_block": ("convnets_tpu_torch/csrc/block.cu", "convnets_tpu/ops/pallas/block.py:122"),
 }
 
 
@@ -1110,7 +1507,7 @@ def main():
     from convnets_tpu_torch.models import build_model
 
     t0 = time.perf_counter()
-    probe = build_model("resnet", model_setting("resnet", args.seed, True))
+    probe = build_model("resnet", model_setting("resnet", args.seed, True), device=DEVICE)
     summary = phase_kernels(probe, failures)
     say(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
@@ -1120,7 +1517,7 @@ def main():
     t0 = time.perf_counter()
     step_check("resnet", args.seed, failures)
     served = learn_check("resnet", args.seed, failures)
-    nobn_launches = nobn_check(args.seed, failures)
+    nobn = {"resnet": nobn_check("resnet", args.seed, failures)}
     train = {"resnet": train_throughput("resnet", args.seed, failures)[0]}
     say(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
@@ -1134,11 +1531,21 @@ def main():
     for arch in ("mobilenet_v1", "densenet"):
         serve[arch], train[arch] = phase_family(arch, args.seed, failures)
     say(f"[phase 7: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    summary.update(phase_grouped_kernels(failures))
+    block_summary, block_launches = phase_block(failures)
+    summary.update(block_summary)
+    say(f"[phase 8: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    serve["resnext"], train["resnext"] = phase_family("resnext", args.seed, failures)
+    nobn["resnext"] = nobn_check("resnext", args.seed, failures)
+    say(f"[phase 9: {time.perf_counter() - t0:.1f} s]")
     say(f"[all phases: {time.perf_counter() - t_all:.1f} s]")
 
     # launches, each from the path that runs the kernel: serving (rows 1, 2,
-    # 3, 9), the b256 train runs (rows 4, 5, 6, 9's depthwise_train) and the
-    # batch_norm=False step (row 7)
+    # 3, 9 and the grouped forward), the b256 train runs (rows 4, 5, 6, 9's
+    # depthwise_train, the grouped statistics), the batch_norm=False steps
+    # (rows 7 and 8) and the block A/B (row 10)
     launches = {"conv2d_fused": serve["resnet"]["conv2d_fused"],
                 "max_pool2d": serve["resnet"]["max_pool2d"],
                 "avg_pool2d": serve["densenet"]["avg_pool2d"],
@@ -1147,14 +1554,26 @@ def main():
                 "conv_bn_relu_train": train["resnet"]["conv2d_stats"],
                 "pool2d_train": train["resnet"]["max_pool2d"],
                 "pool2d_train_avg": train["densenet"]["avg_pool2d"],
-                "conv2d_train": nobn_launches["conv2d_fused"],
+                "conv2d_train": nobn["resnet"]["conv2d_fused"],
                 "depthwise_conv2d": serve["mobilenet_v1"]["depthwise_conv2d"],
-                "depthwise_train": train["mobilenet_v1"]["depthwise_conv2d"]}
+                "depthwise_train": train["mobilenet_v1"]["depthwise_conv2d"],
+                "grouped_conv2d_fused": serve["resnext"]["grouped_conv2d_fused"],
+                "grouped_conv2d_stats": train["resnext"]["grouped_conv2d_stats"],
+                "grouped_conv2d_train": nobn["resnext"]["grouped_conv2d_fused"],
+                "conv_bn_relu_train_grouped": train["resnext"]["grouped_conv2d_stats"],
+                "bottleneck_block": block_launches}
+    for name in SOURCES:
+        if launches[name] <= 0:
+            failures.append(f"{name}: no launch on its main path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": summary[name]["err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
+         "bound_ms": summary[name]["bound_ms"],
+         "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
+                      else "bytes"),
+         "library_ms": summary[name]["library_ms"]}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

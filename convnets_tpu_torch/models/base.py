@@ -98,17 +98,22 @@ def register(name: str):
     return deco
 
 
-def build_model(arch: str, setting, device=None,
+def build_model(arch: str, setting, device="cuda",
                 generator: Optional[torch.Generator] = None) -> Model:
     """Construct under the settings' dtype policy, initialize, move to
-    `device` and switch to eval mode."""
+    `device` and switch to eval mode. The model goes to the card unless the
+    caller asks for another device (`device="cpu"`, as the tests do); with
+    no CUDA device present that default raises rather than falling back."""
     if arch not in _REGISTRY:
         raise KeyError(f"unknown architecture '{arch}'; have {sorted(_REGISTRY)} "
                        f"(the rest of the zoo is ROADMAP.md modules item 9)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"build_model: device {str(device)!r} asked for, but no CUDA "
+                           f"device is available; pass device='cpu' to build on the CPU")
     with nn.use_policy(policy_from_setting(setting)):
         model = _REGISTRY[arch](setting)
     model.registry_name = arch
     model.init(generator)
-    if device is not None:
-        model.to(device)
+    model.to(device)
     return model.eval()

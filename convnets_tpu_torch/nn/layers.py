@@ -3,19 +3,23 @@
 Children carry the JAX variable-path names: Sequential children '0',
 '1', …; ConvBNReLU '0' conv, '1' BN, '2' ReLU; Add and Concat '0', '1', …
 in branch order. Activations are NHWC. Every conv and pool runs a kernel
-of `ops.kernels` in both modes: in eval mode conv2d_fused (BN folded into
-its epilogue), depthwise_conv2d, max_pool2d and avg_pool2d; in train mode
-conv_bn_relu_train (conv2d_stats), conv2d_train, depthwise_train and
-pool2d_train. A depthwise ConvBNReLU runs unfused, as in the JAX package:
-the depthwise kernel, then BatchNorm2d, then ReLU. Train mode updates the
-BN running statistics in place, once per forward. What the port does not
-have yet (grouped convs other than depthwise, dilated convs, Remat in
-train mode) raises NotImplementedError naming the ROADMAP.md item that
-ports it.
+of `ops.kernels` in both modes: in eval mode conv2d_fused and
+grouped_conv2d_fused (BN folded into their epilogue), depthwise_conv2d,
+max_pool2d and avg_pool2d; in train mode conv_bn_relu_train (conv2d_stats
+or grouped_conv2d_stats), conv2d_train, grouped_conv2d_train,
+depthwise_train and pool2d_train. A conv is dense, depthwise or grouped
+(`_check_conv_envelope`, tested in the JAX package's order). A depthwise
+ConvBNReLU runs unfused, as in the JAX package: the depthwise kernel, then
+BatchNorm2d, then ReLU; a grouped one runs fused, as a dense one. Train
+mode updates the BN running statistics in place, once per forward. What
+the port does not have yet (grouped convs outside `fits_grouped`, dilated
+convs, Remat in train mode) raises NotImplementedError naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence
 
 import torch
@@ -32,16 +36,24 @@ def not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
-def _check_conv_envelope(conv: "Conv2d", cin: int) -> bool:
-    """True for a depthwise conv (the depthwise_conv2d kernel), False for a
-    dense one (conv2d_fused); raises for what no ported kernel takes."""
+DENSE, DEPTHWISE, GROUPED = "dense", "depthwise", "grouped"
+
+
+def _check_conv_envelope(conv: "Conv2d", cin: int) -> str:
+    """Which kernel family takes the conv: DENSE (conv2d_fused),
+    DEPTHWISE (depthwise_conv2d) or GROUPED (the grouped kernels), tested
+    in the JAX package's order (nn/layers.py:91-105); raises for what no
+    ported kernel takes."""
     if kernels.fits_conv(conv.stride, conv.dilation, conv.groups):
-        return False
+        return DENSE
     if kernels.fits_depthwise(cin, conv.out_channels, conv.dilation, conv.groups):
-        return True
+        return DEPTHWISE
+    if kernels.fits_grouped(cin, conv.out_channels, conv.stride, conv.dilation, conv.groups):
+        return GROUPED
     if conv.groups > 1:
-        raise not_ported(f"grouped conv (groups={conv.groups}, Cin={cin})",
-                         "Pallas kernels row 8, grouped_conv2d_train")
+        raise not_ported(f"grouped conv (groups={conv.groups}, Cin={cin}, dilation "
+                         f"{conv.dilation}) outside fits_grouped",
+                         "modules item 9, the SKNet/ShuffleNet grouped convs")
     raise not_ported(f"conv with stride {conv.stride}, dilation {conv.dilation}",
                      "kernels conv2d_fused envelope (stride 1 or 2, no dilation)")
 
@@ -88,13 +100,18 @@ class Conv2d(Module):
                                        self.stride, self.padding, self.dilation)
 
     def forward(self, x):
-        depthwise = _check_conv_envelope(self, x.shape[-1])
+        family = _check_conv_envelope(self, x.shape[-1])
         cd = self.policy.compute_dtype
         x, w = x.to(cd), self.weight.to(cd)
-        if depthwise and self.training:
+        if family == DEPTHWISE and self.training:
             y = kernels.depthwise_train(x, w, self.stride, self.padding)
-        elif depthwise:
+        elif family == DEPTHWISE:
             y = kernels.depthwise_conv2d(x, w, stride=self.stride, padding=self.padding)
+        elif family == GROUPED and self.training:
+            y = kernels.grouped_conv2d_train(x, w, self.groups, self.stride, self.padding)
+        elif family == GROUPED:
+            y = kernels.grouped_conv2d_fused(x, w, self.groups, stride=self.stride,
+                                             padding=self.padding)
         elif self.training:
             y = kernels.conv2d_train(x, w, self.stride, self.padding)
         else:
@@ -244,6 +261,16 @@ class GlobalAvgPool2d(Module):
         return ops.global_avg_pool2d(x)
 
 
+class Flatten(Module):
+    """(N, H, W, C) → (N, H·W·C) in NHWC order (nn/layers.py:Flatten)."""
+
+    def out_shape(self, in_shape):
+        return (in_shape[0], math.prod(in_shape[1:]))
+
+    def forward(self, x):
+        return ops.flatten(x)
+
+
 class Identity(Module):
     def forward(self, x):
         return x
@@ -356,12 +383,12 @@ class ConvBNReLU(Sequential):
     kernel's epilogue: s = scale·rsqrt(var + eps) and shift = bias − mean·s
     in fp32, applied after the fp32 accumulation (never folded into the
     weights), then one rounding to the compute dtype. Train mode runs
-    conv_bn_relu_train (the conv2d_stats kernel, batch statistics, ReLU)
-    and then the running update of the JAX layer (:574-583). Children stay
-    '0' Conv2d, '1' BatchNorm2d, ('2' ReLU), so the variable tree is the
-    unfused one. A conv with a bias, and a depthwise conv (which fits
-    neither fused kernel in the JAX package either, :539-547), runs the
-    unfused composition."""
+    conv_bn_relu_train (the conv2d_stats kernel, or grouped_conv2d_stats
+    for a grouped conv; batch statistics, ReLU) and then the running update
+    of the JAX layer (:574-583). Children stay '0' Conv2d, '1'
+    BatchNorm2d, ('2' ReLU), so the variable tree is the unfused one. A
+    conv with a bias, and a depthwise conv (which fits neither fused kernel
+    in the JAX package either, :539-547), runs the unfused composition."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]
@@ -372,19 +399,22 @@ class ConvBNReLU(Sequential):
 
     def forward(self, x):
         conv, bn = self._modules["0"], self._modules["1"]
-        if conv.bias is not None or _check_conv_envelope(conv, x.shape[-1]):
+        family = _check_conv_envelope(conv, x.shape[-1])
+        if conv.bias is not None or family == DEPTHWISE:
             return super().forward(x)
         cd = conv.policy.compute_dtype
+        x, w = x.to(cd), conv.weight.to(cd)
         if self.training:
             out, mean, var = kernels.conv_bn_relu_train(
-                x.to(cd), conv.weight.to(cd), bn.weight, bn.bias, conv.stride,
-                conv.padding, bn.eps, self.act)
+                x, w, bn.weight, bn.bias, conv.stride, conv.padding, bn.eps, self.act,
+                groups=conv.groups)
             bn.update_running(mean, var, out.shape[0] * out.shape[1] * out.shape[2])
             return out
         s, sh = bn.folded()
-        return kernels.conv2d_fused(x.to(cd), conv.weight.to(cd), s, sh,
-                                    stride=conv.stride, padding=conv.padding,
-                                    relu=self.act)
+        kw = dict(stride=conv.stride, padding=conv.padding, relu=self.act)
+        if family == GROUPED:
+            return kernels.grouped_conv2d_fused(x, w, conv.groups, s, sh, **kw)
+        return kernels.conv2d_fused(x, w, s, sh, **kw)
 
 
 def conv_block(out_channels, kernel, stride=1, padding=0, dilation=1, groups=1,

@@ -1,7 +1,7 @@
 """Plain tensor ops, NHWC. Every hand-written kernel lives in `ops.kernels`;
 the functions here are plain PyTorch and serve as the kernels' oracles."""
 
-from convnets_tpu_torch.ops.activations import dropout, relu, softmax  # noqa: F401
+from convnets_tpu_torch.ops.activations import dropout, flatten, relu, softmax  # noqa: F401
 from convnets_tpu_torch.ops.conv import conv2d, conv2d_depthwise, linear  # noqa: F401
 from convnets_tpu_torch.ops.losses import correct_count, cross_entropy_sum  # noqa: F401
 from convnets_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train  # noqa: F401

@@ -15,6 +15,13 @@ def softmax(x, dim=-1):
     return torch.softmax(x, dim=dim)
 
 
+def flatten(x):
+    """All non-batch dims into one, in memory order: (N, H, W, C) NHWC →
+    (N, H·W·C), the order the JAX package's classifier weight expects
+    (ops/activations.py:27-29). No permute to NCHW."""
+    return x.reshape(x.shape[0], -1)
+
+
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None, *, train: bool):
     """Inverted dropout, torch semantics: at train time each element is
     kept with probability 1 - rate and scaled by 1/(1 - rate). The mask

@@ -1,20 +1,23 @@
 """Hand-written CUDA kernels for Hopper (counterpart of convnets_tpu/ops/pallas).
 
-Sources live in `convnets_tpu_torch/csrc/*.cu`. They are compiled with
-nvcc for sm_90a into one shared library with a plain C interface
-(`build/libconvnets_kernels.so`) at first use, rebuilt when a source is
-newer than the library, and bound with ctypes. Nothing is compiled when
-this package is imported.
+Sources live in `convnets_tpu_torch/csrc/*.cu`. At first use each is
+compiled with nvcc for sm_90a, all at once in parallel, and the objects
+are linked into one shared library with a plain C interface
+(`build/libconvnets_kernels.so`), rebuilt when a source is newer than the
+library, and bound with ctypes. Nothing is compiled when this package is
+imported.
 
 Every wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises: there is no fallback on
 the card. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels.
 
-The trainable functions (`conv2d_train`, `conv_bn_relu_train`,
-`depthwise_train`, `pool2d_train`) are `torch.autograd.Function`s: their forwards go through
-the wrappers above, and their backwards are plain PyTorch, as the JAX
-package leaves its backwards to XLA.
+The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
+`conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
+`torch.autograd.Function`s: their forwards go through the wrappers above,
+and their backwards are plain PyTorch, as the JAX package leaves its
+backwards to XLA. `bottleneck_block` (a whole identity bottleneck in one
+launch) has no caller in the models, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libconvnets_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
-                             "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0}
+                             "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
+                             "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
+                             "bottleneck_block": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +66,15 @@ _SIGNATURES = {
     "avg_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
     # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
     "depthwise_launch": [_I, _P, _P, _P] + [_I] * 12 + [_P],
+    # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
+    # groups, relu, stream
+    "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups,
+    # stream
+    "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    "grouped_block_rows": [],
+    # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, stream
+    "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
 }
 
 
@@ -89,24 +103,42 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into LIB_PATH if it is missing or stale; return the
-    compiler's output (register and shared-memory use when `verbose`)."""
+    """Compile csrc/*.cu into LIB_PATH if it is missing or stale: one nvcc
+    per source, all started together, then one link. Returns the
+    compilers' output (register and shared-memory use when `verbose`)."""
     with _lock:
         if not _stale():
             return ""
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, *_sources()]
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+        objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o") for src in _sources()]
+        tmp = f"{LIB_PATH}.{tag}"
+        procs = []
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True)
+            procs += [subprocess.Popen([nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                                       "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(_sources(), objs)]
+            log = []
+            for src, proc in zip(_sources(), procs):
+                out = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}")
+                log.append(out)
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
             os.replace(tmp, LIB_PATH)
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        return r.stdout + r.stderr
+            for proc in procs:  # none outlives a failed build
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for path in (*objs, tmp):
+                if os.path.exists(path):
+                    os.remove(path)
+        return "".join(log) + r.stdout + r.stderr
 
 
 def lib() -> ctypes.CDLL:
@@ -156,6 +188,18 @@ def fits_conv(stride, dilation, groups: int) -> bool:
     return groups == 1 and (dh, dw) == (1, 1) and (sh, sw) in ((1, 1), (2, 2))
 
 
+def fits_grouped(cin: int, cout: int, stride, dilation, groups: int) -> bool:
+    """Envelope of the grouped kernels (grouped_conv2d_fused/_stats and
+    grouped_conv2d_train), that of the JAX package's grouped path
+    (ops/pallas/__init__.py:fits_grouped): 2 <= Cin/G <= 32, at most 64
+    groups, undilated, stride 1 or 2."""
+    sh, sw = to_pair(stride)
+    dh, dw = to_pair(dilation)
+    return (1 < groups <= 64 and cin % groups == 0 and cout % groups == 0
+            and 2 <= cin // groups <= 32 and (dh, dw) == (1, 1)
+            and (sh, sw) in ((1, 1), (2, 2)))
+
+
 def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
     """Envelope of depthwise_conv2d: one filter per channel, multiplier 1
     (cout == cin), undilated; any stride."""
@@ -165,6 +209,8 @@ def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
 
 from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
     conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
+    grouped_conv2d_fused, grouped_conv2d_fused_plain, grouped_conv2d_stats,
+    grouped_conv2d_stats_plain, grouped_conv2d_train,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
     avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_train,
@@ -173,11 +219,16 @@ from convnets_tpu_torch.ops.kernels.depthwise import (  # noqa: E402
     depthwise_conv2d, depthwise_conv2d_plain, depthwise_train,
 )
 from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
+from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
+    bottleneck_block, bottleneck_block_plain, fits_block,
+)
 
 __all__ = [
-    "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "build", "conv2d_fused",
-    "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain", "conv2d_train",
-    "conv_bn_relu_train", "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_train",
-    "fits_conv", "fits_depthwise", "lib", "max_pool2d", "max_pool2d_plain", "pool2d_train",
-    "reset_launches",
+    "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
+    "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain",
+    "conv2d_train", "conv_bn_relu_train", "depthwise_conv2d", "depthwise_conv2d_plain",
+    "depthwise_train", "fits_block", "fits_conv", "fits_depthwise", "fits_grouped",
+    "grouped_conv2d_fused", "grouped_conv2d_fused_plain", "grouped_conv2d_stats",
+    "grouped_conv2d_stats_plain", "grouped_conv2d_train", "lib", "max_pool2d",
+    "max_pool2d_plain", "pool2d_train", "reset_launches",
 ]

@@ -10,10 +10,16 @@ Replaces convnets_tpu/ops/pallas/conv.py:
   values, reduced across blocks in a fixed order by a second kernel.
 - `conv2d_train` (:675): an autograd Function whose forward is
   `conv2d_fused` without epilogue and whose backward is plain PyTorch.
+- `grouped_conv2d_train` (:647) and the grouped ConvBNReLU paths, which
+  the JAX package runs through the two dense kernels on a block-diagonal
+  weight (`block_diag_weight`, :628): here `grouped_conv2d_fused` and
+  `grouped_conv2d_stats` (csrc/grouped_conv.cu) sum each output channel
+  over its own group's kh·kw·Cin/G products only, with the same two
+  epilogues; the weight stays (kh, kw, Cin/G, Cout).
 
 The kernels run on the CUDA cores (fp32 FMA), so on the H100 they are
 compute-bound well below the tensor-core rate; wgmma/TMA tiles are later
-work (see the source note in csrc/conv_fused.cu).
+work (see the source notes in csrc/conv_fused.cu and csrc/grouped_conv.cu).
 """
 
 from __future__ import annotations
@@ -37,15 +43,19 @@ def _epilogue_operands(scale, shift, cout, device):
     return scale.float().reshape(cout), shift.float().reshape(cout)
 
 
-def _conv_geometry(name, x, w, stride, padding):
-    """Check the operands of a conv kernel; return its shape arguments
-    (n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw)."""
+def _conv_geometry(name, x, w, stride, padding, groups=1):
+    """Check the operands of a conv kernel (dense, or grouped when groups >
+    1); return its shape arguments (n, h, w, cin, oh, ow, cout, kh, kw, sh,
+    sw, ph, pw)."""
     n, h, wd, cin = x.shape
     kh, kw, wc, cout = w.shape
-    if wc != cin:
-        raise ValueError(f"{name}: weight expects Cin={wc}, input has {cin}")
+    if wc * groups != cin:
+        raise ValueError(f"{name}: weight expects Cin={wc * groups}, input has {cin}")
     sh, sw = to_pair(stride)
     ph, pw = to_pair(padding)
+    if groups > 1 and not _k.fits_grouped(cin, cout, (sh, sw), 1, groups):
+        raise NotImplementedError(f"{name}: groups={groups} with Cin={cin}, Cout={cout}, "
+                                  f"stride {(sh, sw)} is outside the grouped kernel's envelope")
     if not _k.fits_conv((sh, sw), 1, 1):
         raise NotImplementedError(f"{name}: stride {(sh, sw)} (1 or 2 only)")
     _k.check_cuda_operand(f"{name} x", x)
@@ -58,18 +68,77 @@ def _conv_geometry(name, x, w, stride, padding):
     return n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw
 
 
-def conv2d_fused_plain(x, w, scale: Optional[torch.Tensor] = None,
-                       shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                       relu: bool = False):
-    """The kernel's contract in plain PyTorch: fp32 conv, fp32 epilogue,
-    one cast to x.dtype."""
+def _fused_plain(x, w, scale, shift, stride, padding, relu, groups):
+    """The fused kernels' contract in plain PyTorch: fp32 (grouped) conv,
+    fp32 epilogue, one cast to x.dtype."""
     scale, shift = _epilogue_operands(scale, shift, w.shape[-1], x.device)
-    y = ops.conv2d(x.float(), w.float(), stride=stride, padding=padding)
+    y = ops.conv2d(x.float(), w.float(), stride=stride, padding=padding, groups=groups)
     if scale is not None:
         y = y * scale + shift
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(x.dtype)
+
+
+def _with_sums(y):
+    """(y, Σ, Σ²) over (N, OH, OW) of y.float(): the statistics kernels'
+    contract on the y their plain version gives."""
+    yf = y.float()
+    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+
+
+def _launch_fused(name, symbol, group_args, x, w, scale, shift, stride, padding, relu,
+                  groups=1):
+    """Check the operands, then launch the library's `symbol`
+    (conv_fused_launch, or grouped_fused_launch with its `group_args`) and
+    count it under `name`; returns y (N, OH, OW, Cout)."""
+    geo = _conv_geometry(name, x, w, stride, padding, groups)
+    n, _, _, _, oh, ow, cout = geo[:7]
+    scale, shift = _epilogue_operands(scale, shift, cout, x.device)
+    if scale is not None:
+        scale, shift = scale.contiguous(), shift.contiguous()
+        _k.check_cuda_operand(f"{name} scale", scale, torch.float32)
+        _k.check_cuda_operand(f"{name} shift", shift, torch.float32)
+    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    rc = getattr(_k.lib(), symbol)(
+        _k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(), y.data_ptr(),
+        *geo, *group_args, int(relu), _k.stream_ptr(x))
+    _k.check_launch(name, rc)
+    _k.LAUNCHES[name] += 1
+    return y
+
+
+def _launch_stats(name, symbol, rows_symbol, group_args, x, w, stride, padding, groups=1):
+    """Check the operands, then launch the library's `symbol`
+    (conv_stats_launch, or grouped_stats_launch with its `group_args`: y
+    and per-block partial sums over `rows_symbol()` output pixels each) and
+    the fixed-order reduction kernel; counts both. Returns (y, Σy, Σy²)."""
+    geo = _conv_geometry(name, x, w, stride, padding, groups)
+    n, _, _, _, oh, ow, cout = geo[:7]
+    lib = _k.lib()
+    blocks = -(-(n * oh * ow) // getattr(lib, rows_symbol)())
+    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    partial = torch.empty((blocks, 2, cout), dtype=torch.float32, device=x.device)
+    sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    stream = _k.stream_ptr(x)
+    rc = getattr(lib, symbol)(_k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+                              y.data_ptr(), partial.data_ptr(), *geo, *group_args, stream)
+    _k.check_launch(name, rc)
+    _k.LAUNCHES[name] += 1
+    rc = lib.stats_reduce_launch(partial.data_ptr(), sums.data_ptr(), blocks, cout, stream)
+    _k.check_launch("conv2d_stats_reduce", rc)
+    _k.LAUNCHES["conv2d_stats_reduce"] += 1
+    return y, sums[0], sums[1]
+
+
+def conv2d_fused_plain(x, w, scale: Optional[torch.Tensor] = None,
+                       shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
+                       relu: bool = False):
+    """The kernel's contract in plain PyTorch: fp32 conv, fp32 epilogue,
+    one cast to x.dtype."""
+    return _fused_plain(x, w, scale, shift, stride, padding, relu, 1)
 
 
 def conv2d_fused(x, w, scale: Optional[torch.Tensor] = None,
@@ -82,30 +151,14 @@ def conv2d_fused(x, w, scale: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return conv2d_fused_plain(x, w, scale, shift, stride=stride, padding=padding,
                                   relu=relu)
-    geo = _conv_geometry("conv2d_fused", x, w, stride, padding)
-    n, _, _, _, oh, ow, cout = geo[:7]
-    scale, shift = _epilogue_operands(scale, shift, cout, x.device)
-    if scale is not None:
-        scale, shift = scale.contiguous(), shift.contiguous()
-        _k.check_cuda_operand("conv2d_fused scale", scale, torch.float32)
-        _k.check_cuda_operand("conv2d_fused shift", shift, torch.float32)
-    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    rc = _k.lib().conv_fused_launch(
-        _k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        None if shift is None else shift.data_ptr(), y.data_ptr(),
-        *geo, int(relu), _k.stream_ptr(x))
-    _k.check_launch("conv2d_fused", rc)
-    _k.LAUNCHES["conv2d_fused"] += 1
-    return y
+    return _launch_fused("conv2d_fused", "conv_fused_launch", (), x, w, scale, shift, stride,
+                         padding, relu)
 
 
 def conv2d_stats_plain(x, w, *, stride=1, padding=0):
     """The statistics kernel's contract in plain PyTorch: y as
     conv2d_fused_plain gives it, and Σ, Σ² over (N, OH, OW) of y.float()."""
-    y = conv2d_fused_plain(x, w, stride=stride, padding=padding)
-    yf = y.float()
-    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+    return _with_sums(conv2d_fused_plain(x, w, stride=stride, padding=padding))
 
 
 def conv2d_stats(x, w, *, stride=1, padding=0):
@@ -116,22 +169,45 @@ def conv2d_stats(x, w, *, stride=1, padding=0):
     the conv with per-block partial sums, then their fixed-order sum."""
     if x.device.type == "cpu":
         return conv2d_stats_plain(x, w, stride=stride, padding=padding)
-    geo = _conv_geometry("conv2d_stats", x, w, stride, padding)
-    n, _, _, _, oh, ow, cout = geo[:7]
-    lib = _k.lib()
-    blocks = -(-(n * oh * ow) // lib.conv_block_rows())
-    y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    partial = torch.empty((blocks, 2, cout), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    stream = _k.stream_ptr(x)
-    rc = lib.conv_stats_launch(_k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                               y.data_ptr(), partial.data_ptr(), *geo, stream)
-    _k.check_launch("conv2d_stats", rc)
-    _k.LAUNCHES["conv2d_stats"] += 1
-    rc = lib.stats_reduce_launch(partial.data_ptr(), sums.data_ptr(), blocks, cout, stream)
-    _k.check_launch("conv2d_stats_reduce", rc)
-    _k.LAUNCHES["conv2d_stats_reduce"] += 1
-    return y, sums[0], sums[1]
+    return _launch_stats("conv2d_stats", "conv_stats_launch", "conv_block_rows", (), x, w,
+                         stride, padding)
+
+
+def grouped_conv2d_fused_plain(x, w, groups: int, scale: Optional[torch.Tensor] = None,
+                               shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
+                               relu: bool = False):
+    """The grouped kernel's contract in plain PyTorch: fp32 grouped conv,
+    fp32 epilogue, one cast to x.dtype."""
+    return _fused_plain(x, w, scale, shift, stride, padding, relu, groups)
+
+
+def grouped_conv2d_fused(x, w, groups: int, scale: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
+                         relu: bool = False):
+    """conv2d_fused for a grouped conv: x (N, H, W, Cin), w (kh, kw, Cin/G,
+    Cout) in x.dtype, output channel c reading group c // (Cout/G) only.
+    Envelope `fits_grouped` (2 <= Cin/G <= 32, stride 1 or 2). Returns
+    (N, OH, OW, Cout)."""
+    if x.device.type == "cpu":
+        return grouped_conv2d_fused_plain(x, w, groups, scale, shift, stride=stride,
+                                          padding=padding, relu=relu)
+    return _launch_fused("grouped_conv2d_fused", "grouped_fused_launch", (int(groups),), x, w,
+                         scale, shift, stride, padding, relu, groups)
+
+
+def grouped_conv2d_stats_plain(x, w, groups: int, *, stride=1, padding=0):
+    """The grouped statistics kernel's contract in plain PyTorch."""
+    return _with_sums(grouped_conv2d_fused_plain(x, w, groups, stride=stride, padding=padding))
+
+
+def grouped_conv2d_stats(x, w, groups: int, *, stride=1, padding=0):
+    """conv2d_stats for a grouped conv: (y, Σy, Σy²) of the stored y. Two
+    launches: the grouped conv with per-block partial sums, then the same
+    fixed-order reduction kernel as conv2d_stats."""
+    if x.device.type == "cpu":
+        return grouped_conv2d_stats_plain(x, w, groups, stride=stride, padding=padding)
+    return _launch_stats("grouped_conv2d_stats", "grouped_stats_launch", "grouped_block_rows",
+                         (int(groups),), x, w, stride, padding, groups)
 
 
 def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
@@ -154,20 +230,32 @@ def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
 
 class _Conv2dTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, padding):
+    def forward(ctx, x, w, stride, padding, groups):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding)
-        return _k.conv2d_fused(x, w, stride=stride, padding=padding)
+        ctx.groups = groups
+        if groups == 1:
+            return _k.conv2d_fused(x, w, stride=stride, padding=padding)
+        return _k.grouped_conv2d_fused(x, w, groups, stride=stride, padding=padding)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = conv2d_backward(x, w, g, *ctx.conf, need=ctx.needs_input_grad[:2])
-        return dx, dw, None, None
+        dx, dw = conv2d_backward(x, w, g, *ctx.conf, need=ctx.needs_input_grad[:2],
+                                 groups=ctx.groups)
+        return dx, dw, None, None, None
 
 
 def conv2d_train(x, w, stride=1, padding=0):
     """Trainable conv (conv.py:conv2d_train): forward through the
     conv2d_fused kernel with no epilogue, dx and dw by transposed
     convolution in plain PyTorch."""
-    return _Conv2dTrain.apply(x, w, stride, padding)
+    return _Conv2dTrain.apply(x, w, stride, padding, 1)
+
+
+def grouped_conv2d_train(x, w, groups: int, stride=1, padding=0):
+    """Trainable grouped conv (conv.py:grouped_conv2d_train): forward
+    through the grouped_conv2d_fused kernel with no epilogue, dx and dw by
+    the grouped conv's VJP in plain PyTorch with the cotangent cast to
+    x.dtype (conv.py:662-668); dw comes back (kh, kw, Cin/G, Cout)."""
+    return _Conv2dTrain.apply(x, w, stride, padding, groups)

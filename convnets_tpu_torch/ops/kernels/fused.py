@@ -1,7 +1,9 @@
 """Train-mode conv → batch-stat BN → [ReLU] (counterpart of
 convnets_tpu/ops/pallas/fused.py:conv_bn_relu_train).
 
-Forward: the conv2d_stats kernel gives y and the per-channel Σy, Σy²;
+Forward: the conv2d_stats kernel (grouped_conv2d_stats for groups > 1:
+the per-group sums, not the JAX package's block-diagonal weight, fused.py:
+51-53) gives y and the per-channel Σy, Σy²;
 mean, biased variance and rsqrt are per-channel fp32 work, and normalize
 + ReLU is one elementwise pass in the compute dtype (_fused_fwd_impl,
 fused.py:49-60). Backward (_fused_bwd, :70-103): the ReLU mask is
@@ -21,8 +23,11 @@ from convnets_tpu_torch.ops.norm import _apply_norm, bn_input_grad
 
 class _ConvBNReLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu):
-        y, s1, s2 = _k.conv2d_stats(x, w, stride=stride, padding=padding)
+    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups):
+        if groups == 1:
+            y, s1, s2 = _k.conv2d_stats(x, w, stride=stride, padding=padding)
+        else:
+            y, s1, s2 = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding)
         n = y.shape[0] * y.shape[1] * y.shape[2]
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
@@ -31,14 +36,14 @@ class _ConvBNReLUTrain(torch.autograd.Function):
         out = torch.clamp_min(z, 0.0) if relu else z
         # y (the conv output), not out: x̂ and the ReLU mask are recomputed
         ctx.save_for_backward(x, w, scale, bias, y, mean, inv)
-        ctx.conf = (stride, padding, relu)
+        ctx.conf = (stride, padding, relu, groups)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, g, _dmean, _dvar):
         x, w, scale, bias, y, mean, inv = ctx.saved_tensors
-        stride, padding, relu = ctx.conf
+        stride, padding, relu, groups = ctx.conf
         cd = y.dtype
         n = y.shape[0] * y.shape[1] * y.shape[2]
         xhat = (y - mean.to(cd)) * inv.to(cd)
@@ -50,13 +55,15 @@ class _ConvBNReLUTrain(torch.autograd.Function):
         else:
             dz = g.to(cd)
         dy, dscale, dbias = bn_input_grad(dz, xhat, scale, inv, n)
-        dx, dw = conv2d_backward(x, w, dy, stride, padding, need=ctx.needs_input_grad[:2])
-        return dx, dw, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None
+        dx, dw = conv2d_backward(x, w, dy, stride, padding, need=ctx.needs_input_grad[:2],
+                                 groups=groups)
+        return (dx, dw, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None,
+                None)
 
 
-def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True):
-    """x (N, H, W, Cin) and w (kh, kw, Cin, Cout) in the compute dtype,
-    scale/bias (Cout,) fp32. Returns (out, mean, var): out in x.dtype,
-    mean and biased var fp32 (Cout,) for the caller's running update
-    (they carry no gradient). Dense convs only (groups 1)."""
-    return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu)
+def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1):
+    """x (N, H, W, Cin) and w (kh, kw, Cin/groups, Cout) in the compute
+    dtype, scale/bias (Cout,) fp32; groups > 1 within `fits_grouped`.
+    Returns (out, mean, var): out in x.dtype, mean and biased var fp32
+    (Cout,) for the caller's running update (they carry no gradient)."""
+    return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu, groups)

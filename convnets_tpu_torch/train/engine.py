@@ -41,7 +41,8 @@ def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = F
     or (loss, correct, gradient global norm) when `debug`.
 
     x: (N, H, W, C) uint8 or float batch at the model's input size; y (N,)
-    int labels; w (N,) 0/1 example weights (all ones when None); generator:
+    int labels; w (N,) 0/1 example weights (all ones when None), each moved
+    to the model's device if it lies elsewhere; generator:
     the torch.Generator of the dropout masks, on x's device. loss is the
     batch's CE sum, correct its count of right argmaxes, both fp32 scalars
     on the device. Settings read: weight_decay, grad_clip_norm/gc_max_norm,
@@ -76,8 +77,12 @@ def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = F
         return x.to(compute_dtype)
 
     def train_step(state: TrainState, x, y, w=None, generator: Optional[torch.Generator] = None):
+        # the batch follows the model to its device, never the other way
+        device = next(state.model.parameters()).device
+        x, y = torch.as_tensor(x).to(device), torch.as_tensor(y).to(device)
         if w is None:
-            w = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+            w = torch.ones(x.shape[0], dtype=torch.float32, device=device)
+        w = torch.as_tensor(w).to(device)
         state.model.train()
         x = preprocess(x)
         params = state.params()

@@ -164,8 +164,21 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     for a, b in zip(kernels.conv2d_stats(xt, wt, stride=2, padding=1),
                     kernels.conv2d_stats_plain(xt, wt, stride=2, padding=1)):
         assert torch.equal(a, b)
+    wg = torch.from_numpy(np.random.RandomState(10).randn(3, 3, 2, 16).astype(np.float32))
+    assert torch.equal(kernels.grouped_conv2d_fused(xt, wg, 4, st, sh, stride=2, padding=1),
+                       kernels.grouped_conv2d_fused_plain(xt, wg, 4, st, sh, stride=2, padding=1))
+    for a, b in zip(kernels.grouped_conv2d_stats(xt, wg, 4, padding=1),
+                    kernels.grouped_conv2d_stats_plain(xt, wg, 4, padding=1)):
+        assert torch.equal(a, b)
+    rng = np.random.RandomState(11)
+    block = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+             for shape in ((1, 4, 4, 8), (8, 2), (2,), (2,), (3, 3, 2, 2), (2,), (2,), (2, 8),
+                           (8,), (8,))]
+    assert torch.equal(kernels.bottleneck_block(*block), kernels.bottleneck_block_plain(*block))
     assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
-                                "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0}
+                                "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
+                                "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
+                                "bottleneck_block": 0}
 
 
 def test_non_cpu_non_cuda_tensor_is_refused():
@@ -182,6 +195,16 @@ def test_non_cpu_non_cuda_tensor_is_refused():
         kernels.depthwise_conv2d(x, torch.empty(3, 3, 1, 4, device="meta"), padding=1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.conv2d_stats(x, w, stride=1, padding=1)
+    wg = torch.empty(3, 3, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grouped_conv2d_fused(x, wg, 2, stride=1, padding=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grouped_conv2d_stats(x, wg, 2, stride=1, padding=1)
+    block = [torch.empty(shape, device="meta")
+             for shape in ((1, 8, 8, 4), (4, 2), (2,), (2,), (3, 3, 2, 2), (2,), (2,), (2, 4),
+                           (4,), (4,))]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bottleneck_block(*block)
 
 
 @pytest.mark.parametrize("stride,dilation,groups,fits", [

@@ -58,7 +58,7 @@ def _jax_model(kind):
 
 def _port(kind, variables=None):
     setting, _, jvars = _jax_model(kind)
-    model = build_model("resnet", setting)
+    model = build_model("resnet", setting, device="cpu")
     bridge.load_jax_variables(model, jvars if variables is None else variables)
     return model
 
@@ -147,7 +147,8 @@ def test_bridge_raises_on_a_bad_leaf(case, match):
 
 
 @pytest.mark.parametrize("arch,kind,conv_bn_relus", [
-    ("resnet", "50", 53), ("mobilenet_v1", "v1", 27), ("densenet", "121", 1)])
+    ("resnet", "50", 53), ("mobilenet_v1", "v1", 27), ("densenet", "121", 1),
+    ("resnext", "50", 53)])
 def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
     """The bridge layout of each served configuration at 224² equals the
     tree the JAX init builds (shapes only: nothing is computed)."""
@@ -157,7 +158,7 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
     tree = jax.eval_shape(lambda k: jm.module.init(k, (1, 224, 224, 3)), jax.random.key(0))
     want = {tuple(str(getattr(p, "key", p)) for p in path): tuple(leaf.shape)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
-    model = build_model(arch, setting)
+    model = build_model(arch, setting, device="cpu")
     got = {path: tuple(getattr(mod, name).shape)
            for path, (mod, name) in bridge.jax_layout(model).items()}
     assert got == want
@@ -168,9 +169,10 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
 def test_outside_the_slice_raises_not_implemented(monkeypatch):
     """Train mode runs; what is still outside it raises, naming ROADMAP.md:
     Remat in train mode, DenseNet's shared-statistics block, mixup, and
-    (eval or train) grouped convs other than depthwise."""
+    (eval or train) grouped convs outside fits_grouped: dilated, or with
+    more than 32 input channels per group."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
-                                           mixed_precision=False, remat=True))
+                                           mixed_precision=False, remat=True), device="cpu")
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
     x = torch.from_numpy(_images())
     remat(x)  # eval mode runs the wrapped blocks
@@ -180,12 +182,14 @@ def test_outside_the_slice_raises_not_implemented(monkeypatch):
         m.setenv("CONVNETS_TPU_DENSENET_FUSED", "1")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model("densenet", Settings(kind="121", input_size=(3, 32, 32),
-                                             num_classes=10))
+                                             num_classes=10), device="cpu")
     mixup = Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
                      mixup=0.2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_train_step(create_train_state(build_model("resnet", mixup)))
-    grouped = nn.conv_block(8, 3, padding=1, groups=2)
-    grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        grouped.eval()(torch.zeros(1, 8, 8, 4))
+        build_train_step(create_train_state(build_model("resnet", mixup, device="cpu")))
+    for cin, dilation in ((4, 2), (128, 1)):
+        grouped = nn.conv_block(8, 3, padding=dilation, dilation=dilation, groups=2)
+        grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, cin))
+        for mode in (grouped.eval(), grouped.train()):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                mode(torch.zeros(1, 8, 8, cin))

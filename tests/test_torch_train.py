@@ -202,7 +202,7 @@ def _run_both(setting, steps, arch="resnet"):
     trainer = Trainer(jax_build_model(arch, setting), use_mesh=False)
     trainer.init_state()
     step = trainer._get_train_step(augment=False, norm=True)
-    model = build_model(arch, setting)
+    model = build_model(arch, setting, device="cpu")
     bridge.load_jax_variables(model, {"params": jax.tree.map(np.asarray, trainer.state.params),
                                       "state": jax.tree.map(np.asarray, trainer.state.model_state)})
     state = create_train_state(model)
@@ -280,7 +280,7 @@ def test_bridge_round_trip_of_variables_and_optimizer_state():
     opt = joptim.adam_init(variables["params"])
     opt = opt._replace(count=jnp.asarray(5, jnp.int32),
                        mu=jax.tree.map(lambda a: rng.randn(*a.shape).astype(np.float32), opt.mu))
-    model = build_model("resnet", setting)
+    model = build_model("resnet", setting, device="cpu")
     bridge.load_jax_variables(model, variables)
     back = bridge.export_jax_variables(model)
     for coll in ("params", "state"):
@@ -301,7 +301,7 @@ def test_bridge_round_trip_of_variables_and_optimizer_state():
 
 def test_train_step_refuses_the_data_path():
     setting = _settings("sgd", 1e-3)
-    state = create_train_state(build_model("resnet", setting))
+    state = create_train_state(build_model("resnet", setting, device="cpu"))
     with pytest.raises(NotImplementedError, match="item 7"):
         build_train_step(state, augment=True)
     state.model.setting = _settings("sgd", 1e-3)
