@@ -11,6 +11,13 @@ final line:
      power limit as nvidia-smi reports them.
   1. build: compiles convnets_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
      compiler per source, all started together.
+  1b. SASS: the HGMMA instructions of every tensor-core conv instantiation
+     (cuobjdump -sass; none may have 0), and no bf16 instantiation of the
+     CUDA-core conv loop.
+  2a. conv plans vs plain: every branch of conv_plan (PLAN_SHAPES: the
+     7x7x3 stem at N=1, the 3x3x3 stem, Cin=12, Cout=32, 24 and 27, a 1x1
+     stride-2 p0, Cin=40, M=49 < BM, two RN50 shapes at b256), fp32 and
+     bf16, both epilogues (y with and without scale/shift/ReLU; y, Σy, Σy²).
   2. serving kernels vs plain: every distinct conv shape of the port's own
      RN50@224 modules, at batch 8, fp32 (TF32 off) and bf16, with and
      without ReLU, plus the stem max-pool, each against its plain PyTorch
@@ -19,6 +26,11 @@ final line:
      at every distinct RN50@224 conv shape at batch 8 in fp32 and bf16;
      conv_bn_relu_train and conv2d_train forward and gradients at the stem
      and a 3x3/2 shape; pool2d_train dx at the stem pool (exact).
+  4b. conv2d_fused, conv2d_stats and conv2d_fused with no epilogue (the
+     forward of conv2d_train) in bf16 at batch 256 at every distinct
+     RN50@224 shape, beside cuDNN's bf16 F.conv2d: ms and TFLOP/s per
+     shape, summed by layer use into the kernels line (ms_b256,
+     library_ms_b256, bound_ms_b256).
   5. the train slice, RN50 at 3x224x224, 1000 classes, weights made with
      numpy from --seed in the JAX variable layout and loaded by the bridge:
      (i) one fp32 SGD step at batch 8, kernel path vs plain path (loss,
@@ -77,7 +89,7 @@ final line:
      batch 32 (16 grouped_conv2d_train forwards, finite gradients).
   last lines: the card's name and power limit, the kernels JSON line (per
   kernel: launches on its main path, max error against the plain version,
-  kernel, plain and library-call ms, and the bound: the larger of the
+  kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
   of their type, 989 TFLOP/s for bf16 products, 67 TFLOP/s for other
   arithmetic), then {"ok": true, "device": {...}}.
@@ -162,8 +174,25 @@ TRAIN_LAUNCHES = {
     "resnext": {"conv2d_stats": 37, "grouped_conv2d_stats": 16, "conv2d_stats_reduce": 53,
                 "max_pool2d": 1},
 }
-OUR_KERNELS = ("conv_kernel<", "stats_reduce_kernel", "pool_kernel<", "depthwise_kernel<",
-               "grouped_conv_kernel<", "bottleneck_kernel<")
+OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_kernel<",
+               "depthwise_kernel<", "grouped_conv_kernel<", "bottleneck_kernel<")
+# phase 2a: every branch of conv_plan, (N, H, W, Cin, Cout, k, stride, pad, what)
+PLAN_SHAPES = (
+    (1, 224, 224, 3, 64, 7, 2, 3, "7x7x3 stem at N=1 (scalar gather, K=147)"),
+    (2, 224, 224, 3, 32, 3, 2, 1, "3x3x3 stem (scalar gather, K=27, BN 32)"),
+    (8, 56, 56, 12, 256, 3, 1, 1, "Cin=12 (scalar gather, BN 128)"),
+    (2, 14, 14, 12, 64, 3, 1, 1, "Cin=12 (scalar gather, BN 64)"),
+    (2, 28, 28, 128, 32, 3, 1, 1, "Cout=32 (BN 32)"),
+    (2, 14, 14, 64, 24, 3, 1, 1, "Cout=24 (scalar B load, one ragged tile)"),
+    (2, 14, 14, 64, 27, 3, 1, 1, "Cout=27 (odd: single-value stores)"),
+    (2, 28, 28, 256, 512, 1, 2, 0, "1x1 stride 2 p0"),
+    (2, 14, 14, 40, 64, 1, 1, 0, "Cin=40 (K=40 < 64)"),
+    (1, 7, 7, 512, 2048, 1, 1, 0, "M=49 < BM"),
+    (256, 56, 56, 64, 64, 3, 1, 1, "RN50 b256 3x3 (BN 64)"),
+    (256, 14, 14, 256, 1024, 1, 1, 0, "RN50 b256 1x1 (BN 128)"),
+)
+B256 = 256  # phase 4b: rows 1 and 5 at every RN50@224 shape at this batch
+B256_KEYS = ("ms_b256", "library_ms_b256", "bound_ms_b256")
 # the block A/B of scripts/tpu_block_ab.py: (H, Cin, Cmid, blocks RN50 chains there)
 BLOCK_SHAPES = ((14, 1024, 256, 6), (28, 512, 128, 4))
 BLOCK_BATCH = 256
@@ -194,14 +223,33 @@ def sync():
     torch.cuda.synchronize()
 
 
+_SLEEP_CYCLES_PER_S = []
+
+
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls (CUDA events)."""
+    """Mean device time of fn() over `reps` back-to-back calls (CUDA events).
+    A device-side sleep queued first, about 1.5× the host time the calls
+    take to enqueue (at most 0.2 s), lets the host queue them all before
+    the first starts, so a call that the host launches more slowly than the
+    card runs it (the wrappers at N=8) is timed on the card, not at the
+    host's pace."""
     import torch
 
-    fn()
-    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not _SLEEP_CYCLES_PER_S:  # the sleep's clock, once
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_S.append(1e7 / (start.elapsed_time(end) / 1e3))
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    fn()  # the host time of one call
+    host = time.perf_counter() - t0
+    sync()
+    torch.cuda._sleep(int(_SLEEP_CYCLES_PER_S[0] * min(0.2, 1.5 * reps * host)))
     start.record()
     for _ in range(reps):
         fn()
@@ -572,6 +620,169 @@ def pool_lib(mode, k, s, p):
     return lambda a: pool(nchw(a), k, s, p).permute(0, 2, 3, 1)
 
 
+def conv_out_size(size, k, s, p):
+    from convnets_tpu_torch.core.shapes import conv_out_size as out
+
+    return out(size, k, s, p)
+
+
+def stats_check(got, ref, dname, own=False):
+    """(ok, y max|Δ|, Σ error, Σ² error) of conv2d_stats' (y, Σy, Σy²)
+    against its plain version: y within CONV_TOL, |ΔΣ| / max Σ|y| and
+    |ΔΣ²| / Σ² within STATS_TOL. own: the sums against those of the
+    kernel's own stored y (the epilogue's contract), for shapes with so few
+    rows per channel that y's one-ulp roundings alone move Σ² past the bar
+    (at M = 49 one bf16 ulp of the largest of 49 values moves Σ² by up to
+    2·2⁻⁸·max y² / Σy², ~2e-3); y is still held to the plain version."""
+    import torch
+
+    (y, s1, s2), (ry, r1, r2) = got, ref
+    sync()
+    atol, rtol = CONV_TOL[dname]
+    err = float((y.float() - ry.float()).abs().max())
+    y_ok = within(y, ry, atol, rtol)
+    if own:
+        ry, yf = y, y.float()
+        r1, r2 = yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+    e1 = float((s1 - r1).abs().max() / ry.float().abs().sum(dim=(0, 1, 2)).max().clamp_min(1e-30))
+    e2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
+    ok = y_ok and max(e1, e2) <= STATS_TOL[dname] and bool(torch.isfinite(s2).all())
+    return ok, err, e1, e2
+
+
+def phase_conv_plans(failures):
+    """Phase 2a: every branch of conv_plan (PLAN_SHAPES) against the plain
+    versions, fp32 and bf16, both epilogues: y without and with
+    scale/shift/ReLU; y, Σy, Σy² (the sums against those of the kernel's
+    own stored y, see stats_check)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    say("conv plans: N H W Cin Cout k s p | dtype plan | fused y err, relu=0 / 1 (tol) | "
+        "stats y err, Σ rel, Σ² rel (tol) | what")
+    for n, h, w, cin, cout, k, s, p, what in PLAN_SHAPES:
+        x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
+        w32 = torch.randn(k, k, cin, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cin)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        m = n * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            atol, rtol = CONV_TOL[dname]
+            x, wt = x32.to(dtype), w32.to(dtype)
+            plan = kernels.conv_plan(dtype, m, cin, cout)
+            errs, ok = [], plan.route == ("wgmma" if dtype == torch.bfloat16 else "simt")
+            for epi in (None, (scale, shift)):
+                kw = dict(stride=s, padding=p, relu=epi is not None)
+                got = kernels.conv2d_fused(x, wt, *(epi or ()), **kw)
+                ref = kernels.conv2d_fused_plain(x, wt, *(epi or ()), **kw)
+                sync()
+                errs.append(float((got.float() - ref.float()).abs().max()))
+                ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+                del got, ref
+            kw = dict(stride=s, padding=p)
+            s_ok, y_err, e1, e2 = stats_check(kernels.conv2d_stats(x, wt, **kw),
+                                              kernels.conv2d_stats_plain(x, wt, **kw), dname,
+                                              own=True)
+            say(f"  {n} {h} {w} {cin} {cout} {k} {s} {p} | {dname} {plan.route} {plan.bm}x{plan.bn} "
+                f"{plan.gather} | {errs[0]:.3e} / {errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) "
+                f"{'ok' if ok else 'FAIL'} | {y_err:.3e}, {e1:.2e}, {e2:.2e} "
+                f"({STATS_TOL[dname]:g}) {'ok' if s_ok else 'FAIL'} | {what}")
+            if not (ok and s_ok):
+                failures.append(f"conv plan {what} {dname}: fused {errs}, stats y {y_err:.3e} "
+                                f"Σ {e1:.2e} Σ² {e2:.2e}")
+        del x32, w32
+
+
+def phase_b256_conv(model, summary):
+    """Phase 4b: rows 1 and 5 in bf16 at batch B256 at every distinct
+    RN50@224 conv shape, and row 7's forward (conv2d_fused with no
+    epilogue), beside cuDNN's bf16 F.conv2d on the same inputs
+    (channels_last), each summed by layer use into the rows' ms_b256,
+    library_ms_b256 and bound_ms_b256."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    fused, stats = summary["conv2d_fused"], summary["conv2d_stats"]
+    train = entry(summary, "conv2d_train")
+    for row in (fused, stats, train):
+        row.update(dict.fromkeys(B256_KEYS, 0.0))
+    total = 0
+    say(f"conv at batch {B256}, bf16: H W Cin Cout k s p | plan | conv2d_fused ms TFLOP/s | "
+        f"conv2d_stats ms TFLOP/s | no epilogue (row 7's forward) ms | cuDNN ms TFLOP/s | "
+        f"bound ms | uses")
+    for (h, w, cin, cout, k, s, p, _), relus in sorted(distinct_shapes(model).items()):
+        x = torch.randn(B256, h, w, cin, device=DEVICE, generator=g).to(torch.bfloat16)
+        wt = (torch.randn(k, k, cin, cout, device=DEVICE, generator=g)
+              / np.sqrt(k * k * cin)).to(torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        xc, wc = nchw(x), oihw(wt)
+        f_ms = time_ms(lambda: kernels.conv2d_fused(x, wt, scale, shift, stride=s, padding=p,
+                                                    relu=True), REPS)
+        s_ms = time_ms(lambda: kernels.conv2d_stats(x, wt, stride=s, padding=p), REPS)
+        t_ms = time_ms(lambda: kernels.conv2d_fused(x, wt, stride=s, padding=p), REPS)
+        c_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p), REPS)
+        flops, nbytes = conv_work(B256, h, w, cin, cout, k, s, p)
+        bound = 1e3 * max(flops / PEAK_BF16, (nbytes + 8 * cout) / HBM_BPS)
+        uses = len(relus)
+        total += uses * flops
+        m = B256 * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)
+        plan = kernels.conv_plan(torch.bfloat16, m, cin, cout)
+        say(f"  {h} {w} {cin} {cout} {k} {s} {p} | {plan.bm}x{plan.bn} {plan.gather} | "
+            f"{f_ms:.4f} {flops / f_ms / 1e9:.1f} | {s_ms:.4f} {flops / s_ms / 1e9:.1f} | "
+            f"{t_ms:.4f} | {c_ms:.4f} {flops / c_ms / 1e9:.1f} | {bound:.4f} | {uses}")
+        for row, ms in ((fused, f_ms), (stats, s_ms), (train, t_ms)):
+            row["ms_b256"] += uses * ms
+            row["library_ms_b256"] += uses * c_ms
+            row["bound_ms_b256"] += uses * bound
+        del x, wt, xc, wc
+    lib_ms = fused["library_ms_b256"]
+    say(f"RN50 conv layers at b{B256} bf16, summed over the 53 layers ({total / 1e9:.1f} GFLOP): "
+        f"conv2d_fused {fused['ms_b256']:.3f} ms ({total / fused['ms_b256'] / 1e9:.1f} TFLOP/s, "
+        f"{fused['ms_b256'] / lib_ms:.3f}x cuDNN), conv2d_stats {stats['ms_b256']:.3f} ms "
+        f"({total / stats['ms_b256'] / 1e9:.1f} TFLOP/s, {stats['ms_b256'] / lib_ms:.3f}x cuDNN), "
+        f"no epilogue {train['ms_b256']:.3f} ms, cuDNN bf16 {lib_ms:.3f} ms ({total / lib_ms / 1e9:.1f} TFLOP/s), bound "
+        f"{fused['bound_ms_b256']:.4f} ms")
+
+
+def sass_check(failures):
+    """Phase 1b: HGMMA instructions in the SASS of each tensor-core conv
+    instantiation of the built library (each must have some), and no bf16
+    instantiation of the CUDA-core loop `conv_kernel`."""
+    import shutil
+
+    from convnets_tpu_torch.ops import kernels
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    r = subprocess.run([tool, "-sass", kernels.LIB_PATH], capture_output=True, text=True)
+    if r.returncode != 0:
+        failures.append(f"cuobjdump -sass failed ({r.returncode}): {r.stderr.strip()[:300]}")
+        return
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    wgmma = {f: c for f, c in counts.items() if "conv_wgmma_kernel" in f}
+    simt_bf16 = [f for f in counts if "11conv_kernelI" in f and "bfloat16" in f]
+    say(f"SASS: HGMMA instructions per conv_wgmma_kernel instantiation "
+        f"{sorted(wgmma.values())} (total {sum(wgmma.values())}, {len(wgmma)} instantiations); "
+        f"bf16 instantiations of the CUDA-core conv_kernel: {len(simt_bf16)}")
+    if not wgmma or min(wgmma.values()) == 0:
+        failures.append(f"HGMMA count per conv_wgmma_kernel instantiation: {wgmma}")
+    if simt_bf16:
+        failures.append(f"bf16 CUDA-core conv loop in the library: {simt_bf16}")
+
+
 def phase_train_kernels(model, failures):
     """conv2d_stats at every distinct RN50@224 conv shape; conv_bn_relu_train,
     conv2d_train and pool2d_train forward + gradients, kernel vs plain."""
@@ -597,19 +808,14 @@ def phase_train_kernels(model, failures):
             dname = dname_of(dtype)
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
             kw = dict(stride=s, padding=p)
-            y, s1, s2 = kernels.conv2d_stats(x, wt, **kw)
-            ry, r1, r2 = kernels.conv2d_stats_plain(x, wt, **kw)
-            sync()
+            ok, err, e1, e2 = stats_check(kernels.conv2d_stats(x, wt, **kw),
+                                          kernels.conv2d_stats_plain(x, wt, **kw), dname)
             atol, rtol = CONV_TOL[dname]
-            err = float((y.float() - ry.float()).abs().max())
-            e1 = float((s1 - r1).abs().max() / ry.float().abs().sum(dim=(0, 1, 2)).max())
-            e2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
-            ok = (within(y, ry, atol, rtol) and max(e1, e2) <= STATS_TOL[dname]
-                  and bool(torch.isfinite(s2).all()))
             k_ms = time_ms(lambda: kernels.conv2d_stats(x, wt, **kw), REPS)
             p_ms = time_ms(lambda: kernels.conv2d_stats_plain(x, wt, **kw), REPS)
             # the reduction alone, on partial sums of this shape's block count
-            blocks = -(-(n * y.shape[1] * y.shape[2]) // lib.conv_block_rows())
+            m = n * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)
+            blocks = kernels.conv_plan(dtype, m, cin, cout).partial_rows(m)
             part = torch.randn(blocks, 2, cout, device=DEVICE, generator=g)
             out = torch.empty(2, cout, device=DEVICE)
 
@@ -1255,14 +1461,9 @@ def phase_grouped_kernels(failures):
                 errs.append(float((got.float() - ref.float()).abs().max()))
                 ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
             kw = dict(stride=s, padding=p)
-            y, s1, s2 = kernels.grouped_conv2d_stats(x, wt, groups, **kw)
-            ry, r1, r2 = kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw)
-            sync()
-            y_err = float((y.float() - ry.float()).abs().max())
-            e1 = float((s1 - r1).abs().max() / ry.float().abs().sum(dim=(0, 1, 2)).max())
-            e2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
-            s_ok = (within(y, ry, atol, rtol) and max(e1, e2) <= STATS_TOL[dname]
-                    and bool(torch.isfinite(s2).all()))
+            s_ok, y_err, e1, e2 = stats_check(
+                kernels.grouped_conv2d_stats(x, wt, groups, **kw),
+                kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw), dname)
             relu = relus[0]
             fk = time_ms(lambda: kernels.grouped_conv2d_fused(x, wt, groups, scale, shift,
                                                               stride=s, padding=p, relu=relu),
@@ -1439,10 +1640,10 @@ def phase_block(failures):
 
 
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
-    "conv2d_fused": ("convnets_tpu_torch/csrc/conv_fused.cu", "convnets_tpu/ops/pallas/conv.py:391"),
+    "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
     "avg_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:94"),
-    "conv2d_stats": ("convnets_tpu_torch/csrc/conv_fused.cu", "convnets_tpu/ops/pallas/conv.py:543"),
+    "conv2d_stats": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:543"),
     "conv2d_stats_reduce": ("convnets_tpu_torch/csrc/conv_fused.cu",
                             "convnets_tpu/ops/pallas/conv.py:543"),
     "conv_bn_relu_train": ("convnets_tpu_torch/ops/kernels/fused.py",
@@ -1504,16 +1705,23 @@ def main():
             say("  ptxas: " + line.strip())
 
     failures = []
+    sass_check(failures)
     from convnets_tpu_torch.models import build_model
 
+    t0 = time.perf_counter()
+    phase_conv_plans(failures)
+    say(f"[phase 2a: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     probe = build_model("resnet", model_setting("resnet", args.seed, True), device=DEVICE)
     summary = phase_kernels(probe, failures)
     say(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     summary.update(phase_train_kernels(probe, failures))
-    del probe
     say(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    phase_b256_conv(probe, summary)
+    del probe
+    say(f"[phase 4b: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     step_check("resnet", args.seed, failures)
     served = learn_check("resnet", args.seed, failures)
@@ -1573,7 +1781,8 @@ def main():
          "bound_ms": summary[name]["bound_ms"],
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
-         "library_ms": summary[name]["library_ms"]}
+         "library_ms": summary[name]["library_ms"],
+         **{k: summary[name][k] for k in B256_KEYS if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

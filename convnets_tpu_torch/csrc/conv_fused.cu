@@ -1,5 +1,6 @@
-// Implicit-GEMM 2-D convolution with two epilogues, chosen by a template
-// parameter over one main loop:
+// The dense 2-D convolution (implicit GEMM): its entry points, its fp32
+// main loop and the fixed-order reduction of the statistics. Two
+// epilogues, chosen by a template parameter over each main loop:
 //
 //  * conv_fused (STATS = false): per-channel scale/shift (inference
 //    BatchNorm folded in) and optional ReLU. Replaces
@@ -17,26 +18,30 @@
 //    partial sums and stats_reduce_kernel adds the partials in a fixed
 //    order. No atomics: a step is bit-reproducible on one card.
 //
+// The entry points take the plan that ops/kernels/conv.py:conv_plan
+// chooses: route 1 (bf16) runs the tensor-core main loop of
+// csrc/conv_wgmma.cu; route 0 (fp32) runs the CUDA-core loop below, which
+// serves the fp32 paths (the kernel-vs-plain checks in fp32): tensor-core
+// TF32 would not hold their bars. No bf16 call reaches the CUDA-core loop.
+//
 // Strides and padding are addressed directly: there is no space-to-depth
 // rewrite, no 1x1 decimation and no padded copy of the input.
 //
-// GEMM view: rows M = N*OH*OW output pixels, columns Cout, depth
-// K = kh*kw*Cin. A block owns a BM x BN output tile and walks K in BK
-// steps; each step gathers the input window (A, zero outside the image)
-// and a weight tile (B) into shared memory as fp32, and every thread
+// The fp32 loop, GEMM view: rows M = N*OH*OW output pixels, columns Cout,
+// depth K = kh*kw*Cin. A block owns a BM x BN output tile and walks K in
+// BK steps; each step gathers the input window (A, zero outside the
+// image) and a weight tile (B) into shared memory, and every thread
 // accumulates a TM x TN micro-tile in registers. The next step's global
 // loads are issued before the current step's FMAs (register prefetch).
-//
-// What bounds it on the H100: the FMAs run on the CUDA cores (fp32 SIMT),
-// so at RN50 widths it is compute-bound at a fraction of the tensor-core
-// rate. The stats epilogue adds 8 KB of shared memory per block and
-// writes ceil(M/BM)*2*Cout floats of partials, which stats_reduce_kernel
-// reads once: small beside the conv at every RN50 shape. Left for later:
-// wgmma on bf16 tiles fed by TMA through a multi-stage shared-memory
-// ring, and a persistent tile scheduler.
+// It is compute-bound on the CUDA cores (67 TFLOP/s fp32 on the H100);
+// only checks run it, so it is kept simple.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
+
+// csrc/conv_wgmma.cu
+int conv_wgmma_run(int stats, int bn, int vec_a, const void* x, const void* w,
+                   const void* scale, const void* shift, void* y, void* partial,
+                   const int* geo, int relu, void* stream);
 
 namespace {
 
@@ -53,27 +58,18 @@ constexpr int BPAD = BN + 4;
 static_assert(THREADS == 256, "loader mapping assumes 256 threads");
 static_assert(BK * BN == THREADS * 4, "B loader moves 4 values per thread");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 struct ConvShape {
   int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw;
 };
 
 // STATS = false: scale/shift/relu epilogue, `partial` unused.
 // STATS = true: no scale/shift/relu; partial[blockIdx.x][0|1][c] receives
-// this block's sum and sum of squares of the rounded y of channel c.
-template <typename T, bool STATS>
+// this block's sum and sum of squares of the stored y of channel c.
+template <bool STATS>
 __global__ void __launch_bounds__(THREADS)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
+conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
             const float* __restrict__ scale, const float* __restrict__ shift,
-            T* __restrict__ y, float* __restrict__ partial, ConvShape s,
+            float* __restrict__ y, float* __restrict__ partial, ConvShape s,
             int relu) {
   __shared__ __align__(16) float As[BK][APAD];
   __shared__ __align__(16) float Bs[BK][BPAD];
@@ -129,14 +125,14 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
       const int iw = a_iw[r] + kx;
       float v = 0.f;
       if (k_ok && (unsigned)ih < (unsigned)s.h && (unsigned)iw < (unsigned)s.w)
-        v = to_f(x[a_base[r] + (ih * s.w + iw) * s.cin + ci]);
+        v = x[a_base[r] + (ih * s.w + iw) * s.cin + ci];
       a_reg[r] = v;
     }
     const int kb = k0 + b_k;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = n0 + b_n + j;
-      b_reg[j] = (kb < K && c < s.cout) ? to_f(wt[kb * s.cout + c]) : 0.f;
+      b_reg[j] = (kb < K && c < s.cout) ? wt[kb * s.cout + c] : 0.f;
     }
   };
 
@@ -170,7 +166,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   }
 
   if constexpr (!STATS) {
-    // epilogue: fp32 scale/shift, ReLU, one rounding to T
+    // epilogue: fp32 scale/shift, ReLU
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = n0 + tx * TN + j;
@@ -184,11 +180,11 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         float v = acc[i][j];
         if (scale) v = v * sc + sf;
         if (relu) v = fmaxf(v, 0.f);
-        y[m * s.cout + c] = from_f<T>(v);
+        y[m * s.cout + c] = v;
       }
     }
   } else {
-    // epilogue: one rounding to T, then the sums of the rounded values.
+    // epilogue: store y, then the sums of the stored values.
     // Rows past M and columns past Cout contribute nothing. Each thread
     // sums its TM rows, then thread c of the block adds the BM/TM row
     // groups of column c in order.
@@ -202,9 +198,8 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         for (int i = 0; i < TM; ++i) {
           const int m = m0 + ty * TM + i;
           if (m >= M) continue;
-          const T v = from_f<T>(acc[i][j]);
-          y[m * s.cout + c] = v;
-          const float r = to_f(v);
+          const float r = acc[i][j];
+          y[m * s.cout + c] = r;
           s1 += r;
           s2 = fmaf(r, r, s2);
         }
@@ -256,56 +251,62 @@ stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out,
 }
 
 template <bool STATS>
-int launch_conv(int dtype, const void* x, const void* w, const void* scale,
-                const void* shift, void* y, void* partial, const ConvShape& s,
-                int relu, void* stream) {
+int launch_simt(const void* x, const void* w, const void* scale, const void* shift, void* y,
+                void* partial, const ConvShape& s, int relu, void* stream) {
   const int M = s.n * s.oh * s.ow;
   const dim3 grid((M + BM - 1) / BM, (s.cout + BN - 1) / BN);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* sf = static_cast<const float*>(shift);
-  float* part = static_cast<float*>(partial);
-  if (dtype == 0) {
-    conv_kernel<float, STATS><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, sf,
-        static_cast<float*>(y), part, s, relu);
-  } else if (dtype == 1) {
-    conv_kernel<__nv_bfloat16, STATS><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), sc, sf,
-        static_cast<__nv_bfloat16*>(y), part, s, relu);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  conv_kernel<STATS><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<float*>(y), static_cast<float*>(partial), s, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+// route 0: the fp32 CUDA-core loop (BM 128, BN 64, scalar gather); route 1:
+// the bf16 tensor-core loop (BM 128, BN 32/64/128, gather 0 scalar or 1
+// vector). Anything else is refused.
+int run_plan(bool stats, int dtype, int route, int bm, int bn, int gather, const void* x,
+             const void* w, const void* scale, const void* shift, void* y, void* partial,
+             const int* geo, int relu, void* stream) {
+  if (route == 0 && dtype == 0 && bm == BM && bn == BN && gather == 0) {
+    const ConvShape s{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
+                      geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
+    return stats ? launch_simt<true>(x, w, nullptr, nullptr, y, partial, s, 0, stream)
+                 : launch_simt<false>(x, w, scale, shift, y, nullptr, s, relu, stream);
+  }
+  if (route == 1 && dtype == 1 && bm == 128 && (gather == 0 || gather == 1))
+    return conv_wgmma_run(stats, bn, gather, x, w, scale, shift, y, partial, geo, relu, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Output pixels per block: conv_stats writes ceil(N*OH*OW / this) rows of
-// partial sums.
-extern "C" int conv_block_rows() { return BM; }
-
 // dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (no epilogue)
-// or both (Cout,) fp32. Returns cudaGetLastError() after the launch.
+// or both (Cout,) fp32. route, bm, bn, gather: the plan of
+// ops/kernels/conv.py:conv_plan. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a plan that is not built.
 extern "C" int conv_fused_launch(int dtype, const void* x, const void* w,
                                  const void* scale, const void* shift, void* y,
                                  int n, int h, int wd, int cin, int oh, int ow,
                                  int cout, int kh, int kw, int sh, int sw,
-                                 int ph, int pw, int relu, void* stream) {
-  const ConvShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
-  return launch_conv<false>(dtype, x, w, scale, shift, y, nullptr, s, relu, stream);
+                                 int ph, int pw, int route, int bm, int bn,
+                                 int gather, int relu, void* stream) {
+  const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+  return run_plan(false, dtype, route, bm, bn, gather, x, w, scale, shift, y, nullptr, geo,
+                  relu, stream);
 }
 
-// y = conv(x, w) in x's dtype, and partial (ceil(M / conv_block_rows()),
-// 2, Cout) fp32 per-block sums of y and y*y. Returns cudaGetLastError().
+// y = conv(x, w) in x's dtype, and partial (ceil(M / bm), 2, Cout) fp32
+// per-block sums of y and y*y. Returns as conv_fused_launch.
 extern "C" int conv_stats_launch(int dtype, const void* x, const void* w,
                                  void* y, void* partial, int n, int h, int wd,
                                  int cin, int oh, int ow, int cout, int kh,
                                  int kw, int sh, int sw, int ph, int pw,
+                                 int route, int bm, int bn, int gather,
                                  void* stream) {
-  const ConvShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
-  return launch_conv<true>(dtype, x, w, nullptr, nullptr, y, partial, s, 0, stream);
+  const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+  return run_plan(true, dtype, route, bm, bn, gather, x, w, nullptr, nullptr, y, partial, geo,
+                  0, stream);
 }
 
 // out (2, Cout) fp32 = the `blocks` partial rows of conv_stats_launch

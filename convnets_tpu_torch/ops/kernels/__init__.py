@@ -12,6 +12,12 @@ for a CUDA tensor launches its kernel or raises: there is no fallback on
 the card. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels.
 
+The dense conv (`conv2d_fused`, `conv2d_stats`) runs the plan that
+`conv_plan` picks from dtype and shape: bf16 on the tensor cores (wgmma
+fed through a shared-memory ring, csrc/conv_wgmma.cu), fp32 on the CUDA
+cores (csrc/conv_fused.cu), which only the fp32 checks use. The other
+kernels (grouped, depthwise, pool, block) run on the CUDA cores.
+
 The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
 `conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
 `torch.autograd.Function`s: their forwards go through the wrappers above,
@@ -54,13 +60,14 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, relu, stream
-    "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 14 + [_P],
-    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, stream
-    "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 13 + [_P],
+    # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
+    # route, bm, bn, gather, relu, stream
+    "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 18 + [_P],
+    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
+    # route, bm, bn, gather, stream
+    "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 17 + [_P],
     # partial, out, blocks, cout, stream
     "stats_reduce_launch": [_P, _P, _I, _I, _P],
-    "conv_block_rows": [],
     # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
     "max_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
     "avg_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
@@ -208,8 +215,8 @@ def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
 
 
 from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
-    conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
-    grouped_conv2d_fused, grouped_conv2d_fused_plain, grouped_conv2d_stats,
+    ConvPlan, conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
+    conv_plan, grouped_conv2d_fused, grouped_conv2d_fused_plain, grouped_conv2d_stats,
     grouped_conv2d_stats_plain, grouped_conv2d_train,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
@@ -224,9 +231,9 @@ from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
 )
 
 __all__ = [
-    "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
+    "ConvPlan", "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
     "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain",
-    "conv2d_train", "conv_bn_relu_train", "depthwise_conv2d", "depthwise_conv2d_plain",
+    "conv2d_train", "conv_bn_relu_train", "conv_plan", "depthwise_conv2d", "depthwise_conv2d_plain",
     "depthwise_train", "fits_block", "fits_conv", "fits_depthwise", "fits_grouped",
     "grouped_conv2d_fused", "grouped_conv2d_fused_plain", "grouped_conv2d_stats",
     "grouped_conv2d_stats_plain", "grouped_conv2d_train", "lib", "max_pool2d",

@@ -17,20 +17,74 @@ Replaces convnets_tpu/ops/pallas/conv.py:
   over its own group's kh·kw·Cin/G products only, with the same two
   epilogues; the weight stays (kh, kw, Cin/G, Cout).
 
-The kernels run on the CUDA cores (fp32 FMA), so on the H100 they are
-compute-bound well below the tensor-core rate; wgmma/TMA tiles are later
-work (see the source notes in csrc/conv_fused.cu and csrc/grouped_conv.cu).
+`conv_plan` chooses how a dense call runs. bf16 runs on the tensor cores
+(csrc/conv_wgmma.cu: wgmma from a four-stage cp.async ring, 128 output
+pixels × 32, 64 or 128 channels per CTA), with the 16-byte gather where
+Cin % 8 == 0 and a scalar gather into the same tiles otherwise (the
+3-channel stems). fp32 runs the CUDA-core loop of csrc/conv_fused.cu: only
+the fp32 checks take it, and tensor-core TF32 would not hold their bars.
+The grouped kernels still run on the CUDA cores (csrc/grouped_conv.cu).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from convnets_tpu_torch import ops
 from convnets_tpu_torch.core.shapes import conv_out_size, to_pair
 from convnets_tpu_torch.ops import kernels as _k
+
+_ROUTES = {"simt": 0, "wgmma": 1}
+_GATHERS = {"scalar": 0, "vector": 1}
+_SMS = 132  # the H100 SXM's SMs: a layer with fewer 128-wide tiles takes 64-wide ones
+
+
+class ConvPlan(NamedTuple):
+    """How a dense conv kernel call runs. route: "wgmma" (bf16, the
+    tensor-core loop of csrc/conv_wgmma.cu) or "simt" (fp32, the CUDA-core
+    loop of csrc/conv_fused.cu). A CTA owns `bm` output pixels × `bn`
+    output channels. gather: "vector" copies the implicit im2col tile 8
+    channels (16 bytes) at a time, "scalar" one value at a time."""
+
+    route: str
+    bm: int
+    bn: int
+    gather: str
+
+    def partial_rows(self, m: int) -> int:
+        """Rows of per-CTA partial sums conv2d_stats writes for M pixels."""
+        return -(-m // self.bm)
+
+    def args(self):
+        """The plan as the C entry points take it: route, bm, bn, gather."""
+        return _ROUTES[self.route], self.bm, self.bn, _GATHERS[self.gather]
+
+
+def conv_plan(dtype, m: int, cin: int, cout: int, aligned: bool = True) -> ConvPlan:
+    """The plan of a dense conv of M = N·OH·OW output pixels, Cin → Cout,
+    in `dtype`. bf16: the tensor-core loop, 128 × BN tiles with BN 32 for
+    Cout ≤ 32, 64 for Cout ≤ 64 or where 128-wide tiles would leave SMs
+    idle, else 128; the vector gather iff Cin % 8 == 0 and x is 16-byte
+    aligned (`aligned`). fp32: the CUDA-core loop (128 × 64, scalar)."""
+    if dtype == torch.float32:
+        return ConvPlan("simt", 128, 64, "scalar")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv_plan: dtype {dtype} not supported (float32, bfloat16)")
+    if cout <= 32:
+        bn = 32
+    elif cout <= 64 or -(-m // 128) * -(-cout // 128) < _SMS:
+        bn = 64
+    else:
+        bn = 128
+    return ConvPlan("wgmma", 128, bn, "vector" if cin % 8 == 0 and aligned else "scalar")
+
+
+def _dense_plan(x, geo) -> ConvPlan:
+    n, _, _, cin, oh, ow, cout = geo[:7]
+    return conv_plan(x.dtype, n * oh * ow, cin, cout, aligned=x.data_ptr() % 16 == 0)
+
 
 def _epilogue_operands(scale, shift, cout, device):
     """Both per-channel fp32 vectors, or (None, None) for a plain conv."""
@@ -87,11 +141,10 @@ def _with_sums(y):
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
 
 
-def _launch_fused(name, symbol, group_args, x, w, scale, shift, stride, padding, relu,
-                  groups=1):
-    """Check the operands, then launch the library's `symbol`
-    (conv_fused_launch, or grouped_fused_launch with its `group_args`) and
-    count it under `name`; returns y (N, OH, OW, Cout)."""
+def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1):
+    """Check the operands, then launch conv_fused_launch with its plan, or
+    grouped_fused_launch (groups > 1), and count it under `name`; returns
+    y (N, OH, OW, Cout)."""
     geo = _conv_geometry(name, x, w, stride, padding, groups)
     n, _, _, _, oh, ow, cout = geo[:7]
     scale, shift = _epilogue_operands(scale, shift, cout, x.device)
@@ -100,31 +153,39 @@ def _launch_fused(name, symbol, group_args, x, w, scale, shift, stride, padding,
         _k.check_cuda_operand(f"{name} scale", scale, torch.float32)
         _k.check_cuda_operand(f"{name} shift", shift, torch.float32)
     y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
+    symbol, extra = (("grouped_fused_launch", (int(groups),)) if groups > 1
+                     else ("conv_fused_launch", _dense_plan(x, geo).args()))
     rc = getattr(_k.lib(), symbol)(
         _k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), y.data_ptr(),
-        *geo, *group_args, int(relu), _k.stream_ptr(x))
+        *geo, *extra, int(relu), _k.stream_ptr(x))
     _k.check_launch(name, rc)
     _k.LAUNCHES[name] += 1
     return y
 
 
-def _launch_stats(name, symbol, rows_symbol, group_args, x, w, stride, padding, groups=1):
-    """Check the operands, then launch the library's `symbol`
-    (conv_stats_launch, or grouped_stats_launch with its `group_args`: y
-    and per-block partial sums over `rows_symbol()` output pixels each) and
-    the fixed-order reduction kernel; counts both. Returns (y, Σy, Σy²)."""
+def _launch_stats(name, x, w, stride, padding, groups=1):
+    """Check the operands, then launch conv_stats_launch with its plan, or
+    grouped_stats_launch (groups > 1): y and per-CTA partial sums, one row
+    per tile of output pixels; then the fixed-order reduction kernel.
+    Counts both. Returns (y, Σy, Σy²)."""
     geo = _conv_geometry(name, x, w, stride, padding, groups)
     n, _, _, _, oh, ow, cout = geo[:7]
     lib = _k.lib()
-    blocks = -(-(n * oh * ow) // getattr(lib, rows_symbol)())
+    if groups > 1:
+        symbol, extra, rows = "grouped_stats_launch", (int(groups),), lib.grouped_block_rows()
+    else:
+        plan = _dense_plan(x, geo)
+        symbol, extra, rows = "conv_stats_launch", plan.args(), plan.bm
+    blocks = -(-(n * oh * ow) // rows)
     y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    partial = torch.empty((blocks, 2, cout), dtype=torch.float32, device=x.device)
-    sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    # rows 0..blocks-1: the per-CTA partial sums; row `blocks`: their reduction
+    partial = torch.empty((blocks + 1, 2, cout), dtype=torch.float32, device=x.device)
+    sums = partial[blocks]
     stream = _k.stream_ptr(x)
     rc = getattr(lib, symbol)(_k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                              y.data_ptr(), partial.data_ptr(), *geo, *group_args, stream)
+                              y.data_ptr(), partial.data_ptr(), *geo, *extra, stream)
     _k.check_launch(name, rc)
     _k.LAUNCHES[name] += 1
     rc = lib.stats_reduce_launch(partial.data_ptr(), sums.data_ptr(), blocks, cout, stream)
@@ -151,8 +212,7 @@ def conv2d_fused(x, w, scale: Optional[torch.Tensor] = None,
     if x.device.type == "cpu":
         return conv2d_fused_plain(x, w, scale, shift, stride=stride, padding=padding,
                                   relu=relu)
-    return _launch_fused("conv2d_fused", "conv_fused_launch", (), x, w, scale, shift, stride,
-                         padding, relu)
+    return _launch_fused("conv2d_fused", x, w, scale, shift, stride, padding, relu)
 
 
 def conv2d_stats_plain(x, w, *, stride=1, padding=0):
@@ -169,8 +229,7 @@ def conv2d_stats(x, w, *, stride=1, padding=0):
     the conv with per-block partial sums, then their fixed-order sum."""
     if x.device.type == "cpu":
         return conv2d_stats_plain(x, w, stride=stride, padding=padding)
-    return _launch_stats("conv2d_stats", "conv_stats_launch", "conv_block_rows", (), x, w,
-                         stride, padding)
+    return _launch_stats("conv2d_stats", x, w, stride, padding)
 
 
 def grouped_conv2d_fused_plain(x, w, groups: int, scale: Optional[torch.Tensor] = None,
@@ -191,8 +250,8 @@ def grouped_conv2d_fused(x, w, groups: int, scale: Optional[torch.Tensor] = None
     if x.device.type == "cpu":
         return grouped_conv2d_fused_plain(x, w, groups, scale, shift, stride=stride,
                                           padding=padding, relu=relu)
-    return _launch_fused("grouped_conv2d_fused", "grouped_fused_launch", (int(groups),), x, w,
-                         scale, shift, stride, padding, relu, groups)
+    return _launch_fused("grouped_conv2d_fused", x, w, scale, shift, stride, padding, relu,
+                         groups)
 
 
 def grouped_conv2d_stats_plain(x, w, groups: int, *, stride=1, padding=0):
@@ -206,8 +265,7 @@ def grouped_conv2d_stats(x, w, groups: int, *, stride=1, padding=0):
     fixed-order reduction kernel as conv2d_stats."""
     if x.device.type == "cpu":
         return grouped_conv2d_stats_plain(x, w, groups, stride=stride, padding=padding)
-    return _launch_stats("grouped_conv2d_stats", "grouped_stats_launch", "grouped_block_rows",
-                         (int(groups),), x, w, stride, padding, groups)
+    return _launch_stats("grouped_conv2d_stats", x, w, stride, padding, groups)
 
 
 def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
