@@ -12,8 +12,9 @@ final line:
   1. build: compiles convnets_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
      compiler per source, all started together.
   1b. SASS: the HGMMA instructions of every tensor-core conv instantiation
-     (cuobjdump -sass; none may have 0), and no bf16 instantiation of the
-     CUDA-core conv loop.
+     (cuobjdump -sass; none may have 0), the grouped mode's 8 among them
+     (Cin/G = 4, 8, 16, 32, both epilogues), and no bf16 instantiation of
+     the dense CUDA-core conv loop.
   2a. conv plans vs plain: every branch of conv_plan (PLAN_SHAPES: the
      7x7x3 stem at N=1, the 3x3x3 stem, Cin=12, Cout=32, 24 and 27, a 1x1
      stride-2 p0, Cin=40, M=49 < BM, two RN50 shapes at b256), fp32 and
@@ -51,7 +52,10 @@ final line:
      pool launch per forward, argmax agreement with the plain versions,
      the count of distinct classes and the share served as the learned
      label; an fp32 forward vs plain; serving img/s at batch 64 and 256
-     (kernel and plain paths in turns) and a torch.profiler table.
+     (kernel and plain paths in turns) and a torch.profiler table of
+     three b64 requests, with the bytes of each host-to-device copy read
+     from its memcpy events (the uint8 request's, not 4x them as fp32)
+     and a copy's share of a request's device time (every family).
   6. this slice's kernels vs plain, batch 8, fp32 (TF32 off) and bf16:
      depthwise_conv2d at the 9 distinct MobileNet-v1@224 depthwise shapes,
      avg_pool2d at the 3 DenseNet-121@224 transitions; depthwise_train
@@ -72,8 +76,13 @@ final line:
      max_pool2d + 3 avg_pool2d), img/s on both paths in turns, peak memory
      and a profiler split.
   8. this slice's kernels vs plain, fp32 (TF32 off) and bf16: the grouped
-     conv at the 7 distinct ResNeXt-50@224 grouped shapes at batch 8, both
-     epilogues (y with and without scale/shift/ReLU; y, Σy, Σy²);
+     conv at the 7 distinct ResNeXt-50@224 grouped shapes at batch 8, each
+     with its grouped_plan route (bf16 must be wgmma, fp32 simt), both
+     epilogues (y with and without scale/shift/ReLU; y, Σy, Σy², the sums
+     against those of the kernel's own stored y), the bf16 simt route
+     timed beside; both epilogues at every branch of grouped_plan
+     (GROUPED_PLAN_SHAPES: Cin/G = 4, 8, 16, 32 at N=1, stride 2, p0, a
+     1x1, and two bf16 simt shapes);
      grouped_conv2d_train and grouped conv_bn_relu_train forward and
      gradients at a stride-1 and a stride-2 shape; bottleneck_block at
      RN50's 14²×1024/256 and 28²×512/128 at batch 8; then the block A/B of
@@ -81,6 +90,12 @@ final line:
      kernel, its plain version, the port's serving composition (three
      conv2d_fused launches, the add and the ReLU) and three cuDNN convs,
      with ms per chain, TFLOP/s and each arm's ratio to the kernel.
+  8b. rows 1g and 5g and row 8's forward (grouped_conv2d_fused with no
+     epilogue) in bf16 at batch 256 at the 7 grouped shapes: the wgmma
+     route, the simt route on the same inputs, cuDNN's bf16 grouped
+     F.conv2d and the bound, ms and TFLOP/s per shape, summed by layer use
+     into the kernels line (ms_b256, simt_ms_b256, library_ms_b256,
+     bound_ms_b256).
   9. ResNeXt-50 (32x4d) at 3x224x224, 1000 classes, weights from --seed in
      the JAX layout, as phase 7 drives its families (exact launches per
      forward: 37 conv2d_fused + 16 grouped_conv2d_fused + 1 max_pool2d;
@@ -176,6 +191,10 @@ TRAIN_LAUNCHES = {
 }
 OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_kernel<",
                "depthwise_kernel<", "grouped_conv_kernel<", "bottleneck_kernel<")
+# the grouped conv's kernels as the profiler names them: the grouped mode of
+# conv_wgmma_kernel<64, STATS, true, CG> and the CUDA-core loop
+GROUPED_KERNELS = tuple(f"conv_wgmma_kernel<64, {st}, true, {cg}>" for st in ("false", "true")
+                        for cg in (4, 8, 16, 32)) + ("grouped_conv_kernel<",)
 # phase 2a: every branch of conv_plan, (N, H, W, Cin, Cout, k, stride, pad, what)
 PLAN_SHAPES = (
     (1, 224, 224, 3, 64, 7, 2, 3, "7x7x3 stem at N=1 (scalar gather, K=147)"),
@@ -191,8 +210,24 @@ PLAN_SHAPES = (
     (256, 56, 56, 64, 64, 3, 1, 1, "RN50 b256 3x3 (BN 64)"),
     (256, 14, 14, 256, 1024, 1, 1, 0, "RN50 b256 1x1 (BN 128)"),
 )
-B256 = 256  # phase 4b: rows 1 and 5 at every RN50@224 shape at this batch
+# phase 8: every branch of grouped_plan, (N, H, W, Cin, Cout, G, k, stride,
+# pad, bf16 route, what); fp32 always takes "simt"
+GROUPED_PLAN_SHAPES = (
+    (1, 7, 7, 128, 128, 32, 3, 1, 1, "wgmma", "Cin/G=4 at N=1 (M=49 < BM)"),
+    (1, 7, 7, 256, 256, 32, 3, 1, 1, "wgmma", "Cin/G=8 at N=1"),
+    (1, 7, 7, 512, 512, 32, 3, 1, 1, "wgmma", "Cin/G=16 at N=1"),
+    (1, 7, 7, 1024, 1024, 32, 3, 1, 1, "wgmma", "Cin/G=32 at N=1"),
+    (2, 15, 15, 128, 128, 32, 3, 2, 1, "wgmma", "Cin/G=4 stride 2, odd input"),
+    (2, 14, 14, 256, 256, 8, 3, 2, 1, "wgmma", "Cin/G=32, G=8, stride 2"),
+    (2, 16, 16, 256, 256, 16, 3, 1, 0, "wgmma", "Cin/G=16, 3x3 p0"),
+    (2, 14, 14, 128, 128, 16, 1, 1, 0, "wgmma", "1x1 Cin/G=8 (KT=1 < ring slots)"),
+    (2, 14, 14, 64, 64, 32, 3, 1, 1, "simt", "Cin/G=2 (bf16 simt)"),
+    (2, 14, 14, 128, 256, 32, 3, 1, 1, "simt", "Cout/G=8 != Cin/G=4 (bf16 simt)"),
+)
+B256 = 256  # phases 4b, 8b: rows 1, 5 (RN50) and 1g, 5g (ResNeXt-50) at this batch
 B256_KEYS = ("ms_b256", "library_ms_b256", "bound_ms_b256")
+# rows 1g, 5g and 8 also carry the CUDA-core grouped loop's times (phases 8, 8b)
+SIMT_KEYS = ("simt_ms", "simt_ms_b256")
 # the block A/B of scripts/tpu_block_ab.py: (H, Cin, Cmid, blocks RN50 chains there)
 BLOCK_SHAPES = ((14, 1024, 256, 6), (28, 512, 128, 4))
 BLOCK_BATCH = 256
@@ -753,8 +788,12 @@ def phase_b256_conv(model, summary):
 
 def sass_check(failures):
     """Phase 1b: HGMMA instructions in the SASS of each tensor-core conv
-    instantiation of the built library (each must have some), and no bf16
-    instantiation of the CUDA-core loop `conv_kernel`."""
+    instantiation of the built library (each must have some; the grouped
+    mode's, CG > 0, at Cin/G = 4, 8, 16 and 32 with both epilogues, listed
+    apart), and no bf16 instantiation of the dense CUDA-core loop
+    `conv_kernel`. The grouped CUDA-core loop keeps its bf16 instantiation:
+    grouped_plan names the shapes it serves."""
+    import re
     import shutil
 
     from convnets_tpu_torch.ops import kernels
@@ -773,12 +812,22 @@ def sass_check(failures):
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
     wgmma = {f: c for f, c in counts.items() if "conv_wgmma_kernel" in f}
+    # conv_wgmma_kernel<BN, STATS, VEC_A, CG> in the mangled name
+    grouped = {}
+    for f, c in wgmma.items():
+        m = re.search(r"conv_wgmma_kernelILi(\d+)ELb([01])ELb([01])ELi(\d+)E", f)
+        if m and int(m.group(4)) > 0:
+            grouped[(int(m.group(4)), "stats" if m.group(2) == "1" else "fused")] = c
     simt_bf16 = [f for f in counts if "11conv_kernelI" in f and "bfloat16" in f]
     say(f"SASS: HGMMA instructions per conv_wgmma_kernel instantiation "
         f"{sorted(wgmma.values())} (total {sum(wgmma.values())}, {len(wgmma)} instantiations); "
-        f"bf16 instantiations of the CUDA-core conv_kernel: {len(simt_bf16)}")
+        f"grouped mode (Cin/G, epilogue): {dict(sorted(grouped.items()))}; "
+        f"bf16 instantiations of the dense CUDA-core conv_kernel: {len(simt_bf16)}")
     if not wgmma or min(wgmma.values()) == 0:
         failures.append(f"HGMMA count per conv_wgmma_kernel instantiation: {wgmma}")
+    want = {(cg, e) for cg in (4, 8, 16, 32) for e in ("fused", "stats")}
+    if set(grouped) != want or min(grouped.values(), default=0) == 0:
+        failures.append(f"grouped wgmma instantiations and their HGMMA counts: {grouped}")
     if simt_bf16:
         failures.append(f"bf16 CUDA-core conv loop in the library: {simt_bf16}")
 
@@ -1288,11 +1337,14 @@ def print_train_profile(arch, step, state, x, y, gen):
     host = time.perf_counter() - t0
     print_table(prof, f"{arch} train b{x.shape[0]} x 3")
     device, ours, bwd = device_split(prof, OUR_KERNELS)
+    grouped = device_split(prof, GROUPED_KERNELS)[1]
     say(f"{arch} train device time over 3 steps: {device / 1e3:.3f} ms (host clock under the "
         f"profiler {1e3 * host:.1f} ms); the port's forward kernels "
         f"({', '.join(OUR_KERNELS)}) {ours / 1e3:.3f} ms "
-        f"({100 * ours / max(device, 1e-9):.2f}%); backward convs (aten::convolution_backward, "
-        f"cuDNN) {bwd / 1e3:.3f} ms ({100 * bwd / max(device, 1e-9):.2f}%); everything else "
+        f"({100 * ours / max(device, 1e-9):.2f}%; of them the grouped conv "
+        f"{grouped / 1e3:.3f} ms, {100 * grouped / max(device, 1e-9):.2f}%); backward convs "
+        f"(aten::convolution_backward, cuDNN) {bwd / 1e3:.3f} ms "
+        f"({100 * bwd / max(device, 1e-9):.2f}%); everything else "
         f"{(device - ours - bwd) / 1e3:.3f} ms")
 
 
@@ -1395,7 +1447,37 @@ def serve_check(served, arch, seed, serve_batches, failures):
             server(req)
         sync()
     print_table(prof, f"{arch} serving batch 64 x 3")
+    copies = h2d_copies(prof)
+    device, ours = device_split(prof, OUR_KERNELS)[:2]
+    grouped = device_split(prof, GROUPED_KERNELS)[1]
+    # the trace may miss a request's copy (its kernels are all there): a
+    # request's device time is its share of the kernels plus one copy
+    copy_us = float(np.mean([us for _, us in copies])) if copies else 0.0
+    request_us = (device - sum(us for _, us in copies)) / 3 + copy_us
+    say(f"{arch} serving batch 64: host-to-device copies traced over 3 requests: "
+        f"{len(copies)}, bytes each {sorted({b for b, _ in copies})} (the uint8 request is "
+        f"{req.nbytes}; as fp32 it would be {4 * req.nbytes}); {copy_us / 1e3:.3f} ms per copy, "
+        f"{100 * copy_us / max(request_us, 1e-9):.2f}% of a request's device time "
+        f"({request_us / 1e3:.3f} ms); the port's kernels {ours / 3e3:.3f} ms per request (of "
+        f"them the grouped conv {grouped / 3e3:.3f} ms)")
+    if not copies or any(b != req.nbytes for b, _ in copies):
+        failures.append(f"{arch} serving: host-to-device copies of {[b for b, _ in copies]} bytes "
+                        f"for a {req.nbytes}-byte uint8 request")
     return launches
+
+
+def h2d_copies(prof):
+    """[(bytes, device µs)] of each host-to-device copy in a profile, read
+    from its Chrome trace (the memcpy events' "bytes")."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return [(int(e.get("args", {}).get("bytes", 0)), float(e.get("dur", 0))) for e in copies]
 
 
 def phase_family(arch, seed, failures):
@@ -1416,30 +1498,84 @@ def phase_family(arch, seed, failures):
     return serve_launches, train_launches
 
 
+def grouped_shapes():
+    """{(H, W, Cin, Cout, k, stride, pad, groups): [relu flag of each layer]}
+    of ResNeXt-50@224's grouped convs (7 shapes, 16 layers), from its own
+    modules."""
+    from convnets_tpu_torch.models import build_model
+
+    model = build_model("resnext", model_setting("resnext", 0, True), device=DEVICE)
+    return distinct_shapes(model, ("gconv",))
+
+
+def grouped_check(x, wt, groups, scale, shift, s, p, dname):
+    """Both grouped epilogues against their plain versions on one input:
+    (ok, fused y err relu=0 / 1, stats ok, stats y err, Σ err, Σ² err), the
+    sums against those of the kernel's own stored y (stats_check)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    atol, rtol = CONV_TOL[dname]
+    errs, ok = [], True
+    for relu in (False, True):
+        kw = dict(stride=s, padding=p, relu=relu)
+        got = kernels.grouped_conv2d_fused(x, wt, groups, scale, shift, **kw)
+        ref = kernels.grouped_conv2d_fused_plain(x, wt, groups, scale, shift, **kw)
+        sync()
+        errs.append(float((got.float() - ref.float()).abs().max()))
+        ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+        del got, ref
+    kw = dict(stride=s, padding=p)
+    s_ok, y_err, e1, e2 = stats_check(kernels.grouped_conv2d_stats(x, wt, groups, **kw),
+                                      kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw),
+                                      dname, own=True)
+    return ok, errs, s_ok, y_err, e1, e2
+
+
+def grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, route, reps=REPS):
+    """Device ms of grouped_conv2d_fused (scale/shift, `relu`) and of
+    grouped_conv2d_stats with their main loop forced to `route`, through
+    the wrappers' launch path (the library refuses a route not built for
+    the shape)."""
+    from convnets_tpu_torch.ops.kernels import conv as kconv
+
+    f_ms = time_ms(lambda: kconv._launch_fused("grouped_conv2d_fused", x, wt, scale, shift, s,
+                                               p, relu, groups, route), reps)
+    s_ms = time_ms(lambda: kconv._launch_stats("grouped_conv2d_stats", x, wt, s, p, groups,
+                                               route), reps)
+    return f_ms, s_ms
+
+
 def phase_grouped_kernels(failures):
-    """Phase 8, grouped conv: both epilogues at every distinct
-    ResNeXt-50@224 grouped shape at batch 8, fp32 and bf16, and the two
-    trainable grouped functions at a stride-1 and a stride-2 shape."""
+    """Phase 8, grouped conv: the plan of every distinct ResNeXt-50@224
+    grouped shape (bf16 wgmma, fp32 simt); both epilogues at each at batch
+    8, fp32 and bf16, with the bf16 simt route timed beside; both
+    epilogues at every branch of grouped_plan (GROUPED_PLAN_SHAPES); and
+    the two trainable grouped functions at a stride-1 and a stride-2
+    shape."""
     import torch
     import torch.nn.functional as F
 
-    from convnets_tpu_torch.models import build_model
     from convnets_tpu_torch.ops import kernels
 
-    model = build_model("resnext", model_setting("resnext", 0, True), device=DEVICE)
-    distinct = distinct_shapes(model, ("gconv",))
-    del model
+    distinct = grouped_shapes()
     n_layers = sum(len(v) for v in distinct.values())
     if (len(distinct), n_layers) != (7, SERVE_LAUNCHES["resnext"]["grouped_conv2d_fused"]):
         failures.append(f"ResNeXt-50 walk found {len(distinct)} grouped shapes ({n_layers} layers)")
+    rows = kernels.lib().grouped_block_rows()
+    if rows != kernels.GroupedPlan("wgmma", 4).bm:
+        failures.append(f"grouped_block_rows() {rows} != the plans' 128 rows per partial")
     g = torch.Generator(device=DEVICE).manual_seed(3)
     n = KERNEL_BATCH
     summary = {}
     fused_row = entry(summary, "grouped_conv2d_fused")
     stats_row = entry(summary, "grouped_conv2d_stats")
-    say("grouped conv (N=8): H W Cin Cout k s p G | dtype | fused y err, relu=0 / 1 (tol) | "
-        "stats y err, Σ rel, Σ² rel (tol) | fused kernel_ms plain_ms, stats kernel_ms "
-        "plain_ms, cudnn_bf16_ms | uses")
+    for row in (fused_row, stats_row):
+        row["simt_ms"] = 0.0
+    say("grouped conv (N=8): H W Cin Cout k s p G | dtype route | fused y err, relu=0 / 1 (tol) | "
+        "stats y err, Σ rel, Σ² rel vs own y (tol) | fused kernel_ms plain_ms simt_ms, stats "
+        "kernel_ms plain_ms simt_ms, cudnn_bf16_ms | uses")
     for (h, w, cin, cout, k, s, p, groups), relus in sorted(distinct.items()):
         cg = cin // groups
         x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
@@ -1452,43 +1588,68 @@ def phase_grouped_kernels(failures):
             dname = dname_of(dtype)
             atol, rtol = CONV_TOL[dname]
             x, wt = x32.to(dtype).contiguous(), w32.to(dtype).contiguous()
-            errs, ok = [], True
-            for relu in (False, True):
-                kw = dict(stride=s, padding=p, relu=relu)
-                got = kernels.grouped_conv2d_fused(x, wt, groups, scale, shift, **kw)
-                ref = kernels.grouped_conv2d_fused_plain(x, wt, groups, scale, shift, **kw)
-                sync()
-                errs.append(float((got.float() - ref.float()).abs().max()))
-                ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
-            kw = dict(stride=s, padding=p)
-            s_ok, y_err, e1, e2 = stats_check(
-                kernels.grouped_conv2d_stats(x, wt, groups, **kw),
-                kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw), dname)
+            plan = kernels.grouped_plan(dtype, cin, cout, groups)
+            want = "wgmma" if dtype == torch.bfloat16 else "simt"
+            ok, errs, s_ok, y_err, e1, e2 = grouped_check(x, wt, groups, scale, shift, s, p, dname)
+            ok = ok and plan.route == want
             relu = relus[0]
-            fk = time_ms(lambda: kernels.grouped_conv2d_fused(x, wt, groups, scale, shift,
-                                                              stride=s, padding=p, relu=relu),
-                         REPS)
+            fk, sk = grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, plan.route)
             fp = time_ms(lambda: kernels.grouped_conv2d_fused_plain(
                 x, wt, groups, scale, shift, stride=s, padding=p, relu=relu), REPS)
-            sk = time_ms(lambda: kernels.grouped_conv2d_stats(x, wt, groups, **kw), REPS)
-            sp = time_ms(lambda: kernels.grouped_conv2d_stats_plain(x, wt, groups, **kw), REPS)
-            say(f"  {h} {w} {cin} {cout} {k} {s} {p} {groups} | {dname} | {errs[0]:.3e} / "
-                f"{errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | {y_err:.3e}, "
-                f"{e1:.2e}, {e2:.2e} ({STATS_TOL[dname]:g}) {'ok' if s_ok else 'FAIL'} | "
-                f"{fk:.4f} {fp:.4f}, {sk:.4f} {sp:.4f}, {cudnn_ms:.4f} | {len(relus)}")
+            sp = time_ms(lambda: kernels.grouped_conv2d_stats_plain(x, wt, groups, stride=s,
+                                                                    padding=p), REPS)
+            fs, ss = (grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, "simt")
+                      if plan.route == "wgmma" else (fk, sk))
+            say(f"  {h} {w} {cin} {cout} {k} {s} {p} {groups} | {dname} {plan.route} | "
+                f"{errs[0]:.3e} / {errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | "
+                f"{y_err:.3e}, {e1:.2e}, {e2:.2e} ({STATS_TOL[dname]:g}) "
+                f"{'ok' if s_ok else 'FAIL'} | {fk:.4f} {fp:.4f} {fs:.4f}, {sk:.4f} {sp:.4f} "
+                f"{ss:.4f}, {cudnn_ms:.4f} | {len(relus)}")
             if not (ok and s_ok):
-                failures.append(f"grouped conv {h}x{w} {cin}->{cout} s{s} G{groups} {dname}: "
-                                f"fused {errs}, stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}")
+                failures.append(f"grouped conv {h}x{w} {cin}->{cout} s{s} G{groups} {dname} "
+                                f"{plan.route} (want {want}): fused {errs}, stats y {y_err:.3e} "
+                                f"Σ {e1:.2e} Σ² {e2:.2e}")
             fused_row["err"] = max(fused_row["err"], *errs)
             stats_row["err"] = max(stats_row["err"], y_err)
             if dtype == torch.bfloat16:
                 flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups)
                 add_times(fused_row, len(relus), fk, fp, flops, nbytes + 8 * cout, cudnn_ms)
                 add_times(stats_row, len(relus), sk, sp, flops, nbytes + 8 * cout, cudnn_ms)
+                fused_row["simt_ms"] += len(relus) * fs
+                stats_row["simt_ms"] += len(relus) * ss
+            del x, wt
     say(f"ResNeXt-50 grouped convs at N=8 bf16, summed over the 16 layers: fused kernel "
-        f"{fused_row['ms']:.4f} ms (plain {fused_row['plain_ms']:.4f}), stats kernel "
-        f"{stats_row['ms']:.4f} ms (plain {stats_row['plain_ms']:.4f}), cuDNN bf16 grouped conv "
-        f"{fused_row['library_ms']:.4f} ms, bound {fused_row['bound_ms']:.4f} ms")
+        f"{fused_row['ms']:.4f} ms (plain {fused_row['plain_ms']:.4f}, simt route "
+        f"{fused_row['simt_ms']:.4f}), stats kernel {stats_row['ms']:.4f} ms (plain "
+        f"{stats_row['plain_ms']:.4f}, simt route {stats_row['simt_ms']:.4f}), cuDNN bf16 "
+        f"grouped conv {fused_row['library_ms']:.4f} ms, bound {fused_row['bound_ms']:.4f} ms")
+
+    gp = torch.Generator(device=DEVICE).manual_seed(8)
+    say("grouped plans: N H W Cin Cout G k s p | dtype route | fused y err, relu=0 / 1 (tol) | "
+        "stats y err, Σ rel, Σ² rel vs own y (tol) | what")
+    for n_, h, w, cin, cout, groups, k, s, p, route, what in GROUPED_PLAN_SHAPES:
+        cg = cin // groups
+        x32 = torch.randn(n_, h, w, cin, device=DEVICE, generator=gp)
+        w32 = torch.randn(k, k, cg, cout, device=DEVICE, generator=gp) / np.sqrt(k * k * cg)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=gp)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=gp)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = dname_of(dtype)
+            atol, rtol = CONV_TOL[dname]
+            plan = kernels.grouped_plan(dtype, cin, cout, groups)
+            want = route if dtype == torch.bfloat16 else "simt"
+            ok, errs, s_ok, y_err, e1, e2 = grouped_check(x32.to(dtype), w32.to(dtype), groups,
+                                                          scale, shift, s, p, dname)
+            ok = ok and plan.route == want
+            say(f"  {n_} {h} {w} {cin} {cout} {groups} {k} {s} {p} | {dname} {plan.route} | "
+                f"{errs[0]:.3e} / {errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | "
+                f"{y_err:.3e}, {e1:.2e}, {e2:.2e} ({STATS_TOL[dname]:g}) "
+                f"{'ok' if s_ok else 'FAIL'} | {what}")
+            if not (ok and s_ok):
+                failures.append(f"grouped plan {what} {dname} {plan.route} (want {want}): fused "
+                                f"{errs}, stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}")
+            fused_row["err"] = max(fused_row["err"], *errs)
+            stats_row["err"] = max(stats_row["err"], y_err)
 
     say("trainable grouped functions (N=8): fn H Cin Cout s G | dtype | out max|Δ|/max|ref| "
         "(tol) | gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd "
@@ -1514,6 +1675,71 @@ def phase_grouped_kernels(failures):
                             [x, wt, sc32, bi32], dname, g, summary, failures,
                             CONV_TOL[dname][1], work)
     return summary
+
+
+def phase_b256_grouped(summary):
+    """Phase 8b: rows 1g and 5g in bf16 at batch B256 at every distinct
+    ResNeXt-50@224 grouped shape, and row 8's forward (grouped_conv2d_fused
+    with no epilogue): the wgmma route, the simt route on the same inputs,
+    cuDNN's bf16 grouped F.conv2d (channels_last) and the bound, each
+    summed by layer use into the rows' ms_b256, simt_ms_b256,
+    library_ms_b256 and bound_ms_b256."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import conv as kconv
+
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    fused, stats = summary["grouped_conv2d_fused"], summary["grouped_conv2d_stats"]
+    train = entry(summary, "grouped_conv2d_train")
+    for row in (fused, stats, train):
+        row.update(dict.fromkeys(B256_KEYS + ("simt_ms_b256",), 0.0))
+    total = total_bytes = 0
+    say(f"grouped conv at batch {B256}, bf16: H W Cin Cout k s p G | route | fused ms TFLOP/s | "
+        f"stats ms TFLOP/s | no epilogue (row 8's forward) ms | simt route: fused ms, stats ms, "
+        f"no epilogue ms | cuDNN ms TFLOP/s | bound ms | uses")
+    for (h, w, cin, cout, k, s, p, groups), relus in sorted(grouped_shapes().items()):
+        cg = cin // groups
+        x = torch.randn(B256, h, w, cin, device=DEVICE, generator=g).to(torch.bfloat16)
+        wt = (torch.randn(k, k, cg, cout, device=DEVICE, generator=g)
+              / np.sqrt(k * k * cg)).to(torch.bfloat16)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        xc, wc = nchw(x), oihw(wt)
+        plan = kernels.grouped_plan(torch.bfloat16, cin, cout, groups)
+        times = {}
+        for route in (plan.route, "simt"):
+            f_ms, s_ms = grouped_route_ms(x, wt, groups, scale, shift, s, p, True, route)
+            t_ms = time_ms(lambda: kconv._launch_fused("grouped_conv2d_fused", x, wt, None, None,
+                                                       s, p, False, groups, route), REPS)
+            times[route] = (f_ms, s_ms, t_ms)
+        c_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, groups=groups), REPS)
+        flops, nbytes = conv_work(B256, h, w, cin, cout, k, s, p, groups)
+        bound = 1e3 * max(flops / PEAK_BF16, (nbytes + 8 * cout) / HBM_BPS)
+        uses = len(relus)
+        total += uses * flops
+        total_bytes += uses * nbytes
+        (f_ms, s_ms, t_ms), simt = times[plan.route], times["simt"]
+        say(f"  {h} {w} {cin} {cout} {k} {s} {p} {groups} | {plan.route} | "
+            f"{f_ms:.4f} {flops / f_ms / 1e9:.1f} | {s_ms:.4f} {flops / s_ms / 1e9:.1f} | "
+            f"{t_ms:.4f} | {simt[0]:.4f}, {simt[1]:.4f}, {simt[2]:.4f} | "
+            f"{c_ms:.4f} {flops / c_ms / 1e9:.1f} | {bound:.4f} | {uses}")
+        for row, ms, sm in ((fused, f_ms, simt[0]), (stats, s_ms, simt[1]), (train, t_ms, simt[2])):
+            row["ms_b256"] += uses * ms
+            row["simt_ms_b256"] += uses * sm
+            row["library_ms_b256"] += uses * c_ms
+            row["bound_ms_b256"] += uses * bound
+        del x, wt, xc, wc
+    lib_ms = fused["library_ms_b256"]
+    say(f"ResNeXt-50 grouped convs at b{B256} bf16, summed over the 16 layers ({total / 1e9:.1f} "
+        f"GFLOP, {total_bytes / 1e9:.3f} GB): grouped_conv2d_fused {fused['ms_b256']:.3f} ms "
+        f"({total / fused['ms_b256'] / 1e9:.1f} TFLOP/s, {fused['ms_b256'] / lib_ms:.3f}x cuDNN; "
+        f"simt route {fused['simt_ms_b256']:.3f} ms), grouped_conv2d_stats {stats['ms_b256']:.3f} "
+        f"ms ({stats['ms_b256'] / lib_ms:.3f}x cuDNN; simt route {stats['simt_ms_b256']:.3f} ms), "
+        f"no epilogue {train['ms_b256']:.3f} ms (simt route {train['simt_ms_b256']:.3f}), cuDNN "
+        f"bf16 {lib_ms:.3f} ms ({total / lib_ms / 1e9:.1f} TFLOP/s), bound "
+        f"{fused['bound_ms_b256']:.4f} ms")
 
 
 def block_args(n, h, cin, cmid, dtype, g):
@@ -1656,9 +1882,9 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                          "convnets_tpu/ops/pallas/conv.py:755"),
     "depthwise_train": ("convnets_tpu_torch/ops/kernels/depthwise.py",
                         "convnets_tpu/ops/pallas/conv.py:702"),
-    "grouped_conv2d_fused": ("convnets_tpu_torch/csrc/grouped_conv.cu",
+    "grouped_conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu",
                              "convnets_tpu/ops/pallas/conv.py:391"),
-    "grouped_conv2d_stats": ("convnets_tpu_torch/csrc/grouped_conv.cu",
+    "grouped_conv2d_stats": ("convnets_tpu_torch/csrc/conv_wgmma.cu",
                              "convnets_tpu/ops/pallas/conv.py:543"),
     "grouped_conv2d_train": ("convnets_tpu_torch/ops/kernels/conv.py",
                              "convnets_tpu/ops/pallas/conv.py:647"),
@@ -1745,6 +1971,9 @@ def main():
     summary.update(block_summary)
     say(f"[phase 8: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
+    phase_b256_grouped(summary)
+    say(f"[phase 8b: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
     serve["resnext"], train["resnext"] = phase_family("resnext", args.seed, failures)
     nobn["resnext"] = nobn_check("resnext", args.seed, failures)
     say(f"[phase 9: {time.perf_counter() - t0:.1f} s]")
@@ -1782,7 +2011,7 @@ def main():
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
-         **{k: summary[name][k] for k in B256_KEYS if k in summary[name]}}
+         **{k: summary[name][k] for k in B256_KEYS + SIMT_KEYS if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

@@ -1,5 +1,14 @@
-// Grouped implicit-GEMM 2-D convolution with the two epilogues of
-// conv_fused.cu, chosen by a template parameter over one main loop:
+// The CUDA-core grouped implicit-GEMM 2-D convolution: route "simt" of
+// ops/kernels/conv.py:grouped_plan. bf16 calls at Cin/G = Cout/G in {4, 8,
+// 16, 32} with Cin % 64 == 0 (every grouped layer of the ported ResNeXt
+// kinds) run on the tensor cores instead: route "wgmma", the grouped mode
+// of csrc/conv_wgmma.cu, which the entry points below call. This loop
+// serves fp32 (the fp32 checks) and the bf16 shapes outside that plan
+// (Cin/G = 2, Cout/G != Cin/G, Cin not a multiple of 64, a misaligned
+// operand), and it can be asked for on any shape of its envelope, so the
+// two routes can be timed on the same inputs. Two epilogues, chosen by a
+// template parameter over one main loop, with the contracts of
+// conv_fused.cu:
 //
 //  * grouped_fused (STATS = false): fp32 scale/shift (inference BatchNorm
 //    folded in), optional ReLU, ONE rounding to the output dtype.
@@ -11,11 +20,10 @@
 // Replaces convnets_tpu/ops/pallas/conv.py:grouped_conv2d_train (:647) and
 // the grouped ConvBNReLU paths of the JAX package, which run the dense
 // Pallas kernels (conv2d_fused :391, conv2d_stats :543) on a block-diagonal
-// weight (block_diag_weight :628): on the TPU the G-fold structural zeros
-// rode MXU lanes that would idle anyway. Here every FMA runs on a CUDA core,
-// so each output channel sums only its own group's K_g = kh*kw*Cin/G
-// products and no block-diagonal weight exists: 2*M*K_g*Cout FLOPs. The
-// values equal the JAX package's up to the order of the sums.
+// weight (block_diag_weight :628). Here every FMA runs on a CUDA core, so
+// each output channel sums only its own group's K_g = kh*kw*Cin/G products
+// and no block-diagonal weight exists: 2*M*K_g*Cout FLOPs. The values
+// equal the JAX package's up to the order of the sums.
 //
 // Contract: x NHWC (N, H, W, Cin), w HWIO (kh, kw, Cin/G, Cout) read as
 // stored, i.e. (kh*kw*cgi, Cout) with row tap*cgi + ci; output channel c
@@ -30,19 +38,23 @@
 // gpb*cgi <= SLAB channels. For each tap (ky, kx) the block gathers the
 // slab of its BM pixels (A, zero outside the image) and the tap's weight
 // rows of its columns (B) into shared memory; each thread then accumulates
-// a TM x TN micro-tile over the cgi depth of its columns' group. At
-// ResNeXt's cardinality 32 (cgi = cgo = 4 .. 32) every slot is used and the
-// slab is 64 channels wide: one 128-byte bf16 read per pixel.
+// a TM x TN micro-tile over the cgi depth of its columns' group.
 //
 // What bounds it on the H100: per tap a thread issues 32 shared-memory
-// stores of A and 8 of B against cgi*TM*TN FMAs, so at cgi = 4 it is bound
-// by the gather (load instructions), not by FMAs or device memory; at
-// cgi = 32 by the CUDA-core FMA rate. Left for later: several taps per
-// stage, a register prefetch of the next tap, and bf16 tensor-core MMAs
-// over the per-group tiles.
+// stores of A and 8 of B against cgi*TM*TN FMAs, one tap per pair of
+// barriers with no prefetch, so at cgi = 4 it is bound by the gather (load
+// instructions), not by FMAs or device memory; at cgi = 32 by the
+// CUDA-core FMA rate (67 TFLOP/s fp32), which alone keeps ResNeXt-50's 16
+// grouped layers at b256 above their 1.005 ms byte bound. That is why the
+// bf16 plan moved to the tensor cores; this loop is kept simple.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+// csrc/conv_wgmma.cu
+int conv_wgmma_grouped_run(int stats, int groups, const void* x, const void* w,
+                           const void* scale, const void* shift, void* y, void* partial,
+                           const int* geo, int relu, void* stream);
 
 namespace {
 
@@ -287,31 +299,56 @@ int launch_grouped(int dtype, const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// route 0: this CUDA-core loop (fp32 or bf16); route 1: the bf16
+// tensor-core grouped mode of conv_wgmma.cu (its shapes only). Anything
+// else is refused with cudaErrorInvalidValue.
+int run_route(bool stats, int dtype, int route, const void* x, const void* w,
+              const void* scale, const void* shift, void* y, void* partial, int n, int h,
+              int wd, int cin, int oh, int ow, int cout, int kh, int kw, int sh, int sw, int ph,
+              int pw, int groups, int relu, void* stream) {
+  if (route == 0) {
+    return stats ? launch_grouped<true>(dtype, x, w, nullptr, nullptr, y, partial, n, h, wd,
+                                        cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups, 0,
+                                        stream)
+                 : launch_grouped<false>(dtype, x, w, scale, shift, y, nullptr, n, h, wd, cin,
+                                         oh, ow, cout, kh, kw, sh, sw, ph, pw, groups, relu,
+                                         stream);
+  }
+  if (route == 1 && dtype == 1) {
+    const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+    return conv_wgmma_grouped_run(stats, groups, x, w, scale, shift, y, partial, geo, relu,
+                                  stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// Output pixels per block: grouped_stats writes ceil(N*OH*OW / this) rows
-// of partial sums.
+// Output pixels per block of both routes: grouped_stats writes
+// ceil(N*OH*OW / this) rows of partial sums.
 extern "C" int grouped_block_rows() { return BM; }
 
 // dtype: 0 = float32, 1 = bfloat16. w (kh, kw, Cin/G, Cout); scale/shift:
-// both null (no epilogue) or both (Cout,) fp32. Cin/G must be <= 32.
-// Returns cudaGetLastError() after the launch.
+// both null (no epilogue) or both (Cout,) fp32. route: the plan of
+// ops/kernels/conv.py:grouped_plan (0 simt, Cin/G <= 32; 1 wgmma). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
+// that is not built.
 extern "C" int grouped_fused_launch(int dtype, const void* x, const void* w,
                                     const void* scale, const void* shift, void* y,
                                     int n, int h, int wd, int cin, int oh, int ow,
                                     int cout, int kh, int kw, int sh, int sw, int ph,
-                                    int pw, int groups, int relu, void* stream) {
-  return launch_grouped<false>(dtype, x, w, scale, shift, y, nullptr, n, h, wd, cin, oh,
-                               ow, cout, kh, kw, sh, sw, ph, pw, groups, relu, stream);
+                                    int pw, int groups, int route, int relu, void* stream) {
+  return run_route(false, dtype, route, x, w, scale, shift, y, nullptr, n, h, wd, cin, oh, ow,
+                   cout, kh, kw, sh, sw, ph, pw, groups, relu, stream);
 }
 
 // y = grouped conv(x, w) in x's dtype, and partial (ceil(M /
 // grouped_block_rows()), 2, Cout) fp32 per-block sums of y and y*y, for
-// stats_reduce_launch. Returns cudaGetLastError().
+// stats_reduce_launch. Returns as grouped_fused_launch.
 extern "C" int grouped_stats_launch(int dtype, const void* x, const void* w, void* y,
                                     void* partial, int n, int h, int wd, int cin, int oh,
                                     int ow, int cout, int kh, int kw, int sh, int sw,
-                                    int ph, int pw, int groups, void* stream) {
-  return launch_grouped<true>(dtype, x, w, nullptr, nullptr, y, partial, n, h, wd, cin,
-                              oh, ow, cout, kh, kw, sh, sw, ph, pw, groups, 0, stream);
+                                    int ph, int pw, int groups, int route, void* stream) {
+  return run_route(true, dtype, route, x, w, nullptr, nullptr, y, partial, n, h, wd, cin, oh,
+                   ow, cout, kh, kw, sh, sw, ph, pw, groups, 0, stream);
 }

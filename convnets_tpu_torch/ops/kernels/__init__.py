@@ -15,8 +15,12 @@ that its path went through the kernels.
 The dense conv (`conv2d_fused`, `conv2d_stats`) runs the plan that
 `conv_plan` picks from dtype and shape: bf16 on the tensor cores (wgmma
 fed through a shared-memory ring, csrc/conv_wgmma.cu), fp32 on the CUDA
-cores (csrc/conv_fused.cu), which only the fp32 checks use. The other
-kernels (grouped, depthwise, pool, block) run on the CUDA cores.
+cores (csrc/conv_fused.cu), which only the fp32 checks use. The grouped
+conv (`grouped_conv2d_fused`, `grouped_conv2d_stats`) runs the plan of
+`grouped_plan`: bf16 at Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64 ==
+0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), fp32 and
+the other bf16 shapes on the CUDA cores (csrc/grouped_conv.cu). The other
+kernels (depthwise, pool, block) run on the CUDA cores.
 
 The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
 `conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
@@ -74,11 +78,11 @@ _SIGNATURES = {
     # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
     "depthwise_launch": [_I, _P, _P, _P] + [_I] * 12 + [_P],
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
-    # groups, relu, stream
-    "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # groups, route, relu, stream
+    "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 16 + [_P],
     # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups,
-    # stream
-    "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 14 + [_P],
+    # route, stream
+    "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 15 + [_P],
     "grouped_block_rows": [],
     # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, stream
     "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
@@ -215,9 +219,10 @@ def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
 
 
 from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
-    ConvPlan, conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain, conv2d_train,
-    conv_plan, grouped_conv2d_fused, grouped_conv2d_fused_plain, grouped_conv2d_stats,
-    grouped_conv2d_stats_plain, grouped_conv2d_train,
+    ConvPlan, GroupedPlan, conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain,
+    conv2d_train, conv_plan, grouped_conv2d_fused, grouped_conv2d_fused_plain,
+    grouped_conv2d_stats, grouped_conv2d_stats_plain, grouped_conv2d_train, grouped_plan,
+    grouped_slices,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
     avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_train,
@@ -231,11 +236,11 @@ from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
 )
 
 __all__ = [
-    "ConvPlan", "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
+    "ConvPlan", "GroupedPlan", "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
     "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain",
     "conv2d_train", "conv_bn_relu_train", "conv_plan", "depthwise_conv2d", "depthwise_conv2d_plain",
     "depthwise_train", "fits_block", "fits_conv", "fits_depthwise", "fits_grouped",
     "grouped_conv2d_fused", "grouped_conv2d_fused_plain", "grouped_conv2d_stats",
-    "grouped_conv2d_stats_plain", "grouped_conv2d_train", "lib", "max_pool2d",
+    "grouped_conv2d_stats_plain", "grouped_conv2d_train", "grouped_plan", "grouped_slices", "lib", "max_pool2d",
     "max_pool2d_plain", "pool2d_train", "reset_launches",
 ]

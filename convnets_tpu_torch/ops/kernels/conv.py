@@ -13,17 +13,24 @@ Replaces convnets_tpu/ops/pallas/conv.py:
 - `grouped_conv2d_train` (:647) and the grouped ConvBNReLU paths, which
   the JAX package runs through the two dense kernels on a block-diagonal
   weight (`block_diag_weight`, :628): here `grouped_conv2d_fused` and
-  `grouped_conv2d_stats` (csrc/grouped_conv.cu) sum each output channel
-  over its own group's kh·kw·Cin/G products only, with the same two
-  epilogues; the weight stays (kh, kw, Cin/G, Cout).
+  `grouped_conv2d_stats`, with the same two epilogues; the weight stays
+  (kh, kw, Cin/G, Cout).
 
 `conv_plan` chooses how a dense call runs. bf16 runs on the tensor cores
-(csrc/conv_wgmma.cu: wgmma from a four-stage cp.async ring, 128 output
-pixels × 32, 64 or 128 channels per CTA), with the 16-byte gather where
-Cin % 8 == 0 and a scalar gather into the same tiles otherwise (the
-3-channel stems). fp32 runs the CUDA-core loop of csrc/conv_fused.cu: only
-the fp32 checks take it, and tensor-core TF32 would not hold their bars.
-The grouped kernels still run on the CUDA cores (csrc/grouped_conv.cu).
+(csrc/conv_wgmma.cu: wgmma from a 3-slot cp.async ring loaded 1 stage
+ahead, 128 output pixels × 32, 64 or 128 channels per CTA), with the
+16-byte gather where Cin % 8 == 0 and a scalar gather into the same tiles
+otherwise (the 3-channel stems). fp32 runs the CUDA-core loop of
+csrc/conv_fused.cu: only the fp32 checks take it, and tensor-core TF32
+would not hold their bars.
+
+`grouped_plan` does the same for a grouped call. bf16 at Cin/G = Cout/G
+in {4, 8, 16, 32} with Cin % 64 == 0 runs the grouped mode of the same
+tensor-core loop: 64 output channels (whole groups) per CTA, one tap per
+stage, the block-diagonal weight built in shared memory only and MMAs
+only on its blocks that hold weights (`grouped_slices`). fp32, and bf16
+outside that plan, run the CUDA-core loop of csrc/grouped_conv.cu, which
+sums each group's own products.
 """
 
 from __future__ import annotations
@@ -79,6 +86,76 @@ def conv_plan(dtype, m: int, cin: int, cout: int, aligned: bool = True) -> ConvP
     else:
         bn = 128
     return ConvPlan("wgmma", 128, bn, "vector" if cin % 8 == 0 and aligned else "scalar")
+
+
+GROUPED_WGMMA_CG = (4, 8, 16, 32)  # Cin/G = Cout/G of the grouped tensor-core plan
+
+
+def grouped_slices(cg: int):
+    """The grouped tensor-core loop's map of one stage, as csrc/conv_wgmma.cu
+    (grouped_mma) runs it: for each k16 slice kk of the CTA's 64-channel
+    input slab, (kk, first output column, end column, first accumulator)
+    of the one MMA it feeds. Columns are the CTA's 64 (whole groups); the
+    n64 fragment keeps columns 8j .. 8j+7 in accumulators 4j .. 4j+3. For
+    Cin/G ≤ 16 (dividing 16) slice kk meets columns 16kk .. 16kk+15
+    (m64n16k16); for 32, columns 32·(kk//2) .. +31 (m64n32k16)."""
+    if cg <= 16 and 16 % cg == 0:
+        cols = [(16 * kk, 16 * kk + 16) for kk in range(4)]
+    elif cg == 32:
+        cols = [(32 * (kk // 2), 32 * (kk // 2) + 32) for kk in range(4)]
+    else:
+        raise ValueError(f"grouped_slices: Cin/G={cg} has no slice map (2, 4, 8, 16, 32)")
+    return tuple((kk, lo, hi, lo // 2) for kk, (lo, hi) in enumerate(cols))
+
+
+class GroupedPlan(NamedTuple):
+    """How a grouped conv kernel call runs. route: "wgmma" (bf16, the
+    grouped mode of csrc/conv_wgmma.cu) or "simt" (the CUDA-core loop of
+    csrc/grouped_conv.cu). cg = Cin/G. A CTA owns `bm` output pixels ×
+    `bn` output channels."""
+
+    route: str
+    cg: int
+    bm: int = 128
+    bn: int = 64
+
+    def partial_rows(self, m: int) -> int:
+        """Rows of per-CTA partial sums grouped_conv2d_stats writes for M pixels."""
+        return -(-m // self.bm)
+
+    def args(self):
+        """The plan as the C entry points take it: route."""
+        return (_ROUTES[self.route],)
+
+    def slices(self):
+        """The k16 slice map of the wgmma route (`grouped_slices`); none for simt."""
+        return grouped_slices(self.cg) if self.route == "wgmma" else ()
+
+
+def grouped_plan(dtype, cin: int, cout: int, groups: int, aligned: bool = True) -> GroupedPlan:
+    """The plan of a grouped conv, Cin → Cout in `groups` groups, in
+    `dtype`. bf16 with Cin/G = Cout/G in GROUPED_WGMMA_CG, Cin % 64 == 0
+    and x and w 16-byte aligned (`aligned`): the tensor cores. fp32, and
+    every other bf16 shape of `fits_grouped` (Cin/G = 2, Cout/G ≠ Cin/G,
+    Cin not a multiple of 64, a misaligned operand): the CUDA-core loop."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grouped_plan: dtype {dtype} not supported (float32, bfloat16)")
+    cg = cin // groups
+    if (dtype == torch.bfloat16 and cin == cout and cin % 64 == 0 and cin % groups == 0
+            and cg in GROUPED_WGMMA_CG and aligned):
+        return GroupedPlan("wgmma", cg)
+    return GroupedPlan("simt", cg)
+
+
+def _grouped_plan(x, w, geo, groups, route=None) -> GroupedPlan:
+    """The plan of a grouped call; `route` forces one (the on-card
+    comparison of the two main loops), which the library refuses where it
+    is not built."""
+    cin, cout = geo[3], geo[6]
+    if route is not None:
+        return GroupedPlan(route, cin // groups)
+    return grouped_plan(x.dtype, cin, cout, groups,
+                        aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
 def _dense_plan(x, geo) -> ConvPlan:
@@ -141,10 +218,10 @@ def _with_sums(y):
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
 
 
-def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1):
+def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, route=None):
     """Check the operands, then launch conv_fused_launch with its plan, or
-    grouped_fused_launch (groups > 1), and count it under `name`; returns
-    y (N, OH, OW, Cout)."""
+    grouped_fused_launch with its (groups > 1; `route` forces one), and
+    count it under `name`; returns y (N, OH, OW, Cout)."""
     geo = _conv_geometry(name, x, w, stride, padding, groups)
     n, _, _, _, oh, ow, cout = geo[:7]
     scale, shift = _epilogue_operands(scale, shift, cout, x.device)
@@ -153,8 +230,9 @@ def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1):
         _k.check_cuda_operand(f"{name} scale", scale, torch.float32)
         _k.check_cuda_operand(f"{name} shift", shift, torch.float32)
     y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    symbol, extra = (("grouped_fused_launch", (int(groups),)) if groups > 1
-                     else ("conv_fused_launch", _dense_plan(x, geo).args()))
+    symbol, extra = (("grouped_fused_launch",
+                      (int(groups), *_grouped_plan(x, w, geo, groups, route).args()))
+                     if groups > 1 else ("conv_fused_launch", _dense_plan(x, geo).args()))
     rc = getattr(_k.lib(), symbol)(
         _k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(),
@@ -165,16 +243,17 @@ def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1):
     return y
 
 
-def _launch_stats(name, x, w, stride, padding, groups=1):
+def _launch_stats(name, x, w, stride, padding, groups=1, route=None):
     """Check the operands, then launch conv_stats_launch with its plan, or
-    grouped_stats_launch (groups > 1): y and per-CTA partial sums, one row
-    per tile of output pixels; then the fixed-order reduction kernel.
-    Counts both. Returns (y, Σy, Σy²)."""
+    grouped_stats_launch with its (groups > 1; `route` forces one): y and
+    per-CTA partial sums, one row per tile of output pixels; then the
+    fixed-order reduction kernel. Counts both. Returns (y, Σy, Σy²)."""
     geo = _conv_geometry(name, x, w, stride, padding, groups)
     n, _, _, _, oh, ow, cout = geo[:7]
     lib = _k.lib()
     if groups > 1:
-        symbol, extra, rows = "grouped_stats_launch", (int(groups),), lib.grouped_block_rows()
+        plan = _grouped_plan(x, w, geo, groups, route)
+        symbol, extra, rows = "grouped_stats_launch", (int(groups), *plan.args()), plan.bm
     else:
         plan = _dense_plan(x, geo)
         symbol, extra, rows = "conv_stats_launch", plan.args(), plan.bm
@@ -245,8 +324,8 @@ def grouped_conv2d_fused(x, w, groups: int, scale: Optional[torch.Tensor] = None
                          relu: bool = False):
     """conv2d_fused for a grouped conv: x (N, H, W, Cin), w (kh, kw, Cin/G,
     Cout) in x.dtype, output channel c reading group c // (Cout/G) only.
-    Envelope `fits_grouped` (2 <= Cin/G <= 32, stride 1 or 2). Returns
-    (N, OH, OW, Cout)."""
+    Envelope `fits_grouped` (2 <= Cin/G <= 32, stride 1 or 2); the main
+    loop is the one `grouped_plan` picks. Returns (N, OH, OW, Cout)."""
     if x.device.type == "cpu":
         return grouped_conv2d_fused_plain(x, w, groups, scale, shift, stride=stride,
                                           padding=padding, relu=relu)

@@ -36,7 +36,10 @@ def serving_forward(model, output: str = "logits",
         mean = std = None
 
     def forward(x):
-        x = x.to(device=device, dtype=torch.float32)
+        # the request crosses to the device in its own dtype (a uint8 wire
+        # moves 1 byte per value), then is converted there, as
+        # convnets_tpu/serve/export.py:84 dequantizes in the graph
+        x = x.to(device).float()
         if input_dtype == "uint8":
             x = x * (1.0 / 255.0)
         if mean is not None:
@@ -52,7 +55,14 @@ def serving_forward(model, output: str = "logits",
 class ServingModel:
     """``__call__`` runs the serving forward on a batch (a single HWC image
     gains a batch axis); ``predict`` returns class indices, or names when
-    the model carries them."""
+    the model carries them.
+
+    A request must match the wire dtype: a uint8 wire takes only uint8
+    arrays, a float32 wire only floating ones (float64 and float16 are cast
+    to float32); anything else raises TypeError. This deliberately differs
+    from convnets_tpu/serve/export.py:163-166, which casts silently, cutting
+    [0, 1] floats to 0/1 on a uint8 wire and passing 0-255 integers without
+    the /255 on a float wire (ADVICE.md finding 1)."""
 
     def __init__(self, model, *, output: str = "logits",
                  stats: Optional[Tuple[np.ndarray, np.ndarray]] = None,
@@ -78,8 +88,14 @@ class ServingModel:
         }
 
     def __call__(self, x):
-        wire = torch.uint8 if self.meta["input_dtype"] == "uint8" else torch.float32
-        x = torch.as_tensor(x).to(wire)
+        x = torch.as_tensor(x)
+        if self.meta["input_dtype"] == "uint8":
+            if x.dtype != torch.uint8:
+                raise TypeError(f"this model serves uint8 requests, got {x.dtype}")
+        elif x.is_floating_point():
+            x = x.to(torch.float32)
+        else:
+            raise TypeError(f"this model serves float32 requests in [0, 1], got {x.dtype}")
         if x.ndim == 3:
             x = x[None]
         with torch.inference_mode():

@@ -94,6 +94,27 @@ def test_serving_forward_matches_jax(input_dtype, output):
     assert server(x[0]).shape == (1, 10)  # one HWC image gains the batch axis
 
 
+@pytest.mark.parametrize("input_dtype,request_dtype", [
+    ("uint8", np.float32),    # [0, 1] floats would be cut to 0/1
+    ("uint8", np.int64),
+    ("float32", np.uint8),    # 0-255 would pass without the /255
+    ("float32", np.int32),
+])
+def test_serving_refuses_a_request_of_another_wire_dtype(input_dtype, request_dtype):
+    server = ServingModel(_port("18"), stats=STATS, input_dtype=input_dtype)
+    x = np.random.RandomState(4).randint(0, 2, (2, 32, 32, 3)).astype(request_dtype)
+    with pytest.raises(TypeError):
+        server(x)
+
+
+@pytest.mark.parametrize("request_dtype", [np.float64, np.float16])
+def test_float32_serving_casts_other_floats(request_dtype):
+    server = ServingModel(_port("18"), stats=STATS, input_dtype="float32")
+    x = np.random.RandomState(5).rand(2, 32, 32, 3).astype(request_dtype)
+    want = server(x.astype(np.float32)).numpy()
+    np.testing.assert_array_equal(server(x).numpy(), want)
+
+
 def test_serving_metadata_has_the_jax_keys():
     setting, jm, _ = _jax_model("18")
     want = jax_metadata(jm, output="logits", batch_size=None, platforms=["cpu"],
