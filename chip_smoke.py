@@ -148,7 +148,7 @@ AVG_POOL_TOL = 1e-6
 ARGMAX_MIN = 0.99
 SERVE_BATCHES = (1, 8, 64)  # RN50
 ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121, ResNeXt-50
-THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (256,), "densenet": (256,),
+THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (64, 256), "densenet": (256,),
                       "resnext": (256,)}
 IMAGENET_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 REPS = 10  # timed launches per kernel measurement
@@ -182,15 +182,24 @@ SERVE_LAUNCHES = {
     "resnext": {"conv2d_fused": 37, "grouped_conv2d_fused": 16, "max_pool2d": 1},
 }
 TRAIN_LAUNCHES = {
-    "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1},
+    "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1,
+               "pool2d_backward": 1},
     "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13},
     "densenet": {"conv2d_stats": 1, "conv2d_stats_reduce": 1, "conv2d_fused": 119,
-                 "max_pool2d": 1, "avg_pool2d": 3},
+                 "max_pool2d": 1, "avg_pool2d": 3, "pool2d_backward": 4},
     "resnext": {"conv2d_stats": 37, "grouped_conv2d_stats": 16, "conv2d_stats_reduce": 53,
-                "max_pool2d": 1},
+                "max_pool2d": 1, "pool2d_backward": 1},
 }
-OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_kernel<",
-               "depthwise_kernel<", "grouped_conv_kernel<", "bottleneck_kernel<")
+# the window kernels, whose route (vector or loop) is chosen by shape: on
+# every family's paths each launch must take the vector route
+WINDOW_ROUTED = ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")
+OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_vec_kernel<",
+               "pool_bwd_kernel<", "depthwise_kernel<", "depthwise_vec_kernel<",
+               "grouped_conv_kernel<", "bottleneck_kernel<")
+# the window kernels as the profiler names them, for their share of a
+# request's or a step's device time
+WINDOW_KERNELS = (("depthwise", ("depthwise_kernel<", "depthwise_vec_kernel<")),
+                  ("pool", ("pool_vec_kernel<", "pool_bwd_kernel<")))
 # the grouped conv's kernels as the profiler names them: the grouped mode of
 # conv_wgmma_kernel<64, STATS, true, CG> and the CUDA-core loop
 GROUPED_KERNELS = tuple(f"conv_wgmma_kernel<64, {st}, true, {cg}>" for st in ("false", "true")
@@ -228,6 +237,9 @@ B256 = 256  # phases 4b, 8b: rows 1, 5 (RN50) and 1g, 5g (ResNeXt-50) at this ba
 B256_KEYS = ("ms_b256", "library_ms_b256", "bound_ms_b256")
 # rows 1g, 5g and 8 also carry the CUDA-core grouped loop's times (phases 8, 8b)
 SIMT_KEYS = ("simt_ms", "simt_ms_b256")
+# rows 2, 3, 4 and 9 also carry their plain version's time at b256, rows 2,
+# 3 and 9 their loop route's (phase 6b)
+PLAIN_B256, LOOP_B256 = "plain_ms_b256", "loop_ms_b256"
 # the block A/B of scripts/tpu_block_ab.py: (H, Cin, Cmid, blocks RN50 chains there)
 BLOCK_SHAPES = ((14, 1024, 256, 6), (28, 512, 128, 4))
 BLOCK_BATCH = 256
@@ -298,6 +310,20 @@ def launches_of(counts: dict) -> dict:
     from convnets_tpu_torch.ops import kernels
 
     return {k: counts.get(k, 0) for k in kernels.LAUNCHES}
+
+
+def check_routes(what, launches, failures):
+    """Each launch of a window kernel (WINDOW_ROUTED) in a run took the
+    vector route: the run's ROUTE_LAUNCHES against its LAUNCHES."""
+    from convnets_tpu_torch.ops import kernels
+
+    routes = {k: dict(kernels.ROUTE_LAUNCHES[k]) for k in WINDOW_ROUTED}
+    off = [k for k, r in routes.items() if r["loop"] or r["vector"] != launches[k]]
+    say(f"{what}: window kernel launches, vector / loop route: "
+        + ", ".join(f"{k} {r['vector']} / {r['loop']}" for k, r in routes.items())
+        + (" ok" if not off else " FAIL"))
+    if off:
+        failures.append(f"{what}: window kernels off the vector route: {routes}")
 
 
 def model_layers(model):
@@ -442,6 +468,7 @@ def random_jax_variables(model, seed: int, conv_gain=None) -> dict:
 
 PLAIN = {"conv2d_fused": "conv2d_fused_plain", "conv2d_stats": "conv2d_stats_plain",
          "max_pool2d": "max_pool2d_plain", "avg_pool2d": "avg_pool2d_plain",
+         "pool2d_backward": "pool2d_backward_plain",
          "depthwise_conv2d": "depthwise_conv2d_plain",
          "grouped_conv2d_fused": "grouped_conv2d_fused_plain",
          "grouped_conv2d_stats": "grouped_conv2d_stats_plain",
@@ -804,13 +831,15 @@ def sass_check(failures):
     if r.returncode != 0:
         failures.append(f"cuobjdump -sass failed ({r.returncode}): {r.stderr.strip()[:300]}")
         return
-    counts, fn = {}, None
+    counts, wide, fn = {}, {}, None
     for line in r.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
+            counts[fn] = wide[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
+        elif fn is not None and re.search(r"\b(LDG|LDGSTS)\.E\S*\.128\b", line):
+            wide[fn] += 1
     wgmma = {f: c for f, c in counts.items() if "conv_wgmma_kernel" in f}
     # conv_wgmma_kernel<BN, STATS, VEC_A, CG> in the mangled name
     grouped = {}
@@ -830,6 +859,18 @@ def sass_check(failures):
         failures.append(f"grouped wgmma instantiations and their HGMMA counts: {grouped}")
     if simt_bf16:
         failures.append(f"bf16 CUDA-core conv loop in the library: {simt_bf16}")
+    # the window kernels' vector instantiations (8 channels per thread):
+    # depthwise_vec_kernel<T, K, S, R>, pool_vec_kernel<T, AVG, TAPS, 8, R>,
+    # pool_bwd_kernel<T, AVG, 8>; each must move its data in 128-bit global
+    # loads or 128-bit asynchronous copies (LDGSTS)
+    vector = {f: wide[f] for f in wide
+              if "depthwise_vec_kernel" in f or re.search(r"pool_vec_kernelI\w+?Lb[01]ELb[01]ELi8E", f)
+              or re.search(r"pool_bwd_kernelI\w+?Lb[01]ELi8E", f)}
+    kinds = {k: sorted(c for f, c in vector.items() if k in f)
+             for k in ("depthwise_vec_kernel", "pool_vec_kernel", "pool_bwd_kernel")}
+    say(f"SASS: 128-bit LDG / LDGSTS per vector instantiation of the window kernels: {kinds}")
+    if [len(v) for v in kinds.values()] != [4, 12, 4] or min(vector.values(), default=0) == 0:
+        failures.append(f"window kernels' vector instantiations without 128-bit loads: {kinds}")
 
 
 def phase_train_kernels(model, failures):
@@ -1086,6 +1127,217 @@ def phase_zoo_kernels(failures):
     return summary
 
 
+def pool_backward_lib(mode, x, k, s, p):
+    """ATen's pool backward as one call on NCHW views of NHWC tensors: the
+    same dx from g and, for max, F.max_pool2d's own indices."""
+    import torch
+    import torch.nn.functional as F
+
+    xc = nchw(x)
+    if mode == "max":
+        idx = F.max_pool2d(xc, k, s, p, return_indices=True)[1]
+        return lambda g: torch.ops.aten.max_pool2d_with_indices_backward(
+            nchw(g), xc, [k, k], [s, s], [p, p], [1, 1], False, idx)
+    return lambda g: torch.ops.aten.avg_pool2d_backward(nchw(g), xc, [k, k], [s, s], [p, p],
+                                                        False, True, None)
+
+
+def phase_window_routes(summary, failures):
+    """Phase 6, the window kernels' two routes at batch 8, fp32 and bf16:
+    the vector route against the loop, bit for bit (torch.equal), at the 9
+    MobileNet-v1 depthwise shapes and at every pool shape of the four
+    families (y, the max pool's taps, and pool2d_backward's dx); the taps
+    and dx against their plain versions (taps and max dx exact, avg dx
+    fp32 1e-6 relative, bf16 one ulp); pool2d_backward alone beside its
+    plain version and ATen's backward (the pool2d_backward row)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import pool as kpool
+
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    n = KERNEL_BATCH
+    row = entry(summary, "pool2d_backward")
+    say("window kernels' routes (N=8): kernel H W C k s p | dtype | plan | vector == loop | "
+        "vs plain: taps, dx error (ok) | pool2d_backward kernel_ms plain_ms ATen_ms | uses")
+    for kind, shapes in window_layers().items():
+        for (h, w, c, _, k, s, p, _), uses in sorted(shapes.items()):
+            x32 = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname, x = dname_of(dtype), x32.to(dtype)
+                vs_plain, times = "-", ""
+                if kind == "dwconv":
+                    name = "depthwise_conv2d"
+                    wt = (torch.randn(k, k, 1, c, device=DEVICE, generator=g) / k).to(dtype)
+                    plan = kernels.depthwise_plan(n, h, w, c, k, k, s, p, dtype)
+                    same = torch.equal(
+                        kernels.depthwise_conv2d(x, wt, stride=s, padding=p, route="vector"),
+                        kernels.depthwise_conv2d(x, wt, stride=s, padding=p, route="loop"))
+                    ok = same
+                else:
+                    mode = kind[:3]
+                    name = f"{mode}_pool2d"
+                    plan = kernels.pool_plan(n, h, w, c, k, k, s, p, dtype)
+                    taps = mode == "max"
+                    ya, ta = kpool._forward(mode, x, k, s, p, taps, route="vector")
+                    yb, tb = kpool._forward(mode, x, k, s, p, taps, route="loop")
+                    cot = torch.randn(ya.shape, device=DEVICE, generator=g).to(dtype)
+                    bwd = (mode, cot, ta, (h, w), dtype, k, s, p)
+                    da = kernels.pool2d_backward(*bwd, route="vector")
+                    db = kernels.pool2d_backward(*bwd, route="loop")
+                    same = (torch.equal(ya, yb) and torch.equal(da, db)
+                            and (ta is None or torch.equal(ta, tb)))
+                    ref = kernels.pool2d_backward_plain(*bwd)
+                    sync()
+                    taps_ok = ta is None or torch.equal(
+                        ta, kernels.max_pool2d_plain(x, k, s, p, taps=True)[1])
+                    if mode == "max":
+                        err = float((da.float() - ref.float()).abs().max())
+                        dx_ok = err == 0.0
+                    else:
+                        dx_ok, err = avg_pool_ok(da, ref, dname)
+                    ok = same and taps_ok and dx_ok
+                    vs_plain = f"{'-' if ta is None else taps_ok}, {err:.3e} ({dx_ok})"
+                    row["err"] = max(row["err"], float((da.float() - ref.float()).abs().max()))
+                    if dtype == torch.bfloat16:
+                        k_ms = time_ms(lambda: kernels.pool2d_backward(*bwd), REPS)
+                        p_ms = time_ms(lambda: kernels.pool2d_backward_plain(*bwd), REPS)
+                        lib = pool_backward_lib(mode, x, k, s, p)
+                        lib_ms = time_ms(lambda: lib(cot), REPS)
+                        # g (and the taps) read, dx written; a compare-add per
+                        # covering window of each input element
+                        nbytes = 2 * (cot.numel() + x.numel()) + (cot.numel() if taps else 0)
+                        add_times(row, len(uses), k_ms, p_ms, (-(-k // s)) ** 2 * x.numel(), nbytes,
+                                  lib_ms, PEAK_OTHER)
+                        times = f"{k_ms:.4f} {p_ms:.4f} {lib_ms:.4f}"
+                say(f"  {name} {h} {w} {c} {k} {s} {p} | {dname} | {plan.route} {plan.cb}x"
+                    f"{plan.th}x{plan.tw}/{plan.ry}x{plan.r} | {same} | {vs_plain} | {times} | {len(uses)}")
+                if not ok or plan.route != "vector":
+                    failures.append(f"{name} {h}x{w} C{c} k{k} s{s} {dname}: route {plan.route}, "
+                                    f"vector == loop {same}, vs plain {vs_plain}")
+
+
+def window_layers():
+    """{kind: {(H, W, Cin, Cout, k, stride, pad, groups): [relu flags]}} of
+    the window kernels' layers: MobileNet-v1@224's depthwise convs (9
+    shapes, 13 layers), the stem max pool that RN50, DN121 and ResNeXt-50
+    share (RN50's modules) and DN121@224's avg pools (3 shapes)."""
+    from convnets_tpu_torch.models import build_model
+
+    out = {}
+    for arch, kind in (("mobilenet_v1", "dwconv"), ("resnet", "maxpool"), ("densenet", "avgpool")):
+        model = build_model(arch, model_setting(arch, 0, True), device=DEVICE)
+        out[kind] = distinct_shapes(model, (kind,))
+        del model
+    return out
+
+
+def pool_train_ms(mode, x, k, s, p, g):
+    """Device ms of pool2d_train's forward + backward on x with cotangent g:
+    the kernel path, the plain path (plain_kernels) and F's pool with its
+    own backward, NHWC in and out."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    def run(fn):
+        xi = x.detach().requires_grad_()
+        out = fn(xi)
+        return torch.autograd.grad(out, xi, g)
+
+    ours = lambda a: kernels.pool2d_train(a, mode, k, s, p)  # noqa: E731
+    k_ms = time_ms(lambda: run(ours), REPS)
+    with plain_kernels():
+        p_ms = time_ms(lambda: run(ours), REPS)
+    lib_ms = time_ms(lambda: run(pool_lib(mode, k, s, p)), REPS)
+    return k_ms, p_ms, lib_ms
+
+
+def phase_b256_windows(summary):
+    """Phase 6b: rows 2, 3, 4 and 9 in bf16 at batch B256: depthwise_conv2d
+    at MobileNet-v1's 9 depthwise shapes (13 layers), max_pool2d at the stem,
+    avg_pool2d at DN121's 3 transitions, and pool2d_train forward +
+    backward at the stem (max) and the first transition (avg), each beside
+    its plain version, the one F call (cuDNN / ATen) and its bound, and the
+    forward kernels beside their loop route on the same inputs, summed by
+    layer use into the rows' ms_b256, plain_ms_b256, loop_ms_b256,
+    library_ms_b256 and bound_ms_b256."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import pool as kpool
+
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    layers = window_layers()
+    rows = {name: entry(summary, name) for name in
+            ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_train", "pool2d_train_avg")}
+    for name, row in rows.items():
+        row.update(dict.fromkeys(B256_KEYS + (PLAIN_B256,), 0.0))
+        if not name.startswith("pool2d_train"):
+            row[LOOP_B256] = 0.0
+
+    def add(row, uses, k_ms, p_ms, lib_ms, nbytes, ops, loop_ms=None):
+        bound = 1e3 * max(ops / PEAK_OTHER, nbytes / HBM_BPS)
+        row["ms_b256"] += uses * k_ms
+        row[PLAIN_B256] += uses * p_ms
+        row["library_ms_b256"] += uses * lib_ms
+        row["bound_ms_b256"] += uses * bound
+        if loop_ms is not None:
+            row[LOOP_B256] += uses * loop_ms
+        return bound
+
+    say(f"window kernels at batch {B256}, bf16: kernel H W C k s p | plan | kernel ms GB/s | "
+        f"loop route ms | plain ms | F ms | bound ms, share | uses")
+    for kind, shapes in layers.items():
+        for (h, w, c, _, k, s, p, _), uses in sorted(shapes.items()):
+            x = torch.randn(B256, h, w, c, device=DEVICE, generator=g).to(torch.bfloat16)
+            oh, ow = conv_out_size(h, k, s, p), conv_out_size(w, k, s, p)
+            out_numel = B256 * oh * ow * c
+            if kind == "dwconv":
+                name = "depthwise_conv2d"
+                plan = kernels.depthwise_plan(B256, h, w, c, k, k, s, p, torch.bfloat16)
+                wt = (torch.randn(k, k, 1, c, device=DEVICE, generator=g) / k).to(torch.bfloat16)
+                xc, wc = nchw(x), oihw(wt)
+                kw = dict(stride=s, padding=p)
+                k_ms = time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw), REPS)
+                l_ms = time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw, route="loop"), REPS)
+                p_ms = time_ms(lambda: kernels.depthwise_conv2d_plain(x, wt, **kw), REPS)
+                lib_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, groups=c), REPS)
+                flops, nbytes = conv_work(B256, h, w, c, c, k, s, p, groups=c)
+            else:
+                name, mode = ("max_pool2d", "max") if kind == "maxpool" else ("avg_pool2d", "avg")
+                plan = kernels.pool_plan(B256, h, w, c, k, k, s, p, torch.bfloat16)
+                fn, plain = getattr(kernels, name), getattr(kernels, PLAIN[name])
+                k_ms = time_ms(lambda: fn(x, k, s, p), REPS)
+                l_ms = time_ms(lambda: kpool._forward(mode, x, k, s, p, route="loop"), REPS)
+                p_ms = time_ms(lambda: plain(x, k, s, p), REPS)
+                lib_ms = time_ms(lambda: pool_lib(mode, k, s, p)(x), REPS)
+                flops, nbytes = k * k * out_numel, 2 * (x.numel() + out_numel)
+            bound = add(rows[name], len(uses), k_ms, p_ms, lib_ms, nbytes, flops, l_ms)
+            say(f"  {name} {h} {w} {c} {k} {s} {p} | {plan.route} {plan.cb}x{plan.th}x{plan.tw}/"
+                f"{plan.ry}x{plan.r} | {k_ms:.4f} {nbytes / k_ms / 1e6:.1f} | {l_ms:.4f} | {p_ms:.4f} | "
+                f"{lib_ms:.4f} | {bound:.4f}, {100 * bound / k_ms:.1f}% | {len(uses)}")
+            if kind != "dwconv" and h == max(shape[0] for shape in shapes):
+                # pool2d_train at the stem and at the first transition:
+                # x and the cotangent read, y and dx written
+                name = "pool2d_train" if mode == "max" else "pool2d_train_avg"
+                cot = torch.randn(B256, oh, ow, c, device=DEVICE, generator=g).to(torch.bfloat16)
+                k_ms, p_ms, lib_ms = pool_train_ms(mode, x, k, s, p, cot)
+                bound = add(rows[name], 1, k_ms, p_ms, lib_ms, 4 * (x.numel() + out_numel),
+                            2 * k * k * out_numel)
+                say(f"  {name} (fwd+bwd) {h} {w} {c} {k} {s} {p} | | {k_ms:.4f} | | {p_ms:.4f} | "
+                    f"{lib_ms:.4f} | {bound:.4f}, {100 * bound / k_ms:.1f}% | 1")
+                del cot
+            del x
+    for name, row in rows.items():
+        loop = f", loop route {row[LOOP_B256]:.4f} ms" if LOOP_B256 in row else ""
+        say(f"{name} at b{B256} bf16, summed over its layers: kernel {row['ms_b256']:.4f} ms"
+            f"{loop}, plain {row[PLAIN_B256]:.4f} ms, F {row['library_ms_b256']:.4f} ms "
+            f"({row['ms_b256'] / row['library_ms_b256']:.3f}x), bound {row['bound_ms_b256']:.4f} ms "
+            f"({100 * row['bound_ms_b256'] / row['ms_b256']:.1f}% of it)")
+
+
 def train_state(model, **kw):
     from convnets_tpu_torch.train import build_train_step, create_train_state
 
@@ -1212,7 +1464,7 @@ def nobn_check(arch, seed, failures):
     """The batch_norm=False net, one bf16 Adam step: conv2d_train on every
     dense conv, grouped_conv2d_train on every grouped one (RN50: phase 5
     (iv); ResNeXt-50: phase 9 (v)). Its launches are those of the served
-    forward."""
+    forward and the stem pool's backward."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
@@ -1229,7 +1481,9 @@ def nobn_check(arch, seed, failures):
     loss, _, gnorm = step(state, x, y, generator=gen)
     sync()
     launches = dict(kernels.LAUNCHES)
-    want = launches_of(SERVE_LAUNCHES[arch])
+    want = launches_of({**SERVE_LAUNCHES[arch],
+                        "pool2d_backward": TRAIN_LAUNCHES[arch]["pool2d_backward"]})
+    check_routes(f"{arch} batch_norm=False step", launches, failures)
     ok = launches == want and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss))
     say(f"bf16 {arch} batch_norm=False, one Adam step at batch {NOBN_BATCH}: launches "
         f"{launches} (expected {want}); loss {float(loss):.4f}, gradient global norm "
@@ -1280,6 +1534,7 @@ def train_throughput(arch, seed, failures):
         if path == "kernel":
             peak = max(peak, torch.cuda.max_memory_allocated())
             launch_runs.append(dict(kernels.LAUNCHES))
+            check_routes(f"{arch} b{batch} train run", launch_runs[-1], failures)
             per_step = {k: v / (WARMUP + TIMED) for k, v in launch_runs[-1].items()}
             if per_step != want:
                 failures.append(f"{arch} b{batch} train launches per step {per_step} != {want}")
@@ -1315,6 +1570,16 @@ def device_split(prof, ours):
     return total, mine, bwd
 
 
+def window_shares(prof, total_us, per):
+    """Device ms per request or step (`per` of them traced) of each group of
+    WINDOW_KERNELS, and its share of `total_us`."""
+    parts = []
+    for label, names in WINDOW_KERNELS:
+        us = device_split(prof, names)[1]
+        parts.append(f"{label} {us / per / 1e3:.4f} ms ({100 * us / max(total_us, 1e-9):.2f}%)")
+    return ", ".join(parts)
+
+
 def print_table(prof, what):
     say(f"profile ({what}, sorted by device time):")
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=18)
@@ -1339,13 +1604,14 @@ def print_train_profile(arch, step, state, x, y, gen):
     device, ours, bwd = device_split(prof, OUR_KERNELS)
     grouped = device_split(prof, GROUPED_KERNELS)[1]
     say(f"{arch} train device time over 3 steps: {device / 1e3:.3f} ms (host clock under the "
-        f"profiler {1e3 * host:.1f} ms); the port's forward kernels "
+        f"profiler {1e3 * host:.1f} ms); the port's kernels "
         f"({', '.join(OUR_KERNELS)}) {ours / 1e3:.3f} ms "
         f"({100 * ours / max(device, 1e-9):.2f}%; of them the grouped conv "
         f"{grouped / 1e3:.3f} ms, {100 * grouped / max(device, 1e-9):.2f}%); backward convs "
         f"(aten::convolution_backward, cuDNN) {bwd / 1e3:.3f} ms "
         f"({100 * bwd / max(device, 1e-9):.2f}%); everything else "
         f"{(device - ours - bwd) / 1e3:.3f} ms")
+    say(f"{arch} train b{x.shape[0]}, window kernels per step: {window_shares(prof, device, 3)}")
 
 
 def serve_check(served, arch, seed, serve_batches, failures):
@@ -1374,6 +1640,7 @@ def serve_check(served, arch, seed, serve_batches, failures):
     say(f"{arch} served batches {serve_batches}: launches {launches} (expected {want})")
     if launches != want:
         failures.append(f"{arch} launch counts {launches} != {want}")
+    check_routes(f"{arch} served batches {serve_batches}", launches, failures)
     for b, y in zip(serve_batches, outs):
         if tuple(y.shape) != (b, 1000) or y.dtype != torch.float32:
             failures.append(f"{arch} batch {b}: logits {tuple(y.shape)} {y.dtype}")
@@ -1460,6 +1727,8 @@ def serve_check(served, arch, seed, serve_batches, failures):
         f"{100 * copy_us / max(request_us, 1e-9):.2f}% of a request's device time "
         f"({request_us / 1e3:.3f} ms); the port's kernels {ours / 3e3:.3f} ms per request (of "
         f"them the grouped conv {grouped / 3e3:.3f} ms)")
+    say(f"{arch} serving batch 64, window kernels per request: "
+        f"{window_shares(prof, 3 * request_us, 3)}")
     if not copies or any(b != req.nbytes for b, _ in copies):
         failures.append(f"{arch} serving: host-to-device copies of {[b for b, _ in copies]} bytes "
                         f"for a {req.nbytes}-byte uint8 request")
@@ -1878,6 +2147,7 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "pool2d_train": ("convnets_tpu_torch/ops/kernels/pool.py", "convnets_tpu/ops/pallas/pool.py:100"),
     "pool2d_train_avg": ("convnets_tpu_torch/ops/kernels/pool.py",
                          "convnets_tpu/ops/pallas/pool.py:100"),
+    "pool2d_backward": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:111"),
     "depthwise_conv2d": ("convnets_tpu_torch/csrc/depthwise.cu",
                          "convnets_tpu/ops/pallas/conv.py:755"),
     "depthwise_train": ("convnets_tpu_torch/ops/kernels/depthwise.py",
@@ -1897,6 +2167,9 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and data")
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases (comma-separated, e.g. 6b,7), print no "
+                         "kernels line and no result line: a development aid")
     args = ap.parse_args()
 
     sys.path.insert(0, HERE)
@@ -1934,50 +2207,68 @@ def main():
     sass_check(failures)
     from convnets_tpu_torch.models import build_model
 
-    t0 = time.perf_counter()
-    phase_conv_plans(failures)
-    say(f"[phase 2a: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    probe = build_model("resnet", model_setting("resnet", args.seed, True), device=DEVICE)
-    summary = phase_kernels(probe, failures)
-    say(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    summary.update(phase_train_kernels(probe, failures))
-    say(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    phase_b256_conv(probe, summary)
-    del probe
-    say(f"[phase 4b: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    step_check("resnet", args.seed, failures)
-    served = learn_check("resnet", args.seed, failures)
-    nobn = {"resnet": nobn_check("resnet", args.seed, failures)}
-    train = {"resnet": train_throughput("resnet", args.seed, failures)[0]}
-    say(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    serve = {"resnet": serve_check(served, "resnet", args.seed, SERVE_BATCHES, failures)}
-    del served
-    say(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    summary.update(phase_zoo_kernels(failures))
-    say(f"[phase 6: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    for arch in ("mobilenet_v1", "densenet"):
-        serve[arch], train[arch] = phase_family(arch, args.seed, failures)
-    say(f"[phase 7: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    summary.update(phase_grouped_kernels(failures))
-    block_summary, block_launches = phase_block(failures)
-    summary.update(block_summary)
-    say(f"[phase 8: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    phase_b256_grouped(summary)
-    say(f"[phase 8b: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    serve["resnext"], train["resnext"] = phase_family("resnext", args.seed, failures)
-    nobn["resnext"] = nobn_check("resnext", args.seed, failures)
-    say(f"[phase 9: {time.perf_counter() - t0:.1f} s]")
+    summary, serve, train, nobn = {}, {}, {}, {}
+    state = {}
+
+    def probe():
+        if "probe" not in state:
+            state["probe"] = build_model("resnet", model_setting("resnet", args.seed, True),
+                                         device=DEVICE)
+        return state["probe"]
+
+    def phase_5():
+        step_check("resnet", args.seed, failures)
+        state["served"] = learn_check("resnet", args.seed, failures)
+        nobn["resnet"] = nobn_check("resnet", args.seed, failures)
+        train["resnet"] = train_throughput("resnet", args.seed, failures)[0]
+
+    def phase_3():
+        serve["resnet"] = serve_check(state.pop("served"), "resnet", args.seed, SERVE_BATCHES,
+                                      failures)
+
+    def phase_7():
+        for arch in ("mobilenet_v1", "densenet"):
+            serve[arch], train[arch] = phase_family(arch, args.seed, failures)
+
+    def phase_8():
+        summary.update(phase_grouped_kernels(failures))
+        block_summary, state["block"] = phase_block(failures)
+        summary.update(block_summary)
+
+    def phase_9():
+        serve["resnext"], train["resnext"] = phase_family("resnext", args.seed, failures)
+        nobn["resnext"] = nobn_check("resnext", args.seed, failures)
+
+    phases = {
+        "2a": lambda: phase_conv_plans(failures),
+        "2": lambda: summary.update(phase_kernels(probe(), failures)),
+        "4": lambda: summary.update(phase_train_kernels(probe(), failures)),
+        "4b": lambda: phase_b256_conv(probe(), summary),
+        "5": phase_5,
+        "3": phase_3,
+        "6": lambda: (summary.update(phase_zoo_kernels(failures)),
+                      phase_window_routes(summary, failures)),
+        "6b": lambda: phase_b256_windows(summary),
+        "7": phase_7,
+        "8": phase_8,
+        "8b": lambda: phase_b256_grouped(summary),
+        "9": phase_9,
+    }
+    chosen = list(phases) if args.phases is None else args.phases.split(",")
+    if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
+        die(f"--phases: a comma-separated subset of {','.join(phases)} (3 needs 5)")
+    for name in phases:
+        if name in chosen:
+            t0 = time.perf_counter()
+            phases[name]()
+            if name == "4b":
+                state.pop("probe", None)  # RN50's probe model is not needed later
+            say(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
     say(f"[all phases: {time.perf_counter() - t_all:.1f} s]")
+    if args.phases is not None:  # a development run: no kernels line, no result
+        for f in failures:
+            print(f"FAIL: {f}", file=sys.stderr)
+        sys.exit(1 if failures else 0)
 
     # launches, each from the path that runs the kernel: serving (rows 1, 2,
     # 3, 9 and the grouped forward), the b256 train runs (rows 4, 5, 6, 9's
@@ -1991,6 +2282,7 @@ def main():
                 "conv_bn_relu_train": train["resnet"]["conv2d_stats"],
                 "pool2d_train": train["resnet"]["max_pool2d"],
                 "pool2d_train_avg": train["densenet"]["avg_pool2d"],
+                "pool2d_backward": train["resnet"]["pool2d_backward"],
                 "conv2d_train": nobn["resnet"]["conv2d_fused"],
                 "depthwise_conv2d": serve["mobilenet_v1"]["depthwise_conv2d"],
                 "depthwise_train": train["mobilenet_v1"]["depthwise_conv2d"],
@@ -1998,7 +2290,7 @@ def main():
                 "grouped_conv2d_stats": train["resnext"]["grouped_conv2d_stats"],
                 "grouped_conv2d_train": nobn["resnext"]["grouped_conv2d_fused"],
                 "conv_bn_relu_train_grouped": train["resnext"]["grouped_conv2d_stats"],
-                "bottleneck_block": block_launches}
+                "bottleneck_block": state["block"]}
     for name in SOURCES:
         if launches[name] <= 0:
             failures.append(f"{name}: no launch on its main path")
@@ -2011,7 +2303,8 @@ def main():
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
-         **{k: summary[name][k] for k in B256_KEYS + SIMT_KEYS if k in summary[name]}}
+         **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
+            if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

@@ -19,15 +19,22 @@ cores (csrc/conv_fused.cu), which only the fp32 checks use. The grouped
 conv (`grouped_conv2d_fused`, `grouped_conv2d_stats`) runs the plan of
 `grouped_plan`: bf16 at Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64 ==
 0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), fp32 and
-the other bf16 shapes on the CUDA cores (csrc/grouped_conv.cu). The other
-kernels (depthwise, pool, block) run on the CUDA cores.
+the other bf16 shapes on the CUDA cores (csrc/grouped_conv.cu). The
+window kernels (`depthwise_conv2d`, `max_pool2d`, `avg_pool2d`,
+`pool2d_backward`) run on the CUDA cores on the route that
+`depthwise_plan` / `pool_plan` pick by shape: "vector" (8 channels per
+thread in 16-byte vectors) or "loop" (one thread per element);
+`ROUTE_LAUNCHES` counts their launches per route. `bottleneck_block` runs
+on the CUDA cores.
 
 The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
 `conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
 `torch.autograd.Function`s: their forwards go through the wrappers above,
-and their backwards are plain PyTorch, as the JAX package leaves its
-backwards to XLA. `bottleneck_block` (a whole identity bottleneck in one
-launch) has no caller in the models, as in the JAX package.
+and their backwards are plain PyTorch (cuDNN on the card), as the JAX
+package leaves its backwards to XLA, except the pool's: its max forward
+writes the tap of each window's first maximum and the `pool2d_backward`
+kernel gathers dx from it. `bottleneck_block` (a whole identity bottleneck
+in one launch) has no caller in the models, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,7 +61,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
                              "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                              "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
-                             "bottleneck_block": 0}
+                             "bottleneck_block": 0, "pool2d_backward": 0}
+# launches per route of the window kernels, whose route is chosen by shape
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: {"vector": 0, "loop": 0}
+    for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,11 +83,15 @@ _SIGNATURES = {
     "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 17 + [_P],
     # partial, out, blocks, cout, stream
     "stats_reduce_launch": [_P, _P, _I, _I, _P],
-    # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
-    "max_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
-    "avg_pool_launch": [_I, _P, _P] + [_I] * 12 + [_P],
-    # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, stream
-    "depthwise_launch": [_I, _P, _P, _P] + [_I] * 12 + [_P],
+    # dtype, x, y, taps, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, r, stream
+    "max_pool_launch": [_I, _P, _P, _P] + [_I] * 14 + [_P],
+    # dtype, x, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, r, stream
+    "avg_pool_launch": [_I, _P, _P] + [_I] * 14 + [_P],
+    # dtype, mode, g, taps, dx, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, stream
+    "pool_backward_launch": [_I, _I, _P, _P, _P] + [_I] * 13 + [_P],
+    # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, cb, th, tw, r, ry,
+    # stream
+    "depthwise_launch": [_I, _P, _P, _P] + [_I] * 18 + [_P],
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
     # groups, route, relu, stream
     "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 16 + [_P],
@@ -92,6 +107,15 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTE_LAUNCHES.values():
+        for route in routes:
+            routes[route] = 0
+
+
+def count_launch(name: str, route: str) -> None:
+    """One launch of a window kernel on `route`."""
+    LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[name][route] += 1
 
 
 def _sources():
@@ -225,10 +249,11 @@ from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
     grouped_slices,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
-    avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_train,
+    WindowPlan, avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_backward,
+    pool2d_backward_plain, pool2d_train, pool_plan,
 )
 from convnets_tpu_torch.ops.kernels.depthwise import (  # noqa: E402
-    depthwise_conv2d, depthwise_conv2d_plain, depthwise_train,
+    depthwise_conv2d, depthwise_conv2d_plain, depthwise_plan, depthwise_train,
 )
 from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
 from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
@@ -236,11 +261,13 @@ from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
 )
 
 __all__ = [
-    "ConvPlan", "GroupedPlan", "LAUNCHES", "avg_pool2d", "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain",
-    "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain",
-    "conv2d_train", "conv_bn_relu_train", "conv_plan", "depthwise_conv2d", "depthwise_conv2d_plain",
-    "depthwise_train", "fits_block", "fits_conv", "fits_depthwise", "fits_grouped",
-    "grouped_conv2d_fused", "grouped_conv2d_fused_plain", "grouped_conv2d_stats",
-    "grouped_conv2d_stats_plain", "grouped_conv2d_train", "grouped_plan", "grouped_slices", "lib", "max_pool2d",
-    "max_pool2d_plain", "pool2d_train", "reset_launches",
+    "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES", "WindowPlan", "avg_pool2d",
+    "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain", "build", "conv2d_fused",
+    "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain", "conv2d_train",
+    "conv_bn_relu_train", "conv_plan", "count_launch", "depthwise_conv2d",
+    "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train", "fits_block", "fits_conv",
+    "fits_depthwise", "fits_grouped", "grouped_conv2d_fused", "grouped_conv2d_fused_plain",
+    "grouped_conv2d_stats", "grouped_conv2d_stats_plain", "grouped_conv2d_train", "grouped_plan",
+    "grouped_slices", "lib", "max_pool2d", "max_pool2d_plain", "pool2d_backward",
+    "pool2d_backward_plain", "pool2d_train", "pool_plan", "reset_launches",
 ]

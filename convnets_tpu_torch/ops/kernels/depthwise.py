@@ -1,5 +1,6 @@
 """Depthwise conv: the wrapper of csrc/depthwise.cu, its plain PyTorch
-version, and the trainable depthwise conv.
+version, the plan that picks its route and tile, and the trainable
+depthwise conv.
 
 Replaces convnets_tpu/ops/pallas/conv.py:
 - `depthwise_conv2d` (:755): per-channel K×K multiply-accumulate, fp32
@@ -9,8 +10,12 @@ Replaces convnets_tpu/ops/pallas/conv.py:
   kernel and whose backward is plain PyTorch (dx/dw by grouped transposed
   convolution, cuDNN on the card), as the JAX package leaves it to XLA.
 
-The kernel runs one thread per output element with the channel innermost;
-it is memory-bound on the H100 (one read of x, one write of y).
+The kernel is memory-bound on the H100 (one read of x, one write of y).
+`depthwise_plan` picks its route by shape: "vector" (C % 8 == 0, 3×3,
+stride 1 or 2: a CTA copies its output tile's input halo into shared
+memory once, 16 bytes at a time, and each thread computes 8 channels of a
+block of outputs from there, 2 rows × 4 columns at stride 1, its weights
+in registers) or "loop" (one thread per output element).
 """
 
 from __future__ import annotations
@@ -21,6 +26,59 @@ from convnets_tpu_torch import ops
 from convnets_tpu_torch.core.shapes import conv_out_size, to_pair
 from convnets_tpu_torch.ops import kernels as _k
 from convnets_tpu_torch.ops.kernels.conv import conv2d_backward
+from convnets_tpu_torch.ops.kernels.pool import WindowPlan, _aligned, _check_dtype
+
+_SMS = 132  # the H100 SXM's SMs
+_MAX_THREADS = 256  # a vector CTA's threads (the kernel's launch bound)
+_MAX_HALO = 48 * 1024  # bytes of one of a vector CTA's two halo buffers
+_MAX_TW = 32  # output columns of a vector tile
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def depthwise_plan(n, h, w, c, kh, kw, stride, padding, dtype,
+                   aligned: bool = True) -> WindowPlan:
+    """The plan of a depthwise conv over NHWC (n, h, w, c) in `dtype`.
+
+    The vector route takes C % 8 == 0, a 3×3 window, stride 1 or 2 (the
+    same along H and W), any padding, and 16-byte aligned operands
+    (`aligned`); every other shape takes the loop. A vector tile is th × tw
+    outputs × cb channels, each thread's block ry × r outputs: 2 × 4 at
+    stride 1, 1 × 2 at stride 2 (cb/8 · th/ry · tw/r threads):
+    - cb: 64 or the largest of 32, 16, 8 that divides C;
+    - tw: the output width cut into the fewest pieces of at most 32
+      columns, rounded up to a multiple of r;
+    - th: a multiple of ry, as many rows as 256 threads hold, fewer while
+      the input halo, ((th−1)·s+3) × ((tw−1)·s+3) × cb, is over 48 KB,
+      then evened out over the tile rows it needs;
+    - while the grid has fewer than two CTAs per SM (small N, 7² or 14²
+      maps), cb halves, down to 16.
+    """
+    _check_dtype("depthwise_plan", dtype)
+    sh, sw = to_pair(stride)
+    ph, pw = to_pair(padding)
+    if c % 8 or not aligned or (kh, kw) != (3, 3) or sh != sw or sh not in (1, 2):
+        return WindowPlan("loop")
+    oh, ow = conv_out_size(h, kh, sh, ph), conv_out_size(w, kw, sw, pw)
+    r, ry = (4, 2) if sh == 1 else (2, 1)
+    itemsize = torch.finfo(dtype).bits // 8
+    cb = next(b for b in (64, 32, 16, 8) if c % b == 0)
+    tw = _cdiv(_cdiv(ow, _cdiv(ow, _MAX_TW)), r) * r
+
+    def halo(th, tw, cb):
+        return ((th - 1) * sh + kh) * ((tw - 1) * sw + kw) * cb * itemsize
+
+    th = ry * max(1, min(_cdiv(oh, ry), _MAX_THREADS // ((cb // 8) * (tw // r))))
+    while th > ry and halo(th, tw, cb) > _MAX_HALO:
+        th -= ry
+    while tw > r and halo(th, tw, cb) > _MAX_HALO:
+        tw -= r
+    th = _cdiv(_cdiv(oh, _cdiv(oh, th)), ry) * ry
+    while n * _cdiv(oh, th) * _cdiv(ow, tw) * (c // cb) < 2 * _SMS and cb > 16:
+        cb //= 2
+    return WindowPlan("vector", cb, th, tw, r, ry)
 
 
 def depthwise_conv2d_plain(x, w, *, stride=1, padding=0):
@@ -29,9 +87,11 @@ def depthwise_conv2d_plain(x, w, *, stride=1, padding=0):
     return ops.conv2d_depthwise(x, w.to(x.dtype), stride=stride, padding=padding)
 
 
-def depthwise_conv2d(x, w, *, stride=1, padding=0):
+def depthwise_conv2d(x, w, *, stride=1, padding=0, route=None):
     """x (N, H, W, C) NHWC, float32 or bfloat16; w (kh, kw, 1, C) HWIO.
-    Any stride and padding. Returns (N, OH, OW, C) in x.dtype."""
+    Any stride and padding. Returns (N, OH, OW, C) in x.dtype. `route`
+    forces the loop or the vector route on the card (the on-card comparison
+    of the two)."""
     n, h, wd, c = x.shape
     kh, kw, one, wc = w.shape
     if one != 1 or wc != c:
@@ -49,11 +109,14 @@ def depthwise_conv2d(x, w, *, stride=1, padding=0):
         raise ValueError(f"depthwise_conv2d: output of {n * oh * ow * c} elements exceeds "
                          f"the kernel's 32-bit indexing")
     y = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
+    plan = WindowPlan("loop") if route == "loop" else depthwise_plan(
+        n, h, wd, c, kh, kw, (sh, sw), (ph, pw), x.dtype,
+        route == "vector" or _aligned(x, wt, y))
     rc = _k.lib().depthwise_launch(
         _k.DTYPE_CODES[x.dtype], x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h, wd, c,
-        oh, ow, kh, kw, sh, sw, ph, pw, _k.stream_ptr(x))
+        oh, ow, kh, kw, sh, sw, ph, pw, *plan.args(), _k.stream_ptr(x))
     _k.check_launch("depthwise_conv2d", rc)
-    _k.LAUNCHES["depthwise_conv2d"] += 1
+    _k.count_launch("depthwise_conv2d", plan.route)
     return y
 
 

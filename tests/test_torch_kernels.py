@@ -130,14 +130,19 @@ def test_avg_pool2d_matches_jax(k, stride, padding, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("stride", [1, 2])
-def test_depthwise_conv2d_matches_jax(stride, dtype):
+@pytest.mark.parametrize("stride,hw,c", [
+    pytest.param(1, 15, 24, id="1"), pytest.param(2, 15, 24, id="2"),
+    # MobileNet-like: C not a multiple of 8 (the kernel's loop route), odd
+    # maps at stride 2 (7² -> 4², 13² -> 7²), a 7² stride-1 map
+    pytest.param(2, 13, 12, id="2-13x13x12"), pytest.param(2, 7, 20, id="2-7x7x20"),
+    pytest.param(1, 7, 32, id="1-7x7x32"), pytest.param(1, 9, 27, id="1-9x9x27")])
+def test_depthwise_conv2d_matches_jax(stride, hw, c, dtype):
     """fp32 products accumulated in (i, j) order, one rounding to x.dtype:
     fp32 to the accumulation order, bf16 to one ulp (2^-8 relative)."""
     jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
     rng = np.random.RandomState(8)
-    x = rng.randn(2, 15, 15, 24).astype(np.float32)
-    w = (0.3 * rng.randn(3, 3, 1, 24)).astype(np.float32)
+    x = rng.randn(2, hw, hw, c).astype(np.float32)
+    w = (0.3 * rng.randn(3, 3, 1, c)).astype(np.float32)
     want = np.asarray(jax_depthwise_conv2d(jnp.asarray(x).astype(jd), jnp.asarray(w).astype(jd),
                                            stride=stride, padding=1,
                                            interpret=True).astype(jnp.float32))
@@ -175,10 +180,16 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
              for shape in ((1, 4, 4, 8), (8, 2), (2,), (2,), (3, 3, 2, 2), (2,), (2,), (2, 8),
                            (8,), (8,))]
     assert torch.equal(kernels.bottleneck_block(*block), kernels.bottleneck_block_plain(*block))
+    y, taps = kernels.max_pool2d(xt, 3, 2, 1, taps=True)
+    assert torch.equal(y, kernels.max_pool2d_plain(xt, 3, 2, 1)) and taps.dtype == torch.uint8
+    assert torch.equal(kernels.pool2d_backward("max", y, taps, (16, 16), torch.float32, 3, 2, 1),
+                       kernels.pool2d_backward_plain("max", y, taps, (16, 16), torch.float32,
+                                                     3, 2, 1))
     assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
                                 "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                                 "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
-                                "bottleneck_block": 0}
+                                "bottleneck_block": 0, "pool2d_backward": 0}
+    assert all(n == 0 for routes in kernels.ROUTE_LAUNCHES.values() for n in routes.values())
 
 
 def test_non_cpu_non_cuda_tensor_is_refused():
