@@ -13,8 +13,8 @@ final line:
      compiler per source, all started together.
   1b. SASS: the HGMMA instructions of every tensor-core conv instantiation
      (cuobjdump -sass; none may have 0), the grouped mode's 8 among them
-     (Cin/G = 4, 8, 16, 32, both epilogues), and no bf16 instantiation of
-     the dense CUDA-core conv loop.
+     (Cin/G = 4, 8, 16, 32, both epilogues), the block's 3 (Cmid = 64,
+     128, 256), and no bf16 instantiation of the dense CUDA-core conv loop.
   2a. conv plans vs plain: every branch of conv_plan (PLAN_SHAPES: the
      7x7x3 stem at N=1, the 3x3x3 stem, Cin=12, Cout=32, 24 and 27, a 1x1
      stride-2 p0, Cin=40, M=49 < BM, two RN50 shapes at b256), fp32 and
@@ -85,11 +85,16 @@ final line:
      1x1, and two bf16 simt shapes);
      grouped_conv2d_train and grouped conv_bn_relu_train forward and
      gradients at a stride-1 and a stride-2 shape; bottleneck_block at
-     RN50's 14²×1024/256 and 28²×512/128 at batch 8; then the block A/B of
-     scripts/tpu_block_ab.py at batch 256, chains of 6 and 4 blocks: the
-     kernel, its plain version, the port's serving composition (three
-     conv2d_fused launches, the add and the ReLU) and three cuDNN convs,
-     with ms per chain, TFLOP/s and each arm's ratio to the kernel.
+     RN50's three identity shapes (56²×256/64, 28²×512/128, 14²×1024/256)
+     at batch 8 on its block_plan routes (bf16 wgmma, fp32 simt), the bf16
+     wgmma route also against the simt route on the same inputs, one
+     relu_out=False case and one zero-halo case (W1 = 0, b1 > 0) in bf16,
+     and a bf16 shape off the wgmma route (Cmid = 32, simt); then the block
+     A/B of scripts/tpu_block_ab.py at batch 256, chains of 6 and 4 blocks:
+     the kernel (every launch on the wgmma route), the simt route, its plain
+     version, the port's serving composition (three conv2d_fused launches,
+     the add and the ReLU) and three cuDNN convs, with ms per chain, TFLOP/s
+     and each arm's ratio to the kernel.
   8b. rows 1g and 5g and row 8's forward (grouped_conv2d_fused with no
      epilogue) in bf16 at batch 256 at the 7 grouped shapes: the wgmma
      route, the simt route on the same inputs, cuDNN's bf16 grouped
@@ -235,7 +240,8 @@ GROUPED_PLAN_SHAPES = (
 )
 B256 = 256  # phases 4b, 8b: rows 1, 5 (RN50) and 1g, 5g (ResNeXt-50) at this batch
 B256_KEYS = ("ms_b256", "library_ms_b256", "bound_ms_b256")
-# rows 1g, 5g and 8 also carry the CUDA-core grouped loop's times (phases 8, 8b)
+# rows 1g, 5g and 8 also carry the CUDA-core grouped loop's times (phases 8,
+# 8b), row 10 its CUDA-core route's b256 time (phase 8)
 SIMT_KEYS = ("simt_ms", "simt_ms_b256")
 # rows 2, 3, 4 and 9 also carry their plain version's time at b256, rows 2,
 # 3 and 9 their loop route's (phase 6b)
@@ -243,6 +249,10 @@ PLAIN_B256, LOOP_B256 = "plain_ms_b256", "loop_ms_b256"
 # the block A/B of scripts/tpu_block_ab.py: (H, Cin, Cmid, blocks RN50 chains there)
 BLOCK_SHAPES = ((14, 1024, 256, 6), (28, 512, 128, 4))
 BLOCK_BATCH = 256
+# phase 8's block checks at N=8: RN50's three identity shapes (H, Cin, Cmid),
+# all on the wgmma route in bf16, and a bf16 shape off it (Cmid = 32)
+BLOCK_CHECK_SHAPES = ((56, 256, 64), (28, 512, 128), (14, 1024, 256))
+BLOCK_SIMT_SHAPE = (14, 256, 32)
 # bottleneck_block vs its plain version: fp32 sums in another order; bf16
 # also h1/h2 roundings one ulp apart (the bar of tests/test_block_kernel.py)
 BLOCK_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 5e-2)}
@@ -859,6 +869,17 @@ def sass_check(failures):
         failures.append(f"grouped wgmma instantiations and their HGMMA counts: {grouped}")
     if simt_bf16:
         failures.append(f"bf16 CUDA-core conv loop in the library: {simt_bf16}")
+    # the block's tensor-core route, block_wgmma_kernel<Cmid, MB1>: one per
+    # Cmid of kernels.block.WGMMA_CMID
+    block = {}
+    for f, c in counts.items():
+        m = re.search(r"block_wgmma_kernelILi(\d+)ELi(\d+)E", f)
+        if m:
+            block[int(m.group(1))] = c
+    say(f"SASS: HGMMA instructions per block_wgmma_kernel instantiation (Cmid: count): "
+        f"{dict(sorted(block.items()))}")
+    if set(block) != set(kernels.block.WGMMA_CMID) or min(block.values(), default=0) == 0:
+        failures.append(f"block_wgmma_kernel instantiations and their HGMMA counts: {block}")
     # the window kernels' vector instantiations (8 channels per thread):
     # depthwise_vec_kernel<T, K, S, R>, pool_vec_kernel<T, AVG, TAPS, 8, R>,
     # pool_bwd_kernel<T, AVG, 8>; each must move its data in 128-bit global
@@ -2066,41 +2087,94 @@ def cudnn_composition(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     return out.permute(0, 2, 3, 1)  # NHWC, channels_last in memory
 
 
+def block_route_launches():
+    """(wgmma, simt) launches of bottleneck_block since the last reset."""
+    from convnets_tpu_torch.ops import kernels
+
+    routes = kernels.ROUTE_LAUNCHES["bottleneck_block"]
+    return routes["wgmma"], routes["simt"]
+
+
 def phase_block(failures):
     """Phase 8, bottleneck_block: checked against its plain version at
-    batch 8 in fp32 and bf16, then the A/B of scripts/tpu_block_ab.py at
+    batch 8 on each route, then the A/B of scripts/tpu_block_ab.py at
     batch 256 (chains of 6 and 4 blocks). Returns (summary, launches of
     the kernel arm's timed chains)."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import block as kblock
 
     g = torch.Generator(device=DEVICE).manual_seed(4)
     summary = {}
     row = entry(summary, "bottleneck_block")
-    say("bottleneck_block (N=8): H Cin Cmid | dtype | max_abs_err (tol) | kernel_ms plain_ms")
-    for h, cin, cmid, _ in BLOCK_SHAPES:
+
+    def simt(*args, relu_out=True):
+        return kblock._launch_block(*args, relu_out=relu_out, route="simt")
+
+    def check(label, args, want_route, relu_out=True, against_simt=False):
+        dname = dname_of(args[0].dtype)
+        n, h, w, cin = args[0].shape
+        plan = kernels.block_plan(args[0].dtype, n, h, w, cin, args[1].shape[1])
+        sync()
+        kernels.reset_launches()
+        got = kernels.bottleneck_block(*args, relu_out=relu_out)
+        sync()
+        routes = block_route_launches()
+        ref = kernels.bottleneck_block_plain(*args, relu_out=relu_out)
+        err = float((got.float() - ref.float()).abs().max())
+        atol, rtol = BLOCK_TOL[dname]
+        ok = (within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+              and plan.route == want_route
+              and routes == ((1, 0) if want_route == "wgmma" else (0, 1)))
+        line = (f"  {label} | {dname} {plan.route} th={plan.th} | {err:.3e} "
+                f"({atol:g}+{rtol:g}|ref|)")
+        if against_simt:
+            other = simt(*args, relu_out=relu_out)
+            sync()
+            s_err = float((got.float() - other.float()).abs().max())
+            s_ok = within(got, other, atol, rtol)
+            ok = ok and s_ok
+            line += f" | vs simt {s_err:.3e}"
+        say(line + (" ok" if ok else f" FAIL (launches wgmma/simt {routes})"))
+        if not ok:
+            failures.append(f"bottleneck_block {label} {dname}: err {err:.3e}, route "
+                            f"{plan.route} (want {want_route}), launches {routes}")
+        row["err"] = max(row["err"], err)
+        return got
+
+    say("bottleneck_block (N=8): H Cin Cmid | dtype route | max_abs_err (tol) | vs simt | "
+        "kernel_ms plain_ms simt_ms")
+    for h, cin, cmid in BLOCK_CHECK_SHAPES:
         args32 = block_args(KERNEL_BATCH, h, cin, cmid, torch.float32, g)
         for dtype in (torch.float32, torch.bfloat16):
-            dname = dname_of(dtype)
             args = [a.to(dtype) if i in (0, 1, 4, 7) else a for i, a in enumerate(args32)]
-            got = kernels.bottleneck_block(*args)
-            ref = kernels.bottleneck_block_plain(*args)
-            sync()
-            err = float((got.float() - ref.float()).abs().max())
-            atol, rtol = BLOCK_TOL[dname]
-            ok = within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+            bf = dtype == torch.bfloat16
+            check(f"{h} {cin} {cmid}", args, "wgmma" if bf else "simt", against_simt=bf)
             k_ms = time_ms(lambda: kernels.bottleneck_block(*args), REPS)
             p_ms = time_ms(lambda: kernels.bottleneck_block_plain(*args), REPS)
-            say(f"  {h} {cin} {cmid} | {dname} | {err:.3e} ({atol:g}+{rtol:g}|ref|) "
-                f"{'ok' if ok else 'FAIL'} | {k_ms:.4f} {p_ms:.4f}")
-            if not ok:
-                failures.append(f"bottleneck_block {h}x{cin}/{cmid} {dname}: err {err:.3e}")
-            row["err"] = max(row["err"], err)
+            s_ms = time_ms(lambda: simt(*args), REPS) if bf else k_ms
+            say(f"    {h} {cin} {cmid} {dname_of(dtype)}: {k_ms:.4f} {p_ms:.4f} {s_ms:.4f}")
+    # the bf16 wgmma route without the final ReLU, and with a zero halo: W1 =
+    # 0 and b1 > 0 make h1 = ReLU(b1) > 0 inside the image, which the 3x3
+    # conv must not see outside it
+    h, cin, cmid = BLOCK_CHECK_SHAPES[1]
+    args = block_args(KERNEL_BATCH, h, cin, cmid, torch.bfloat16, g)
+    check(f"{h} {cin} {cmid} relu_out=False", args, "wgmma", relu_out=False, against_simt=True)
+    args[1] = torch.zeros_like(args[1])
+    args[3] = args[3].abs() + 0.5
+    args[0] = torch.zeros_like(args[0])
+    got = check(f"{h} {cin} {cmid} zero halo", args, "wgmma", relu_out=False, against_simt=True)
+    if torch.equal(got[:, 0, 0], got[:, h // 2, h // 2]):
+        failures.append("bottleneck_block zero halo: a corner equals an interior pixel")
+    h, cin, cmid = BLOCK_SIMT_SHAPE
+    check(f"{h} {cin} {cmid} off the wgmma route", block_args(
+        KERNEL_BATCH, h, cin, cmid, torch.bfloat16, g), "simt")
 
     # the A/B: each arm runs the chain of blocks RN50 runs at that shape
-    arms = {"kernel": kernels.bottleneck_block, "plain": kernels.bottleneck_block_plain,
-            "serving": serving_composition, "cudnn": cudnn_composition}
+    arms = {"kernel": kernels.bottleneck_block, "simt": simt,
+            "plain": kernels.bottleneck_block_plain, "serving": serving_composition,
+            "cudnn": cudnn_composition}
     say(f"block A/B (scripts/tpu_block_ab.py's, batch {BLOCK_BATCH}, bf16): shape | arm "
         f"ms/chain TFLOP/s ratio-to-kernel")
     launches = 0
@@ -2114,7 +2188,7 @@ def phase_block(failures):
             return v
 
         times = {}
-        for arm in ("plain", "kernel", "serving", "cudnn"):
+        for arm in ("plain", "kernel", "simt", "serving", "cudnn"):
             if arm == "kernel":
                 sync()
                 kernels.reset_launches()
@@ -2122,15 +2196,19 @@ def phase_block(failures):
                 times[arm] = time_ms(lambda: run(arms[arm]), 3)
             if arm == "kernel":
                 sync()
-                launches += kernels.LAUNCHES["bottleneck_block"]
+                n_arm = kernels.LAUNCHES["bottleneck_block"]
+                launches += n_arm
+                if block_route_launches() != (n_arm, 0):
+                    failures.append(f"block A/B {h}x{cin}/{cmid}: kernel arm launches "
+                                    f"(wgmma, simt) {block_route_launches()} of {n_arm}")
         flops, nbytes = block_work(BLOCK_BATCH, h, cin, cmid)
         for arm, ms in times.items():
             say(f"  {h}x{cin}/{cmid} x{chain} | {arm} {ms:.3f} {chain * flops / ms / 1e9:.2f} "
                 f"{ms / times['kernel']:.3f}")
         add_times(row, chain, times["kernel"] / chain, times["plain"] / chain, flops, nbytes,
                   times["cudnn"] / chain)
-        row.setdefault("serving_ms", 0.0)
-        row["serving_ms"] += times["serving"]
+        for key, arm in (("serving_ms", "serving"), ("simt_ms_b256", "simt")):
+            row[key] = row.get(key, 0.0) + times[arm]
     return summary, launches
 
 
@@ -2160,7 +2238,8 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                              "convnets_tpu/ops/pallas/conv.py:647"),
     "conv_bn_relu_train_grouped": ("convnets_tpu_torch/ops/kernels/fused.py",
                                    "convnets_tpu/ops/pallas/fused.py:35"),
-    "bottleneck_block": ("convnets_tpu_torch/csrc/block.cu", "convnets_tpu/ops/pallas/block.py:122"),
+    "bottleneck_block": ("convnets_tpu_torch/csrc/block_wgmma.cu",
+                         "convnets_tpu/ops/pallas/block.py:122"),
 }
 
 
@@ -2200,7 +2279,8 @@ def main():
     kernels.lib()
     say(f"build: {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "warning" in line.lower()):
             say("  ptxas: " + line.strip())
 
     failures = []
@@ -2304,7 +2384,7 @@ def main():
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            if k in summary[name]}}
+            + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

@@ -13,27 +13,35 @@
 // outside the image is 0, not ReLU(b1). The mid-width scale/shift rows are
 // the first Cmid entries of a (6, Cin) fp32 operand (:145-147).
 //
-// Design: one CUDA block per (image, TILE x TILE output tile). The block
-// computes h1 over the tile plus a one-pixel halo, (TILE+2)^2 pixels, then
-// h2 over the tile, and keeps both in dynamic shared memory (opted in above
-// 48 KB): they never touch device memory. Each of the three products is a
-// pass of the block's 256 threads over column blocks of at most 256
-// channels: a thread owns one output channel and a fixed share of the
-// tile's pixels, accumulates in fp32 registers, and reads its operand
-// pixel from shared memory as a broadcast. x and the weight rows are staged
-// through shared memory in chunks of KC channels. The halo costs
-// (TILE+2)^2 / TILE^2 = 1.65x the first product's FMAs.
+// Two routes, chosen by ops/kernels/block.py:block_plan and passed to
+// bottleneck_launch:
 //
-// What bounds it on the H100: the FMAs run on the CUDA cores in fp32, one
-// shared-memory broadcast load per FMA, so it is bound by issue (FMA plus
-// load instructions) at a few percent of the bf16 tensor-core rate.
-// Device-memory traffic is one read of x (plus the halo re-read, from L2)
-// and the weights per block, and one write of out. Left for later: bf16
-// tensor-core MMAs on the staged tiles, register micro-tiles over several
-// channels, and a larger tile where shared memory allows.
+//  * "wgmma" (route 1): bf16 with Cmid in {64, 128, 256} and Cin % 64 ==
+//    0, which holds RN50's three identity shapes. The three products run on
+//    the tensor cores, chained through shared memory (csrc/block_wgmma.cu):
+//    bound by the MMAs, not by bytes.
+//  * "simt" (route 0, this file): fp32 and every other bf16 shape of the
+//    envelope (Cmid <= min(Cin, 256)). One CUDA block per (image, TILE x
+//    TILE output tile) computes h1 over the tile plus a one-pixel halo,
+//    (TILE+2)^2 pixels, then h2 over the tile, and keeps both in dynamic
+//    shared memory. Each of the three products is a pass of the block's 256
+//    threads over column blocks of at most 256 channels: a thread owns one
+//    output channel and a fixed share of the tile's pixels, accumulates in
+//    fp32 registers, and reads its operand pixel from shared memory as a
+//    broadcast; x and the weight rows are staged through shared memory in
+//    chunks of KC channels, widened to fp32. The halo costs (TILE+2)^2 /
+//    TILE^2 = 1.65x the first product's FMAs. It is bound by issue, one
+//    shared-memory load per fp32 FMA on the CUDA cores, a few percent of
+//    the bf16 tensor-core rate; the fp32 checks and the off-route shapes
+//    are all it serves.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+// csrc/block_wgmma.cu
+int block_wgmma_run(const void* x, const void* w1, const void* w2, const void* w3,
+                    const void* sb, void* out, int n, int h, int w, int cin, int cmid,
+                    int relu_out, int th, void* stream);
 
 namespace {
 
@@ -268,13 +276,19 @@ int launch_typed(const void* x, const void* w1, const void* w2, const void* w3,
 
 // dtype: 0 = float32, 1 = bfloat16. x, out (N, H, W, Cin); w1 (Cin, Cmid),
 // w2 (3, 3, Cmid, Cmid), w3 (Cmid, Cin) in x's dtype; sb (6, Cin) fp32, rows
-// s1, b1, s2, b2 (their first Cmid entries), s3, b3. Returns
-// cudaGetLastError() after the launch.
+// s1, b1, s2, b2 (their first Cmid entries), s3, b3. route, th: the plan of
+// ops/kernels/block.py:block_plan (0 simt, th unused; 1 wgmma, bf16, th
+// output rows per CTA). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a plan that is not built.
 extern "C" int bottleneck_launch(int dtype, const void* x, const void* w1, const void* w2,
                                  const void* w3, const void* sb, void* out, int n, int h,
-                                 int w, int cin, int cmid, int relu_out, void* stream) {
+                                 int w, int cin, int cmid, int relu_out, int route, int th,
+                                 void* stream) {
   if (cmid < 1 || cmid > THREADS || cin < cmid) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1 && dtype == 1)
+    return block_wgmma_run(x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, th, stream);
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_typed<float>(x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, st);
   if (dtype == 1)

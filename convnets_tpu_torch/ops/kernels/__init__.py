@@ -25,7 +25,11 @@ window kernels (`depthwise_conv2d`, `max_pool2d`, `avg_pool2d`,
 `depthwise_plan` / `pool_plan` pick by shape: "vector" (8 channels per
 thread in 16-byte vectors) or "loop" (one thread per element);
 `ROUTE_LAUNCHES` counts their launches per route. `bottleneck_block` runs
-on the CUDA cores.
+the route of `block_plan`: bf16 at Cmid in {64, 128, 256} with Cin % 64 ==
+0 on the tensor cores (three chained wgmma products with h1 and h2 in
+shared memory, csrc/block_wgmma.cu), fp32 and the other bf16 shapes on the
+CUDA cores (csrc/block.cu); `ROUTE_LAUNCHES` counts its launches per route
+too.
 
 The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
 `conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
@@ -62,10 +66,12 @@ LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_
                              "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                              "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
                              "bottleneck_block": 0, "pool2d_backward": 0}
-# launches per route of the window kernels, whose route is chosen by shape
+# launches per route of the kernels whose route is chosen by shape: the
+# window kernels and the block
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
-    name: {"vector": 0, "loop": 0}
-    for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")}
+    **{name: {"vector": 0, "loop": 0}
+       for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")},
+    "bottleneck_block": {"wgmma": 0, "simt": 0}}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -99,8 +105,8 @@ _SIGNATURES = {
     # route, stream
     "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 15 + [_P],
     "grouped_block_rows": [],
-    # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, stream
-    "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, route, th, stream
+    "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
 }
 
 
@@ -113,7 +119,7 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, route: str) -> None:
-    """One launch of a window kernel on `route`."""
+    """One launch of a window kernel or the block on `route`."""
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[name][route] += 1
 
@@ -123,10 +129,12 @@ def _sources():
 
 
 def _stale() -> bool:
+    """The library is missing or older than a source or a header it includes."""
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in _sources() + headers)
 
 
 def _nvcc() -> str:
@@ -257,17 +265,18 @@ from convnets_tpu_torch.ops.kernels.depthwise import (  # noqa: E402
 )
 from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
 from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
-    bottleneck_block, bottleneck_block_plain, fits_block,
+    BlockPlan, block_plan, bottleneck_block, bottleneck_block_plain, fits_block,
 )
 
 __all__ = [
-    "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES", "WindowPlan", "avg_pool2d",
-    "avg_pool2d_plain", "bottleneck_block", "bottleneck_block_plain", "build", "conv2d_fused",
-    "conv2d_fused_plain", "conv2d_stats", "conv2d_stats_plain", "conv2d_train",
-    "conv_bn_relu_train", "conv_plan", "count_launch", "depthwise_conv2d",
-    "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train", "fits_block", "fits_conv",
-    "fits_depthwise", "fits_grouped", "grouped_conv2d_fused", "grouped_conv2d_fused_plain",
-    "grouped_conv2d_stats", "grouped_conv2d_stats_plain", "grouped_conv2d_train", "grouped_plan",
-    "grouped_slices", "lib", "max_pool2d", "max_pool2d_plain", "pool2d_backward",
-    "pool2d_backward_plain", "pool2d_train", "pool_plan", "reset_launches",
+    "BlockPlan", "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES", "WindowPlan",
+    "avg_pool2d", "avg_pool2d_plain", "block_plan", "bottleneck_block",
+    "bottleneck_block_plain", "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats",
+    "conv2d_stats_plain", "conv2d_train", "conv_bn_relu_train", "conv_plan", "count_launch",
+    "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train",
+    "fits_block", "fits_conv", "fits_depthwise", "fits_grouped", "grouped_conv2d_fused",
+    "grouped_conv2d_fused_plain", "grouped_conv2d_stats", "grouped_conv2d_stats_plain",
+    "grouped_conv2d_train", "grouped_plan", "grouped_slices", "lib", "max_pool2d",
+    "max_pool2d_plain", "pool2d_backward", "pool2d_backward_plain", "pool2d_train",
+    "pool_plan", "reset_launches",
 ]
