@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ResNet-50, MobileNet-v1, DenseNet-121 and
-ResNeXt-50 serving and train paths, and the whole-bottleneck-block kernel,
-on one NVIDIA GPU.
+ResNeXt-50 serving and train paths, the whole-bottleneck-block kernel,
+and the Trainer (RN26@32 fit, checkpoint, resume, test) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -107,6 +107,38 @@ final line:
      per step: 37 conv2d_stats + 16 grouped_conv2d_stats + 53 reductions +
      1 max_pool2d), then (v) one step of the batch_norm=False ResNeXt-50 at
      batch 32 (16 grouped_conv2d_train forwards, finite gradients).
+  10. the Trainer on RN26@32 (CINIC-shaped), bf16, bench.py:93-98's
+     settings without augmentation (SGD lr 0.05, momentum 0.9, the
+     per-example-mean objective, step decay every 2 epochs, dropout 0.5,
+     batch 256), 8,192 train and 2,048 valid uint8 images of
+     synthetic_dataset(learnable=True) from --seed in a shuffled DataLoader:
+     (i) fit 2 epochs; the best checkpoint exists and get_last_checkpoint
+     finds it; every train step launches exactly n conv2d_stats, n
+     reductions, 1 max_pool2d and 1 pool2d_backward, every eval batch n
+     conv2d_fused and 1 max_pool2d (n = 29, read off the model); every
+     batch reaches the card as uint8 (786,432 B); then every distinct conv
+     shape of the fitted model (23 for 29 convs) at b256 bf16 on the
+     wgmma route and at b64 fp32 on simt: conv2d_fused (both epilogues)
+     and conv2d_stats against their plain versions with phases 2 and 4's
+     bars, and the stem max_pool2d and pool2d_train (forward, and dx
+     through pool2d_backward) exactly, on the vector route; (ii) a fresh
+     model and Trainer load the checkpoint (params and BN buffers equal to the
+     file's) and resume for 1 epoch: the history, the step schedule, the
+     falling train loss and a valid accuracy above 0.2; (iii) evaluate and
+     test on the valid loader (confusion matrix, img/s, ms per image),
+     then reestimate_bn over its 8 full batches (per batch n conv2d_stats,
+     n reductions and 1 max_pool2d; parameters unchanged, every running
+     statistic moved, eval mode after it, accuracy still above 0.2);
+     (v) one train epoch under torch.profiler (idle share; each image copy
+     it records 786,432 B); (iv) phase 5 (i)'s one fp32 SGD step at
+     RN26@32 b64, every gradient leaf kernel vs plain within 0.1 (‖Δ‖/‖g‖)
+     beside the 1e-7 control, and a lower-precision control (the plain
+     path in bf16) that must fall outside that bar; then one fp32 epoch at
+     batch 64 on 1,024 images (lr 1e-5), kernel vs plain path, the bar 10x
+     a control (the plain fit with its conv weights perturbed by 1e-6
+     relative), at most 1e-2, the plain path in bf16 printed beside; (v)
+     the Trainer's epoch img/s beside the raw step loop on one batch on the card. Prints
+     the trainer JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
   kernel: launches on its main path, max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
@@ -123,8 +155,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
-import types
 
 import numpy as np
 
@@ -598,11 +630,13 @@ def phase_kernels(model, failures):
 
 
 def model_setting(arch, seed, mixed, **kw):
+    from convnets_tpu_torch.settings import Settings
+
     fields = dict(kind=FAMILIES[arch], input_size=(3, IMAGE, IMAGE), num_classes=1000,
                   batch_norm=True, init_params=True, dropout_rate=0.5, mixed_precision=mixed,
                   seed=seed, learning_rate=0.01, weight_decay=1e-4, optimizer="adam")
     fields.update(kw)
-    return types.SimpleNamespace(**fields)
+    return Settings(**fields)
 
 
 def make_model(arch, seed, mixed, conv_gain=None, **kw):
@@ -1378,25 +1412,30 @@ def relu_outputs(model):
             or (isinstance(m, nn.ReLU) and id(m) not in inner)]
 
 
-def step_check(arch, seed, failures):
+def step_check(arch, seed, failures, make=None, batch=STEP_BATCH, image=IMAGE, classes=1000,
+               low_control=False):
     """(i) one fp32 SGD step at batch 8 with dropout 0: kernel path vs plain
-    path, and the plain path against itself with perturbed conv weights."""
+    path, and the plain path against itself with perturbed conv weights.
+    make(**setting fields): another model than the family's at 224² (phase
+    10 runs RN26@32 at batch 64). low_control: also the plain path in bf16,
+    which the gradient bar must reject."""
     import torch
 
     from convnets_tpu_torch import bridge
 
+    make = make or (lambda **kw: make_model(arch, seed, False, **kw))
     rng = np.random.default_rng(seed + 2)
-    x = torch.from_numpy(rng.integers(0, 256, (STEP_BATCH, IMAGE, IMAGE, 3),
+    x = torch.from_numpy(rng.integers(0, 256, (batch, image, image, 3),
                                       dtype=np.uint8)).to(DEVICE)
-    y = torch.from_numpy(rng.integers(0, 1000, STEP_BATCH)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, classes, batch)).to(DEVICE)
     # SGD with no momentum or decay at lr 2^20: the update lr·g is exact and
     # dwarfs p, so (p_before - p_after) / lr reads the step's gradients back
     # to fp32 rounding
     lr = 2.0 ** 20
     results, masks = {}, {}
-    for path in ("kernel", "plain", "control"):
-        model = make_model(arch, seed, False, dropout_rate=0.0, optimizer="sgd",
-                           learning_rate=lr, momentum=0.0, weight_decay=0.0)
+    for path in ("kernel", "plain", "control") + (("bf16",) if low_control else ()):
+        model = make(dropout_rate=0.0, optimizer="sgd", learning_rate=lr, momentum=0.0,
+                     weight_decay=0.0, mixed_precision=path == "bf16")
         if path == "control":
             gen = torch.Generator(device=DEVICE).manual_seed(seed)
             with torch.no_grad():
@@ -1431,7 +1470,7 @@ def step_check(arch, seed, failures):
                 for k in flat_p)
     ok = (loss_rel <= 1e-4 and g_l2[worst_l2] <= STEP_GRAD_TOL and s_err <= 1e-4
           and np.isfinite(lk) and all(bool(torch.isfinite(t).all()) for t in gk.values()))
-    say(f"(i) fp32 {arch} SGD step (batch {STEP_BATCH}), kernel vs plain path: loss {lk:.6f} vs "
+    say(f"(i) fp32 {arch} SGD step (batch {batch}), kernel vs plain path: loss {lk:.6f} vs "
         f"{lp:.6f} (rel {loss_rel:.2e}, tol 1e-4); ReLU mask flips {flips['kernel']} of "
         f"{relu_elems}; gradients over {len(gp)} leaves: worst "
         f"‖Δ‖/‖g‖ {g_l2[worst_l2]:.2e} at {worst_l2} (tol {STEP_GRAD_TOL:g}), worst "
@@ -1444,6 +1483,19 @@ def step_check(arch, seed, failures):
     if not ok:
         failures.append(f"fp32 {arch} train step: loss {loss_rel:.2e}, grads "
                         f"{g_l2[worst_l2]:.2e}, BN {s_err:.2e}")
+    read = {"worst_grad_l2": g_l2[worst_l2], "control_worst_grad_l2": c_l2[-1],
+            "bar": STEP_GRAD_TOL}
+    if low_control:
+        b_l2 = sorted(l2_err(results["bf16"][1][k], gp[k]) for k in gp)
+        rejects = b_l2[-1] > STEP_GRAD_TOL
+        say(f"    lower-precision control, the plain path in bf16 vs plain fp32: ‖Δ‖/‖g‖ median "
+            f"{b_l2[len(b_l2) // 2]:.2e} max {b_l2[-1]:.2e}, outside the bar {STEP_GRAD_TOL:g}: "
+            f"{'ok' if rejects else 'FAIL'}")
+        if not rejects:
+            failures.append(f"fp32 {arch} train step: the bar {STEP_GRAD_TOL:g} passes the bf16 "
+                            f"control ({b_l2[-1]:.2e})")
+        read["bf16_worst_grad_l2"] = b_l2[-1]
+    return read
 
 
 def learn_check(arch, seed, failures):
@@ -1515,6 +1567,19 @@ def nobn_check(arch, seed, failures):
     return launches
 
 
+def timed_steps(step, state, x, y, gen):
+    """bench.py's protocol: WARMUP steps, then TIMED steps on the host
+    clock, fenced by synchronize. Returns (seconds per step, last loss)."""
+    for _ in range(WARMUP):
+        step(state, x, y, generator=gen)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        loss, _ = step(state, x, y, generator=gen)
+    sync()
+    return (time.perf_counter() - t0) / TIMED, loss
+
+
 def train_throughput(arch, seed, failures):
     """bench.py's train step at TRAIN_BATCH[arch], bf16, kernel and plain
     paths in turns on one model; returns (launches of one kernel run, img/s)."""
@@ -1532,16 +1597,10 @@ def train_throughput(arch, seed, failures):
     y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
 
     def seconds_per_step():
-        for _ in range(WARMUP):
-            step(state, x, y, generator=gen)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(TIMED):
-            loss, _ = step(state, x, y, generator=gen)
-        sync()
+        seconds, loss = timed_steps(step, state, x, y, gen)
         if not bool(torch.isfinite(loss)):
             failures.append(f"{arch} b{batch} train step: loss {float(loss)}")
-        return (time.perf_counter() - t0) / TIMED
+        return seconds
 
     runs = {"kernel": [], "plain": []}
     launch_runs, peak = [], 0
@@ -2212,6 +2271,517 @@ def phase_block(failures):
     return summary, launches
 
 
+# phase 10: the Trainer on RN26@32 (CINIC-shaped), with bench.py:93-98's
+# measure_pipeline settings without the augmentation (ROADMAP item 3)
+TRAINER_TRAIN, TRAINER_VALID, TRAINER_BATCH = 8192, 2048, 256
+TRAINER_EPOCHS = 2  # (i); (ii) resumes for one more
+TRAINER_MIN_ACC = 0.2  # (ii): valid accuracy, twice chance over 10 classes
+# (iv): the fp32 epoch, kernel path against plain path, on a subset
+SUBSET_TRAIN, SUBSET_VALID, SUBSET_BATCH = 1024, 512, 64
+# (iv)'s bar: CONTROL_FACTOR × the plain fit against itself with its conv
+# weights ×(1 + 1e-6·N(0,1)), and never looser than TRAINER_MAX_BAR. The
+# fit's trajectory jumps under any rounding change (this check on the CPU
+# with TRAINER_FP32_LR at 1e-4 moves the control's epoch loss by 3e-3, at
+# 1e-3 by 1.5e-2): at a learning rate small enough for the 1e-2 bar, the
+# epoch compares the fit loop and the forward. The gradients are held by
+# (iv)'s one-step check, per leaf (STEP_GRAD_TOL), whose bar the plain
+# path's bf16 gradients fall far outside.
+TRAINER_CONTROL_PERTURBATION = 1e-6
+TRAINER_FP32_LR = 1e-5
+CONTROL_FACTOR = 10.0
+TRAINER_MAX_BAR = 1e-2
+
+
+def trainer_setting(seed, output_dir, **kw):
+    """RN26@32, 10 classes, bf16: SGD lr 0.05 momentum 0.9, the
+    per-example-mean objective, step decay every 2 epochs, normalization
+    on, no augmentation, dropout 0.5, batch 256."""
+    from convnets_tpu_torch.settings import Settings
+
+    fields = dict(kind="26", input_size=(3, 32, 32), num_classes=10,
+                  batch_size=TRAINER_BATCH, epochs=TRAINER_EPOCHS, mixed_precision=True,
+                  data_augment=False, data_norm=True, optimizer="sgd", momentum=0.9,
+                  learning_rate=0.05, loss_reduction="mean", lr_scheduler="step",
+                  lr_step_size=2, dropout_rate=0.5, early_stop=False, seed=seed,
+                  output_dir=output_dir)
+    fields.update(kw)
+    return Settings(**fields)
+
+
+def trainer_data(seed):
+    """(train, valid) uint8 ArrayDatasets of synthetic_dataset(learnable=True)
+    from `seed`: 8,192 and 2,048 images at 32x32x3, 10 classes."""
+    from convnets_tpu_torch.data import ArrayDataset, synthetic_dataset
+
+    out = []
+    for n, s in ((TRAINER_TRAIN, seed), (TRAINER_VALID, seed + 1)):
+        ds = synthetic_dataset(n, (32, 32, 3), 10, seed=s, learnable=True)
+        out.append(ArrayDataset((ds.images * 255).round().astype(np.uint8), ds.labels))
+    return out
+
+
+def conv_count(model) -> int:
+    """The model's fused ConvBNReLUs, read off its modules (RN26: the stem,
+    8 bottlenecks x 3 and 4 projection shortcuts)."""
+    return sum(1 for l in model_layers(model) if l[0] == "conv")
+
+
+def count_calls(trainer, record):
+    """Wrap the Trainer's train and eval steps so that each call's kernel
+    launches (the LAUNCHES delta) go into record["train"] / record["eval"]."""
+    from convnets_tpu_torch.ops import kernels
+
+    def wrap(kind, get):
+        def getter(*args, **kwargs):
+            fn = get(*args, **kwargs)
+
+            def step(*a, **k):
+                before = dict(kernels.LAUNCHES)
+                out = fn(*a, **k)
+                record[kind].append({n: kernels.LAUNCHES[n] - before[n] for n in before})
+                return out
+            return step
+        return getter
+
+    trainer._get_train_step = wrap("train", trainer._get_train_step)
+    trainer._get_eval_step = wrap("eval", trainer._get_eval_step)
+
+
+@contextlib.contextmanager
+def recorded_batches(batches):
+    """Record (dtype, bytes, device type) of every x the Trainer's
+    device_prefetch hands it."""
+    from convnets_tpu_torch.train import engine
+
+    feed = engine.device_prefetch
+
+    def recording(*args, **kwargs):
+        for x, y, w in feed(*args, **kwargs):
+            batches.append((x.dtype, x.numel() * x.element_size(), x.device.type))
+            yield x, y, w
+
+    engine.device_prefetch = recording
+    try:
+        yield
+    finally:
+        engine.device_prefetch = feed
+
+
+def timed_train_epochs(trainer, times):
+    """Time each _run_train_epoch on the host clock; it ends by reading the
+    epoch's loss sum back, which fences it."""
+    run = trainer._run_train_epoch
+
+    def timed(loader, epoch_index):
+        t0 = time.perf_counter()
+        out = run(loader, epoch_index)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    trainer._run_train_epoch = timed
+
+
+def trainer_layer_check(model, summary, failures):
+    """The path's kernels at the path's shapes: every distinct conv shape
+    of the fitted RN26@32 (model_layers) at batch 256 in bf16 (the fit's
+    wgmma route) and at batch 64 in fp32 ((iv)'s simt route), each with the
+    route conv_plan gives it; conv2d_fused with both epilogues and
+    conv2d_stats against their plain versions with phase 2's and phase 4's
+    bars (CONV_TOL, STATS_TOL), and the stem's max_pool2d and
+    pool2d_train (forward, and dx through pool2d_backward) exactly, each
+    pool launch on the vector route. Each error goes into the kernels
+    line's max_abs_err."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    layers = model_layers(model)
+    distinct = distinct_shapes(model)
+    uses = sum(len(r) for r in distinct.values())
+    if uses != conv_count(model):
+        failures.append(f"RN26@32 layer check covers {uses} of {conv_count(model)} convs")
+    _, ph, pw, pc, _, pk, ps, pp, _, _ = [l for l in layers if l[0] == "maxpool"][0]
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    rows = {name: entry(summary, name) for name in
+            ("conv2d_fused", "conv2d_stats", "max_pool2d", "pool2d_train", "pool2d_backward")}
+    say("RN26@32 layers on the path: N H W Cin Cout k s p | dtype plan | fused y err relu=0 / 1 "
+        "(tol) | stats y err, Σ rel, Σ² rel (tol) | uses")
+    bad = 0
+    for n, dtype in ((TRAINER_BATCH, torch.bfloat16), (SUBSET_BATCH, torch.float32)):
+        dname = dname_of(dtype)
+        atol, rtol = CONV_TOL[dname]
+        for (h, w, cin, cout, k, s, p, _), relus in sorted(distinct.items()):
+            x = torch.randn(n, h, w, cin, device=DEVICE, generator=g).to(dtype)
+            wt = (torch.randn(k, k, cin, cout, device=DEVICE, generator=g)
+                  / np.sqrt(k * k * cin)).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+            shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+            m = n * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)
+            plan = kernels.conv_plan(dtype, m, cin, cout)
+            ok = plan.route == ("wgmma" if dtype == torch.bfloat16 else "simt")
+            errs = []
+            for epi in (None, (scale, shift)):
+                kw = dict(stride=s, padding=p, relu=epi is not None)
+                got = kernels.conv2d_fused(x, wt, *(epi or ()), **kw)
+                ref = kernels.conv2d_fused_plain(x, wt, *(epi or ()), **kw)
+                sync()
+                errs.append(float((got.float() - ref.float()).abs().max()))
+                ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+            kw = dict(stride=s, padding=p)
+            s_ok, y_err, e1, e2 = stats_check(kernels.conv2d_stats(x, wt, **kw),
+                                              kernels.conv2d_stats_plain(x, wt, **kw), dname)
+            say(f"  {n} {h} {w} {cin} {cout} {k} {s} {p} | {dname} {plan.route} "
+                f"{plan.bm}x{plan.bn} {plan.gather} | {errs[0]:.3e} / {errs[1]:.3e} "
+                f"({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | {y_err:.3e}, {e1:.2e}, "
+                f"{e2:.2e} ({STATS_TOL[dname]:g}) {'ok' if s_ok else 'FAIL'} | {len(relus)}")
+            if not (ok and s_ok):
+                bad += 1
+                failures.append(f"RN26@32 conv {n}x{h}x{w} {cin}->{cout} k{k} s{s} {dname} "
+                                f"{plan.route}: fused {errs}, stats y {y_err:.3e} Σ {e1:.2e} "
+                                f"Σ² {e2:.2e}")
+            rows["conv2d_fused"]["err"] = max(rows["conv2d_fused"]["err"], *errs)
+            rows["conv2d_stats"]["err"] = max(rows["conv2d_stats"]["err"], y_err)
+            del x, wt
+        # the stem pool: ties from the ReLU'd input; a cotangent of
+        # sixteenths, whose sums of up to four are exact in either dtype
+        x = torch.relu(torch.randn(n, ph, pw, pc, device=DEVICE, generator=g)).to(dtype)
+        sync()
+        kernels.reset_launches()
+        y_k = kernels.max_pool2d(x, pk, ps, pp)
+        xi = x.clone().requires_grad_()
+        out_k = kernels.pool2d_train(xi, "max", pk, ps, pp)
+        cot = (torch.randint(-64, 65, out_k.shape, device=DEVICE, generator=g) / 16).to(dtype)
+        dx_k, = torch.autograd.grad(out_k, xi, cot)
+        sync()
+        launched = dict(kernels.LAUNCHES)
+        routes = {k2: dict(kernels.ROUTE_LAUNCHES[k2]) for k2 in ("max_pool2d", "pool2d_backward")}
+        y_p = kernels.max_pool2d_plain(x, pk, ps, pp)
+        with plain_kernels():
+            xi = x.clone().requires_grad_()
+            out_p = kernels.pool2d_train(xi, "max", pk, ps, pp)
+            dx_p, = torch.autograd.grad(out_p, xi, cot)
+        sync()
+        err_y = float((y_k.float() - y_p.float()).abs().max())
+        err_t = float((out_k.detach().float() - out_p.detach().float()).abs().max())
+        err_dx = float((dx_k.float() - dx_p.float()).abs().max())
+        ok = (max(err_y, err_t, err_dx) <= POOL_TOL and launched["max_pool2d"] == 2
+              and launched["pool2d_backward"] == 1
+              and routes == {"max_pool2d": {"vector": 2, "loop": 0},
+                             "pool2d_backward": {"vector": 1, "loop": 0}})
+        say(f"  stem pool {n} {ph} {pw} {pc} {pk} {ps} {pp} | {dname} | max_pool2d y "
+            f"{err_y:.3e}, pool2d_train y {err_t:.3e} dx {err_dx:.3e} (exact), routes {routes} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad += 1
+            failures.append(f"RN26@32 stem pool {dname}: y {err_y:.3e} train {err_t:.3e} dx "
+                            f"{err_dx:.3e}, routes {routes}")
+        rows["max_pool2d"]["err"] = max(rows["max_pool2d"]["err"], err_y)
+        rows["pool2d_train"]["err"] = max(rows["pool2d_train"]["err"], err_t, err_dx)
+        rows["pool2d_backward"]["err"] = max(rows["pool2d_backward"]["err"], err_dx)
+        del x, xi, out_k, out_p, dx_k, dx_p
+    say(f"RN26@32 layer check: {len(distinct)} distinct conv shapes ({uses} convs) and the stem "
+        f"pool, at b{TRAINER_BATCH} bf16 and b{SUBSET_BATCH} fp32: {'ok' if not bad else 'FAIL'}")
+    return len(distinct), uses
+
+
+def trainer_fp32_check(seed, out_dir, failures):
+    """(iv) one fp32 epoch on a 1,024-image subset at batch 64, dropout 0,
+    at TRAINER_FP32_LR: the kernel path, the plain path, the plain path with
+    perturbed conv weights (the control, which sets the bar) and the plain
+    path in bf16 (a lower-precision reading, printed beside). Compared: the
+    epoch's train and valid loss. Returns the readings."""
+    import torch
+
+    from convnets_tpu_torch.data import ArrayDataset, DataLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import Trainer
+
+    train, valid = trainer_data(seed)
+    sub = [ArrayDataset(ds.images[:n], ds.labels[:n])
+           for ds, n in ((train, SUBSET_TRAIN), (valid, SUBSET_VALID))]
+    losses = {}
+    for path in ("kernel", "plain", "control", "bf16"):
+        setting = trainer_setting(seed, os.path.join(out_dir, f"fp32-{path}"), epochs=1,
+                                  batch_size=SUBSET_BATCH, mixed_precision=path == "bf16",
+                                  dropout_rate=0.0, learning_rate=TRAINER_FP32_LR)
+        model = build_model("resnet", setting, device=DEVICE)
+        if path == "control":
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.ndim == 4:
+                        p.mul_(1 + TRAINER_CONTROL_PERTURBATION * torch.randn(
+                            p.shape, device=DEVICE, generator=gen))
+        trainer = Trainer(model)
+        with plain_kernels() if path != "kernel" else contextlib.nullcontext():
+            trainer.fit(DataLoader(sub[0], SUBSET_BATCH, shuffle=True, seed=seed),
+                        DataLoader(sub[1], SUBSET_BATCH))
+        trainer.close()
+        r = trainer.epoch_results
+        losses[path] = np.array([r["train_loss"][0], r["valid_loss"][0]])
+    rel = {k: float(np.max(np.abs(losses[k] - losses["plain"]) / np.abs(losses["plain"])))
+           for k in ("kernel", "control", "bf16")}
+    bar = min(TRAINER_MAX_BAR, CONTROL_FACTOR * rel["control"])
+    ok = rel["kernel"] <= bar and bool(np.isfinite(losses["kernel"]).all())
+    say(f"(iv) fp32 RN26@32 epoch ({SUBSET_TRAIN} images, batch {SUBSET_BATCH}, lr "
+        f"{TRAINER_FP32_LR:g}, dropout 0), (train loss, valid loss): kernel "
+        f"{losses['kernel'].tolist()}, plain {losses['plain'].tolist()}, control "
+        f"{losses['control'].tolist()}, plain in bf16 {losses['bf16'].tolist()}; kernel vs plain "
+        f"rel {rel['kernel']:.3e}, bar {bar:.3e} = min({TRAINER_MAX_BAR:g}, {CONTROL_FACTOR:g} x "
+        f"control {rel['control']:.3e}; conv weights x(1 + {TRAINER_CONTROL_PERTURBATION:g}"
+        f"·N(0,1))) {'ok' if ok else 'FAIL'}; bf16 vs plain rel {rel['bf16']:.3e} (a reading: "
+        f"the step check above holds the gradients)")
+    if not ok:
+        failures.append(f"fp32 RN26@32 epoch: kernel vs plain {rel['kernel']:.3e} > bar {bar:.3e}")
+    return {"kernel_vs_plain_rel": rel["kernel"], "control_rel": rel["control"], "bar": bar,
+            "bf16_vs_plain_rel": rel["bf16"]}
+
+
+def step_loop_rate(seed):
+    """train_throughput's protocol on RN26@32 at b256: bench.py's warm-up and
+    timed steps on one uint8 batch already on the card, fenced."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import build_train_step, create_train_state
+
+    model = build_model("resnet", trainer_setting(seed, ""), device=DEVICE)
+    state = create_train_state(model)
+    step = build_train_step(state, norm=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 256, (TRAINER_BATCH, 32, 32, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 10, (TRAINER_BATCH,), device=DEVICE, generator=gen)
+    return TRAINER_BATCH / timed_steps(step, state, x, y, gen)[0]
+
+
+def phase_trainer(seed, card, summary, failures):
+    """Phase 10: the Trainer on RN26@32, bf16: (i) fit 2 epochs, then the
+    path's kernels at its shapes against their plain versions, (ii) a fresh
+    Trainer resumes from the checkpoint for 1 more, (iii) evaluate, test
+    and reestimate_bn, (iv) one fp32 step and one fp32 epoch, kernel vs plain, (v) epoch
+    img/s against the step loop's, and the idle share of one profiled
+    epoch. Prints the trainer JSON line; returns the launches of (i)'s fit,
+    the path's own run, and the per-call launches of its train steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch import bridge
+    from convnets_tpu_torch.data import DataLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.train import Trainer
+    from convnets_tpu_torch.train import checkpoint as ckpt
+
+    parts = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        train_ds, valid_ds = trainer_data(seed)
+        parts["data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        setting = trainer_setting(seed, out_dir)
+
+        # (i) fit
+        trainer = Trainer(build_model("resnet", setting, device=DEVICE))
+        n = conv_count(trainer.model)
+        train = DataLoader(train_ds, TRAINER_BATCH, shuffle=True, seed=seed, num_workers=2)
+        valid = DataLoader(valid_ds, TRAINER_BATCH)
+        calls, batches, epoch_s = {"train": [], "eval": []}, [], []
+        count_calls(trainer, calls)
+        timed_train_epochs(trainer, epoch_s)
+        sync()
+        kernels.reset_launches()
+        with recorded_batches(batches):
+            trainer.fit(train, valid)
+        sync()
+        fit_launches = dict(kernels.LAUNCHES)
+        check_routes("RN26@32 fit", fit_launches, failures)
+        trainer.close()
+        first = dict(trainer.epoch_results)
+        per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
+                                "pool2d_backward": 1})
+        per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
+        steps, evals = len(train) * TRAINER_EPOCHS, len(valid) * TRAINER_EPOCHS
+        full = TRAINER_BATCH * 32 * 32 * 3
+        ok_calls = (len(calls["train"]) == steps and len(calls["eval"]) == evals
+                    and all(c == per_step for c in calls["train"])
+                    and all(c == per_eval for c in calls["eval"]))
+        ok_bytes = (len(batches) == steps + evals
+                    and all(b == (torch.uint8, full, "cuda") for b in batches))
+        last = ckpt.get_last_checkpoint(out_dir, trainer.model.model_name)
+        ok_ckpt = os.path.exists(trainer.model_path) and last == trainer.model_path
+        say(f"(i) fit RN26@32 bf16, {TRAINER_TRAIN} train / {TRAINER_VALID} valid images, batch "
+            f"{TRAINER_BATCH}, {TRAINER_EPOCHS} epochs: train loss {first['train_loss']}, "
+            f"valid acc {first['valid_score']}, lr {first['learning_rate']}, best epoch "
+            f"{first['train_epochs']}; checkpoint {os.path.basename(last or '')} "
+            f"{'ok' if ok_ckpt else 'FAIL'}")
+        say(f"    launches: {len(calls['train'])} train steps each "
+            f"{ {k: v for k, v in per_step.items() if v} } ({n} convs), {len(calls['eval'])} "
+            f"eval batches each { {k: v for k, v in per_eval.items() if v} }: "
+            f"{'ok' if ok_calls else 'FAIL'}; batches on the card: {len(batches)}, each "
+            f"{sorted(set(batches), key=str)} (a full uint8 batch is {full} B) "
+            f"{'ok' if ok_bytes else 'FAIL'}")
+        if not ok_calls:
+            bad = [c for c in calls["train"] if c != per_step][:1] + \
+                  [c for c in calls["eval"] if c != per_eval][:1]
+            failures.append(f"RN26@32 fit launches per call off: {bad}")
+        if not ok_bytes:
+            failures.append(f"RN26@32 fit batches: {sorted(set(batches), key=str)}")
+        if not ok_ckpt:
+            failures.append(f"RN26@32 fit: checkpoint {trainer.model_path} / {last}")
+
+        parts["i"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        distinct, covered = trainer_layer_check(trainer.model, summary, failures)
+        parts["i_layers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # (ii) resume in a fresh Trainer over a fresh model
+        resumed = Trainer(build_model("resnet", trainer_setting(seed + 1, out_dir),
+                                      device=DEVICE))
+        best = resumed.load_checkpoint()["epoch_results"]["train_epochs"]
+        trees, _ = ckpt.load_checkpoint(trainer.model_path)
+        files = bridge._flatten({"params": trees["params"], "state": trees["model_state"]})
+        ok_load = all(torch.equal(getattr(mod, t).detach().float(),
+                                  torch.from_numpy(files[path]).to(DEVICE))
+                      for path, (mod, t) in bridge.jax_layout(resumed.model).items())
+        resumed.setting.epochs = 1
+        timed_train_epochs(resumed, epoch_s)
+        resumed.fit(train, valid, resume=True)
+        resumed.close()
+        r = resumed.epoch_results
+        total = best + 1  # the history is cut back to the best epoch, then one more
+        lrs = [0.05 * 0.1 ** (e // 2) for e in range(total)]
+        ok_resume = (ok_load and r["total_epochs"] == total
+                     and np.allclose(r["learning_rate"], lrs, rtol=1e-6, atol=0)
+                     and r["train_loss"][-1] < r["train_loss"][0]
+                     and r["valid_score"][-1] > TRAINER_MIN_ACC)
+        say(f"(ii) resume: params and BN buffers equal to the file's: {ok_load}; total epochs "
+            f"{r['total_epochs']} (expected {total}), lr {r['learning_rate']} (step schedule "
+            f"{lrs}), train loss {r['train_loss']}, valid acc {r['valid_score']} (> "
+            f"{TRAINER_MIN_ACC}) {'ok' if ok_resume else 'FAIL'}")
+        if not ok_resume:
+            failures.append(f"RN26@32 resume: load {ok_load}, epochs {r['total_epochs']}/{total}, "
+                            f"lr {r['learning_rate']}, loss {r['train_loss']}, "
+                            f"acc {r['valid_score']}")
+
+        parts["ii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # (iii) evaluate and test
+        acc = resumed.evaluate(valid, info=False)
+        cm_sum = int(resumed.confusion_matrix.sum())
+        _, times, fps = resumed.test(valid)
+        _, per_image, per_image_std, _ = resumed.inference_time(
+            times, TRAINER_VALID, info=False, full_batches=np.ones(len(times), bool))
+        trace = int(np.trace(resumed.confusion_matrix))
+        ok_eval = (cm_sum == TRAINER_VALID and abs(acc - trace / cm_sum) < 1e-12
+                   and acc > TRAINER_MIN_ACC)
+        say(f"(iii) evaluate: accuracy {acc:.4f} (> {TRAINER_MIN_ACC}), confusion matrix sum "
+            f"{cm_sum} (expected {TRAINER_VALID}), trace {trace} "
+            f"{'ok' if ok_eval else 'FAIL'}; test: {fps:.1f} img/s, "
+            f"{1e3 * per_image:.4f} ± {1e3 * per_image_std:.4f} ms per image at batch "
+            f"{TRAINER_BATCH}")
+        if not ok_eval:
+            failures.append(f"RN26@32 evaluate: acc {acc}, cm sum {cm_sum}, trace {trace}")
+
+        # (iii) reestimate_bn over the valid loader: train-mode forwards of
+        # full batches under no_grad move the BN running statistics alone
+        params = {k: p.detach().clone() for k, p in resumed.model.named_parameters()}
+        running = {k: b.clone() for k, b in resumed.model.named_buffers()
+                   if b.is_floating_point()}
+        full_batches = TRAINER_VALID // TRAINER_BATCH
+        sync()
+        kernels.reset_launches()
+        resumed.reestimate_bn(valid, passes=1, info=False)
+        sync()
+        re_launches = dict(kernels.LAUNCHES)
+        check_routes("RN26@32 reestimate_bn", re_launches, failures)
+        want_re = launches_of({k: v * full_batches for k, v in per_step.items()
+                               if k != "pool2d_backward"})
+        moved = sum(not torch.equal(b, running[k]) for k, b in resumed.model.named_buffers()
+                    if k in running)
+        same = all(torch.equal(p, params[k]) for k, p in resumed.model.named_parameters())
+        acc_re = resumed.evaluate(valid, info=False)
+        ok_re = (re_launches == want_re and same and moved == len(running)
+                 and not resumed.model.training and acc_re > TRAINER_MIN_ACC)
+        say(f"(iii) reestimate_bn over {full_batches} full batches: launches "
+            f"{ {k: v for k, v in re_launches.items() if v} } (expected "
+            f"{ {k: v for k, v in want_re.items() if v} }), params unchanged {same}, running "
+            f"statistics moved {moved} of {len(running)}, eval mode after it "
+            f"{not resumed.model.training}, accuracy then {acc_re:.4f} "
+            f"{'ok' if ok_re else 'FAIL'}")
+        if not ok_re:
+            failures.append(f"RN26@32 reestimate_bn: launches {re_launches}, params same {same}, "
+                            f"moved {moved}/{len(running)}, acc {acc_re}")
+
+        # (v) one train epoch under the profiler, device activity only (the
+        # host's ~4,000 ops per step would take longer to trace than the
+        # epoch runs): device time against the host clock, and each
+        # host-to-device copy's bytes
+        parts["iii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            Trainer._run_train_epoch(resumed, train, 99)  # not the timed wrapper
+            host = time.perf_counter() - t1
+        device, ours, _ = device_split(prof, OUR_KERNELS)
+        # the profiler can miss a few memcpy records (it recorded 30 of 32
+        # in one run): every batch's bytes are held exactly in (i); here
+        # every image copy it did record must be one uint8 batch
+        copies = h2d_copies(prof)
+        x_copies = [b for b, _ in copies if b >= full]
+        idle = 1.0 - device / 1e6 / host
+        ok_copies = (set(x_copies) == {full} and 2 * len(x_copies) >= len(train)
+                     and device > 0)
+        say(f"(v) profiled epoch ({len(train)} steps): device {device / 1e3:.3f} ms of "
+            f"{1e3 * host:.3f} ms host clock, idle share {idle:.4f}; the port's kernels "
+            f"{ours / 1e3:.3f} ms; image copies recorded {len(x_copies)} (of {len(train)} "
+            f"batches), each of {sorted(set(x_copies))} B {'ok' if ok_copies else 'FAIL'}")
+        if not ok_copies:
+            failures.append(f"RN26@32 profiled epoch: device {device} us, image copies "
+                            f"{x_copies[:4]}")
+        parts["v_profile"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # (iv) one fp32 step (per-leaf gradients) and one fp32 epoch, kernel
+        # vs plain; (v) the step loop
+        one_step = step_check("resnet26@32", seed, failures, batch=SUBSET_BATCH, image=32,
+                              classes=10, low_control=True,
+                              make=lambda **kw: build_model(
+                                  "resnet", trainer_setting(seed, "", **kw), device=DEVICE))
+        fp32 = trainer_fp32_check(seed, out_dir, failures)
+        parts["iv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop_rate = step_loop_rate(seed)
+    parts["v_step_loop"] = time.perf_counter() - t0
+    epoch_rates = [TRAINER_TRAIN / t for t in epoch_s]
+    say(f"(v) train img/s per epoch (fit's host clock, fenced): "
+        f"{[round(v, 1) for v in epoch_rates]}; step loop on one batch on the card "
+        f"{loop_rate:.1f} img/s; seconds per part {parts}")
+    say(json.dumps({"trainer": {
+        "card": card, "model": "resnet26", "input": [3, 32, 32], "dtype": "bfloat16",
+        "batch": TRAINER_BATCH, "train_images": TRAINER_TRAIN, "valid_images": TRAINER_VALID,
+        "convs": n, "launches_per_train_step": {k: v for k, v in per_step.items() if v},
+        "launches_per_eval_batch": {k: v for k, v in per_eval.items() if v},
+        "fit_launches": {k: v for k, v in fit_launches.items() if v},
+        "batch_bytes": sorted({b for _, b, _ in batches}),
+        "train_loss": r["train_loss"], "valid_loss": r["valid_loss"],
+        "valid_score": r["valid_score"], "learning_rate": r["learning_rate"],
+        "total_epochs": r["total_epochs"], "evaluate_accuracy": acc,
+        "test_img_s": fps, "test_ms_per_image": 1e3 * per_image,
+        "epoch_img_s": epoch_rates, "step_loop_img_s": loop_rate,
+        "profiled_epoch": {"host_ms": 1e3 * host, "device_ms": device / 1e3,
+                           "idle_share": idle, "kernels_ms": ours / 1e3},
+        "layers_checked": {"distinct_conv_shapes": distinct, "convs": covered,
+                           "batches_dtypes": [[TRAINER_BATCH, "bfloat16"],
+                                              [SUBSET_BATCH, "float32"]]},
+        "fp32_step": one_step, "fp32_epoch": fp32,
+        "seconds": parts}}))
+    return fit_launches, calls["train"]
+
+
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -2319,6 +2889,17 @@ def main():
         serve["resnext"], train["resnext"] = phase_family("resnext", args.seed, failures)
         nobn["resnext"] = nobn_check("resnext", args.seed, failures)
 
+    def phase_10():
+        fit, train_calls = phase_trainer(args.seed, card, summary, failures)
+        # each kernel's launches in phase 10's fit, counted as the kernels
+        # line counts them (the trainable functions by their kernels)
+        state["trainer"] = {"conv2d_fused": fit["conv2d_fused"], "max_pool2d": fit["max_pool2d"],
+                            "conv2d_stats": fit["conv2d_stats"],
+                            "conv2d_stats_reduce": fit["conv2d_stats_reduce"],
+                            "conv_bn_relu_train": fit["conv2d_stats"],
+                            "pool2d_train": sum(c["max_pool2d"] for c in train_calls),
+                            "pool2d_backward": fit["pool2d_backward"]}
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -2333,6 +2914,7 @@ def main():
         "8": phase_8,
         "8b": lambda: phase_b256_grouped(summary),
         "9": phase_9,
+        "10": phase_10,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -2374,6 +2956,9 @@ def main():
     for name in SOURCES:
         if launches[name] <= 0:
             failures.append(f"{name}: no launch on its main path")
+    for name, count in state["trainer"].items():
+        if count <= 0:
+            failures.append(f"{name}: no launch in phase 10's fit")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2383,6 +2968,7 @@ def main():
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
+         **({"trainer_launches": state["trainer"][name]} if name in state["trainer"] else {}),
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
             + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))

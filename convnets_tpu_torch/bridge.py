@@ -18,7 +18,7 @@ params tree's paths; the port's are dicts keyed by parameter name
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,11 +96,14 @@ def load_jax_variables(model, variables) -> None:
             dst.copy_(src)
 
 
-def export_jax_variables(model) -> dict:
+def export_jax_variables(model, tensors: Optional[Dict[Path, torch.Tensor]] = None) -> dict:
     """The port model's tensors as the JAX `{"params", "state"}` tree of
-    fp32 numpy arrays (the inverse of load_jax_variables)."""
-    flat = {path: getattr(mod, tname).detach().float().cpu().numpy()
-            for path, (mod, tname) in jax_layout(model).items()}
+    fp32 numpy arrays (the inverse of load_jax_variables). tensors: {JAX
+    path: tensor} to export instead of the live ones (copies taken
+    earlier, as an asynchronous checkpoint takes them)."""
+    if tensors is None:
+        tensors = {path: getattr(mod, tname) for path, (mod, tname) in jax_layout(model).items()}
+    flat = {path: t.detach().float().cpu().numpy() for path, t in tensors.items()}
     tree = _nest(flat)
     return {"params": tree.get("params", {}), "state": tree.get("state", {})}
 

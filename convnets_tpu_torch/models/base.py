@@ -1,7 +1,7 @@
 """Model wrapper, Builder and registry (counterpart of convnets_tpu/models/base.py).
 
-`build_model(arch, setting)` takes a `convnets_tpu.settings.Settings` or
-any object with the fields the builders read: kind, input_size (C, H, W),
+`build_model(arch, setting)` takes a `convnets_tpu_torch.settings.Settings`
+or any object with the fields the builders read: kind, input_size (C, H, W),
 num_classes, batch_norm, init_params, dropout_rate, mixed_precision,
 remat and seed. The model comes back initialized and in eval mode;
 `.train()` switches it to the train-mode forward that
@@ -10,6 +10,7 @@ remat and seed. The model comes back initialized and in eval mode;
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -25,6 +26,8 @@ class Model(torch.nn.Module):
         super().__init__()
         self.arch = name
         self.model_name = name + str(setting.kind)
+        # the checkpoint file names' version, as in the JAX package
+        self.version = int(time.time())
         self.setting = setting
         self.module = module
         self.policy = policy_from_setting(setting)
@@ -45,6 +48,18 @@ class Model(torch.nn.Module):
     def forward(self, x):
         """NHWC input → logits in the output dtype (fp32)."""
         return self.module(x).to(self.policy.output_dtype)
+
+    def summary(self) -> str:
+        """The top-level children with their output shapes and parameter
+        counts, and the total (Trainer.print_summary)."""
+        shape = self.batch_shape(1)
+        lines = [f"=== {self.model_name} (input {shape}) ==="]
+        for name, child in self.module.named_children():
+            shape = child.out_shape(shape)
+            count = sum(p.numel() for p in child.parameters())
+            lines.append(f"{name:>4} {type(child).__name__:<16} out {shape}  params {count:,}")
+        lines.append(f"total params {sum(p.numel() for p in self.parameters()):,}")
+        return "\n".join(lines)
 
 
 class Builder:
@@ -106,7 +121,7 @@ def build_model(arch: str, setting, device="cuda",
     no CUDA device present that default raises rather than falling back."""
     if arch not in _REGISTRY:
         raise KeyError(f"unknown architecture '{arch}'; have {sorted(_REGISTRY)} "
-                       f"(the rest of the zoo is ROADMAP.md modules item 9)")
+                       f"(the rest of the zoo is ROADMAP.md modules item 5)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"build_model: device {str(device)!r} asked for, but no CUDA "

@@ -53,7 +53,7 @@ def _check_conv_envelope(conv: "Conv2d", cin: int) -> str:
     if conv.groups > 1:
         raise not_ported(f"grouped conv (groups={conv.groups}, Cin={cin}, dilation "
                          f"{conv.dilation}) outside fits_grouped",
-                         "modules item 9, the SKNet/ShuffleNet grouped convs")
+                         "modules item 5, the SKNet/ShuffleNet grouped convs")
     raise not_ported(f"conv with stride {conv.stride}, dilation {conv.dilation}",
                      "kernels conv2d_fused envelope (stride 1 or 2, no dilation)")
 
@@ -330,7 +330,7 @@ class Remat(Module):
     def forward(self, x):
         if self.training:
             raise not_ported("train-mode Remat (a recompute would update the BN running "
-                             "statistics twice)", "modules item 3, Remat")
+                             "statistics twice)", "modules item 8, Remat")
         return self.child(x)
 
 

@@ -6,7 +6,7 @@ device) — then an optional baked per-channel normalization, the model in
 its compute dtype, and fp32 logits or softmax probabilities out.
 
 ServingModel wraps a live port model; the single-file artifact
-(save_artifact / load_artifact) is ROADMAP.md modules item 8.
+(save_artifact / load_artifact) is ROADMAP.md modules item 2.
 """
 
 from __future__ import annotations

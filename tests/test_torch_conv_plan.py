@@ -82,6 +82,26 @@ def test_plans_of_the_families_cover_every_branch():
     assert {g for _, g in seen} == {"vector", "scalar"}
 
 
+@pytest.mark.parametrize("batch", [64, 256])
+def test_rn26_at_32_has_a_tensor_core_plan_at_every_conv(batch):
+    """chip_smoke.py phase 10's model, RN26@32 (the Trainer's CINIC-shaped
+    fit at b256; its fp32 check at b64): the plans were chosen for 224²,
+    and the last stage runs at 2² → 1², where M = N·H·W is the batch."""
+    setting = chip_smoke.trainer_setting(0, "")
+    with nn.use_policy(policy_from_setting(setting)):
+        model = base._REGISTRY["resnet"](setting)
+    convs = [(h, w, cin, cout, k, s, p) for kind, h, w, cin, cout, k, s, p, _, g
+             in chip_smoke.model_layers(model) if kind == "conv" and g == 1]
+    assert len(convs) == chip_smoke.conv_count(model) == 29  # stem, 8 × 3, 4 shortcuts
+    ms = set()
+    for h, w, cin, cout, k, s, p in convs:
+        assert kernels.fits_conv(s, 1, 1)
+        m = batch * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)
+        ms.add(m)
+        _check_plan(m, cin, cout)
+    assert min(ms) == batch and max(ms) == batch * 16 * 16
+
+
 @pytest.mark.parametrize("stride,padding,k,cin", CONV_CASES)
 def test_plan_of_the_kernel_test_shapes(stride, padding, k, cin):
     n, hw, cout = 2, 16, 16  # test_torch_kernels.py's _conv_inputs

@@ -302,9 +302,9 @@ def test_bridge_round_trip_of_variables_and_optimizer_state():
 def test_train_step_refuses_the_data_path():
     setting = _settings("sgd", 1e-3)
     state = create_train_state(build_model("resnet", setting, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         build_train_step(state, augment=True)
     state.model.setting = _settings("sgd", 1e-3)
     state.model.setting.mixup = 0.2
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         build_train_step(state)
