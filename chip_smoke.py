@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ResNet-50, MobileNet-v1, DenseNet-121 and
 ResNeXt-50 serving and train paths, the whole-bottleneck-block kernel,
-and the Trainer (RN26@32 fit, checkpoint, resume, test) on one NVIDIA GPU.
+the Trainer (RN26@32 fit, checkpoint, resume, test), the single-file
+serving artifact and the device data path (augmented RN26@32 fit → export
+→ serve, RN50@224 served from the artifact) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -139,6 +141,33 @@ final line:
      relative), at most 1e-2, the plain path in bf16 printed beside; (v)
      the Trainer's epoch img/s beside the raw step loop on one batch on the card. Prints
      the trainer JSON line.
+  11. the single-file artifact and the device data path: (i) RN50@224
+     (weights from --seed) exported with serve.save_artifact as a bf16
+     and an fp32 artifact (uint8 wire, baked normalization, symbolic
+     batch); one bf16 artifact, loaded with load_artifact, serves batches
+     1, 64 and 256: per request exactly 53 conv2d_fused + 1 max_pool2d
+     launches, the conv_plan tiles each batch ran (b1 and b256 differ),
+     argmax agreement with the live ServingModel >= 0.99 (and whether
+     bit-identical), the fp32 artifact within 1e-6 x max |logit| of the
+     live fp32 model, the b64 request's host-to-device bytes (uint8 only),
+     img/s at b64 and b256 artifact and live in turns, and the host µs per
+     call of the conv2d_fused op beside its wrapper; an RN26@32 artifact
+     exported on the CPU served on the card; (ii) a fresh process loads
+     the artifact and serves one request without importing
+     convnets_tpu_torch.models (its launches, its argmax equal to this
+     process's); (iii) RN26@32 fit for 3 epochs with the JAX defaults
+     (data_augment, affine, data_norm) plus cutout 8 and mixup 0.2 on
+     phase 10's data, through DataMngr's route to DeviceCacheLoader: the
+     splits' one-time uint8 copies, every train step 29 conv2d_stats + 29
+     reductions + 1 max_pool2d + 1 pool2d_backward, loss falls, valid
+     accuracy > 0.2, a profiled epoch whose only host-to-device copies are
+     the 1,024-byte index batches, its idle share, and the
+     preprocessing's share of a step; (iv) that model exported and served
+     on its valid split, argmax = Trainer.test's on >= 0.99; (v) every
+     augmentation function on the card against the CPU with the same
+     parameters (fp32, max |Δ| <= 1e-5), and one RN50@224 b256 train step
+     on 256² uint8 images (RandomResizedCrop on the card), its ms beside
+     the preprocessing's. Prints the artifact JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
   kernel: launches on its main path, max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
@@ -2782,6 +2811,567 @@ def phase_trainer(seed, card, summary, failures):
     return fit_launches, calls["train"]
 
 
+# phase 11: the single-file artifact and the device data path
+ARTIFACT_BATCHES = (1, 64, 256)  # (i): served from one RN50 artifact
+ARTIFACT_FP32_BATCHES = (1, 8)  # (i): the fp32 artifact against the live fp32 model
+ARTIFACT_FP32_TOL = 1e-6  # (i): fp32 |Δ logit| ≤ tol · max |logit|
+AUG_EPOCHS, AUG_CUTOUT, AUG_MIXUP = 3, 8, 0.2  # (iii)
+# (v): the augmentation on the card against the same function on the CPU,
+# fp32, max |Δ|: the separable resample's sums run in another order
+AUG_TOL = 1e-5
+AUG_CHECK_BATCH = 16  # (v)'s RandomResizedCrop / center crop check, 256² → 224²
+RRC_RAW = 256  # (v): the RN50@224 b256 step's uint8 images are 256²
+DISPATCH_CALLS = 200  # (i): host µs per call, op against wrapper
+# (ii): a fresh process loads the artifact and serves one request; argv:
+# repository root, artifact path, seed, image side
+CHILD = """
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+from convnets_tpu_torch.ops import kernels
+from convnets_tpu_torch.serve import load_artifact
+served = load_artifact(sys.argv[2])
+side = int(sys.argv[4])
+x = np.random.default_rng(int(sys.argv[3])).integers(0, 256, (8, side, side, 3), dtype=np.uint8)
+served(x[:1])
+torch.cuda.synchronize()
+kernels.reset_launches()
+y = served(x)
+torch.cuda.synchronize()
+print(json.dumps({"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                  "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+                  "argmax": y.argmax(-1).tolist(),
+                  "models_imported": "convnets_tpu_torch.models" in sys.modules,
+                  "jax_imported": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}))
+"""
+
+
+def seconds_per_request(server, req, iters=10):
+    """Host seconds per request (uint8 from the host, logits on the card),
+    fenced by synchronize, after two warm-up requests."""
+    for _ in range(2):
+        server(req)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        server(req)
+    sync()
+    return (time.perf_counter() - t0) / iters
+
+
+def dispatch_us(seed):
+    """Host µs per call of the conv2d_fused op against its wrapper, at
+    RN50's last 1x1 conv at batch 1 (7²×2048 → 512, a kernel far shorter
+    than either call), in turns, DISPATCH_CALLS calls each, fenced: the
+    op under inference_mode (as ServingModel calls it) and with grad mode
+    on (the custom op's autograd wrapper runs)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import library
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(1, 7, 7, 2048, device=DEVICE, generator=g).bfloat16()
+    w = (torch.randn(1, 1, 2048, 512, device=DEVICE, generator=g) / 45).bfloat16()
+    s, b = torch.ones(512, device=DEVICE), torch.zeros(512, device=DEVICE)
+    op = getattr(torch.ops, library.NAMESPACE).conv2d_fused
+    calls = {"wrapper": lambda: kernels.conv2d_fused(x, w, s, b, stride=(1, 1), padding=(0, 0),
+                                                     relu=True),
+             "op": lambda: op(x, w, s, b, [1, 1], [0, 0], True)}
+    runs = {"wrapper": [], "op": [], "op_grad_mode": []}
+    for name in ("wrapper", "op", "op_grad_mode", "op_grad_mode", "op", "wrapper"):
+        fn = calls[name[:2] if name.startswith("op") else name]
+        with torch.inference_mode() if name != "op_grad_mode" else contextlib.nullcontext():
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            sync()
+        runs[name].append(1e6 * (time.perf_counter() - t0) / DISPATCH_CALLS)
+    return {k: float(np.mean(v)) for k, v in runs.items()}, runs
+
+
+def artifact_check(seed, out_dir, failures):
+    """(i) RN50@224 exported as a bf16 and an fp32 artifact (uint8 wire,
+    baked normalization, symbolic batch); the bf16 one serves batches 1, 64
+    and 256 from one file, each request's launches and plans read; logits
+    against the live ServingModel; img/s in turns; the H2D bytes of a b64
+    request; the op's dispatch cost. (ii) a fresh process serves from it.
+    Returns (results, the launches of the artifact's requests)."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels import conv as conv_kernels
+    from convnets_tpu_torch.serve import ServingModel, load_artifact, save_artifact
+
+    res = {}
+    models = {"bf16": make_model("resnet", seed, True), "fp32": make_model("resnet", seed, False)}
+    paths = {k: os.path.join(out_dir, f"rn50_{k}.bin") for k in models}
+    for k, model in models.items():
+        t0 = time.perf_counter()
+        meta = save_artifact(paths[k], model, input_dtype="uint8", stats=IMAGENET_STATS)
+        res[f"export_{k}_s"] = time.perf_counter() - t0
+        res[f"artifact_{k}_mb"] = os.path.getsize(paths[k]) / 2 ** 20
+    t0 = time.perf_counter()
+    served = load_artifact(paths["bf16"])
+    res["load_s"] = time.perf_counter() - t0
+    live = ServingModel(models["bf16"], input_dtype="uint8", stats=IMAGENET_STATS)
+    ok_meta = (served.meta["batch"] == "symbolic" and served.meta["platforms"] == ["cuda"]
+               and served.meta["input_contract"]["normalization_baked"]
+               and served.device.type == "cuda")
+    rng = np.random.default_rng(seed + 11)
+    reqs = {b: rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
+            for b in ARTIFACT_BATCHES}
+    served(reqs[1])
+    sync()
+
+    # one request per batch from the one artifact: its launches and the
+    # conv_plan tile each of its convs ran
+    plans, launched, outs, seen = {}, {}, {}, []
+    plan_fn = conv_kernels.conv_plan
+
+    def recording(*args, **kw):
+        seen.append(plan_fn(*args, **kw))
+        return seen[-1]
+
+    conv_kernels.conv_plan = recording
+    try:
+        for b in ARTIFACT_BATCHES:
+            seen.clear()
+            sync()
+            kernels.reset_launches()
+            outs[b] = served(reqs[b])
+            sync()
+            launched[b] = dict(kernels.LAUNCHES)
+            check_routes(f"RN50 artifact b{b}", launched[b], failures)
+            plans[b] = Counter(f"{p.bm}x{p.bn} {p.gather}" for p in seen)
+    finally:
+        conv_kernels.conv_plan = plan_fn
+    want = launches_of(SERVE_LAUNCHES["resnet"])
+    ok_launch = all(v == want for v in launched.values())
+    ok_plans = set(plans[1]) != set(plans[ARTIFACT_BATCHES[-1]])
+    for b in ARTIFACT_BATCHES:
+        say(f"(i) RN50 bf16 artifact, request b{b}: logits {tuple(outs[b].shape)}, launches "
+            f"{ {k: v for k, v in launched[b].items() if v} }, conv_plan tiles "
+            f"{dict(plans[b])}")
+    say(f"(i) launches per request exactly {SERVE_LAUNCHES['resnet']}: "
+        f"{'ok' if ok_launch else 'FAIL'}; b1 and b{ARTIFACT_BATCHES[-1]} ran different "
+        f"tiles: {'ok' if ok_plans else 'FAIL'}; metadata {'ok' if ok_meta else 'FAIL'}")
+    if not (ok_launch and ok_plans and ok_meta):
+        failures.append(f"RN50 artifact: launches {launched}, plans {plans}, meta {served.meta}")
+    res["launches_per_request"] = {k: v for k, v in want.items() if v}
+    res["plans"] = {str(b): dict(p) for b, p in plans.items()}
+
+    # logits against the live ServingModel: bf16 argmax, fp32 within a bar
+    refs = {b: live(reqs[b]) for b in ARTIFACT_BATCHES}
+    sync()
+    agree = float(torch.cat([(outs[b].argmax(-1) == refs[b].argmax(-1)).double()
+                             for b in ARTIFACT_BATCHES]).mean())
+    bf16_same = all(torch.equal(outs[b], refs[b]) for b in ARTIFACT_BATCHES)
+    served32 = load_artifact(paths["fp32"])
+    live32 = ServingModel(models["fp32"], input_dtype="uint8", stats=IMAGENET_STATS)
+    rel32, fp32_same = 0.0, True
+    for b in ARTIFACT_FP32_BATCHES:
+        a, r = served32(reqs[ARTIFACT_BATCHES[-1]][:b]), live32(reqs[ARTIFACT_BATCHES[-1]][:b])
+        rel32 = max(rel32, float((a - r).abs().max() / r.abs().max()))
+        fp32_same = fp32_same and torch.equal(a, r)
+    ok_logits = agree >= ARGMAX_MIN and rel32 <= ARTIFACT_FP32_TOL
+    say(f"(i) artifact vs live ServingModel: bf16 argmax agreement {agree:.4f} over "
+        f"{sum(ARTIFACT_BATCHES)} images (min {ARGMAX_MIN}), bit-identical {bf16_same}; fp32 "
+        f"(b{ARTIFACT_FP32_BATCHES}) max |Δ| / max |logit| {rel32:.3e} (tol "
+        f"{ARTIFACT_FP32_TOL:g}), bit-identical {fp32_same} {'ok' if ok_logits else 'FAIL'}")
+    if not ok_logits:
+        failures.append(f"RN50 artifact logits: bf16 agreement {agree}, fp32 rel {rel32}")
+    res.update(bf16_argmax_agreement=agree, bf16_bit_identical=bf16_same, fp32_rel=rel32,
+               fp32_bit_identical=fp32_same)
+    del served32, live32
+
+    # the H2D bytes of three b64 requests (the profiler can drop a memcpy
+    # record: each recorded copy must be one uint8 request)
+    b = ARTIFACT_BATCHES[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            served(reqs[b])
+        sync()
+    copies = [nbytes for nbytes, _ in h2d_copies(prof)]
+    ok_h2d = 1 <= len(copies) <= 3 and set(copies) == {reqs[b].nbytes}
+    say(f"(i) artifact b{b}, 3 requests: host-to-device copies recorded {copies} B (the uint8 "
+        f"request is {reqs[b].nbytes} B) {'ok' if ok_h2d else 'FAIL'}")
+    if not ok_h2d:
+        failures.append(f"RN50 artifact b{b} H2D copies {copies}")
+    res[f"h2d_bytes_b{b}"] = copies
+
+    # img/s, artifact against the live model, in turns
+    for b in ARTIFACT_BATCHES[1:]:
+        runs = {"live": [], "artifact": []}
+        for name in ("live", "artifact", "artifact", "live"):
+            runs[name].append(seconds_per_request(served if name == "artifact" else live, reqs[b]))
+        rates = {k: b / float(np.mean(v)) for k, v in runs.items()}
+        say(f"(i) serving RN50@224 bf16 b{b}, uint8 from the host: artifact "
+            f"{rates['artifact']:.1f} img/s, live ServingModel {rates['live']:.1f} img/s (ms per "
+            f"request in turns: { {k: [round(1e3 * t, 3) for t in v] for k, v in runs.items()} })")
+        res[f"img_s_b{b}"] = rates
+    mean_us, runs = dispatch_us(seed)
+    say(f"(i) dispatch: host µs per call at RN50's 7²×2048→512 1x1 conv, b1 bf16: wrapper "
+        f"{mean_us['wrapper']:.2f}, op under inference_mode {mean_us['op']:.2f} "
+        f"(+{mean_us['op'] - mean_us['wrapper']:.2f}), op in grad mode "
+        f"{mean_us['op_grad_mode']:.2f}; runs {runs}")
+    res["dispatch_us"] = mean_us
+
+    # (ii) a fresh process: the op library, no model code
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHILD, HERE, paths["bf16"], str(seed), str(IMAGE)],
+                          capture_output=True, text=True, timeout=600)
+    child = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else {}
+    x8 = np.random.default_rng(seed).integers(0, 256, (8, IMAGE, IMAGE, 3), dtype=np.uint8)
+    mine = served(x8).argmax(-1).tolist()
+    ok_child = (proc.returncode == 0 and child["launches"] == SERVE_LAUNCHES["resnet"]
+                and child["shape"] == [8, 1000] and child["finite"]
+                and not child["models_imported"] and not child["jax_imported"]
+                and child["argmax"] == mine)
+    say(f"(ii) fresh process (rc {proc.returncode}, {time.perf_counter() - t0:.1f} s): "
+        f"{ {k: v for k, v in child.items() if k != 'argmax'} }, argmax equal to this "
+        f"process's {child.get('argmax') == mine} {'ok' if ok_child else 'FAIL'}")
+    if not ok_child:
+        failures.append(f"fresh-process artifact: rc {proc.returncode} {child} "
+                        f"{proc.stderr[-2000:]}")
+    res["fresh_process"] = {k: v for k, v in child.items() if k != "argmax"}
+    del served, live, models
+    return res, launched[ARTIFACT_BATCHES[-1]]
+
+
+def cross_device_check(seed, out_dir, failures):
+    """(i) an artifact exported on the CPU (RN26@32, fp32) loaded on the
+    card: move_to_device_pass moves its constants; its logits against the
+    same model exported on the card."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.serve import load_artifact, save_artifact
+
+    setting = trainer_setting(seed, "", mixed_precision=False)
+    cpu_model = build_model("resnet", setting, device="cpu")
+    card_model = build_model("resnet", setting, device=DEVICE)
+    card_model.load_state_dict(cpu_model.state_dict())
+    paths = [os.path.join(out_dir, f"rn26_{d}.bin") for d in ("cpu", "cuda")]
+    save_artifact(paths[0], cpu_model, input_dtype="uint8", stats=IMAGENET_STATS)
+    save_artifact(paths[1], card_model, input_dtype="uint8", stats=IMAGENET_STATS)
+    moved, native = (load_artifact(p) for p in paths)
+    x = np.random.default_rng(seed).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    a, b = moved(x), native(x)
+    sync()
+    rel = float((a - b).abs().max() / b.abs().max())
+    ok = a.device.type == "cuda" and rel <= ARTIFACT_FP32_TOL
+    say(f"(i) RN26@32 fp32 artifact exported on the CPU, served on the card: max |Δ| / max "
+        f"|logit| against the card's own export {rel:.3e} (tol {ARTIFACT_FP32_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"cross-device artifact: {a.device}, rel {rel}")
+    return rel
+
+
+def aug_card_check(seed, failures):
+    """(v) each augmentation function on the card against the same function
+    on the CPU, with parameters drawn once on the CPU: crop + flip + affine
+    (the gather) and crop + flip (separable) at RN26@32 b256, cutout,
+    mixup, normalize, and RandomResizedCrop and the center crop 256² →
+    224²; fp32, max |Δ| ≤ AUG_TOL."""
+    import torch
+
+    from convnets_tpu_torch.data import augment as A
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(TRAINER_BATCH, 32, 32, 3, generator=g)
+    big = torch.rand(AUG_CHECK_BATCH, RRC_RAW, RRC_RAW, 3, generator=g)
+    m = A.affine_matrices(A.affine_draws(g, TRAINER_BATCH))
+    cut = A.cutout_draws(g, TRAINER_BATCH, 32, 32)
+    rrc = A.resized_crop_draws(g, AUG_CHECK_BATCH)
+    mix = A.MixupDraws(0.3, torch.randperm(TRAINER_BATCH, generator=g))
+
+    def card(t):
+        return t.to(DEVICE) if isinstance(t, torch.Tensor) else t
+
+    def both(fn, *args):
+        ref = fn(*args)
+        got = fn(*(type(a)(*map(card, a)) if isinstance(a, tuple) else card(a) for a in args))
+        sync()
+        return float((got.cpu() - ref).abs().max())
+
+    errs = {"augment_batch (affine, gather)": both(lambda a, b: A.augment_apply(a, b, True), x, m),
+            "augment_batch (crop + flip, separable)": both(
+                lambda a, b: A.augment_apply(a, b, False), x, m),
+            "cutout": both(lambda a, b: A.cutout_apply(a, b, AUG_CUTOUT), x, cut),
+            "mixup": both(A.mixup_apply, x, mix),
+            "normalize": both(lambda a: A.normalize(a, *IMAGENET_STATS), x),
+            "random_resized_crop_batch": both(
+                lambda a, b: A.resized_crop_apply(a, (IMAGE, IMAGE), b), big, rrc),
+            "center_crop_resize": both(lambda a: A.center_crop_resize(a, (IMAGE, IMAGE)), big)}
+    ok = max(errs.values()) <= AUG_TOL
+    say(f"(v) augmentation on the card vs the CPU, same parameters, fp32 max |Δ| (tol "
+        f"{AUG_TOL:g}): { {k: f'{v:.2e}' for k, v in errs.items()} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"augmentation card vs CPU: {errs}")
+    return errs
+
+
+def rrc_step_check(seed, failures):
+    """(v) one RN50@224 b256 bf16 train step whose uint8 batch is 256²:
+    RandomResizedCrop to 224² runs on the card inside it; the step's ms
+    against the preprocessing's (device time)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.train import build_train_step, create_train_state
+    from convnets_tpu_torch.train.engine import _make_preprocess, data_rng
+
+    batch = TRAIN_BATCH["resnet"]
+    model = make_model("resnet", seed, True)
+    state = create_train_state(model)
+    step = build_train_step(state, augment=True, norm=True, stats=IMAGENET_STATS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, RRC_RAW, RRC_RAW, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
+    rng = data_rng(seed, DEVICE, 0, 0)
+    loss, _ = step(state, x, y, None, gen, rng)
+    sync()
+    kernels.reset_launches()
+    step_ms = time_ms(lambda: step(state, x, y, None, gen, rng), 3)
+    sync()
+    calls = 3 + 2  # time_ms's warm-up and host-timing calls, then the timed ones
+    per_step = {k: v / calls for k, v in kernels.LAUNCHES.items()}
+    pre = _make_preprocess(model, True, IMAGENET_STATS, augment=True)
+    pre_ms = time_ms(lambda: pre(x, rng), 3)
+    ok = bool(torch.isfinite(loss)) and per_step == launches_of(TRAIN_LAUNCHES["resnet"])
+    say(f"(v) RN50@224 b{batch} bf16 train step on {RRC_RAW}² uint8 images (RandomResizedCrop "
+        f"on the card): {step_ms:.2f} ms per step, of it the preprocessing (dequantize, crop + "
+        f"resize, normalize) {pre_ms:.2f} ms ({100 * pre_ms / step_ms:.2f}%); launches per "
+        f"step { {k: v for k, v in per_step.items() if v} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"RN50 256² augmented step: loss {float(loss)}, launches {per_step}")
+    return {"step_ms": step_ms, "preprocess_ms": pre_ms}
+
+
+def aug_fit_check(seed, out_dir, failures):
+    """(iii) RN26@32 fit with the JAX defaults (data_augment, affine,
+    data_norm) plus cutout and mixup, on phase 10's data through DataMngr's
+    route to DeviceCacheLoader, AUG_EPOCHS epochs: per-call launches, the
+    split's one-time copy, learning; (iv) the fitted model exported,
+    served from its artifact against Trainer.test's predictions; (iii) one
+    profiled epoch (H2D copies per step, idle share) and the
+    augmentation's share of a step. Returns (results, fit launches, the
+    per-call train launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.data import DataMngr, DeviceCacheLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import export_trainer, load_artifact
+    from convnets_tpu_torch.train import Trainer
+    from convnets_tpu_torch.train.engine import _make_preprocess, data_rng
+
+    res = {}
+    train_ds, valid_ds = trainer_data(seed)
+    setting = trainer_setting(seed, out_dir, epochs=AUG_EPOCHS, data_augment=True,
+                              augment_affine=True, data_norm=True, cutout=AUG_CUTOUT,
+                              mixup=AUG_MIXUP)
+    mngr = DataMngr(setting, device=DEVICE, datasets={"train": train_ds, "valid": valid_ds})
+    train, valid = mngr.load_train(), mngr.load_valid()
+    # the one-time copy: each split's images and labels as they lie on the
+    # card (the profiled epoch below shows that no image crosses again)
+    resident = [(str(t.dtype), t.numel() * t.element_size(), t.device.type)
+                for loader in (train, valid) for t in loader.resident()]
+    want_resident = [("torch.uint8", TRAINER_TRAIN * 3072, "cuda"),
+                     ("torch.int32", TRAINER_TRAIN * 4, "cuda"),
+                     ("torch.uint8", TRAINER_VALID * 3072, "cuda"),
+                     ("torch.int32", TRAINER_VALID * 4, "cuda")]
+    ok_route = (isinstance(train, DeviceCacheLoader) and isinstance(valid, DeviceCacheLoader)
+                and train.augment and not valid.augment and resident == want_resident)
+    say(f"(iii) DataMngr routes: train {type(train).__name__} (augment {train.augment}), valid "
+        f"{type(valid).__name__}; the splits on the card (dtype, bytes, device): {resident} "
+        f"{'ok' if ok_route else 'FAIL'}")
+    if not ok_route:
+        failures.append(f"augmented fit routes/residency: {type(train)}, {resident}")
+
+    trainer = Trainer(build_model("resnet", setting, device=DEVICE))
+    n = conv_count(trainer.model)
+    calls, epoch_s = {"train": [], "eval": []}, []
+    count_calls(trainer, calls)
+    timed_train_epochs(trainer, epoch_s)
+    sync()
+    kernels.reset_launches()
+    trainer.fit(train, valid)
+    sync()
+    fit_launches = dict(kernels.LAUNCHES)
+    check_routes("RN26@32 augmented fit", fit_launches, failures)
+    trainer.close()
+    r = trainer.epoch_results
+    per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
+                            "pool2d_backward": 1})
+    per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
+    ok_calls = (len(calls["train"]) == len(train) * AUG_EPOCHS
+                and len(calls["eval"]) == len(valid) * AUG_EPOCHS
+                and all(c == per_step for c in calls["train"])
+                and all(c == per_eval for c in calls["eval"]))
+    ok_learn = (r["train_loss"][-1] < r["train_loss"][0] and r["valid_score"][-1] > TRAINER_MIN_ACC
+                and bool(np.isfinite(r["train_loss"]).all()))
+    rates = [TRAINER_TRAIN / t for t in epoch_s]
+    say(f"(iii) augmented fit RN26@32 bf16 (affine, cutout {AUG_CUTOUT}, mixup {AUG_MIXUP}), "
+        f"{AUG_EPOCHS} epochs: train loss {r['train_loss']}, valid acc {r['valid_score']} (> "
+        f"{TRAINER_MIN_ACC}) {'ok' if ok_learn else 'FAIL'}; {len(calls['train'])} train steps "
+        f"each { {k: v for k, v in per_step.items() if v} }, {len(calls['eval'])} eval batches "
+        f"each { {k: v for k, v in per_eval.items() if v} } {'ok' if ok_calls else 'FAIL'}; "
+        f"epoch img/s {[round(v, 1) for v in rates]}")
+    if not ok_calls:
+        failures.append(f"augmented fit launches per call off: "
+                        f"{[c for c in calls['train'] if c != per_step][:1]}")
+    if not ok_learn:
+        failures.append(f"augmented fit: loss {r['train_loss']}, acc {r['valid_score']}")
+    res.update(train_loss=r["train_loss"], valid_score=r["valid_score"], epoch_img_s=rates,
+               launches_per_train_step={k: v for k, v in per_step.items() if v})
+
+    # (iv) fit → export → serve
+    stats = trainer._resolve_stats(train)
+    path = os.path.join(out_dir, "rn26_fit.bin")
+    meta = export_trainer(trainer, path, stats=stats, input_dtype="uint8")
+    served = load_artifact(path)
+    preds = []
+    get_eval = trainer._get_eval_step
+
+    def capturing(*a, **k):
+        fn = get_eval(*a, **k)
+
+        def step(x, y, w=None):
+            out = fn(x, y, w)
+            preds.append((out[2], w))
+            return out
+        return step
+
+    trainer._get_eval_step = capturing
+    _, _, fps = trainer.test(valid, num_warmup=2)
+    trainer._get_eval_step = get_eval
+    tested = torch.cat([p[w > 0] for p, w in preds[-len(valid):]]).cpu().numpy()
+    art = np.concatenate([served.predict(valid_ds.images[i:i + TRAINER_BATCH])
+                          for i in range(0, TRAINER_VALID, TRAINER_BATCH)])
+    agree = float((art == tested).mean())
+    ok_art = agree >= ARGMAX_MIN and len(tested) == TRAINER_VALID
+    say(f"(iv) fit → export ({meta['payload_bytes']} B payload) → serve the valid split: "
+        f"artifact argmax = Trainer.test's on {agree:.4f} of {len(tested)} images (min "
+        f"{ARGMAX_MIN}); Trainer.test {fps:.1f} img/s {'ok' if ok_art else 'FAIL'}")
+    if not ok_art:
+        failures.append(f"fit → export → serve agreement {agree} over {len(tested)}")
+    res.update(fit_artifact_agreement=agree, test_img_s=fps)
+
+    # (iii) one profiled epoch: the H2D copies per step, the idle share
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        Trainer._run_train_epoch(trainer, train, 99)  # not the timed wrapper
+        host = time.perf_counter() - t1
+    device, ours, _ = device_split(prof, OUR_KERNELS)
+    copies = [b for b, _ in h2d_copies(prof)]
+    idle = 1.0 - device / 1e6 / host
+    index_bytes = TRAINER_BATCH * 4
+    ok_copies = (set(copies) == {index_bytes} and len(train) // 2 <= len(copies) <= len(train)
+                 and device > 0)
+    say(f"(iii) profiled augmented epoch ({len(train)} steps): device {device / 1e3:.3f} ms of "
+        f"{1e3 * host:.3f} ms host clock, idle share {idle:.4f}; the port's kernels "
+        f"{ours / 1e3:.3f} ms; host-to-device copies recorded {len(copies)}, bytes "
+        f"{sorted(set(copies))} (an index batch is {index_bytes} B) "
+        f"{'ok' if ok_copies else 'FAIL'}")
+    if not ok_copies:
+        failures.append(f"augmented epoch H2D copies {copies[:8]} ({len(copies)})")
+
+    # the preprocessing's share of a step's device time (the step is
+    # host-bound, so each is read from the profiler, not from time_ms)
+    x, y, w = next(iter(train))
+    rng = data_rng(seed, DEVICE, 0, 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    pre = _make_preprocess(trainer.model, True, stats, augment=True, cut=AUG_CUTOUT)
+    step = trainer._get_train_step(True, True, False, stats)
+    dev_ms = {}
+    for name, fn in (("preprocess", lambda: pre(x, rng)),
+                     ("step", lambda: step(trainer.state, x, y, w, gen, rng))):
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            sync()
+        dev_ms[name] = device_split(prof, OUR_KERNELS)[0] / 3e3
+    pre_ms, step_ms = dev_ms["preprocess"], dev_ms["step"]
+    say(f"(iii) one augmented step at b{TRAINER_BATCH}: {step_ms:.3f} ms device time, of it the "
+        f"preprocessing (dequantize, crop + flip + affine, normalize, cutout) {pre_ms:.3f} ms "
+        f"({100 * pre_ms / step_ms:.2f}%)")
+    res.update(profiled_epoch={"host_ms": 1e3 * host, "device_ms": device / 1e3,
+                               "idle_share": idle, "kernels_ms": ours / 1e3,
+                               "h2d_copies": len(copies), "h2d_bytes": sorted(set(copies))},
+               step_ms=step_ms, preprocess_ms=pre_ms)
+    return res, fit_launches, calls["train"][:len(train) * AUG_EPOCHS]
+
+
+SERVE_RATE_ITERS = 20
+
+
+def serve_rate(seed):
+    """--serve-rate: RN50@224 bf16 from build_model's seeded init, served
+    by the live ServingModel (uint8 requests from the host, baked ImageNet
+    normalization) at b64 and b256: host seconds around SERVE_RATE_ITERS
+    requests after 3 warm-ups, fenced. Uses only build_model, Settings
+    and ServingModel(model, input_dtype=, stats=), which older checkouts
+    of the port have too."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.serve import ServingModel
+
+    model = build_model("resnet", model_setting("resnet", seed, True))
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for b in (64, 256):
+        req = rng.integers(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
+        for _ in range(3):
+            server(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_RATE_ITERS):
+            server(req)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / SERVE_RATE_ITERS
+        out[f"b{b}"] = {"img_s": b / dt, "ms": 1e3 * dt}
+    return out
+
+
+def phase_artifact(seed, card, failures):
+    """Phase 11: (i)-(ii) the RN50 artifact, (iii)-(iv) the augmented fit,
+    its export and its profile, (v) the augmentation on the card. Prints
+    the artifact JSON line; returns the launches of the artifact's b256
+    request and of the augmented fit, and the fit's per-call launches."""
+    parts, out = {}, {"card": card}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        out["artifact"], served = artifact_check(seed, out_dir, failures)
+        out["cross_device_rel"] = cross_device_check(seed, out_dir, failures)
+        parts["i_ii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["augmented_fit"], fit, fit_calls = aug_fit_check(seed, out_dir, failures)
+        parts["iii_iv"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["augmentation_vs_cpu"] = aug_card_check(seed, failures)
+    out["rrc_step"] = rrc_step_check(seed, failures)
+    parts["v"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    say(json.dumps({"artifact": out}))
+    return served, fit, fit_calls
+
+
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -2819,9 +3409,13 @@ def main():
     ap.add_argument("--phases", default=None,
                     help="run only these phases (comma-separated, e.g. 6b,7), print no "
                          "kernels line and no result line: a development aid")
+    ap.add_argument("--serve-rate", default=None, metavar="ROOT",
+                    help="print the RN50@224 serving img/s of the live ServingModel of the "
+                         "checkout at ROOT and exit, with no result line: run it over two "
+                         "checkouts in turns (parent, change, change, parent) to compare them")
     args = ap.parse_args()
 
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.abspath(args.serve_rate or HERE))
     try:
         import torch
         from convnets_tpu_torch.ops import kernels
@@ -2842,6 +3436,12 @@ def main():
     say(f"device: {kind} (count {torch.cuda.device_count()}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     say(card)
+
+    if args.serve_rate:
+        kernels.lib()
+        say(json.dumps({"serve_rate": {"root": os.path.abspath(args.serve_rate), "card": card,
+                                       **serve_rate(args.seed)}}))
+        return
 
     # phase 1: build
     t_all = t0 = time.perf_counter()
@@ -2900,6 +3500,21 @@ def main():
                             "pool2d_train": sum(c["max_pool2d"] for c in train_calls),
                             "pool2d_backward": fit["pool2d_backward"]}
 
+    def phase_11():
+        served, fit, fit_calls = phase_artifact(args.seed, card, failures)
+        # each kernel's launches on phase 11's two paths: the artifact's b256
+        # request and the augmented fit (the trainable functions by their
+        # kernels)
+        state["artifact"] = {"conv2d_fused": served["conv2d_fused"],
+                             "max_pool2d": served["max_pool2d"]}
+        state["augmented_fit"] = {"conv2d_fused": fit["conv2d_fused"],
+                                  "max_pool2d": fit["max_pool2d"],
+                                  "conv2d_stats": fit["conv2d_stats"],
+                                  "conv2d_stats_reduce": fit["conv2d_stats_reduce"],
+                                  "conv_bn_relu_train": fit["conv2d_stats"],
+                                  "pool2d_train": sum(c["max_pool2d"] for c in fit_calls),
+                                  "pool2d_backward": fit["pool2d_backward"]}
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -2915,6 +3530,7 @@ def main():
         "8b": lambda: phase_b256_grouped(summary),
         "9": phase_9,
         "10": phase_10,
+        "11": phase_11,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -2956,9 +3572,10 @@ def main():
     for name in SOURCES:
         if launches[name] <= 0:
             failures.append(f"{name}: no launch on its main path")
-    for name, count in state["trainer"].items():
-        if count <= 0:
-            failures.append(f"{name}: no launch in phase 10's fit")
+    for path in ("trainer", "artifact", "augmented_fit"):
+        for name, count in state[path].items():
+            if count <= 0:
+                failures.append(f"{name}: no launch on phase 10/11's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2968,7 +3585,8 @@ def main():
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
-         **({"trainer_launches": state["trainer"][name]} if name in state["trainer"] else {}),
+         **{f"{path}_launches": state[path][name]
+            for path in ("trainer", "artifact", "augmented_fit") if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
             + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))

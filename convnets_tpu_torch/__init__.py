@@ -6,15 +6,19 @@ mirrors its counterpart's name and is tested against it on the CPU
 of convnets_tpu.
 
 Ported so far: the ResNet, MobileNet-v1, DenseNet and ResNeXt families'
-serving and train paths, and the Trainer with its host feed.
+serving and train paths, the Trainer with its host feed and the device
+data path, and the single-file serving artifact.
   settings.py   run configuration (a copy of the JAX package's)
   core/      dtype policy, shape math, random-number streams
   ops/       plain tensor ops (NHWC), the CPU oracles of the kernels
-  ops/kernels/  hand-written CUDA kernels (csrc/*.cu) and their wrappers
+  ops/kernels/  hand-written CUDA kernels (csrc/*.cu), their wrappers, and
+             the eval path's kernels as torch custom ops (library.py)
   nn/        modules whose child names follow the JAX variable paths
   models/    Builder, Model, registry; the four families
-  data/      datasets, the seeded DataLoader, device_prefetch
-  serve/     the serving forward (uint8 wire, baked normalization)
+  data/      datasets, the seeded DataLoader, device_prefetch, the
+             device-resident DeviceCacheLoader, DataMngr, augmentation
+  serve/     ServingModel and the torch.export artifact (uint8 wire,
+             baked normalization, symbolic batch)
   train/     train and eval steps, Trainer, optimizers, schedulers,
              metrics, checkpoints in the JAX package's format
   bridge.py  JAX variables and optimizer state <-> port tensors, by path

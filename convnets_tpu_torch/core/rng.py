@@ -23,6 +23,10 @@ _STREAMS = {
     "bn_reestimate": 6,
     "eval": 7,
 }
+# the port's own streams, one per random purpose of the data side that the
+# JAX package draws by splitting the step's augment key (engine.py:169,
+# :218-219): the cutout squares and the mixup λ and permutation
+_DATA_STREAMS = {"cutout": 8, "mixup": 9}
 
 
 def generator_for(seed: int, stream: str, *extra: int, device="cpu") -> torch.Generator:
@@ -30,8 +34,12 @@ def generator_for(seed: int, stream: str, *extra: int, device="cpu") -> torch.Ge
     indices): the port's `key_for`. Its seed is a fixed hash of the numbers
     (numpy's SeedSequence over seed, the stream's id and the indices). The
     Trainer's dropout generator for step s of global epoch e is
-    generator_for(seed, "dropout", e, s)."""
-    entropy = [int(seed), _STREAMS[stream], *(int(e) for e in extra)]
+    generator_for(seed, "dropout", e, s); its data side draws from the
+    "augment", "cutout" and "mixup" streams at (e, s). numpy's
+    SeedSequence ignores trailing zero indices: (seed, stream, 5) and
+    (seed, stream, 5, 0) give the same generator, so no two index lists
+    of one stream in use differ by trailing zeros alone."""
+    entropy = [int(seed), {**_STREAMS, **_DATA_STREAMS}[stream], *(int(e) for e in extra)]
     if any(v < 0 for v in entropy):
         raise ValueError(f"stream numbers must be non-negative, got {entropy}")
     state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)

@@ -1,7 +1,8 @@
 """DataLoader: shuffled, seeded, fixed-shape batches with host-side decode
-prefetch, and `device_prefetch`, the host-to-device feed (counterparts of
-convnets_tpu/data/loader.py:DataLoader and device_prefetch; the DataLoader
-is a copy).
+prefetch; DeviceCacheLoader: the same batches from a split kept on the
+device; and `device_prefetch`, the host-to-device feed (counterparts of
+convnets_tpu/data/loader.py:DataLoader, DeviceCacheLoader and
+device_prefetch; the DataLoader is a copy).
 
 Replaces the reference's torch DataLoader(shuffle, pin_memory, num_workers)
 (mngrdata.py:158-163):
@@ -14,8 +15,8 @@ Replaces the reference's torch DataLoader(shuffle, pin_memory, num_workers)
   * per-host sharding hook (`shard(host_id, num_hosts)`) for multi-host DP:
     each host iterates its disjoint slice of every epoch's permutation.
 
-The JAX package's DeviceCacheLoader and ShardRotationLoader (a split kept
-on the device) are ROADMAP.md modules item 3.
+The JAX package's ShardRotationLoader (a split too large for the device,
+rotated through it in shards) is ROADMAP.md modules item 8.
 """
 
 from __future__ import annotations
@@ -171,10 +172,13 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     its own, and PyTorch's pinned-memory allocator does not hand its block
     out again before the copy that reads it has finished. Arrays cross in
     their own dtype (a uint8 batch as 1 byte per value; the steps convert
-    on the device). On the CPU it yields plain tensors over the arrays."""
+    on the device). On the CPU it yields plain tensors over the arrays. A
+    batch of tensors already on `device` passes through as it is."""
     device = torch.device(device)
 
     def put(batch):
+        if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
+            return batch  # a DeviceCacheLoader's batch: already there
         tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
         if device.type != "cuda":
             return tuple(t.to(device) for t in tensors)
@@ -193,3 +197,70 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
             buf.append(put(next(it)))
         except StopIteration:
             pass
+
+
+class DeviceCacheLoader:
+    """A loader whose split lives on the device (convnets_tpu/data/loader.py:154-273).
+
+    The split goes to the device once, as uint8 where the dataset has
+    `load_raw`; per step only the batch's int32 indices cross (a 256-image
+    batch: 1 KB), and the gather runs on the device. The weights are made
+    on the device too.
+
+    Same contract as DataLoader: the same seeded permutation per epoch and
+    per-host slice (`_epoch_indices`), fixed batch shapes, and a last
+    partial batch padded with zero images, label 0 and weight 0, so its
+    batches equal DataLoader's. (The JAX loader pads by replaying index
+    0.) It offers no whole-epoch scan: the Trainer runs its per-step loop
+    over it."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, *, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = False, host_id: int = 0, num_hosts: int = 1,
+                 device="cuda"):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.device = torch.device(device)
+        self.epoch = 0
+        self._resident = None
+
+    # the same sizing and permutation rules as DataLoader
+    __len__ = DataLoader.__len__
+    num_examples = DataLoader.num_examples
+    _host_count = DataLoader._host_count
+    _epoch_indices = DataLoader._epoch_indices
+
+    def resident(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(images, labels) on the device, pushed there on first use."""
+        if self._resident is None:
+            load = getattr(self.dataset, "load_raw", None) or self.dataset.load
+            x, y = load(np.arange(len(self.dataset)))
+            self._resident = (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+                              torch.from_numpy(np.asarray(y, np.int32)).to(self.device))
+        return self._resident
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Yields (x, y, w) on the device: x gathered from the resident split
+        (uint8 for a raw dataset), y int32, w float32 0/1."""
+        data, labels = self.resident()
+        order = self._epoch_indices()
+        self.epoch += 1
+        bs = self.batch_size
+        num_batches = len(order) // bs if self.drop_last else -(-len(order) // bs)
+        cuda = self.device.type == "cuda"
+        for bi in range(num_batches):
+            idx = order[bi * bs:(bi + 1) * bs]
+            k = len(idx)
+            host = torch.from_numpy(np.pad(idx, (0, bs - k)).astype(np.int32))
+            idx_d = (host.pin_memory().to(self.device, non_blocking=True) if cuda
+                     else host).long()
+            x, y = data[idx_d], labels[idx_d]
+            if k < bs:
+                x[k:] = 0
+                y[k:] = 0
+            w = (torch.arange(bs, device=self.device) < k).float()
+            yield x, y, w

@@ -5,7 +5,10 @@ Children carry the JAX variable-path names: Sequential children '0',
 in branch order. Activations are NHWC. Every conv and pool runs a kernel
 of `ops.kernels` in both modes: in eval mode conv2d_fused and
 grouped_conv2d_fused (BN folded into their epilogue), depthwise_conv2d,
-max_pool2d and avg_pool2d; in train mode conv_bn_relu_train (conv2d_stats
+max_pool2d and avg_pool2d, called as the custom ops of
+`ops/kernels/library.py` (torch.ops.convnets_torch.*), so that the live
+model, the Trainer's eval step and an exported program run the same graph;
+in train mode conv_bn_relu_train (conv2d_stats
 or grouped_conv2d_stats), conv2d_train, grouped_conv2d_train,
 depthwise_train and pool2d_train. A conv is dense, depthwise or grouped
 (`_check_conv_envelope`, tested in the JAX package's order). A depthwise
@@ -29,7 +32,10 @@ from convnets_tpu_torch.core import shapes
 from convnets_tpu_torch.nn.module import Module, current_generator
 from convnets_tpu_torch.ops import initializers as init
 from convnets_tpu_torch.ops import kernels
+from convnets_tpu_torch.ops.kernels import library
 from convnets_tpu_torch.ops.norm import running_update
+
+_OPS = getattr(torch.ops, library.NAMESPACE)
 
 
 def not_ported(what: str, item: str):
@@ -106,16 +112,16 @@ class Conv2d(Module):
         if family == DEPTHWISE and self.training:
             y = kernels.depthwise_train(x, w, self.stride, self.padding)
         elif family == DEPTHWISE:
-            y = kernels.depthwise_conv2d(x, w, stride=self.stride, padding=self.padding)
+            y = _OPS.depthwise_conv2d(x, w, list(self.stride), list(self.padding))
         elif family == GROUPED and self.training:
             y = kernels.grouped_conv2d_train(x, w, self.groups, self.stride, self.padding)
         elif family == GROUPED:
-            y = kernels.grouped_conv2d_fused(x, w, self.groups, stride=self.stride,
-                                             padding=self.padding)
+            y = _OPS.grouped_conv2d_fused(x, w, self.groups, None, None, list(self.stride),
+                                          list(self.padding), False)
         elif self.training:
             y = kernels.conv2d_train(x, w, self.stride, self.padding)
         else:
-            y = kernels.conv2d_fused(x, w, stride=self.stride, padding=self.padding)
+            y = _OPS.conv2d_fused(x, w, None, None, list(self.stride), list(self.padding), False)
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y
@@ -238,8 +244,8 @@ class _Pool2d(Module):
     def forward(self, x):
         if self.training:
             return kernels.pool2d_train(x, self.MODE, self.kernel, self.stride, self.padding)
-        pool = kernels.max_pool2d if self.MODE == "max" else kernels.avg_pool2d
-        return pool(x, self.kernel, self.stride, self.padding)
+        pool = _OPS.max_pool2d if self.MODE == "max" else _OPS.avg_pool2d
+        return pool(x, *library.pool_args(self.kernel, self.stride, self.padding))
 
 
 class MaxPool2d(_Pool2d):
@@ -411,10 +417,10 @@ class ConvBNReLU(Sequential):
             bn.update_running(mean, var, out.shape[0] * out.shape[1] * out.shape[2])
             return out
         s, sh = bn.folded()
-        kw = dict(stride=conv.stride, padding=conv.padding, relu=self.act)
+        geo = (list(conv.stride), list(conv.padding), self.act)
         if family == GROUPED:
-            return kernels.grouped_conv2d_fused(x, w, conv.groups, s, sh, **kw)
-        return kernels.conv2d_fused(x, w, s, sh, **kw)
+            return _OPS.grouped_conv2d_fused(x, w, conv.groups, s, sh, *geo)
+        return _OPS.conv2d_fused(x, w, s, sh, *geo)
 
 
 def conv_block(out_channels, kernel, stride=1, padding=0, dilation=1, groups=1,

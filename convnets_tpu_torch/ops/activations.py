@@ -33,5 +33,7 @@ def dropout(x, rate: float, generator: Optional[torch.Generator] = None, *, trai
         raise ValueError("dropout needs a torch.Generator at train time")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+    # keep, rounded to x.dtype, as a CPU scalar: it enters the kernel as an
+    # argument, with no host-to-device copy
+    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device))

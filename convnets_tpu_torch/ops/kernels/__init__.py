@@ -39,6 +39,11 @@ package leaves its backwards to XLA, except the pool's: its max forward
 writes the tap of each window's first maximum and the `pool2d_backward`
 kernel gathers dx from it. `bottleneck_block` (a whole identity bottleneck
 in one launch) has no caller in the models, as in the JAX package.
+
+The eval path's five kernels are also torch custom ops
+(`torch.ops.convnets_torch.*`, registered by `library.py` when this
+package is imported), which the eval-mode layers call, so `torch.export`
+can trace and save a model that runs them.
 """
 
 from __future__ import annotations
@@ -267,6 +272,7 @@ from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E40
 from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
     BlockPlan, block_plan, bottleneck_block, bottleneck_block_plain, fits_block,
 )
+from convnets_tpu_torch.ops.kernels import library  # noqa: E402,F401  (registers the ops)
 
 __all__ = [
     "BlockPlan", "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES", "WindowPlan",

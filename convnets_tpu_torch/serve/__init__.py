@@ -1,1 +1,3 @@
-from convnets_tpu_torch.serve.serving import ServingModel, serving_forward  # noqa: F401
+from convnets_tpu_torch.serve.export import (  # noqa: F401
+    ServingModel, export_model, export_trainer, load_artifact, read_artifact, save_artifact,
+)

@@ -2,9 +2,14 @@
 convnets_tpu/train/engine.py: Trainer._build_train_step :190-278,
 _build_eval_step :308-326, and Trainer).
 
-Train step: preprocess (uint8 → /255, optional normalize, cast to the
-compute dtype) → train-mode forward, fp32 logits → sum-CE (label
-smoothing, example weights) and the sum or per-example-mean objective →
+Train step: preprocess in the JAX package's order (engine.py:147-188:
+uint8 → /255; RandomResizedCrop where the batch's size differs from the
+model's, else crop + flip (+ affine); or, without augmentation, the center
+crop where the sizes differ; normalize; cutout; cast to the compute
+dtype) → mixup (one λ ~ Beta(α, α) and one permutation per batch) →
+train-mode forward, fp32 logits → sum-CE (label smoothing, example
+weights; with mixup λ·CE(y) + (1 − λ)·CE(y[perm])) and the sum or
+per-example-mean objective →
 × loss scale → gradients → ÷ loss scale → clipping → Adam or SGD →
 correct count. The step updates the TrainState in place: parameters and
 optimizer state are overwritten after the update, and the BN running
@@ -14,11 +19,15 @@ returns a new state).
 Trainer: fit (best-checkpoint gating on valid loss or score, the async
 checkpoint, plateau rollback, early stop, resume with the data-order
 clock), evaluate, test, reestimate_bn and checkpoints, on one device: the
-model's. Each epoch is a host loop over `data.device_prefetch` batches;
-the per-step loss and correct count stay on the device until the epoch
-ends. Augmentation, cutout, mixup and a device-resident loader (the JAX
-package's whole-epoch scan) are ROADMAP.md modules item 3 (data path);
-data parallel is item 7.
+model's. Each epoch is a host loop over `data.device_prefetch` batches
+(a `DeviceCacheLoader`'s batches are already on the card: only their
+index batch crossed); the per-step loss and correct count stay on the
+device until the epoch ends. The random draws of step s of global epoch e
+come from generator_for(seed, stream, e, s): "dropout" for the masks,
+"augment", "cutout" and "mixup" for the data side (`DataRng`). The JAX
+package's whole-epoch scan has no counterpart: every loader runs the
+per-step loop (a CUDA-graph step is ROADMAP.md modules item 3); data
+parallel is item 7.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import copy
 import json
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +44,10 @@ import torch
 from convnets_tpu_torch import bridge, ops
 from convnets_tpu_torch.core.precision import LossScale
 from convnets_tpu_torch.core.rng import generator_for
+from convnets_tpu_torch.data.augment import (
+    augment_batch, center_crop_resize, cutout, mixup_apply, mixup_draws, normalize,
+    random_resized_crop_batch,
+)
 from convnets_tpu_torch.data.datasets import CINIC_MEAN, CINIC_STD
 from convnets_tpu_torch.data.loader import DataLoader, device_prefetch
 from convnets_tpu_torch.nn import use_generator
@@ -46,8 +59,24 @@ from convnets_tpu_torch.train.scheduler import (
 )
 from convnets_tpu_torch.train.state import TrainState, create_train_state
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md modules item 3, data path)")
+
+class DataRng(NamedTuple):
+    """The generators of one step's data side: on the batch's device the
+    augmentation's, the cutout's and the mixup permutation's; on the host
+    the mixup λ's."""
+
+    augment: torch.Generator
+    cutout: torch.Generator
+    mixup: torch.Generator
+    mixup_host: torch.Generator
+
+
+def data_rng(seed: int, device, *index: int) -> DataRng:
+    """Step `index` = (e, s)'s DataRng: the "augment", "cutout" and
+    "mixup" streams at (e, s)."""
+    return DataRng(*(generator_for(seed, stream, *index, device=device)
+                     for stream in ("augment", "cutout", "mixup")),
+                   generator_for(seed, "mixup", *index))
 
 
 def _device_of(model) -> torch.device:
@@ -68,48 +97,69 @@ def _on_device(device, x, y, w):
     return x, y, torch.as_tensor(w).to(device)
 
 
-def _make_preprocess(model, norm: bool, stats):
-    """uint8 → /255 on the device, optional normalize, cast to the compute
-    dtype: the input side of the train, eval and BN re-estimation steps."""
+def _make_preprocess(model, norm: bool, stats, augment: bool = False, do_affine: bool = True,
+                     cut: int = 0):
+    """The input side of the train, eval and BN re-estimation steps, in the
+    JAX package's order (engine.py:147-188): uint8 → /255 on the device;
+    with `augment`, RandomResizedCrop where the batch's size differs from
+    the model's, else crop + flip (+ affine with `do_affine`); without, the
+    center crop where the sizes differ; normalize; with `augment`, cutout
+    of side `cut` (after normalize: a zero is the dataset mean); cast to
+    the compute dtype. preprocess(x, rng) draws from rng, a DataRng, which
+    an augmenting step must pass."""
     compute_dtype = model.policy.compute_dtype
     target_hw = tuple(model.input_shape_nhwc[:2])
     # CINIC-10's statistics are the default of the JAX package's
-    # data/augment.py:normalize
-    mean, std = (CINIC_MEAN, CINIC_STD) if stats is None else stats
+    # data/augment.py:normalize; placed on the device once, so that a step
+    # copies nothing for them
+    mean, std = (torch.as_tensor(np.asarray(v, np.float32), device=_device_of(model))
+                 for v in ((CINIC_MEAN, CINIC_STD) if stats is None else stats))
 
-    def preprocess(x):
+    def preprocess(x, rng: Optional[DataRng] = None):
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
-        if tuple(x.shape[1:3]) != target_hw:
-            raise _not_ported(f"resizing a {tuple(x.shape[1:3])} batch to {target_hw}")
+        if augment and rng is None:
+            raise ValueError("an augmenting step needs its DataRng")
+        if augment and tuple(x.shape[1:3]) != target_hw:
+            x = random_resized_crop_batch(rng.augment, x, target_hw)
+        elif augment:
+            x = augment_batch(rng.augment, x, do_affine=do_affine)
+        elif tuple(x.shape[1:3]) != target_hw:
+            x = center_crop_resize(x, target_hw)
         if norm:
-            m, s = (torch.as_tensor(np.asarray(v, np.float32), device=x.device).to(x.dtype)
-                    for v in (mean, std))
-            x = (x - m) / s
+            x = normalize(x, mean, std)
+        if augment and cut > 0:
+            x = cutout(rng.cutout, x, cut)
         return x.to(compute_dtype)
 
     return preprocess
 
 
+def _data_flags(setting):
+    """(do_affine, cutout side, mixup α) of the settings."""
+    return (bool(getattr(setting, "augment_affine", True)),
+            int(getattr(setting, "cutout", 0) or 0),
+            float(getattr(setting, "mixup", 0.0) or 0.0))
+
+
 def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = False,
                      stats=None, debug: bool = False):
-    """Return train_step(state, x, y, w=None, generator=None) -> (loss, correct),
-    or (loss, correct, gradient global norm) when `debug`.
+    """Return train_step(state, x, y, w=None, generator=None, rng=None) ->
+    (loss, correct), or (loss, correct, gradient global norm) when `debug`.
 
-    x: (N, H, W, C) uint8 or float batch at the model's input size; y (N,)
-    int labels; w (N,) 0/1 example weights (all ones when None), each moved
-    to the model's device if it lies elsewhere; generator:
-    the torch.Generator of the dropout masks, on x's device. loss is the
-    batch's CE sum, correct its count of right argmaxes, both fp32 scalars
-    on the device. Settings read: weight_decay, grad_clip_norm/gc_max_norm,
+    x: (N, H, W, C) uint8 or float batch (at another size than the model's
+    only with `augment`, which then crops it to size); y (N,) int labels; w
+    (N,) 0/1 example weights (all ones when None), each moved to the
+    model's device if it lies elsewhere; generator: the torch.Generator of
+    the dropout masks, on x's device; rng: the step's DataRng, needed with
+    `augment` or mixup. loss is the batch's CE sum (mixed with mixup),
+    correct its count of right argmaxes against y, both fp32 scalars on
+    the device. Settings read: weight_decay, grad_clip_norm/gc_max_norm,
     grad_clip_value/gc_value, momentum, nesterov, loss_reduction,
-    label_smoothing, mixup, cutout."""
+    label_smoothing, augment_affine, cutout, mixup."""
     model = state.model
     setting = model.setting
-    if augment:
-        raise _not_ported("train-time augmentation (and cutout)")
-    if float(getattr(setting, "mixup", 0.0) or 0.0) > 0.0:
-        raise _not_ported("mixup")
+    do_affine, cut, mix_a = _data_flags(setting)
     wd = float(getattr(setting, "weight_decay", 0.0))
     clip_norm = float(setting.gc_max_norm) if getattr(setting, "grad_clip_norm", False) else None
     clip_value = float(setting.gc_value) if getattr(setting, "grad_clip_value", False) else None
@@ -117,16 +167,26 @@ def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = F
     smoothing = float(getattr(setting, "label_smoothing", 0.0) or 0.0)
     momentum = float(getattr(setting, "momentum", 0.9))
     nesterov = bool(getattr(setting, "nesterov", False))
-    preprocess = _make_preprocess(model, norm, stats)
+    preprocess = _make_preprocess(model, norm, stats, augment, do_affine, cut)
 
-    def train_step(state: TrainState, x, y, w=None, generator: Optional[torch.Generator] = None):
+    def train_step(state: TrainState, x, y, w=None, generator: Optional[torch.Generator] = None,
+                   rng: Optional[DataRng] = None):
         x, y, w = _on_device(_device_of(state.model), x, y, w)
         state.model.train()
-        x = preprocess(x)
+        x = preprocess(x, rng)
+        if mix_a > 0.0:
+            if rng is None:
+                raise ValueError("a mixup step needs its DataRng")
+            draws = mixup_draws(rng.mixup, rng.mixup_host, x.shape[0], mix_a)
+            x, y_mix = mixup_apply(x, draws, y)
         params = state.params()
         with use_generator(generator):
             logits = state.model(x).float()
-        loss_sum = ops.cross_entropy_sum(logits, y, w, label_smoothing=smoothing)
+        if mix_a > 0.0:
+            loss_sum = ops.mixup_cross_entropy_sum(logits, y, y_mix, draws.lam, w,
+                                                   label_smoothing=smoothing)
+        else:
+            loss_sum = ops.cross_entropy_sum(logits, y, w, label_smoothing=smoothing)
         objective = loss_sum
         if mean_grad:
             objective = loss_sum / torch.clamp_min(torch.sum(w), 1.0)
@@ -270,7 +330,7 @@ class Trainer:
     # steps
 
     def _get_train_step(self, augment: bool, norm: bool, debug: bool = False, stats=None):
-        key = (augment, norm, debug, stats)
+        key = (augment, norm, debug, stats, _data_flags(self.setting))
         if key not in self._train_step_fns:
             self._train_step_fns[key] = build_train_step(
                 self.state, augment=augment, norm=norm, stats=stats, debug=debug)
@@ -288,10 +348,12 @@ class Trainer:
         (precise-BN style): train-mode forwards under no_grad over `loader`,
         FULL batches only (the zero-padded last batch would get the largest
         EMA weight of the pass), updating only the BN running mean/var
-        (momentum-0.1 EMA over fresh batch statistics). The dropout masks
-        come from the "bn_reestimate" stream. The model's mode is restored
-        afterwards; if the loop is interrupted, the running statistics are
-        restored too."""
+        (momentum-0.1 EMA over fresh batch statistics), through the train
+        step's preprocessing (augmented where the loader is). The dropout
+        masks come from the "bn_reestimate" stream at (step,), the
+        augmentation and cutout from it at (step, 1) and (step, 2). The
+        model's mode is restored afterwards; if the loop is interrupted,
+        the running statistics are restored too."""
         if self.state is None:
             raise RuntimeError(
                 "reestimate_bn() requires trained parameters — call fit() or "
@@ -300,9 +362,9 @@ class Trainer:
         aug, norm = self._resolve_flags(loader, train=True)
         if augment is not None:
             aug = bool(augment)
-        if aug:
-            raise _not_ported("BN re-estimation over augmented batches")
-        preprocess = _make_preprocess(self.model, norm, self._resolve_stats(loader))
+        do_affine, cut, _ = _data_flags(self.setting)
+        preprocess = _make_preprocess(self.model, norm, self._resolve_stats(loader), aug,
+                                      do_affine, cut)
         host_n = loader._host_count() if hasattr(loader, "_host_count") else loader.num_examples
         n_full = max(host_n // loader.batch_size, 1)
 
@@ -318,8 +380,14 @@ class Trainer:
                             break
                         gen = generator_for(self.setting.seed, "bn_reestimate", steps,
                                             device=self.device)
+                        rng = None
+                        if aug:
+                            aug_gen, cut_gen = (generator_for(
+                                self.setting.seed, "bn_reestimate", steps, k, device=self.device)
+                                for k in (1, 2))
+                            rng = DataRng(aug_gen, cut_gen, None, None)
                         with use_generator(gen):
-                            self.model(preprocess(x))
+                            self.model(preprocess(x, rng))
                         steps += 1
                         if self.setting.sanity_check:
                             break
@@ -361,11 +429,6 @@ class Trainer:
         return tuple(float(v) for v in mean), tuple(float(v) for v in std)
 
     @staticmethod
-    def _refuse_scan(loader):
-        if getattr(loader, "scan_epochs", False):
-            raise _not_ported("a device-resident loader (the whole-epoch scan)")
-
-    @staticmethod
     def _loader_host_count(loader) -> int:
         """Denominator for per-example epoch metrics: the number of examples
         THIS host iterated (padded rows carry weight 0)."""
@@ -374,9 +437,9 @@ class Trainer:
 
     def _run_train_epoch(self, loader: DataLoader, epoch_index: int):
         augment, norm = self._resolve_flags(loader, train=True)
-        self._refuse_scan(loader)
         debug = bool(self.setting.debug)
         step_fn = self._get_train_step(augment, norm, debug, stats=self._resolve_stats(loader))
+        draws = augment or _data_flags(self.setting)[2] > 0.0
 
         # per-step metrics stay on the device until the epoch ends: a
         # float() per step would wait for the device every step and empty
@@ -385,13 +448,14 @@ class Trainer:
         for step, (x, y, w) in enumerate(device_prefetch(loader, size=2, device=self.device)):
             gen = generator_for(self.setting.seed, "dropout", epoch_index, step,
                                 device=self.device)
+            rng = data_rng(self.setting.seed, self.device, epoch_index, step) if draws else None
             if debug:
-                loss, correct, gnorm = step_fn(self.state, x, y, w, gen)
+                loss, correct, gnorm = step_fn(self.state, x, y, w, gen, rng)
                 print(f"[debug] step {step}: x{tuple(x.shape)}/{x.dtype} "
                       f"loss={float(loss):.6f} correct={float(correct):.0f} "
                       f"grad_norm={float(gnorm):.4e}")
             else:
-                loss, correct = step_fn(self.state, x, y, w, gen)
+                loss, correct = step_fn(self.state, x, y, w, gen, rng)
             losses.append(loss)
             corrects.append(correct)
             if self.setting.sanity_check:
@@ -401,7 +465,6 @@ class Trainer:
 
     def _run_eval_epoch(self, loader: DataLoader, collect_preds: bool = False):
         _, norm = self._resolve_flags(loader, train=False)
-        self._refuse_scan(loader)
         step_fn = self._get_eval_step(norm, stats=self._resolve_stats(loader))
 
         losses, corrects, preds, targets, weights = [], [], [], [], []
@@ -694,7 +757,6 @@ class Trainer:
         if hasattr(loader, "epoch"):
             loader.epoch = 0
         _, norm = self._resolve_flags(loader, train=False)
-        self._refuse_scan(loader)
         step_fn = self._get_eval_step(norm, stats=self._resolve_stats(loader))
 
         bs = loader.batch_size

@@ -1,0 +1,167 @@
+"""The port's device data path on the CPU: DeviceCacheLoader against the
+port's DataLoader, DataMngr's routes against the JAX package's rule, the
+train step's preprocessing against the JAX engine's where it draws
+nothing, and the Trainer's augmented fit (augmentation, cutout, mixup)
+with BN re-estimation over augmented batches.
+"""
+
+import os
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convnets_tpu.data.manager import DataMngr as JDataMngr
+from convnets_tpu.train.engine import Trainer as JTrainer
+from convnets_tpu_torch.data import (
+    ArrayDataset, DataLoader, DataMngr, DeviceCacheLoader, synthetic_dataset,
+)
+from convnets_tpu_torch.models import build_model
+from convnets_tpu_torch.settings import Settings
+from convnets_tpu_torch.train import Trainer
+from convnets_tpu_torch.train.engine import _make_preprocess
+
+STATS = ((0.49, 0.48, 0.45), (0.25, 0.24, 0.26))
+
+
+def _uint8(n, seed, hw=(32, 32)):
+    ds = synthetic_dataset(n, (*hw, 3), seed=seed)
+    return ArrayDataset((ds.images * 255).round().astype(np.uint8), ds.labels)
+
+
+def _settings(tmp_path, **kw):
+    base = dict(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
+                batch_size=8, epochs=1, optimizer="sgd", learning_rate=1e-3,
+                data_augment=True, data_norm=True, dropout_rate=0.0, early_stop=False,
+                output_dir=str(tmp_path))
+    base.update(kw)
+    return Settings(**base)
+
+
+@pytest.mark.parametrize("shuffle,drop_last,host", [(True, False, (0, 1)), (False, False, (0, 1)),
+                                                    (True, True, (1, 2)), (True, False, (0, 3))])
+def test_device_cache_batches_equal_the_dataloaders(shuffle, drop_last, host):
+    """Same indices in the same order, the same zero padding and weights,
+    over two epochs; only the index batch is made on the host."""
+    ds = _uint8(21, 0)
+    kw = dict(shuffle=shuffle, seed=4, drop_last=drop_last, host_id=host[0], num_hosts=host[1])
+    host_loader, cached = DataLoader(ds, 4, **kw), DeviceCacheLoader(ds, 4, device="cpu", **kw)
+    assert len(host_loader) == len(cached) and cached._host_count() == host_loader._host_count()
+    assert not hasattr(cached, "scan_epochs")
+    for _ in range(2):
+        batches = list(cached)
+        want = list(host_loader)
+        assert len(batches) == len(want)
+        for (x, y, w), (xw, yw, ww) in zip(batches, want):
+            assert x.dtype == torch.uint8 and y.dtype == torch.int32
+            np.testing.assert_array_equal(x.numpy(), xw)
+            np.testing.assert_array_equal(y.numpy(), yw)
+            np.testing.assert_array_equal(w.numpy(), ww)
+    assert cached.epoch == host_loader.epoch == 2
+
+
+def _write_image_folder(root, n_per_class=3, classes=("cat", "dog")):
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for split in ("train", "valid", "test"):
+        for c in classes:
+            os.makedirs(os.path.join(root, split, c))
+            for i in range(n_per_class):
+                Image.fromarray(rng.randint(0, 256, (8, 8, 3)).astype(np.uint8)).save(
+                    os.path.join(root, split, c, f"{i}.png"))
+
+
+def test_datamngr_routes_follow_the_jax_rule(tmp_path, monkeypatch):
+    """device_cache wins where set; else a split within
+    DEVICE_CACHE_AUTO_BYTES goes to DeviceCacheLoader; where the JAX package
+    would stream (ShardRotationLoader) the port raises, naming the ROADMAP
+    item, and with CONVNETS_TPU_STREAM=0 both take the host DataLoader."""
+    root = str(tmp_path / "folder")
+    _write_image_folder(root)
+    monkeypatch.chdir(tmp_path)  # the decode caches go under ./data/cache
+
+    def routes(**kw):
+        s = _settings(tmp_path, batch_size=4, **kw)
+        mine = DataMngr(s, root, device="cpu")
+        theirs = JDataMngr(SimpleNamespace(**vars(s)), root)
+        return mine, theirs
+
+    mine, theirs = routes()
+    assert type(mine.load_train()).__name__ == type(theirs.load_train()).__name__ \
+        == "DeviceCacheLoader"
+    train, valid, test = mine.load_train(), mine.load_valid(), mine.load_test()
+    assert (train.augment, train.normalize, train.shuffle) == (True, True, True)
+    assert (valid.augment, valid.shuffle, test.augment, test.shuffle) == (False, False, False, True)
+    assert mine.info("valid") == theirs.info("valid")
+    x = np.random.RandomState(1).rand(2, 8, 8, 3).astype(np.float32)
+    np.testing.assert_array_equal(mine.inv_normalized(x), theirs.inv_normalized(x))
+    x, y, w = next(iter(train))
+    assert x.shape == (4, 8, 8, 3) and x.dtype == torch.uint8 and w.tolist() == [1.0] * 4
+
+    mine, theirs = routes(device_cache=False)
+    assert type(theirs.load_train()).__name__ == "ShardRotationLoader"
+    with pytest.raises(NotImplementedError, match="item 8"):
+        mine.load_train()
+    monkeypatch.setattr(DataMngr, "DEVICE_CACHE_AUTO_BYTES", 64)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        routes()[0].load_valid()
+    monkeypatch.setenv("CONVNETS_TPU_STREAM", "0")
+    mine, theirs = routes(device_cache=False)
+    assert type(mine.load_train()) is DataLoader
+    assert type(theirs.load_train()).__name__ == "DataLoader"
+    mine, _ = routes(device_cache=True)
+    assert type(mine.load_valid()) is DeviceCacheLoader
+
+
+@pytest.mark.parametrize("raw_hw", [(32, 32), (40, 48)])
+def test_eval_preprocessing_matches_jax(raw_hw):
+    """Where nothing is drawn (eval): uint8 → /255, the center crop when the
+    raw size differs from the model's, normalize, cast."""
+    x = np.random.RandomState(2).randint(0, 256, (3, *raw_hw, 3)).astype(np.uint8)
+    jmodel = SimpleNamespace(input_shape_nhwc=(32, 32, 3),
+                             policy=SimpleNamespace(compute_dtype=jnp.float32))
+    jpre = JTrainer._make_preprocess(SimpleNamespace(model=jmodel,
+                                                     setting=SimpleNamespace(cutout=0)),
+                                     False, True, STATS, False)
+    model = SimpleNamespace(input_shape_nhwc=(32, 32, 3),
+                            policy=SimpleNamespace(compute_dtype=torch.float32),
+                            parameters=lambda: iter([torch.zeros(1)]))
+    got = _make_preprocess(model, True, STATS)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jpre(jnp.asarray(x), None)), atol=1e-5, rtol=0)
+
+
+def test_augmented_fit_with_cutout_and_mixup_runs_and_reestimates_bn(tmp_path):
+    """The JAX defaults (data_augment, affine, data_norm) plus cutout and
+    mixup, fed by DataMngr's route to DeviceCacheLoader: the fit runs, its
+    losses are finite, and reestimate_bn over augmented batches moves every
+    running statistic and no parameter."""
+    s = _settings(tmp_path, cutout=8, mixup=0.2)
+    mngr = DataMngr(s, device="cpu", datasets={"train": _uint8(16, 0), "valid": _uint8(8, 1)})
+    trainer = Trainer(build_model("resnet", s, device="cpu"))
+    train = mngr.load_train()
+    assert isinstance(train, DeviceCacheLoader) and train.augment
+    trainer.fit(train, mngr.load_valid())
+    trainer.close()
+    r = trainer.epoch_results
+    assert np.isfinite(r["train_loss"]).all() and np.isfinite(r["valid_loss"]).all()
+    params = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+    running = {k: b.clone() for k, b in trainer.model.named_buffers() if b.is_floating_point()}
+    trainer.reestimate_bn(train, passes=1, info=False)
+    assert all(torch.equal(p, params[k]) for k, p in trainer.model.named_parameters())
+    assert all(not torch.equal(b, running[k]) for k, b in trainer.model.named_buffers()
+               if k in running)
+
+
+def test_augmented_step_crops_a_larger_batch_to_the_model(tmp_path):
+    """A raw batch larger than the model's input takes RandomResizedCrop in
+    the train step and the center crop in eval (the 224-class path)."""
+    s = _settings(tmp_path, data_augment=True)
+    trainer = Trainer(build_model("resnet", s, device="cpu"))
+    big = _uint8(8, 3, hw=(40, 40))
+    trainer.fit(DataLoader(big, 8, shuffle=True), DataLoader(big, 8))
+    trainer.close()
+    assert np.isfinite(trainer.epoch_results["train_loss"]).all()
+    assert trainer.evaluate(DataLoader(big, 8), info=False) >= 0.0

@@ -120,7 +120,8 @@ def test_serving_metadata_has_the_jax_keys():
     want = jax_metadata(jm, output="logits", batch_size=None, platforms=["cpu"],
                         stats=STATS, input_dtype="uint8")
     got = ServingModel(_port("18"), stats=STATS, input_dtype="uint8").meta
-    assert set(got) - {"torch_version"} == set(want) - {"jax_version"}
+    # the port adds the input contract (ADVICE.md finding 2) to the JAX keys
+    assert set(got) - {"torch_version", "input_contract"} == set(want) - {"jax_version"}
     for key in set(want) - {"jax_version"}:
         assert got[key] == want[key], key
 
@@ -189,9 +190,10 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
 
 def test_outside_the_slice_raises_not_implemented(monkeypatch):
     """Train mode runs; what is still outside it raises, naming ROADMAP.md:
-    Remat in train mode, DenseNet's shared-statistics block, mixup, and
-    (eval or train) grouped convs outside fits_grouped: dilated, or with
-    more than 32 input channels per group."""
+    Remat in train mode, DenseNet's shared-statistics block, and (eval or
+    train) grouped convs outside fits_grouped: dilated, or with more than
+    32 input channels per group. Mixup is ported: its step builds, and
+    refuses to run without the step's DataRng."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
                                            mixed_precision=False, remat=True), device="cpu")
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
@@ -206,8 +208,9 @@ def test_outside_the_slice_raises_not_implemented(monkeypatch):
                                              num_classes=10), device="cpu")
     mixup = Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
                      mixup=0.2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_train_step(create_train_state(build_model("resnet", mixup, device="cpu")))
+    mixup_state = create_train_state(build_model("resnet", mixup, device="cpu"))
+    with pytest.raises(ValueError, match="DataRng"):
+        build_train_step(mixup_state)(mixup_state, x, torch.zeros(2, dtype=torch.int64))
     for cin, dilation in ((4, 2), (128, 1)):
         grouped = nn.conv_block(8, 3, padding=dilation, dilation=dilation, groups=2)
         grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, cin))

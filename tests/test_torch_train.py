@@ -33,6 +33,7 @@ from convnets_tpu_torch.core.precision import LossScale
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.ops.norm import batch_norm_train
 from convnets_tpu_torch.train import build_train_step, create_train_state, optim
+from convnets_tpu_torch.train.engine import data_rng
 
 RNG = np.random.RandomState(0)
 
@@ -300,11 +301,20 @@ def test_bridge_round_trip_of_variables_and_optimizer_state():
 
 
 def test_train_step_refuses_the_data_path():
+    """The data path is ported: an augmenting or mixup step refuses to run
+    without the step's DataRng, and runs with one."""
     setting = _settings("sgd", 1e-3)
     state = create_train_state(build_model("resnet", setting, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_train_step(state, augment=True)
+    x = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (4, 32, 32, 3)).astype(np.uint8))
+    y = torch.arange(4)
+    rng = data_rng(0, "cpu", 0, 0)
+    with pytest.raises(ValueError, match="DataRng"):
+        build_train_step(state, augment=True)(state, x, y)
+    loss, _ = build_train_step(state, augment=True)(state, x, y, rng=rng)
+    assert torch.isfinite(loss)
     state.model.setting = _settings("sgd", 1e-3)
     state.model.setting.mixup = 0.2
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_train_step(state)
+    with pytest.raises(ValueError, match="DataRng"):
+        build_train_step(state)(state, x, y)
+    loss, _ = build_train_step(state)(state, x, y, rng=rng)
+    assert torch.isfinite(loss)
