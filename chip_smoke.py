@@ -3,7 +3,9 @@
 ResNeXt-50 serving and train paths, the whole-bottleneck-block kernel,
 the Trainer (RN26@32 fit, checkpoint, resume, test), the single-file
 serving artifact and the device data path (augmented RN26@32 fit → export
-→ serve, RN50@224 served from the artifact) on one NVIDIA GPU.
+→ serve, RN50@224 served from the artifact), LeNet, ConvNet, the template
+net, VGG-16, SqueezeNet and InceptionNet-v1, the CLI (python -m
+convnets_tpu_torch) and the tuner on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -168,8 +170,39 @@ final line:
      parameters (fp32, max |Δ| <= 1e-5), and one RN50@224 b256 train step
      on 256² uint8 images (RandomResizedCrop on the card), its ms beside
      the preprocessing's. Prints the artifact JSON line.
+  12. the zoo's first group, the CLI and the tuner: (i) LeNet, ConvNet,
+     mynetwork, VGG-16, SqueezeNet 1.1 and InceptionNet-v1 at 3x32x32 and
+     SqueezeNet 1.0 at 3x224x224, 10 classes, weights from --seed in the
+     JAX layout: fp32 eval logits kernel vs plain at b8 (<= 1e-4 x max
+     |logit|), phase 5 (i)'s fp32 SGD step at b8 with its control, ten
+     bf16 Adam steps on one batch of 32 (the loss falls), exact launches
+     per eval forward (n conv2d_fused + p max_pool2d) and per train step
+     (n conv2d_stats + n reductions + p max_pool2d + p pool2d_backward;
+     model_launches, from the model's modules), serving at b256 (the
+     kernel path's logits against the plain path's: argmax agreement >=
+     0.99; img/s, the paths in turns), then every distinct conv and
+     max-pool shape of the seven models at b8 in bf16 and fp32, and of the
+     six 32² ones at b128 in bf16 (the CLI fits' and the tuner's batch),
+     against the plain versions (layer_check); (ii) the
+     CLI in process (convnets_tpu_torch.__main__.main) on a CINIC-shaped
+     PNG tree (2,560 / 640 / 640 images of synthetic_dataset): fit RN26 2
+     epochs at b256 → load --testing → load --resume --epochs 3 → export
+     --bake-norm → load --testing, every train step 29 conv2d_stats + 29
+     reductions + 1 max_pool2d + 1 pool2d_backward and every eval call 29
+     conv2d_fused + 1 max_pool2d, the artifact served by a fresh process on
+     the test split (argmax = Trainer.test's on >= 0.99), epoch and test
+     img/s; fit each 32² family 2 epochs at b128 (the loss finite and
+     falling, the launches per call, img/s); `python -m convnets_tpu_torch
+     fit --arch lenet --sanity-check` as a subprocess (exit 0, a
+     checkpoint) and again under CUDA_VISIBLE_DEVICES= (non-zero, naming
+     the missing device); (iii) process_tune on mynetwork, 3 samples of one
+     epoch with seed 0 (batch_norm False, False, True: both the
+     conv2d_stats and the conv2d_train step run, counted), the tuned
+     checkpoint's tuning_results, the reloaded winner's valid score equal
+     to the best sampled one. Prints the cli JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path, max error against the plain version,
+  kernel: launches on its main path and on phases 10-12's paths (PATHS),
+  max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
   of their type, 989 TFLOP/s for bf16 products, 67 TFLOP/s for other
@@ -2301,7 +2334,8 @@ def phase_block(failures):
 
 
 # phase 10: the Trainer on RN26@32 (CINIC-shaped), with bench.py:93-98's
-# measure_pipeline settings without the augmentation (ROADMAP item 3)
+# measure_pipeline settings without the augmentation (phase 11 runs it
+# with the augmentation)
 TRAINER_TRAIN, TRAINER_VALID, TRAINER_BATCH = 8192, 2048, 256
 TRAINER_EPOCHS = 2  # (i); (ii) resumes for one more
 TRAINER_MIN_ACC = 0.2  # (ii): valid accuracy, twice chance over 10 classes
@@ -2410,33 +2444,45 @@ def timed_train_epochs(trainer, times):
     trainer._run_train_epoch = timed
 
 
-def trainer_layer_check(model, summary, failures):
-    """The path's kernels at the path's shapes: every distinct conv shape
-    of the fitted RN26@32 (model_layers) at batch 256 in bf16 (the fit's
-    wgmma route) and at batch 64 in fp32 ((iv)'s simt route), each with the
-    route conv_plan gives it; conv2d_fused with both epilogues and
+# layer_check: a bf16 conv2d_stats call with fewer output rows per channel
+# than this has its sums held against those of its own stored y, as phase
+# 2a holds every shape (stats_check's `own`): at M = 32 one ulp of one y
+# already moves Σ² by ~1e-3 of the plain version's
+OWN_SUMS_ROWS = 128
+
+
+def layer_check(label, models, runs, summary, failures):
+    """Every distinct conv shape and every distinct max-pool shape of
+    `models` (model_layers), at each (batch, dtype) of `runs`, each conv
+    with the route conv_plan gives it: conv2d_fused with both epilogues and
     conv2d_stats against their plain versions with phase 2's and phase 4's
-    bars (CONV_TOL, STATS_TOL), and the stem's max_pool2d and
+    bars (CONV_TOL, STATS_TOL; the sums of a bf16 call with fewer than
+    OWN_SUMS_ROWS rows against the kernel's own y), and max_pool2d and
     pool2d_train (forward, and dx through pool2d_backward) exactly, each
-    pool launch on the vector route. Each error goes into the kernels
-    line's max_abs_err."""
+    pool launch on the route pool_plan picks for its channels (vector where
+    C % 8 == 0, else the loop). Each error goes into the kernels line's
+    max_abs_err. Returns (distinct conv shapes, convs covered)."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
 
-    layers = model_layers(model)
-    distinct = distinct_shapes(model)
+    distinct, pools = {}, set()
+    for model in models:
+        for shape, relus in distinct_shapes(model).items():
+            distinct.setdefault(shape, []).extend(relus)
+        pools.update((h, w, c, k, s, p) for kind, h, w, c, _, k, s, p, _, _ in model_layers(model)
+                     if kind == "maxpool")
     uses = sum(len(r) for r in distinct.values())
-    if uses != conv_count(model):
-        failures.append(f"RN26@32 layer check covers {uses} of {conv_count(model)} convs")
-    _, ph, pw, pc, _, pk, ps, pp, _, _ = [l for l in layers if l[0] == "maxpool"][0]
+    if uses != sum(conv_count(m) for m in models):
+        failures.append(f"{label} layer check covers {uses} of "
+                        f"{sum(conv_count(m) for m in models)} convs")
     g = torch.Generator(device=DEVICE).manual_seed(10)
     rows = {name: entry(summary, name) for name in
             ("conv2d_fused", "conv2d_stats", "max_pool2d", "pool2d_train", "pool2d_backward")}
-    say("RN26@32 layers on the path: N H W Cin Cout k s p | dtype plan | fused y err relu=0 / 1 "
+    say(f"{label} layers on the path: N H W Cin Cout k s p | dtype plan | fused y err relu=0 / 1 "
         "(tol) | stats y err, Σ rel, Σ² rel (tol) | uses")
     bad = 0
-    for n, dtype in ((TRAINER_BATCH, torch.bfloat16), (SUBSET_BATCH, torch.float32)):
+    for n, dtype in runs:
         dname = dname_of(dtype)
         atol, rtol = CONV_TOL[dname]
         for (h, w, cin, cout, k, s, p, _), relus in sorted(distinct.items()):
@@ -2457,59 +2503,68 @@ def trainer_layer_check(model, summary, failures):
                 errs.append(float((got.float() - ref.float()).abs().max()))
                 ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
             kw = dict(stride=s, padding=p)
+            own = dtype == torch.bfloat16 and m < OWN_SUMS_ROWS
             s_ok, y_err, e1, e2 = stats_check(kernels.conv2d_stats(x, wt, **kw),
-                                              kernels.conv2d_stats_plain(x, wt, **kw), dname)
+                                              kernels.conv2d_stats_plain(x, wt, **kw), dname,
+                                              own=own)
             say(f"  {n} {h} {w} {cin} {cout} {k} {s} {p} | {dname} {plan.route} "
                 f"{plan.bm}x{plan.bn} {plan.gather} | {errs[0]:.3e} / {errs[1]:.3e} "
                 f"({atol:g}+{rtol:g}|ref|) {'ok' if ok else 'FAIL'} | {y_err:.3e}, {e1:.2e}, "
-                f"{e2:.2e} ({STATS_TOL[dname]:g}) {'ok' if s_ok else 'FAIL'} | {len(relus)}")
+                f"{e2:.2e} ({STATS_TOL[dname]:g}{', own y' if own else ''}) "
+                f"{'ok' if s_ok else 'FAIL'} | {len(relus)}")
             if not (ok and s_ok):
                 bad += 1
-                failures.append(f"RN26@32 conv {n}x{h}x{w} {cin}->{cout} k{k} s{s} {dname} "
+                failures.append(f"{label} conv {n}x{h}x{w} {cin}->{cout} k{k} s{s} {dname} "
                                 f"{plan.route}: fused {errs}, stats y {y_err:.3e} Σ {e1:.2e} "
                                 f"Σ² {e2:.2e}")
             rows["conv2d_fused"]["err"] = max(rows["conv2d_fused"]["err"], *errs)
             rows["conv2d_stats"]["err"] = max(rows["conv2d_stats"]["err"], y_err)
             del x, wt
-        # the stem pool: ties from the ReLU'd input; a cotangent of
-        # sixteenths, whose sums of up to four are exact in either dtype
-        x = torch.relu(torch.randn(n, ph, pw, pc, device=DEVICE, generator=g)).to(dtype)
-        sync()
-        kernels.reset_launches()
-        y_k = kernels.max_pool2d(x, pk, ps, pp)
-        xi = x.clone().requires_grad_()
-        out_k = kernels.pool2d_train(xi, "max", pk, ps, pp)
-        cot = (torch.randint(-64, 65, out_k.shape, device=DEVICE, generator=g) / 16).to(dtype)
-        dx_k, = torch.autograd.grad(out_k, xi, cot)
-        sync()
-        launched = dict(kernels.LAUNCHES)
-        routes = {k2: dict(kernels.ROUTE_LAUNCHES[k2]) for k2 in ("max_pool2d", "pool2d_backward")}
-        y_p = kernels.max_pool2d_plain(x, pk, ps, pp)
-        with plain_kernels():
+        # ties from the ReLU'd input; a cotangent of sixteenths, whose sums
+        # over up to nine windows are exact in the fp32 accumulator both
+        # sides round once
+        for ph, pw, pc, pk, ps, pp in sorted(pools):
+            x = torch.relu(torch.randn(n, ph, pw, pc, device=DEVICE, generator=g)).to(dtype)
+            sync()
+            kernels.reset_launches()
+            y_k = kernels.max_pool2d(x, pk, ps, pp)
             xi = x.clone().requires_grad_()
-            out_p = kernels.pool2d_train(xi, "max", pk, ps, pp)
-            dx_p, = torch.autograd.grad(out_p, xi, cot)
-        sync()
-        err_y = float((y_k.float() - y_p.float()).abs().max())
-        err_t = float((out_k.detach().float() - out_p.detach().float()).abs().max())
-        err_dx = float((dx_k.float() - dx_p.float()).abs().max())
-        ok = (max(err_y, err_t, err_dx) <= POOL_TOL and launched["max_pool2d"] == 2
-              and launched["pool2d_backward"] == 1
-              and routes == {"max_pool2d": {"vector": 2, "loop": 0},
-                             "pool2d_backward": {"vector": 1, "loop": 0}})
-        say(f"  stem pool {n} {ph} {pw} {pc} {pk} {ps} {pp} | {dname} | max_pool2d y "
-            f"{err_y:.3e}, pool2d_train y {err_t:.3e} dx {err_dx:.3e} (exact), routes {routes} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            bad += 1
-            failures.append(f"RN26@32 stem pool {dname}: y {err_y:.3e} train {err_t:.3e} dx "
-                            f"{err_dx:.3e}, routes {routes}")
-        rows["max_pool2d"]["err"] = max(rows["max_pool2d"]["err"], err_y)
-        rows["pool2d_train"]["err"] = max(rows["pool2d_train"]["err"], err_t, err_dx)
-        rows["pool2d_backward"]["err"] = max(rows["pool2d_backward"]["err"], err_dx)
-        del x, xi, out_k, out_p, dx_k, dx_p
-    say(f"RN26@32 layer check: {len(distinct)} distinct conv shapes ({uses} convs) and the stem "
-        f"pool, at b{TRAINER_BATCH} bf16 and b{SUBSET_BATCH} fp32: {'ok' if not bad else 'FAIL'}")
+            out_k = kernels.pool2d_train(xi, "max", pk, ps, pp)
+            cot = (torch.randint(-64, 65, out_k.shape, device=DEVICE, generator=g) / 16).to(dtype)
+            dx_k, = torch.autograd.grad(out_k, xi, cot)
+            sync()
+            launched = dict(kernels.LAUNCHES)
+            routes = {k2: dict(kernels.ROUTE_LAUNCHES[k2])
+                      for k2 in ("max_pool2d", "pool2d_backward")}
+            route = "vector" if pc % 8 == 0 else "loop"
+            other = "loop" if route == "vector" else "vector"
+            y_p = kernels.max_pool2d_plain(x, pk, ps, pp)
+            with plain_kernels():
+                xi = x.clone().requires_grad_()
+                out_p = kernels.pool2d_train(xi, "max", pk, ps, pp)
+                dx_p, = torch.autograd.grad(out_p, xi, cot)
+            sync()
+            err_y = float((y_k.float() - y_p.float()).abs().max())
+            err_t = float((out_k.detach().float() - out_p.detach().float()).abs().max())
+            err_dx = float((dx_k.float() - dx_p.float()).abs().max())
+            ok = (max(err_y, err_t, err_dx) <= POOL_TOL and launched["max_pool2d"] == 2
+                  and launched["pool2d_backward"] == 1
+                  and routes == {"max_pool2d": {route: 2, other: 0},
+                                 "pool2d_backward": {route: 1, other: 0}})
+            say(f"  max pool {n} {ph} {pw} {pc} {pk} {ps} {pp} | {dname} | max_pool2d y "
+                f"{err_y:.3e}, pool2d_train y {err_t:.3e} dx {err_dx:.3e} (exact), routes "
+                f"{routes} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad += 1
+                failures.append(f"{label} pool {ph}x{pw}x{pc} k{pk} s{ps} p{pp} {dname}: y "
+                                f"{err_y:.3e} train {err_t:.3e} dx {err_dx:.3e}, routes {routes}")
+            rows["max_pool2d"]["err"] = max(rows["max_pool2d"]["err"], err_y)
+            rows["pool2d_train"]["err"] = max(rows["pool2d_train"]["err"], err_t, err_dx)
+            rows["pool2d_backward"]["err"] = max(rows["pool2d_backward"]["err"], err_dx)
+            del x, xi, out_k, out_p, dx_k, dx_p
+    say(f"{label} layer check: {len(distinct)} distinct conv shapes ({uses} convs) and "
+        f"{len(pools)} max-pool shapes, at "
+        f"{', '.join(f'b{n} {dname_of(d)}' for n, d in runs)}: {'ok' if not bad else 'FAIL'}")
     return len(distinct), uses
 
 
@@ -2661,7 +2716,9 @@ def phase_trainer(seed, card, summary, failures):
 
         parts["i"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        distinct, covered = trainer_layer_check(trainer.model, summary, failures)
+        distinct, covered = layer_check("RN26@32", [trainer.model],
+                                        ((TRAINER_BATCH, torch.bfloat16),
+                                         (SUBSET_BATCH, torch.float32)), summary, failures)
         parts["i_layers"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
@@ -3372,6 +3429,558 @@ def phase_artifact(seed, card, failures):
     return served, fit, fit_calls
 
 
+# phase 12: the zoo's first group, the CLI and the tuner. (arch, kind, image
+# side): each family at 3x32x32, the CINIC shape the reference trains it on,
+# and SqueezeNet 1.0 at 224² (at 32² its third 3x3/2 pool sees 2x2)
+ZOO = (("lenet", "0", 32), ("convnet", "0", 32), ("mynetwork", "base", 32),
+       ("vggnet", "16", 32), ("squeezenet", "1.1", 32), ("inceptionnet_v1", "v1", 32),
+       ("squeezenet", "1.0", 224))
+ZOO_CLASSES = 10
+ZOO_BATCH = 8  # (i): fp32 logits, the SGD step, the layer check (with CLI_FAMILY_BATCH)
+ZOO_FP32_TOL = 1e-4  # (i): fp32 eval logits, |Δ| ≤ tol · max |logit|
+ZOO_LEARN_LR = 1e-3  # (i): Adam on one batch of LEARN_BATCH
+ZOO_SERVE_BATCH = 256
+# (ii): the CINIC-shaped PNG tree the CLI reads: images per split, 10 classes
+CLI_SPLITS = (("train", 2560), ("valid", 640), ("test", 640))
+CLI_BATCH, CLI_EPOCHS, CLI_RESUME_EPOCHS = 256, 2, 3
+CLI_FAMILY_BATCH, CLI_FAMILY_EPOCHS = 128, 2
+# (iii): process_tune on mynetwork; with seed 0 the three samples draw
+# batch_norm False, False, True (so both the conv2d_stats and the
+# conv2d_train step run) and learning rates 1.5e-3, 1.6e-3, 5.0e-3
+TUNE_SEED, TUNE_SAMPLES = 0, 3
+# (ii): a fresh process serves the exported artifact on the test split;
+# argv: repository root, artifact path, .npy of uint8 images
+CLI_CHILD = """
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+from convnets_tpu_torch.ops import kernels
+from convnets_tpu_torch.serve import load_artifact
+served = load_artifact(sys.argv[2])
+x = np.load(sys.argv[3])
+kernels.reset_launches()
+preds = [served(x[i:i + 256].astype(np.float32) / 255.0).argmax(-1).cpu().numpy()
+         for i in range(0, len(x), 256)]
+torch.cuda.synchronize()
+print(json.dumps({"argmax": np.concatenate(preds).tolist(),
+                  "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                  "meta": {k: served.meta[k] for k in ("model_name", "normalization_baked",
+                                                       "input_dtype", "batch")}}))
+"""
+
+
+def model_launches(model):
+    """(per eval forward, per train step) launches of a dense model, read
+    off its modules (model_layers): per forward one conv2d_fused for each
+    conv and one max_pool2d for each max pool; per train step one
+    conv2d_stats and one reduction for each ConvBNReLU, one conv2d_fused
+    for each conv without BN (conv2d_train's forward), and one max_pool2d
+    and one pool2d_backward for each max pool."""
+    kinds = [layer[0] for layer in model_layers(model)]
+    bn, plain, pools = (kinds.count(k) for k in ("conv", "plainconv", "maxpool"))
+    return (launches_of({"conv2d_fused": bn + plain, "max_pool2d": pools}),
+            launches_of({"conv2d_stats": bn, "conv2d_stats_reduce": bn, "conv2d_fused": plain,
+                         "max_pool2d": pools, "pool2d_backward": pools}))
+
+
+def zoo_model(arch, kind, image, seed, **kw):
+    """The family at image² with 10 classes on the card, numpy weights from
+    `seed` in the JAX layout loaded by the bridge."""
+    from convnets_tpu_torch import bridge
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.settings import Settings
+
+    fields = dict(kind=kind, input_size=(3, image, image), num_classes=ZOO_CLASSES,
+                  batch_norm=True, init_params=True, dropout_rate=0.5, mixed_precision=True,
+                  seed=seed, learning_rate=ZOO_LEARN_LR, weight_decay=1e-4, optimizer="adam")
+    fields.update(kw)
+    model = build_model(arch, Settings(**fields), device=DEVICE)
+    bridge.load_jax_variables(model, random_jax_variables(model, seed))
+    return model
+
+
+def zoo_family(arch, kind, image, seed, card, failures):
+    """Phase 12 (i) for one family: fp32 eval logits kernel vs plain at
+    b8, phase 5 (i)'s fp32 SGD step at b8, ten bf16 Adam steps on one batch
+    of 32 (both paths; the kernel path's loss must fall; the launches of
+    its first step), the launches of one bf16 eval forward, and serving
+    img/s at b256 (uint8 requests, kernel and plain paths in turns).
+    The b256 request's logits are also held against the plain path's.
+    Returns (summary, the fp32 model for the layer check)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import ServingModel
+
+    label = f"{arch}{kind}@{image}"
+    res = {}
+    model32 = zoo_model(arch, kind, image, seed, mixed_precision=False)
+    want_fwd, want_step = model_launches(model32)
+    gflop = forward_gflop(model32) + forward_linear_gflop(model32)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.rand(ZOO_BATCH, image, image, 3, device=DEVICE, generator=g)
+    with torch.inference_mode():
+        y32 = model32(x)
+        with plain_kernels():
+            r32 = model32(x)
+    rel = float((y32 - r32).abs().max() / r32.abs().max())
+    ok = rel <= ZOO_FP32_TOL and bool(torch.isfinite(y32).all())
+    say(f"{label}: {gflop:.4f} GFLOP/img forward (convs and classifier); fp32 eval logits (b"
+        f"{ZOO_BATCH}) vs plain: max |Δ| / max |logit| {rel:.3e} (tol {ZOO_FP32_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label} fp32 logits rel {rel:.3e}")
+    res.update(gflop_forward=gflop, fp32_logits_rel=rel)
+
+    res["step"] = step_check(label, seed, failures, batch=ZOO_BATCH, image=image,
+                             classes=ZOO_CLASSES,
+                             make=lambda **kw: zoo_model(arch, kind, image, seed, **kw))
+
+    rng = np.random.default_rng(seed + 3)
+    xb = torch.from_numpy(rng.integers(0, 256, (LEARN_BATCH, image, image, 3),
+                                       dtype=np.uint8)).to(DEVICE)
+    yb = torch.from_numpy(rng.integers(0, ZOO_CLASSES, LEARN_BATCH)).to(DEVICE)
+    losses, step_launches = {}, None
+    for path in ("plain", "kernel"):
+        model = zoo_model(arch, kind, image, seed, dropout_rate=0.0)
+        state, step = train_state(model, norm=True, stats=IMAGENET_STATS)
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            sync()
+            kernels.reset_launches()
+            losses[path] = [float(step(state, xb, yb)[0])]
+            sync()
+            if path == "kernel":
+                step_launches = dict(kernels.LAUNCHES)
+            losses[path] += [float(step(state, xb, yb)[0]) for _ in range(LEARN_STEPS - 1)]
+    falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
+    say(f"{label}: {LEARN_STEPS} bf16 Adam steps (lr {ZOO_LEARN_LR:g}) on one batch of "
+        f"{LEARN_BATCH}, loss per step:\n  kernel {[round(v, 3) for v in losses['kernel']]}\n"
+        f"  plain  {[round(v, 3) for v in losses['plain']]}\n  kernel path's loss falls: "
+        f"{'ok' if falls else 'FAIL'}")
+    if not falls:
+        failures.append(f"{label} bf16 loss did not fall: {losses['kernel']}")
+
+    model.eval()
+    xe = torch.rand(ZOO_BATCH, image, image, 3, device=DEVICE, generator=g)
+    with torch.inference_mode():
+        model(xe)
+        sync()
+        kernels.reset_launches()
+        model(xe)
+        sync()
+    fwd_launches = dict(kernels.LAUNCHES)
+    ok = fwd_launches == want_fwd and step_launches == want_step
+    say(f"{label}: launches per bf16 eval forward {launches_summary(fwd_launches)}, per train "
+        f"step {launches_summary(step_launches)} (expected {launches_summary(want_fwd)} and "
+        f"{launches_summary(want_step)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label} launches: forward {fwd_launches}, step {step_launches}")
+    res.update(learn=losses, launches_forward=launches_summary(fwd_launches),
+               launches_step=launches_summary(step_launches))
+
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    req = rng.integers(0, 256, (ZOO_SERVE_BATCH, image, image, 3), dtype=np.uint8)
+    got = server(req)
+    with plain_kernels():
+        ref = server(req)
+    sync()
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    top2 = ref.topk(2, dim=-1).values
+    diff, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    ok = agree >= ARGMAX_MIN and bool(torch.isfinite(got).all())
+    say(f"{label}: served bf16 b{ZOO_SERVE_BATCH} logits vs plain: argmax agreement {agree:.4f} "
+        f"(min {ARGMAX_MIN}) {'ok' if ok else 'FAIL'}; max |logit diff| {diff:.4e} (max |logit| "
+        f"{scale:.4e}), smallest top-2 gap {float((top2[:, 0] - top2[:, 1]).min()):.4e}, "
+        f"distinct argmax classes {ref.argmax(-1).unique().numel()} (plain)")
+    if not ok:
+        failures.append(f"{label} served b{ZOO_SERVE_BATCH} argmax agreement {agree:.4f}")
+    res["serve_b256_vs_plain"] = {"argmax_agreement": agree, "max_abs_diff": diff,
+                                  "max_abs_logit": scale}
+    runs = {"kernel": [], "plain": []}
+    for path in ("plain", "kernel", "kernel", "plain"):  # in turns, one card
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            runs[path].append(seconds_per_request(server, req))
+    rates = {p: ZOO_SERVE_BATCH / float(np.mean(v)) for p, v in runs.items()}
+    say(f"{label}: serving bf16 b{ZOO_SERVE_BATCH} (uint8 requests from the host, live model): "
+        f"kernel path {rates['kernel']:.1f} img/s (runs "
+        f"{[round(1e3 * t, 2) for t in runs['kernel']]} ms), plain path {rates['plain']:.1f} "
+        f"img/s ({card})")
+    res["serve_img_s_b256"] = rates
+    del model, state, server
+    return res, model32
+
+
+def launches_summary(launches):
+    return {k: v for k, v in (launches or {}).items() if v}
+
+
+def phase_zoo(seed, card, summary, failures):
+    """Phase 12 (i): every family of ZOO (zoo_family), then layer_check over
+    all their distinct conv and max-pool shapes at b8 in bf16 and fp32, and
+    over those of the 32² families at CLI_FAMILY_BATCH in bf16, the batch of
+    (ii)'s fits and (iii)'s tuner, where conv_plan picks other tiles."""
+    import torch
+
+    out, models = {}, []
+    for arch, kind, image in ZOO:
+        t0 = time.perf_counter()
+        res, model = zoo_family(arch, kind, image, seed, card, failures)
+        res["seconds"] = time.perf_counter() - t0
+        out[f"{arch}{kind}@{image}"] = res
+        models.append((image, model))
+    distinct, covered = layer_check("zoo", [m for _, m in models],
+                                    ((ZOO_BATCH, torch.bfloat16), (ZOO_BATCH, torch.float32)),
+                                    summary, failures)
+    out["layer_check"] = {"distinct_conv_shapes": distinct, "convs": covered}
+    distinct, covered = layer_check("zoo 32² at the CLI's batch",
+                                    [m for image, m in models if image == 32],
+                                    ((CLI_FAMILY_BATCH, torch.bfloat16),), summary, failures)
+    out["layer_check_cli_batch"] = {"distinct_conv_shapes": distinct, "convs": covered}
+    return out
+
+
+def write_cli_tree(root, seed):
+    """CLI_SPLITS as PNG files under root/<split>/class<label>/, the images
+    of synthetic_dataset(learnable=True) (its class signal does not depend
+    on the seed) from seed + 20, + 21, + 22."""
+    from PIL import Image
+
+    from convnets_tpu_torch.data import synthetic_dataset
+
+    for i, (split, n) in enumerate(CLI_SPLITS):
+        ds = synthetic_dataset(n, (32, 32, 3), ZOO_CLASSES, seed=seed + 20 + i, learnable=True)
+        images = (ds.images * 255).round().astype(np.uint8)
+        for c in range(ZOO_CLASSES):
+            os.makedirs(os.path.join(root, split, f"class{c}"))
+        for j, (img, label) in enumerate(zip(images, ds.labels)):
+            Image.fromarray(img).save(os.path.join(root, split, f"class{label}", f"{j:05d}.png"))
+
+
+@contextlib.contextmanager
+def recorded_trainers(rec):
+    """Every Trainer built inside (by the drivers): into rec["trainers"];
+    the launches of each of its train and eval step calls into
+    rec["train"] / rec["eval"]; its train epochs' seconds into
+    rec["epoch_s"]; test()'s img/s into rec["test_img_s"]; and, while
+    rec["capture"] is set, each eval call's (x, predictions, weights) on
+    the host into rec["eval_io"]."""
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.train import engine
+
+    cls = engine.Trainer
+    init, test = cls.__init__, cls.test
+
+    def wrap(kind, get):
+        def getter(*args, **kwargs):
+            fn = get(*args, **kwargs)
+
+            def step(*a, **k):
+                before = dict(kernels.LAUNCHES)
+                out = fn(*a, **k)
+                rec[kind].append({n: kernels.LAUNCHES[n] - before[n] for n in before})
+                if kind == "eval" and rec.get("capture"):
+                    rec["eval_io"].append((a[0].cpu(), out[2].cpu(), a[2].cpu()))
+                return out
+            return step
+        return getter
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        rec["trainers"].append(self)
+        self._get_train_step = wrap("train", self._get_train_step)
+        self._get_eval_step = wrap("eval", self._get_eval_step)
+        timed_train_epochs(self, rec["epoch_s"])
+
+    def recording_test(self, *args, **kwargs):
+        out = test(self, *args, **kwargs)
+        rec["test_img_s"].append(out[2])
+        return out
+
+    cls.__init__, cls.test = recording_init, recording_test
+    try:
+        yield rec
+    finally:
+        cls.__init__, cls.test = init, test
+
+
+def new_record():
+    return {"trainers": [], "train": [], "eval": [], "epoch_s": [], "test_img_s": [],
+            "eval_io": []}
+
+
+def path_launches(totals, rec):
+    """A path's launches per kernels-line entry: each kernel's own count,
+    and the trainable functions by their kernels (conv_bn_relu_train by
+    its conv2d_stats launches, pool2d_train by the max_pool2d launches of
+    train steps, conv2d_train by the conv2d_fused launches of train steps)."""
+    out = {k: totals[k] for k in ("conv2d_fused", "max_pool2d", "conv2d_stats",
+                                  "conv2d_stats_reduce", "pool2d_backward")}
+    out["conv_bn_relu_train"] = totals["conv2d_stats"]
+    out["pool2d_train"] = sum(c["max_pool2d"] for c in rec["train"])
+    train_fused = sum(c["conv2d_fused"] for c in rec["train"])
+    if train_fused:
+        out["conv2d_train"] = train_fused
+    return out
+
+
+def check_calls(label, rec, per_step, per_eval, failures):
+    """Every train step call launched `per_step`, every eval call
+    `per_eval`; returns whether they did."""
+    ok = (bool(rec["train"]) and bool(rec["eval"])
+          and all(c == per_step for c in rec["train"])
+          and all(c == per_eval for c in rec["eval"]))
+    say(f"    {label} launches: {len(rec['train'])} train steps each "
+        f"{launches_summary(per_step)}, {len(rec['eval'])} eval calls each "
+        f"{launches_summary(per_eval)}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad = ([c for c in rec["train"] if c != per_step][:1]
+               + [c for c in rec["eval"] if c != per_eval][:1])
+        failures.append(f"{label} launches per call off: {bad}")
+    return ok
+
+
+def finished(proc, timeout):
+    """A CompletedProcess of `proc` once it exits; killed after `timeout` s
+    (its output so far, and its return code then)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def phase_cli(seed, card, failures):
+    """Phase 12 (ii)-(iii): the CLI on the card, in process through
+    convnets_tpu_torch.__main__.main, on a CINIC-shaped PNG tree: RN26 fit →
+    load --testing → load --resume → export --bake-norm, the artifact
+    served by a fresh process against Trainer.test; each new family fitted
+    for 2 epochs; `python -m convnets_tpu_torch` as a subprocess, with and
+    without the card; then process_tune on mynetwork. Prints the cli JSON
+    line's parts; returns (its dict, the CLI path's launches, the zoo
+    fits' launches)."""
+    import torch
+
+    from convnets_tpu_torch.__main__ import main as cli_main
+    from convnets_tpu_torch.data.manager import DataMngr
+    from convnets_tpu_torch.drivers import process_tune
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.settings import HyperParamsDistrib, LogUniform, Settings
+    from convnets_tpu_torch.train import checkpoint as ckpt
+
+    out, parts = {}, {}
+    n_train = CLI_SPLITS[0][1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "cinic_like")
+        write_cli_tree(root, seed)
+        parts["tree"] = time.perf_counter() - t0
+        common = ["--input-size", "3,32,32", "--num-classes", str(ZOO_CLASSES), "--data-root",
+                  root, "--seed", str(seed)]
+        rn26 = ["--arch", "resnet", "--kind", "26", "--batch-size", str(CLI_BATCH), *common,
+                "--output-dir", os.path.join(tmp, "rn26")]
+
+        # (ii) RN26: fit → load --testing → load --resume → export → serve
+        t0 = time.perf_counter()
+        cli_rec = new_record()
+        sync()
+        kernels.reset_launches()
+        with recorded_trainers(cli_rec) as rec:
+            def run(args, what):
+                rc = cli_main(args)
+                sync()
+                if rc != 0:
+                    failures.append(f"cli {what}: exit {rc}")
+
+            run(["fit", *rn26, "--epochs", str(CLI_EPOCHS)], "fit")
+            fit_trainer = rec["trainers"][0]
+            per_eval, per_step = model_launches(fit_trainer.model)
+            fit_loss = list(fit_trainer.epoch_results["train_loss"])
+            run(["load", *rn26, "--testing"], "load --testing")
+            run(["load", *rn26, "--resume", "--epochs", str(CLI_RESUME_EPOCHS)], "load --resume")
+            resumed = rec["trainers"][-1].epoch_results
+            art = os.path.join(tmp, "rn26.bin")
+            run(["export", *rn26, "--bake-norm", "--out", art], "export")
+            rec["capture"] = True
+            run(["load", *rn26, "--testing"], "load --testing (exported weights)")
+            rec["capture"] = False
+        sync()
+        rn26_totals = dict(kernels.LAUNCHES)
+        say(f"(ii) CLI on the card: fit RN26@32 ({n_train} train PNGs, b{CLI_BATCH}, "
+            f"{CLI_EPOCHS} epochs) → load --testing → load --resume --epochs "
+            f"{CLI_RESUME_EPOCHS} → export --bake-norm → load --testing: train loss {fit_loss}, "
+            f"after the resume {resumed['train_loss']}, valid acc {resumed['valid_score']}")
+        check_calls("RN26@32 CLI", rec, per_step, per_eval, failures)
+        # the resume goes on from the best epoch's checkpoint, whose history
+        # it keeps up to that epoch
+        ok_resume = (len(rec["epoch_s"]) == CLI_EPOCHS + CLI_RESUME_EPOCHS
+                     and len(resumed["train_loss"]) > CLI_RESUME_EPOCHS
+                     and all(np.isfinite(resumed["train_loss"])))
+        if not ok_resume:
+            failures.append(f"cli resume: {len(rec['epoch_s'])} epochs run, history "
+                            f"{resumed['train_loss']}")
+        epoch_rates = [n_train / s for s in rec["epoch_s"]]
+        say(f"    epoch img/s (fit, then resume) {[round(r, 1) for r in epoch_rates]}; "
+            f"Trainer.test img/s {[round(r, 1) for r in rec['test_img_s']]} ({card})")
+
+        # the artifact in a fresh process against the last Trainer.test
+        n_test = CLI_SPLITS[2][1]
+        batches = -(-n_test // CLI_BATCH)
+        timed = rec["eval_io"][-batches:]  # test()'s timed loop, after its warm-up calls
+        xs = torch.cat([x[w > 0] for x, _, w in timed]).numpy()
+        tested = torch.cat([p[w > 0] for _, p, w in timed]).numpy()
+        xfile = os.path.join(tmp, "test_x.npy")
+        np.save(xfile, xs)
+        child = subprocess.run([sys.executable, "-c", CLI_CHILD, HERE, art, xfile],
+                               capture_output=True, text=True, timeout=600)
+        served = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 \
+            else {}
+        agree = (float((np.asarray(served.get("argmax", [])) == tested).mean())
+                 if len(served.get("argmax", [])) == len(tested) else 0.0)
+        ok_art = (child.returncode == 0 and agree >= ARGMAX_MIN and len(tested) == n_test
+                  and served["meta"]["normalization_baked"])
+        say(f"    the exported artifact ({served.get('meta')}) served the {len(tested)} test "
+            f"images in a fresh process (launches {served.get('launches')}): argmax = "
+            f"Trainer.test's on {agree:.4f} (min {ARGMAX_MIN}) {'ok' if ok_art else 'FAIL'}")
+        if not ok_art:
+            failures.append(f"cli artifact: rc {child.returncode}, agreement {agree}, "
+                            f"{child.stderr[-2000:]}")
+        parts["rn26"] = time.perf_counter() - t0
+        out["rn26"] = {"train_loss": resumed["train_loss"], "valid_score": resumed["valid_score"],
+                       "epoch_img_s": epoch_rates, "test_img_s": list(rec["test_img_s"]),
+                       "artifact_agreement": agree, "launches_per_train_step":
+                       launches_summary(per_step)}
+
+        # (ii) each new family through the CLI
+        t0 = time.perf_counter()
+        zoo_rec = new_record()
+        sync()
+        kernels.reset_launches()
+        out["families"] = {}
+        with recorded_trainers(zoo_rec) as rec:
+            for arch, kind, image in ZOO:
+                if image != 32:
+                    continue
+                first = (len(rec["train"]), len(rec["eval"]), len(rec["epoch_s"]))
+                cli_main(["fit", "--arch", arch, "--kind", kind, "--batch-size",
+                          str(CLI_FAMILY_BATCH), "--epochs", str(CLI_FAMILY_EPOCHS), *common,
+                          "--output-dir", os.path.join(tmp, arch)])
+                sync()
+                loss = rec["trainers"][-1].epoch_results["train_loss"]
+                rates = [n_train / s for s in rec["epoch_s"][first[2]:]]
+                ok = (len(loss) == CLI_FAMILY_EPOCHS and all(np.isfinite(loss))
+                      and loss[1] < loss[0])
+                say(f"    fit {arch}{kind}@32 b{CLI_FAMILY_BATCH}: train loss {loss} "
+                    f"{'ok' if ok else 'FAIL'}; epoch img/s {[round(r, 1) for r in rates]}, "
+                    f"Trainer.test {rec['test_img_s'][-1]:.1f} img/s ({card})")
+                if not ok:
+                    failures.append(f"cli fit {arch}{kind}: train loss {loss}")
+                fwd, step = model_launches(rec["trainers"][-1].model)
+                sub = {"train": rec["train"][first[0]:], "eval": rec["eval"][first[1]:]}
+                check_calls(f"{arch}{kind} CLI", sub, step, fwd, failures)
+                out["families"][f"{arch}{kind}"] = {"train_loss": loss, "epoch_img_s": rates,
+                                                    "test_img_s": rec["test_img_s"][-1]}
+        sync()
+        zoo = path_launches(dict(kernels.LAUNCHES), zoo_rec)
+        parts["families"] = time.perf_counter() - t0
+
+        # (ii) the command as a user runs it, with and without the card
+        t0 = time.perf_counter()
+        sub_out = os.path.join(tmp, "subprocess")
+        cmd = [sys.executable, "-m", "convnets_tpu_torch", "fit", "--arch", "lenet",
+               "--batch-size", str(CLI_FAMILY_BATCH), "--epochs", "1", "--sanity-check", *common,
+               "--output-dir", sub_out]
+        # both at once: each spends most of its time importing torch
+        with_card = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        without = subprocess.Popen(cmd[:-1] + [sub_out + "_no_card"], cwd=HERE,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                   env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        try:
+            r, no_card = (finished(p, 600) for p in (with_card, without))
+        finally:
+            for proc in (with_card, without):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        written = [f for f in os.listdir(sub_out) if f.endswith(ckpt.EXT)] \
+            if os.path.isdir(sub_out) else []
+        ok_sub = r.returncode == 0 and len(written) == 1
+        named = "no CUDA device" in no_card.stderr
+        ok_no_card = no_card.returncode != 0 and named
+        say(f"    python -m convnets_tpu_torch fit --arch lenet --sanity-check: exit "
+            f"{r.returncode}, wrote {written} {'ok' if ok_sub else 'FAIL'}; under "
+            f"CUDA_VISIBLE_DEVICES= exit {no_card.returncode}, "
+            f"{no_card.stderr.strip().splitlines()[-1] if no_card.stderr.strip() else ''!r} "
+            f"{'ok' if ok_no_card else 'FAIL'}")
+        if not ok_sub:
+            failures.append(f"cli subprocess fit: exit {r.returncode}, {r.stderr[-2000:]}")
+        if not ok_no_card:
+            failures.append(f"cli without a card: exit {no_card.returncode}, "
+                            f"{no_card.stderr[-2000:]}")
+        out["subprocess"] = {"exit": r.returncode, "checkpoints": written,
+                             "no_card_exit": no_card.returncode}
+        parts["subprocess"] = time.perf_counter() - t0
+
+        # (iii) the tuner
+        t0 = time.perf_counter()
+        distrib = HyperParamsDistrib(
+            batch_size=[CLI_FAMILY_BATCH], batch_norm=[False, True], epochs=[1],
+            learning_rate=LogUniform(1e-4, 1e-2), lr_factor=[0.1], lr_patience=[5],
+            weight_decay=[1e-4], dropout_rate=[0.0], loss_optim=[False], data_augment=[False],
+            data_norm=[True], early_stop=[False], es_patience=[10], grad_clip_norm=[False],
+            gc_max_norm=[1.0], grad_clip_value=[False], gc_value=[1.0], init_params=[True])
+        tune_dir = os.path.join(tmp, "tune")
+        setting = Settings(kind="base", input_size=(3, 32, 32), num_classes=ZOO_CLASSES,
+                           batch_size=CLI_FAMILY_BATCH, epochs=1, seed=TUNE_SEED,
+                           output_dir=tune_dir, distrib=distrib)
+        sync()
+        kernels.reset_launches()
+        first = len(cli_rec["trainers"])
+        with recorded_trainers(cli_rec):
+            winner, results = process_tune("mynetwork", setting, TUNE_SAMPLES, data_root=root)
+        sync()
+        cli = path_launches({k: v + rn26_totals[k] for k, v in kernels.LAUNCHES.items()},
+                            cli_rec)
+        tune_calls = cli_rec["train"][-TUNE_SAMPLES * (n_train // CLI_FAMILY_BATCH):]
+        bn = [c for c in tune_calls if c["conv2d_stats"]]
+        nobn = [c for c in tune_calls if not c["conv2d_stats"]]
+        # per train step of the sampled models, with BN and without (their
+        # settings are the tuner's one object, which each sample rewrites)
+        want = {bool(w["conv2d_stats"]): w for w in
+                (model_launches(t.model)[1] for t in cli_rec["trainers"][first:])}
+        step, want_nobn = want.get(True), want.get(False)
+        ok_steps = (bn and nobn and all(c == step for c in bn)
+                    and all(c == want_nobn for c in nobn))
+        tuned = [f for f in os.listdir(tune_dir) if f.endswith(ckpt.SUFFIX_TUNED + ckpt.EXT)]
+        meta = ckpt.load_checkpoint(os.path.join(tune_dir, tuned[0]))[1] if len(tuned) == 1 \
+            else {}
+        valid = DataMngr(winner.setting, root=root, device=DEVICE).load_valid()
+        rescored = winner.evaluate(valid, info=False)
+        best = max(results["scores"])
+        ok_tune = (ok_steps and len(results["scores"]) == TUNE_SAMPLES
+                   and meta.get("extra", {}).get("tuning_results", {}).get("scores")
+                   == results["scores"] and rescored == best)
+        say(f"(iii) process_tune mynetwork, {TUNE_SAMPLES} samples (seed {TUNE_SEED}): "
+            f"{[(s['batch_norm'], round(s['learning_rate'], 5)) for s in results['samples']]} "
+            f"(batch_norm, lr) → valid scores {results['scores']}, best {best}; train steps "
+            f"with BN {len(bn)} each {launches_summary(step)}, without {len(nobn)} each "
+            f"{launches_summary(want_nobn)}; tuned checkpoint {tuned} with tuning_results; the "
+            f"reloaded winner scores {rescored} {'ok' if ok_tune else 'FAIL'}")
+        if not ok_tune:
+            failures.append(f"tuner: steps ok {bool(ok_steps)} ({len(bn)} / {len(nobn)}), "
+                            f"files {tuned}, rescored {rescored} vs {best}")
+        out["tuner"] = {"samples": results["samples"], "scores": results["scores"],
+                        "rescored": rescored, "bn_steps": len(bn), "nobn_steps": len(nobn)}
+        parts["tuner"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    return out, cli, zoo
+
+
+# the paths of phases 10-12 whose launches the kernels line carries as
+# <path>_launches beside the main path's
+PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -3515,6 +4124,11 @@ def main():
                                   "pool2d_train": sum(c["max_pool2d"] for c in fit_calls),
                                   "pool2d_backward": fit["pool2d_backward"]}
 
+    def phase_12():
+        zoo = phase_zoo(args.seed, card, summary, failures)
+        cli, state["cli"], state["zoo"] = phase_cli(args.seed, card, failures)
+        say(json.dumps({"cli": {"card": card, "zoo": zoo, **cli}}))
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -3531,6 +4145,7 @@ def main():
         "9": phase_9,
         "10": phase_10,
         "11": phase_11,
+        "12": phase_12,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -3572,10 +4187,10 @@ def main():
     for name in SOURCES:
         if launches[name] <= 0:
             failures.append(f"{name}: no launch on its main path")
-    for path in ("trainer", "artifact", "augmented_fit"):
+    for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10/11's {path} path")
+                failures.append(f"{name}: no launch on phase 10/11/12's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3585,8 +4200,7 @@ def main():
          "bound_by": ("operations" if summary[name]["ops_ms"] >= summary[name]["bytes_ms"]
                       else "bytes"),
          "library_ms": summary[name]["library_ms"],
-         **{f"{path}_launches": state[path][name]
-            for path in ("trainer", "artifact", "augmented_fit") if name in state[path]},
+         **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
             + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))

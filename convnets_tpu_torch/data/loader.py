@@ -168,7 +168,7 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     and goes on to queue the next step, but the device runs the copy on the
     current stream, in order with the steps queued before it, so it does not
     overlap their compute (a side stream would: ROADMAP.md modules item
-    1). A pinned tensor is never refilled: each batch gets
+    3). A pinned tensor is never refilled: each batch gets
     its own, and PyTorch's pinned-memory allocator does not hand its block
     out again before the copy that reads it has finished. Arrays cross in
     their own dtype (a uint8 batch as 1 byte per value; the steps convert

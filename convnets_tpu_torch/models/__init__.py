@@ -1,3 +1,8 @@
-from convnets_tpu_torch.models.base import Builder, Model, build_model, register  # noqa: F401
-# each import registers its family: "resnet", "mobilenet_v1", "densenet", "resnext"
-from convnets_tpu_torch.models import densenet, mobilenet_v1, resnet, resnext  # noqa: F401
+from convnets_tpu_torch.models.base import (  # noqa: F401
+    Builder, Model, available_models, build_model, register,
+)
+# each import registers its families
+from convnets_tpu_torch.models import (  # noqa: F401
+    convnet, densenet, inceptionnet_v1, mobilenet_v1, resnet, resnext, squeezenet,
+    template_net, vggnet,
+)

@@ -132,3 +132,8 @@ def build_model(arch: str, setting, device="cuda",
     model.init(generator)
     model.to(device)
     return model.eval()
+
+
+def available_models():
+    """The registered architecture names, sorted (the CLI's --arch choices)."""
+    return sorted(_REGISTRY)

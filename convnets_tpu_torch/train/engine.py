@@ -293,8 +293,18 @@ class Trainer:
         )
 
     def init_state(self) -> TrainState:
-        """A fresh TrainState over the model's current weights (build_model
-        initialized them from the settings' seed) and a zero optimizer state."""
+        """Fresh weights and a fresh TrainState: the parameters and BN
+        buffers are drawn anew from the settings' seed (Model.init, what
+        build_model gives), as the JAX package's init_state draws them from
+        key_for(seed, "init"), and the optimizer state starts at zero."""
+        self.model.init()
+        return self._new_state()
+
+    def _new_state(self) -> TrainState:
+        """A TrainState over the model's current weights with a zero
+        optimizer state; the steps built over the old state are dropped."""
+        self._train_step_fns.clear()
+        self._eval_step_fns.clear()
         self.state = create_train_state(self.model, self.setting, self.optimizer_name)
         return self.state
 
@@ -539,7 +549,9 @@ class Trainer:
             best_valid_loss = self.epoch_results["valid_loss"][-1] if self.epoch_results["valid_loss"] else float("inf")
         else:
             if self.state is None:
-                self.init_state()
+                # the model's current weights: build_model's seeded init,
+                # or what the caller loaded into it (the bridge)
+                self._new_state()
             self.init_optimizer()
             self.epoch_results = _fresh_epoch_results()
             best_valid_score = -1
@@ -741,13 +753,19 @@ class Trainer:
                   f"throughput {fps:.1f} img/s")
         return total_s, per_image_mean, per_image_std, fps
 
-    def test(self, loader: DataLoader, num_warmup: int = 50):
+    def test(self, loader: DataLoader, num_warmup: int = 50,
+             profile_dir: Optional[str] = None):
         """Timed benchmark testing: warmup forwards on a random batch of the
         loader's dtype, then per-batch timed eval fenced by the predictions'
         device-to-host copy, classification report, and the
         test_sample_size-subset accuracy sampling used for cross-model
         statistical comparison (basemodel.py:601-722). Returns (subset
-        scores, per-batch seconds, img/s)."""
+        scores, per-batch seconds, img/s). With `profile_dir`, the whole
+        call runs under torch.profiler (CPU activity, and the card's where
+        the model is on one), and its Chrome trace is written into that
+        directory as test-<model name>.json."""
+        if profile_dir is not None:
+            return self._profiled_test(loader, num_warmup, profile_dir)
         self._require_state("test")
         # re-pin reproducible order before the timed loop (the reference
         # calls set_reproducible_mode(seed) here, basemodel.py:650-651):
@@ -820,6 +838,19 @@ class Trainer:
         _, _, _, fps = self.inference_time(times_arr, num_images,
                                            full_batches=np.asarray(full_batches))
         return scores, times_arr, fps
+
+    def _profiled_test(self, loader, num_warmup: int, profile_dir: str):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            out = self.test(loader, num_warmup=num_warmup)
+        path = os.path.join(profile_dir, f"test-{self.model.model_name}.json")
+        prof.export_chrome_trace(path)
+        return out
 
     # ------------------------------------------------------------------
     # checkpointing (reference basemodel.py:834-948)

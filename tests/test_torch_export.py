@@ -183,7 +183,8 @@ def test_export_trainer_from_a_checkpoint_serves_probs(tmp_path):
     wire; they are the JAX forward's softmax."""
     _, jm, variables = _jax_model()
     trainer = Trainer(_port(tmp_path))
-    trainer.init_state()
+    trainer.init_state()  # fresh weights from the seed: the JAX ones go back in
+    bridge.load_jax_variables(trainer.model, variables)
     ckpt = trainer.save_checkpoint()
     assert ckpt.endswith(".ckpt.npz")
     setting = Settings(**{**_jax_model()[0].to_dict(), "output_dir": str(tmp_path), "seed": 7})

@@ -38,7 +38,10 @@ def _top(name):
 def test_the_port_has_modules_to_scan():
     names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
     for module in ("ops/kernels/__init__.py", "ops/kernels/block.py", "models/resnext.py",
-                   "settings.py", "data/loader.py", "train/scheduler.py"):
+                   "settings.py", "data/loader.py", "train/scheduler.py", "__main__.py",
+                   "drivers.py", "utils.py", "tune/sampler.py", "tune/tuner.py",
+                   "viz/plots.py", "models/convnet.py", "models/template_net.py",
+                   "models/vggnet.py", "models/squeezenet.py", "models/inceptionnet_v1.py"):
         assert f"convnets_tpu_torch/{module}" in names
     assert len(names) >= 15
 
