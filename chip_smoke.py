@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ResNet-50, MobileNet-v1, DenseNet-121 and
 ResNeXt-50 serving and train paths, the whole-bottleneck-block kernel,
-the Trainer (RN26@32 fit, checkpoint, resume, test), the single-file
+the Trainer (RN26@32 fit, checkpoint, resume, test; its epochs replayed
+as CUDA graphs, resident and chunked), the single-file
 serving artifact and the device data path (augmented RN26@32 fit → export
 → serve, RN50@224 served from the artifact), LeNet, ConvNet, the template
 net, VGG-16, SqueezeNet and InceptionNet-v1, the CLI (python -m
@@ -159,12 +160,14 @@ final line:
      convnets_tpu_torch.models (its launches, its argmax equal to this
      process's); (iii) RN26@32 fit for 3 epochs with the JAX defaults
      (data_augment, affine, data_norm) plus cutout 8 and mixup 0.2 on
-     phase 10's data, through DataMngr's route to DeviceCacheLoader: the
-     splits' one-time uint8 copies, every train step 29 conv2d_stats + 29
-     reductions + 1 max_pool2d + 1 pool2d_backward, loss falls, valid
-     accuracy > 0.2, a profiled epoch whose only host-to-device copies are
-     the 1,024-byte index batches, its idle share, and the
-     preprocessing's share of a step; (iv) that model exported and served
+     phase 10's data, through DataMngr's route to DeviceCacheLoader, whose
+     epochs the Trainer runs as replays of one captured step: the splits'
+     one-time uint8 copies, every train step 29 conv2d_stats + 29
+     reductions + 1 max_pool2d + 1 pool2d_backward (a replay's from the
+     per-replay tally), loss falls, valid accuracy > 0.2, a profiled
+     replayed epoch whose only host-to-device copies are the epoch's index
+     and weight matrices, its idle share, and the preprocessing's share of
+     a step; (iv) that model exported and served
      on its valid split, argmax = Trainer.test's on >= 0.99; (v) every
      augmentation function on the card against the CPU with the same
      parameters (fp32, max |Δ| <= 1e-5), and one RN50@224 b256 train step
@@ -187,9 +190,10 @@ final line:
      CLI in process (convnets_tpu_torch.__main__.main) on a CINIC-shaped
      PNG tree (2,560 / 640 / 640 images of synthetic_dataset): fit RN26 2
      epochs at b256 → load --testing → load --resume --epochs 3 → export
-     --bake-norm → load --testing, every train step 29 conv2d_stats + 29
-     reductions + 1 max_pool2d + 1 pool2d_backward and every eval call 29
-     conv2d_fused + 1 max_pool2d, the artifact served by a fresh process on
+     --bake-norm → load --testing (the fits and evaluations replayed
+     graphs over DataMngr's DeviceCacheLoaders), every train step 29
+     conv2d_stats + 29 reductions + 1 max_pool2d + 1 pool2d_backward and
+     every eval call 29 conv2d_fused + 1 max_pool2d, the artifact served by a fresh process on
      the test split (argmax = Trainer.test's on >= 0.99), epoch and test
      img/s; fit each 32² family 2 epochs at b128 (the loss finite and
      falling, the launches per call, img/s); `python -m convnets_tpu_torch
@@ -200,8 +204,31 @@ final line:
      conv2d_stats and the conv2d_train step run, counted), the tuned
      checkpoint's tuning_results, the reloaded winner's valid score equal
      to the best sampled one. Prints the cli JSON line.
+  13. the replayed-graph epoch (train/graph.py: one train and one eval
+     step captured as CUDA graphs over static buffers, replayed once per
+     batch): (i) RN26@32 bf16 b256 with phase 11's settings (affine,
+     cutout 8, mixup 0.2, SGD, dropout 0.5) on 8,100 train images (the
+     last batch padded by index 0 at weight 0) and phase 10's valid split,
+     from the same weights, 2 epochs graphed, per-step and per-step again
+     (the control) in turns: every parameter and BN buffer, each epoch's
+     loss and score and evaluate's loss and predictions, graphed against
+     per-step: bit-identical where the control is, else within 10x the
+     control's own gap per leaf; (ii) every graphed train step exactly 29
+     conv2d_stats + 29 reductions + 1 max_pool2d + 1 pool2d_backward and
+     every eval batch 29 conv2d_fused + 1 max_pool2d from the per-replay
+     tally, mixup's λ as a device scalar bit-identical to the CPU scalar,
+     and a profiled graphed epoch whose only host-to-device copies are its
+     index and weight matrices; (iii) the graphed and per-step epochs'
+     img/s (host clock around _run_train_epoch, fenced by its read-back),
+     device ms per step and the idle share, the capture's seconds; (iv)
+     RN50@224 bf16 b256 with bench.py:39-43's settings over 9,216 uint8
+     images (1.39 GB): two chunked epochs (ShardRotationLoader, 512 MiB
+     chunks: 3 of 13 batches, the last one's 3 empty batches not run)
+     against two resident graphed epochs (DeviceCacheLoader) and two more
+     (the control), same permutations, phase (i)'s bar, their img/s and
+     peak device memory. Prints the graph JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-12's paths (PATHS),
+  kernel: launches on its main path and on phases 10-13's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -1891,6 +1918,59 @@ def h2d_copies(prof):
     return [(int(e.get("args", {}).get("bytes", 0)), float(e.get("dur", 0))) for e in copies]
 
 
+def profiled_epoch(run):
+    """run() under torch.profiler (device activity); returns (profile, host
+    seconds of run, the bytes of each host-to-device copy the trace
+    recorded, the host's memcpy calls (cudaMemcpyAsync) before the first
+    CUDA-graph launch, between the first and the last, and after the
+    last). The trace can miss the device's records of a replayed epoch's
+    two small pinned copies (it missed both in full runs, among the
+    graph's device-to-device copies), while the host's runtime calls are
+    there, so the calls say when the copies were made."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync()
+        t0 = time.perf_counter()
+        run()
+        host = time.perf_counter() - t0
+        sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [int(e.get("args", {}).get("bytes", 0)) for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"]
+    launches = [float(e["ts"]) for e in calls if "GraphLaunch" in e.get("name", "")]
+    memcpys = [float(e["ts"]) for e in calls if "Memcpy" in e.get("name", "")]
+    if not launches:
+        return prof, host, copies, (len(memcpys), 0, 0)
+    first, last = min(launches), max(launches)
+    return prof, host, copies, (sum(t < first for t in memcpys),
+                                sum(first < t < last for t in memcpys),
+                                sum(t > last for t in memcpys))
+
+
+def copies_ok(copies, calls, matrix_bytes) -> bool:
+    """A replayed epoch's copies as profiled_epoch read them: the host's
+    two memcpy calls before the first replay (the index and weight
+    matrices), none during the replays, two after (the losses and correct
+    counts read back), and every host-to-device copy the device recorded
+    one of the matrices."""
+    return calls == (2, 0, 2) and set(copies) <= {matrix_bytes} and len(copies) <= 2
+
+
+def copies_text(copies, calls, matrix_bytes) -> str:
+    return (f"the host's memcpy calls before / during / after the replays {calls} (want "
+            f"(2, 0, 2): the index and weight matrices, {matrix_bytes} B each; the read-backs); "
+            f"host-to-device copies the device recorded {len(copies)}, bytes "
+            f"{sorted(set(copies))}")
+
+
 def phase_family(arch, seed, failures):
     """Phase 7 for one family: (i) the fp32 step check, (ii) the bf16
     learning check, (iii) serving the model (ii) trained, (iv) bench.py's
@@ -2390,24 +2470,70 @@ def conv_count(model) -> int:
 
 
 def count_calls(trainer, record):
-    """Wrap the Trainer's train and eval steps so that each call's kernel
-    launches (the LAUNCHES delta) go into record["train"] / record["eval"]."""
+    """Record each train and eval step of `trainer` with its kernel launches
+    (the LAUNCHES delta) into record["train"] / record["eval"]: the
+    per-step routes' step calls, and each step of a replayed-graph epoch
+    (train/graph.py StepGraph.step: an eager warm-up step's own launches,
+    a replay's per-replay tally). The graphs' bodies are the same step
+    functions, so a call made inside a graph step is not recorded again.
+    While record.get("capture") is set, each per-step eval call's (x,
+    predictions, weights) go to the host into record["eval_io"]."""
     from convnets_tpu_torch.ops import kernels
 
-    def wrap(kind, get):
-        def getter(*args, **kwargs):
-            fn = get(*args, **kwargs)
+    inside = []
 
-            def step(*a, **k):
-                before = dict(kernels.LAUNCHES)
-                out = fn(*a, **k)
-                record[kind].append({n: kernels.LAUNCHES[n] - before[n] for n in before})
-                return out
-            return step
+    def delta(before):
+        return {n: kernels.LAUNCHES[n] - before[n] for n in before}
+
+    def counted(kind, fn):
+        def call(*a, **k):
+            if inside:
+                return fn(*a, **k)
+            before = dict(kernels.LAUNCHES)
+            out = fn(*a, **k)
+            record[kind].append(delta(before))
+            if kind == "eval" and record.get("capture"):
+                record["eval_io"].append((a[0].cpu(), out[2].cpu(), a[2].cpu()))
+            return out
+        return call
+
+    class CountedStep:
+        """A TrainStep whose calls are recorded; its prepare / run (what a
+        graph calls) pass through."""
+
+        def __init__(self, step):
+            self.step = step
+            self.call = counted("train", step)
+
+        def __getattr__(self, name):
+            return getattr(self.step, name)
+
+        def __call__(self, *a, **k):
+            return self.call(*a, **k)
+
+    def counted_graphs(kind, get):
+        def getter(*args, **kwargs):
+            graph = get(*args, **kwargs)
+            if "step" not in vars(graph):  # not yet wrapped
+                step = graph.step
+
+                def graph_step(*a, **k):
+                    before = dict(kernels.LAUNCHES)
+                    inside.append(kind)
+                    try:
+                        step(*a, **k)
+                    finally:
+                        inside.pop()
+                    record[kind].append(delta(before))
+                graph.step = graph_step
+            return graph
         return getter
 
-    trainer._get_train_step = wrap("train", trainer._get_train_step)
-    trainer._get_eval_step = wrap("eval", trainer._get_eval_step)
+    get_train, get_eval = trainer._get_train_step, trainer._get_eval_step
+    trainer._get_train_step = lambda *a, **k: CountedStep(get_train(*a, **k))
+    trainer._get_eval_step = lambda *a, **k: counted("eval", get_eval(*a, **k))
+    trainer._get_train_epoch_fn = counted_graphs("train", trainer._get_train_epoch_fn)
+    trainer._get_eval_epoch_fn = counted_graphs("eval", trainer._get_eval_epoch_fn)
 
 
 @contextlib.contextmanager
@@ -3325,25 +3451,25 @@ def aug_fit_check(seed, out_dir, failures):
         failures.append(f"fit → export → serve agreement {agree} over {len(tested)}")
     res.update(fit_artifact_agreement=agree, test_img_s=fps)
 
-    # (iii) one profiled epoch: the H2D copies per step, the idle share
+    # (iii) one profiled epoch of the replayed graph (captured again by an
+    # epoch before it: fit ends by loading its best checkpoint, which drops
+    # the graphs): its only host-to-device copies are the epoch's index and
+    # weight matrices, sent before the first replay; the idle share
+    Trainer._run_train_epoch(trainer, train, 98)  # not the timed wrapper
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        Trainer._run_train_epoch(trainer, train, 99)  # not the timed wrapper
-        host = time.perf_counter() - t1
+    prof, host, copies, memcpys = profiled_epoch(
+        lambda: Trainer._run_train_epoch(trainer, train, 99))
     device, ours, _ = device_split(prof, OUR_KERNELS)
-    copies = [b for b, _ in h2d_copies(prof)]
     idle = 1.0 - device / 1e6 / host
-    index_bytes = TRAINER_BATCH * 4
-    ok_copies = (set(copies) == {index_bytes} and len(train) // 2 <= len(copies) <= len(train)
-                 and device > 0)
-    say(f"(iii) profiled augmented epoch ({len(train)} steps): device {device / 1e3:.3f} ms of "
-        f"{1e3 * host:.3f} ms host clock, idle share {idle:.4f}; the port's kernels "
-        f"{ours / 1e3:.3f} ms; host-to-device copies recorded {len(copies)}, bytes "
-        f"{sorted(set(copies))} (an index batch is {index_bytes} B) "
+    matrix_bytes = len(train) * TRAINER_BATCH * 4
+    ok_copies = copies_ok(copies, memcpys, matrix_bytes) and device > 0
+    say(f"(iii) profiled augmented epoch, replayed ({len(train)} steps): device "
+        f"{device / 1e3:.3f} ms of {1e3 * host:.3f} ms host clock, idle share {idle:.4f}; the "
+        f"port's kernels {ours / 1e3:.3f} ms; {copies_text(copies, memcpys, matrix_bytes)} "
         f"{'ok' if ok_copies else 'FAIL'}")
     if not ok_copies:
-        failures.append(f"augmented epoch H2D copies {copies[:8]} ({len(copies)})")
+        failures.append(f"augmented epoch H2D copies {copies[:8]} ({len(copies)}), memcpy "
+                        f"calls {memcpys}")
 
     # the preprocessing's share of a step's device time (the step is
     # host-bound, so each is read from the profiler, not from time_ms)
@@ -3368,7 +3494,8 @@ def aug_fit_check(seed, out_dir, failures):
         f"({100 * pre_ms / step_ms:.2f}%)")
     res.update(profiled_epoch={"host_ms": 1e3 * host, "device_ms": device / 1e3,
                                "idle_share": idle, "kernels_ms": ours / 1e3,
-                               "h2d_copies": len(copies), "h2d_bytes": sorted(set(copies))},
+                               "h2d_copies": len(copies), "h2d_bytes": sorted(set(copies)),
+                               "memcpy_calls_before_during_after_replays": memcpys},
                step_ms=step_ms, preprocess_ms=pre_ms)
     return res, fit_launches, calls["train"][:len(train) * AUG_EPOCHS]
 
@@ -3665,31 +3792,15 @@ def recorded_trainers(rec):
     rec["epoch_s"]; test()'s img/s into rec["test_img_s"]; and, while
     rec["capture"] is set, each eval call's (x, predictions, weights) on
     the host into rec["eval_io"]."""
-    from convnets_tpu_torch.ops import kernels
     from convnets_tpu_torch.train import engine
 
     cls = engine.Trainer
     init, test = cls.__init__, cls.test
 
-    def wrap(kind, get):
-        def getter(*args, **kwargs):
-            fn = get(*args, **kwargs)
-
-            def step(*a, **k):
-                before = dict(kernels.LAUNCHES)
-                out = fn(*a, **k)
-                rec[kind].append({n: kernels.LAUNCHES[n] - before[n] for n in before})
-                if kind == "eval" and rec.get("capture"):
-                    rec["eval_io"].append((a[0].cpu(), out[2].cpu(), a[2].cpu()))
-                return out
-            return step
-        return getter
-
     def recording_init(self, *args, **kwargs):
         init(self, *args, **kwargs)
         rec["trainers"].append(self)
-        self._get_train_step = wrap("train", self._get_train_step)
-        self._get_eval_step = wrap("eval", self._get_eval_step)
+        count_calls(self, rec)
         timed_train_epochs(self, rec["epoch_s"])
 
     def recording_test(self, *args, **kwargs):
@@ -3978,9 +4089,330 @@ def phase_cli(seed, card, failures):
     return out, cli, zoo
 
 
-# the paths of phases 10-12 whose launches the kernels line carries as
+# phase 13: the replayed-graph epoch (train/graph.py StepGraph) against the
+# per-step loop. (i)-(iii): RN26@32 with phase 11's settings on a train
+# split that is not a multiple of the batch (its last batch: 164 real rows,
+# 92 replaying index 0 at weight 0); (iv): RN50@224 with bench.py's
+# settings, chunked (ShardRotationLoader, 3 chunks of 13 batches, the last
+# one's 3 batches without an example not run) against resident
+GRAPH_TRAIN = 8100
+GRAPH_EPOCHS = 2
+CHUNK_IMAGES, CHUNK_BYTES, CHUNK_BATCH, CHUNK_EPOCHS = 9216, 512 << 20, 256, 2
+
+
+def leaf_gaps(a: dict, b: dict) -> dict:
+    """max |a − b| / max |b| per tensor of two state dicts (on the host)."""
+    return {k: float((a[k].double() - b[k].double()).abs().max()
+                     / max(float(b[k].double().abs().max()), 1e-30)) for k in b}
+
+
+def hold_to_control(label, got, want, control, control_what, failures):
+    """The bar of phase 13: `got` (dict of leaves and scalars) equals `want`
+    bit for bit where `control` (`want`'s route run again) equals it bit
+    for bit; otherwise each leaf within CONTROL_FACTOR × the control's own
+    gap on it. Returns (bit-identical, worst gap, worst control gap)."""
+    gaps, cgaps = leaf_gaps(got, want), leaf_gaps(control, want)
+    exact = all(torch_equal(got[k], want[k]) for k in want)
+    control_exact = all(torch_equal(control[k], want[k]) for k in want)
+    ok = exact if control_exact else all(gaps[k] <= CONTROL_FACTOR * cgaps[k] for k in want)
+    worst, cworst = max(gaps.values()), max(cgaps.values())
+    say(f"    {label}: bit-identical {exact}; the control ({control_what}) "
+        f"bit-identical {control_exact}; worst leaf gap {worst:.3e} (control {cworst:.3e}) "
+        f"over {len(want)} leaves {'ok' if ok else 'FAIL'}")
+    if not ok:
+        bad = [k for k in want if gaps[k] > CONTROL_FACTOR * cgaps[k]][:4]
+        failures.append(f"{label}: leaves {bad} off (gap {worst:.3e}, control {cworst:.3e})")
+    return exact, worst, cworst
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def run_leaves(trainer, results) -> dict:
+    """The trainer's parameters and buffers on the host, and each epoch's
+    (loss, score) in `results` as 0-d fp64 tensors."""
+    import torch
+
+    out = {k: t.detach().cpu().clone() for k, t in trainer.model.state_dict().items()}
+    for e, (loss, score) in enumerate(results):
+        out[f"epoch{e}/loss"] = torch.tensor(loss, dtype=torch.float64)
+        out[f"epoch{e}/score"] = torch.tensor(score, dtype=torch.float64)
+    return out
+
+
+def counted_run(fn, path: dict):
+    """Run fn with the launch counters at 0 just before it and add what it
+    launched into `path` just after it."""
+    from convnets_tpu_torch.ops import kernels
+
+    sync()
+    kernels.reset_launches()
+    out = fn()
+    sync()
+    for k, v in kernels.LAUNCHES.items():
+        path[k] = path.get(k, 0) + v
+    return out
+
+
+def graphs_of(trainer):
+    from convnets_tpu_torch.train.graph import StepGraph
+
+    return [g for g in trainer._epoch_fns.values() if isinstance(g, StepGraph)]
+
+
+def graph_rn26_check(seed, out_dir, card, failures):
+    """Phase 13 (i)-(iii). Returns (results, the graphed trainer's launches)."""
+    import torch
+
+    from convnets_tpu_torch.data import ArrayDataset, DeviceCacheLoader
+    from convnets_tpu_torch.data.augment import MixupDraws, mixup_apply
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import Trainer
+    from convnets_tpu_torch.train.graph import WARMUP_STEPS
+
+    res, path = {}, {}
+    train_ds, valid_ds = trainer_data(seed)
+    train_ds = ArrayDataset(train_ds.images[:GRAPH_TRAIN], train_ds.labels[:GRAPH_TRAIN])
+    setting = trainer_setting(seed, out_dir, data_augment=True, augment_affine=True,
+                              data_norm=True, cutout=AUG_CUTOUT, mixup=AUG_MIXUP)
+    routes = ("graphed", "per_step", "control")
+    trainers, loaders, calls = {}, {}, new_record()
+    first = None
+    for name in routes:
+        model = build_model("resnet", setting, device=DEVICE)
+        if first is None:
+            first = model.state_dict()
+        model.load_state_dict(first)
+        trainers[name] = Trainer(model)
+        trainers[name]._new_state()
+        pair = [DeviceCacheLoader(ds, TRAINER_BATCH, shuffle=shuffle, seed=seed, device=DEVICE)
+                for ds, shuffle in ((train_ds, True), (valid_ds, False))]
+        for loader in pair:
+            loader.augment, loader.normalize = loader is pair[0], True
+            loader.scan_epochs = name == "graphed"
+        loaders[name] = pair
+    count_calls(trainers["graphed"], calls)
+    results = {name: [] for name in routes}
+    seconds = {name: [] for name in routes}
+    for e in range(GRAPH_EPOCHS):
+        for name in routes if e % 2 == 0 else routes[::-1]:  # in turns
+            def epoch(name=name, e=e):
+                return trainers[name]._run_train_epoch(loaders[name][0], e)
+            sync()
+            t0 = time.perf_counter()
+            out = counted_run(epoch, path) if name == "graphed" else epoch()
+            seconds[name].append(time.perf_counter() - t0)
+            results[name].append(out)
+    evals = {}
+    for name in routes:
+        def run_eval(name=name):
+            return trainers[name]._run_eval_epoch(loaders[name][1], collect_preds=True)
+        evals[name] = counted_run(run_eval, path) if name == "graphed" else run_eval()
+    leaves = {name: run_leaves(trainers[name], results[name]) for name in routes}
+    for name in routes:
+        leaves[name]["eval/loss"] = torch.tensor(evals[name][0], dtype=torch.float64)
+        leaves[name]["eval/preds"] = torch.from_numpy(np.asarray(evals[name][3]))
+    steps = len(loaders["graphed"][0])
+    say(f"(i) RN26@32 bf16 b{TRAINER_BATCH}, {GRAPH_TRAIN} train images ({steps} steps, "
+        f"the last one padded) with phase 11's settings, {GRAPH_EPOCHS} epochs per route "
+        f"from the same weights, in turns: train (loss, score) graphed {results['graphed']}, "
+        f"per-step {results['per_step']}, control {results['control']}; eval loss "
+        f"{[evals[n][0] for n in routes]}")
+    exact, worst, cworst = hold_to_control(
+        "(i) graphed vs per-step: every parameter and BN buffer, each epoch's loss and score, "
+        "evaluate's loss and predictions", leaves["graphed"], leaves["per_step"],
+        leaves["control"], "the per-step route twice", failures)
+    res.update(results=results, eval_loss={n: evals[n][0] for n in routes},
+               bit_identical=exact, worst_gap=worst, control_gap=cworst,
+               control_bit_identical=cworst == 0.0)
+
+    # (ii) launches per step and per eval batch, from the per-replay tally
+    model = trainers["graphed"].model
+    n = conv_count(model)
+    per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
+                            "pool2d_backward": 1})
+    per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
+    graphs = graphs_of(trainers["graphed"])
+    replays = {g.kind: launches_summary(g.per_replay[0]) for g in graphs if g.per_replay}
+    steps_train = len(loaders["graphed"][0]) * GRAPH_EPOCHS
+    ok_calls = (len(calls["train"]) == steps_train
+                and len(calls["eval"]) == len(loaders["graphed"][1])
+                and all(c == per_step for c in calls["train"])
+                and all(c == per_eval for c in calls["eval"])
+                and set(replays) == {"train", "eval"})
+    say(f"(ii) launches: {len(calls['train'])} graphed train steps each "
+        f"{launches_summary(per_step)}, {len(calls['eval'])} eval batches each "
+        f"{launches_summary(per_eval)} (per replay, counted at the capture: {replays}) "
+        f"{'ok' if ok_calls else 'FAIL'}")
+    if not ok_calls:
+        failures.append(f"graphed epoch launches per step off: "
+                        f"{[c for c in calls['train'] if c != per_step][:1]} "
+                        f"{[c for c in calls['eval'] if c != per_eval][:1]} {replays}")
+    # mixup's λ: a CPU scalar (the eager step before) and the device scalar
+    # the captured step reads give the same bits
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.rand((TRAINER_BATCH, 32, 32, 3), generator=g, device=DEVICE).bfloat16()
+    perm = torch.randperm(TRAINER_BATCH, generator=g, device=DEVICE)
+    lam = 0.2718281828
+    dev_lam = torch.zeros((), device=DEVICE).fill_(lam)
+    ok_lam = torch.equal(mixup_apply(x, MixupDraws(lam, perm)),
+                         mixup_apply(x, MixupDraws(dev_lam, perm)))
+    say(f"(ii) mixup λ as a CPU scalar vs as the device scalar, bf16 b{TRAINER_BATCH}: "
+        f"bit-identical {ok_lam} {'ok' if ok_lam else 'FAIL'}")
+    if not ok_lam:
+        failures.append("mixup λ: the device scalar changes the bits")
+
+    # (ii)-(iii) one more graphed epoch under the profiler: its only
+    # host-to-device copies are the index and weight matrices, before the
+    # replays; device time per step and the idle share
+    sync()
+    prof, host, copies, memcpys = profiled_epoch(lambda: counted_run(
+        lambda: Trainer._run_train_epoch(trainers["graphed"], loaders["graphed"][0],
+                                         GRAPH_EPOCHS), path))
+    device, ours, _ = device_split(prof, OUR_KERNELS)
+    matrix_bytes = steps * TRAINER_BATCH * 4
+    ok_copies = copies_ok(copies, memcpys, matrix_bytes) and device > 0
+    idle = 1.0 - device / 1e6 / host
+    # the idle share of the timed (unprofiled) graphed epoch 1: the profiled
+    # epoch's device time per step against its host seconds per step
+    timed_idle = 1.0 - (device / 1e6 / steps) / (seconds["graphed"][-1] / steps)
+    say(f"(ii) profiled graphed epoch ({steps} replays): "
+        f"{copies_text(copies, memcpys, matrix_bytes)} {'ok' if ok_copies else 'FAIL'}")
+    if not ok_copies:
+        failures.append(f"graphed epoch H2D copies {copies[:8]} ({len(copies)}), memcpy calls "
+                        f"{memcpys}")
+    rates = {name: [GRAPH_TRAIN / t for t in seconds[name]] for name in routes}
+    capture = {g.kind: g.capture_s for g in graphs}
+    say(f"(iii) {card}: train epoch img/s, graphed {[round(r, 1) for r in rates['graphed']]}, "
+        f"per-step {[round(r, 1) for r in rates['per_step']]}, control "
+        f"{[round(r, 1) for r in rates['control']]} (epoch 0 of the graphed route holds its "
+        f"{WARMUP_STEPS} eager steps and the capture); profiled graphed epoch: device "
+        f"{device / 1e3 / steps:.3f} ms per step, host {1e3 * host / steps:.3f} ms per step "
+        f"under the profiler, idle share {idle:.4f} there and {timed_idle:.4f} against the "
+        f"timed epoch {GRAPH_EPOCHS - 1} ({1e3 * seconds['graphed'][-1] / steps:.3f} ms per "
+        f"step), the port's kernels {ours / 1e3 / steps:.3f} ms per step; "
+        f"capture {', '.join(f'{k} {v} s' for k, v in capture.items())}")
+    res.update(img_s=rates, launches_per_train_step=launches_summary(per_step),
+               per_replay=replays, h2d_copies=copies, memcpy_calls=memcpys,
+               profiled_epoch={"host_ms": 1e3 * host, "device_ms": device / 1e3,
+                               "device_ms_per_step": device / 1e3 / steps, "idle_share": idle,
+                               "timed_epoch_idle_share": timed_idle, "kernels_ms": ours / 1e3},
+               capture_s=capture)
+    return res, path
+
+
+def graph_chunked_check(seed, out_dir, card, failures):
+    """Phase 13 (iv): RN50@224 bf16 b256 (bench.py:39-43's settings: Adam,
+    weight decay 1e-4, dropout 0.5), CHUNK_EPOCHS epochs over CHUNK_IMAGES
+    uint8 images resident (DeviceCacheLoader, graphed), chunked
+    (ShardRotationLoader, CHUNK_BYTES chunks) and resident again (the
+    control), from the same seeded weights and permutations. Returns
+    (results, the chunked epochs' launches)."""
+    import gc
+
+    import torch
+
+    from convnets_tpu_torch.data import ArrayDataset, DeviceCacheLoader, ShardRotationLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 40)
+    ds = ArrayDataset(rng.integers(0, 256, (CHUNK_IMAGES, IMAGE, IMAGE, 3), dtype=np.uint8),
+                      rng.integers(0, 1000, CHUNK_IMAGES).astype(np.int32))
+    made_s = time.perf_counter() - t0
+    setting = model_setting("resnet", seed, True, batch_size=CHUNK_BATCH, data_augment=False,
+                            data_norm=False, output_dir=out_dir)
+    path, runs, leaves = {}, {}, {}
+    per_step = launches_of({"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1,
+                            "pool2d_backward": 1})
+    for name in ("resident", "chunked", "control"):
+        trainer = Trainer(build_model("resnet", setting, device=DEVICE))
+        trainer._new_state()
+        if name == "chunked":
+            loader = ShardRotationLoader(ds, CHUNK_BATCH, shuffle=True, seed=seed,
+                                         chunk_bytes=CHUNK_BYTES, device=DEVICE)
+            plan = loader._plan()
+        else:
+            loader = DeviceCacheLoader(ds, CHUNK_BATCH, shuffle=True, seed=seed, device=DEVICE)
+        calls = new_record()
+        count_calls(trainer, calls)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        outs, rates = [], []
+        for e in range(CHUNK_EPOCHS):
+            def epoch(e=e):
+                return trainer._run_train_epoch(loader, e)
+            t1 = time.perf_counter()
+            outs.append(counted_run(epoch, path) if name == "chunked" else epoch())
+            rates.append(CHUNK_IMAGES / (time.perf_counter() - t1))
+        peak = torch.cuda.max_memory_allocated()
+        graph = graphs_of(trainer)[0]
+        runs[name] = {"loss_score": outs, "img_s": rates, "peak_bytes": peak,
+                      "capture_s": graph.capture_s, "steps": len(calls["train"]),
+                      "launches_ok": all(c == per_step for c in calls["train"])}
+        leaves[name] = run_leaves(trainer, outs)
+        del trainer, loader, graph, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps = -(-CHUNK_IMAGES // CHUNK_BATCH)
+    per_chunk = CHUNK_BYTES // (CHUNK_BATCH * IMAGE * IMAGE * 3)  # 13 at 224²
+    ok_plan = plan == (steps, per_chunk, -(-steps // per_chunk)) and all(
+        r["steps"] == steps * CHUNK_EPOCHS and r["launches_ok"] for r in runs.values())
+    say(f"(iv) RN50@224 bf16 b{CHUNK_BATCH}, {CHUNK_IMAGES} uint8 images "
+        f"({CHUNK_IMAGES * IMAGE * IMAGE * 3 / 1e9:.3f} GB, made in {made_s:.1f} s), "
+        f"{CHUNK_EPOCHS} epochs each (the first holds the eager steps and the capture): "
+        f"chunked plan (batches, per chunk, chunks) {plan}, {runs['chunked']['steps']} "
+        f"steps each {launches_summary(per_step)} {'ok' if ok_plan else 'FAIL'}")
+    for name, r in runs.items():
+        say(f"    {name}: (loss, score) per epoch {r['loss_score']}, img/s per epoch "
+            f"{[round(v, 1) for v in r['img_s']]} ({card}), peak "
+            f"device memory {r['peak_bytes'] / 2 ** 30:.3f} GiB, capture {r['capture_s']} s")
+    if not ok_plan:
+        failures.append(f"chunked epoch: plan {plan}, runs {runs}")
+    exact, worst, cworst = hold_to_control(
+        "(iv) chunked vs resident: every parameter and BN buffer, each epoch's loss and score",
+        leaves["chunked"], leaves["resident"], leaves["control"], "the resident route twice",
+        failures)
+    return {"runs": runs, "plan": plan, "bit_identical": exact, "worst_gap": worst,
+            "control_gap": cworst}, path
+
+
+def phase_graph(seed, card, failures):
+    """Phase 13: the replayed-graph epoch. Prints the graph JSON line;
+    returns the launches of the graphed RN26 epochs and of the chunked
+    RN50 epoch."""
+    out, parts = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        out["rn26"], graphed = graph_rn26_check(seed, out_dir, card, failures)
+        parts["i_iii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["rn50_chunked"], chunked = graph_chunked_check(seed, out_dir, card, failures)
+        parts["iv"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    say(json.dumps({"graph": out}))
+    return path_entries(graphed), path_entries(chunked)
+
+
+def path_entries(totals):
+    """A train path's launches per kernels-line entry (the kernels it
+    launched): each kernel's count, conv_bn_relu_train by its conv2d_stats
+    launches, pool2d_train by the pool2d_backward launches (one per train
+    step's max pool)."""
+    out = {k: totals.get(k, 0) for k in ("conv2d_fused", "max_pool2d", "conv2d_stats",
+                                          "conv2d_stats_reduce", "pool2d_backward")}
+    out["conv_bn_relu_train"] = totals.get("conv2d_stats", 0)
+    out["pool2d_train"] = totals.get("pool2d_backward", 0)
+    return {k: v for k, v in out.items() if v}
+
+
+# the paths of phases 10-13 whose launches the kernels line carries as
 # <path>_launches beside the main path's
-PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo")
+PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -4129,6 +4561,9 @@ def main():
         cli, state["cli"], state["zoo"] = phase_cli(args.seed, card, failures)
         say(json.dumps({"cli": {"card": card, "zoo": zoo, **cli}}))
 
+    def phase_13():
+        state["graphed_epoch"], state["chunked_epoch"] = phase_graph(args.seed, card, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -4146,6 +4581,7 @@ def main():
         "10": phase_10,
         "11": phase_11,
         "12": phase_12,
+        "13": phase_13,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -4190,7 +4626,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10/11/12's {path} path")
+                failures.append(f"{name}: no launch on phase 10-13's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

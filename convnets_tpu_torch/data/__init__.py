@@ -6,3 +6,4 @@ from convnets_tpu_torch.data.loader import (  # noqa: F401
     DataLoader, DeviceCacheLoader, device_prefetch,
 )
 from convnets_tpu_torch.data.manager import DataMngr  # noqa: F401
+from convnets_tpu_torch.data.stream import ShardRotationLoader  # noqa: F401

@@ -267,29 +267,40 @@ def center_crop_resize(x, out_hw, *, enlarge=1.0 / 0.875):
 # --- mixup ------------------------------------------------------------------
 
 class MixupDraws(NamedTuple):
-    """One λ ~ Beta(α, α) per batch (fp32, held on the host: it enters the
-    kernels as an argument) and one permutation of the batch (on the
-    device)."""
-    lam: float
+    """One λ ~ Beta(α, α) per batch, drawn on the host (fp32: a float, or
+    the fp32 0-d device tensor a captured step reads it from), and one
+    permutation of the batch (on the device)."""
+    lam: object
     perm: torch.Tensor
+
+
+def mixup_lambda(host_generator: torch.Generator, alpha: float) -> float:
+    """λ from `host_generator` (a CPU generator: torch draws no Beta variate
+    from a generator, so λ is numpy's Beta under a seed drawn from it),
+    rounded to fp32."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=host_generator))
+    return float(np.float32(np.random.default_rng(seed).beta(alpha, alpha)))
+
+
+def mixup_perm(generator: torch.Generator, n: int) -> torch.Tensor:
+    """The order of n uniform keys from `generator`: made and sorted on its
+    device, where torch.randperm may draw a short permutation on the host
+    and copy it."""
+    keys = torch.rand(n, generator=generator, device=generator.device)
+    return torch.argsort(keys)
 
 
 def mixup_draws(generator: torch.Generator, host_generator: torch.Generator, n: int,
                 alpha: float) -> MixupDraws:
-    """The permutation from `generator` (on the batch's device); λ from
-    `host_generator` (a CPU generator: torch draws no Beta variate from a
-    generator, so λ is numpy's Beta under a seed drawn from it)."""
-    seed = int(torch.randint(0, 2 ** 62, (), generator=host_generator))
-    lam = float(np.float32(np.random.default_rng(seed).beta(alpha, alpha)))
-    # the order of n uniform keys: made and sorted on the device, where
-    # torch.randperm may draw a short permutation on the host and copy it
-    keys = torch.rand(n, generator=generator, device=generator.device)
-    return MixupDraws(lam, torch.argsort(keys))
+    """λ from `host_generator`, the permutation from `generator` (on the
+    batch's device)."""
+    return MixupDraws(mixup_lambda(host_generator, alpha), mixup_perm(generator, n))
 
 
 def mixup_apply(x, draws: MixupDraws, y: Optional[torch.Tensor] = None):
     """λ·x + (1 − λ)·x[perm] in x.dtype, λ and 1 − λ rounded to it
-    (engine.py:220-222); with labels, also y[perm]."""
-    lam = torch.tensor(draws.lam, dtype=torch.float32)  # CPU scalars: no copy to the card
+    (engine.py:220-222); with labels, also y[perm]. A float λ becomes a CPU
+    scalar (no copy to the card); a tensor λ is used where it lies."""
+    lam = torch.as_tensor(draws.lam, dtype=torch.float32)
     mixed = lam.to(x.dtype) * x + (1.0 - lam).to(x.dtype) * x[draws.perm]
     return mixed if y is None else (mixed, y[draws.perm])

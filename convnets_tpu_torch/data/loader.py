@@ -15,8 +15,8 @@ Replaces the reference's torch DataLoader(shuffle, pin_memory, num_workers)
   * per-host sharding hook (`shard(host_id, num_hosts)`) for multi-host DP:
     each host iterates its disjoint slice of every epoch's permutation.
 
-The JAX package's ShardRotationLoader (a split too large for the device,
-rotated through it in shards) is ROADMAP.md modules item 8.
+A split too large for the device rotates through it in chunks:
+`data/stream.py`'s ShardRotationLoader.
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     and sent with `non_blocking=True`: the host does not wait for the copy
     and goes on to queue the next step, but the device runs the copy on the
     current stream, in order with the steps queued before it, so it does not
-    overlap their compute (a side stream would: ROADMAP.md modules item
-    3). A pinned tensor is never refilled: each batch gets
+    overlap their compute (a side stream would; ROADMAP.md keeps it open).
+    A pinned tensor is never refilled: each batch gets
     its own, and PyTorch's pinned-memory allocator does not hand its block
     out again before the copy that reads it has finished. Arrays cross in
     their own dtype (a uint8 batch as 1 byte per value; the steps convert
@@ -203,16 +203,17 @@ class DeviceCacheLoader:
     """A loader whose split lives on the device (convnets_tpu/data/loader.py:154-273).
 
     The split goes to the device once, as uint8 where the dataset has
-    `load_raw`; per step only the batch's int32 indices cross (a 256-image
-    batch: 1 KB), and the gather runs on the device. The weights are made
-    on the device too.
+    `load_raw`; the gather runs on the device. Same contract as DataLoader:
+    the same seeded permutation per epoch and per-host slice
+    (`_epoch_indices`) and fixed batch shapes. The last partial batch is
+    padded as the JAX loader pads it: its free rows replay index 0, at
+    label y[0] and weight 0, so train-mode BN sees image 0 there (where
+    DataLoader's batches carry zero images).
 
-    Same contract as DataLoader: the same seeded permutation per epoch and
-    per-host slice (`_epoch_indices`), fixed batch shapes, and a last
-    partial batch padded with zero images, label 0 and weight 0, so its
-    batches equal DataLoader's. (The JAX loader pads by replaying index
-    0.) It offers no whole-epoch scan: the Trainer runs its per-step loop
-    over it."""
+    `scan_epochs` (True; the JAX package's switch): the Trainer runs its
+    epochs as replays of one captured step over `epoch_matrices()` (one
+    copy of the epoch's index and weight matrices); False selects the
+    per-step loop over `__iter__` (one 4-byte index per image per step)."""
 
     def __init__(self, dataset: Dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False, host_id: int = 0, num_hosts: int = 1,
@@ -227,6 +228,7 @@ class DeviceCacheLoader:
         self.device = torch.device(device)
         self.epoch = 0
         self._resident = None
+        self.scan_epochs = True
 
     # the same sizing and permutation rules as DataLoader
     __len__ = DataLoader.__len__
@@ -243,24 +245,32 @@ class DeviceCacheLoader:
                               torch.from_numpy(np.asarray(y, np.int32)).to(self.device))
         return self._resident
 
-    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """Yields (x, y, w) on the device: x gathered from the resident split
-        (uint8 for a raw dataset), y int32, w float32 0/1."""
-        data, labels = self.resident()
+    def epoch_matrices(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One epoch's batches as (idx int32 (num_batches, bs), w float32
+        (num_batches, bs)) on the host (JAX loader.py:232-246): the
+        permutation, epoch clock and per-host slice of `__iter__`, the
+        free rows of the last batch index 0 at weight 0."""
         order = self._epoch_indices()
         self.epoch += 1
         bs = self.batch_size
-        num_batches = len(order) // bs if self.drop_last else -(-len(order) // bs)
+        nb = len(order) // bs if self.drop_last else -(-len(order) // bs)
+        k = min(len(order), nb * bs)
+        idx = np.zeros((nb * bs,), np.int32)
+        idx[:k] = order[:k]
+        w = np.zeros((nb * bs,), np.float32)
+        w[:k] = 1.0
+        return idx.reshape(nb, bs), w.reshape(nb, bs)
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Yields (x, y, w) on the device: x gathered from the resident split
+        (uint8 for a raw dataset), y int32, w float32 0/1; the rows of
+        `epoch_matrices()`, one batch per step."""
+        data, labels = self.resident()
+        idx_mat, w_mat = self.epoch_matrices()
         cuda = self.device.type == "cuda"
-        for bi in range(num_batches):
-            idx = order[bi * bs:(bi + 1) * bs]
-            k = len(idx)
-            host = torch.from_numpy(np.pad(idx, (0, bs - k)).astype(np.int32))
+        for idx, w in zip(idx_mat, w_mat):
+            host = torch.from_numpy(idx)
             idx_d = (host.pin_memory().to(self.device, non_blocking=True) if cuda
                      else host).long()
-            x, y = data[idx_d], labels[idx_d]
-            if k < bs:
-                x[k:] = 0
-                y[k:] = 0
-            w = (torch.arange(bs, device=self.device) < k).float()
-            yield x, y, w
+            k = int(w.sum())
+            yield data[idx_d], labels[idx_d], (torch.arange(len(w), device=self.device) < k).float()

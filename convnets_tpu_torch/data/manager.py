@@ -7,11 +7,10 @@ Trainer reads (train: Settings.data_augment; valid and test: no
 augmentation; all: Settings.data_norm). The route of each split, by the
 JAX package's rule (manager.py:61-87): Settings.device_cache wins where it
 is set; otherwise a split of at most DEVICE_CACHE_AUTO_BYTES decoded bytes
-goes to DeviceCacheLoader. A larger split with `load_raw` is the JAX
-package's ShardRotationLoader route, which the port does not have yet: it
-raises rather than hand the split to the host loader (with
-CONVNETS_TPU_STREAM=0, the JAX package's switch, it takes the host
-DataLoader as the JAX package does).
+goes to DeviceCacheLoader; a larger split with `load_raw` rotates through
+the device in chunks (ShardRotationLoader, data/stream.py), unless
+CONVNETS_TPU_STREAM=0 (the JAX package's switch) sends it to the host
+DataLoader.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import numpy as np
 
 from convnets_tpu_torch.data.datasets import CINIC_MEAN, CINIC_STD, Dataset, ImageFolderDataset
 from convnets_tpu_torch.data.loader import DataLoader, DeviceCacheLoader
+from convnets_tpu_torch.data.stream import ShardRotationLoader
 
 
 class DataMngr:
@@ -34,7 +34,8 @@ class DataMngr:
                  datasets: Optional[Dict[str, Dataset]] = None):
         """`datasets`: {split: Dataset} in place of the ImageFolder splits
         under `root` (in-memory or synthetic data). `device`: where a
-        DeviceCacheLoader keeps its split."""
+        DeviceCacheLoader keeps its split and a ShardRotationLoader its
+        chunks."""
         self.setting = setting
         # data/CINIC-10 and data/cache/<dataset>-<split>.npy under the
         # working directory, as in the JAX package
@@ -69,10 +70,9 @@ class DataMngr:
             return DeviceCacheLoader(ds, self.batch_size, shuffle=shuffle, seed=self.setting.seed,
                                      host_id=host_id, num_hosts=num_hosts, device=self.device)
         if hasattr(ds, "load_raw") and os.environ.get("CONVNETS_TPU_STREAM", "1") == "1":
-            raise NotImplementedError(
-                f"the {split} split ({len(ds)} images of {ds.image_shape}) is larger than "
-                f"DEVICE_CACHE_AUTO_BYTES: its route, the shard-rotation loader, is not "
-                f"ported yet (ROADMAP.md modules item 8)")
+            return ShardRotationLoader(ds, self.batch_size, shuffle=shuffle,
+                                       seed=self.setting.seed, host_id=host_id,
+                                       num_hosts=num_hosts, device=self.device)
         return DataLoader(ds, self.batch_size, shuffle=shuffle, seed=self.setting.seed,
                           num_workers=self.setting.num_workers, host_id=host_id,
                           num_hosts=num_hosts)

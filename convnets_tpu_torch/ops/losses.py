@@ -36,7 +36,8 @@ def mixup_cross_entropy_sum(logits, labels, mixed_labels, lam: float, weights=No
                             label_smoothing: float = 0.0):
     """The mixup objective's sum (convnets_tpu/train/engine.py:233-237):
     λ·CE(labels) + (1 − λ)·CE(mixed_labels), λ fp32; mixed_labels are the
-    labels under the batch's mixup permutation."""
-    lam = torch.tensor(lam, dtype=torch.float32)  # a CPU scalar: no copy to the card
+    labels under the batch's mixup permutation. lam: a float (a CPU scalar:
+    no copy to the card) or an fp32 0-d tensor, used where it lies."""
+    lam = torch.as_tensor(lam, dtype=torch.float32)
     return (lam * cross_entropy_sum(logits, labels, weights, label_smoothing)
             + (1.0 - lam) * cross_entropy_sum(logits, mixed_labels, weights, label_smoothing))

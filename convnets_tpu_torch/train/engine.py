@@ -19,15 +19,23 @@ returns a new state).
 Trainer: fit (best-checkpoint gating on valid loss or score, the async
 checkpoint, plateau rollback, early stop, resume with the data-order
 clock), evaluate, test, reestimate_bn and checkpoints, on one device: the
-model's. Each epoch is a host loop over `data.device_prefetch` batches
-(a `DeviceCacheLoader`'s batches are already on the card: only their
-index batch crossed); the per-step loss and correct count stay on the
-device until the epoch ends. The random draws of step s of global epoch e
-come from generator_for(seed, stream, e, s): "dropout" for the masks,
-"augment", "cutout" and "mixup" for the data side (`DataRng`). The JAX
-package's whole-epoch scan has no counterpart: every loader runs the
-per-step loop (a CUDA-graph step is ROADMAP.md modules item 3); data
-parallel is item 7.
+model's. An epoch takes one of three routes, chosen as the JAX engine
+chooses (engine.py:568-573, :667-682, :738-756):
+  * a loader whose split lives on the device (`scan_epochs`: a
+    DeviceCacheLoader) runs the epoch as replays of one captured step
+    (train/graph.py StepGraph, the counterpart of the whole-epoch
+    `lax.scan`): the epoch's index and weight matrices cross once, and
+    the per-step losses are read back once;
+  * a ShardRotationLoader (`chunked`) runs it chunk by chunk through the
+    same graph over its rotating chunk buffer;
+  * any other loader, or `debug` or `sanity_check`, runs the per-step
+    loop over `data.device_prefetch` batches, the per-step loss and
+    correct count kept on the device until the epoch ends.
+The random draws of step s of global epoch e come from the seeds of
+generator_for(seed, stream, e, s): "dropout" for the masks, "augment",
+"cutout" and "mixup" for the data side (`DataRng`); the replayed route
+reseeds long-lived generators to those seeds before each step. Data
+parallel is ROADMAP.md modules item 7.
 """
 
 from __future__ import annotations
@@ -43,10 +51,10 @@ import torch
 
 from convnets_tpu_torch import bridge, ops
 from convnets_tpu_torch.core.precision import LossScale
-from convnets_tpu_torch.core.rng import generator_for
+from convnets_tpu_torch.core.rng import StepGenerators, generator_for
 from convnets_tpu_torch.data.augment import (
-    augment_batch, center_crop_resize, cutout, mixup_apply, mixup_draws, normalize,
-    random_resized_crop_batch,
+    MixupDraws, augment_batch, center_crop_resize, cutout, mixup_apply, mixup_lambda, mixup_perm,
+    normalize, random_resized_crop_batch,
 )
 from convnets_tpu_torch.data.datasets import CINIC_MEAN, CINIC_STD
 from convnets_tpu_torch.data.loader import DataLoader, device_prefetch
@@ -54,6 +62,7 @@ from convnets_tpu_torch.nn import use_generator
 from convnets_tpu_torch.train import checkpoint as ckpt
 from convnets_tpu_torch.train import metrics as M
 from convnets_tpu_torch.train import optim
+from convnets_tpu_torch.train.graph import StepGraph
 from convnets_tpu_torch.train.scheduler import (
     ConstantLR, CosineDecay, ReduceLROnPlateau, StepDecay, scheduler_from_state,
 )
@@ -142,10 +151,100 @@ def _data_flags(setting):
             float(getattr(setting, "mixup", 0.0) or 0.0))
 
 
+class TrainStep:
+    """One train step, in two parts: `prepare(state, rng)`, the host's part
+    (advance Adam's step count; fill the state's StepScalars: the learning
+    rate, Adam's bias corrections for that count, mixup's λ drawn from
+    rng.mixup_host), and `run(state, x, y, w, generator, rng)`, the
+    device's, which reads only tensors and generators and changes nothing
+    on the host, so it can be captured once and replayed (train/graph.py).
+    Calling the step does both."""
+
+    def __init__(self, state: TrainState, *, augment: bool = False, norm: bool = False,
+                 stats=None, debug: bool = False):
+        model = state.model
+        setting = model.setting
+        do_affine, cut, self.mix_a = _data_flags(setting)
+        self.debug = debug
+        self.wd = float(getattr(setting, "weight_decay", 0.0))
+        self.clip_norm = (float(setting.gc_max_norm) if getattr(setting, "grad_clip_norm", False)
+                          else None)
+        self.clip_value = (float(setting.gc_value) if getattr(setting, "grad_clip_value", False)
+                           else None)
+        self.mean_grad = getattr(setting, "loss_reduction", "sum") == "mean"
+        self.smoothing = float(getattr(setting, "label_smoothing", 0.0) or 0.0)
+        self.momentum = float(getattr(setting, "momentum", 0.9))
+        self.nesterov = bool(getattr(setting, "nesterov", False))
+        self.preprocess = _make_preprocess(model, norm, stats, augment, do_affine, cut)
+
+    def prepare(self, state: TrainState, rng: Optional[DataRng] = None) -> None:
+        values = {"lr": state.lr}
+        if state.optimizer == "adam":
+            state.opt_state = state.opt_state._replace(count=state.opt_state.count + 1)
+            values["bc1"], values["bc2"] = optim.adam_bias_corrections(state.opt_state.count)
+        if self.mix_a > 0.0:
+            if rng is None:
+                raise ValueError("a mixup step needs its DataRng")
+            values["lam"] = mixup_lambda(rng.mixup_host, self.mix_a)
+        state.scalars.fill(**values)
+
+    def run(self, state: TrainState, x, y, w, generator: Optional[torch.Generator] = None,
+            rng: Optional[DataRng] = None):
+        sc = state.scalars
+        state.model.train()
+        x = self.preprocess(x, rng)
+        if self.mix_a > 0.0:
+            if rng is None:
+                raise ValueError("a mixup step needs its DataRng")
+            draws = MixupDraws(sc.lam, mixup_perm(rng.mixup, x.shape[0]))
+            x, y_mix = mixup_apply(x, draws, y)
+        params = state.params()
+        with use_generator(generator):
+            logits = state.model(x).float()
+        if self.mix_a > 0.0:
+            loss_sum = ops.mixup_cross_entropy_sum(logits, y, y_mix, sc.lam, w,
+                                                   label_smoothing=self.smoothing)
+        else:
+            loss_sum = ops.cross_entropy_sum(logits, y, w, label_smoothing=self.smoothing)
+        objective = loss_sum
+        if self.mean_grad:
+            objective = loss_sum / torch.clamp_min(torch.sum(w), 1.0)
+        values = torch.autograd.grad(state.loss_scale.scale_loss(objective),
+                                     list(params.values()))
+        grads = state.loss_scale.unscale_grads(dict(zip(params, values)))
+        if self.clip_norm is not None:
+            grads = optim.clip_by_global_norm(grads, self.clip_norm)
+        if self.clip_value is not None:
+            grads = optim.clip_by_value(grads, self.clip_value)
+        current = {k: p.detach() for k, p in params.items()}
+        # the moments update in place; the count moved in prepare
+        if state.optimizer == "adam":
+            new_params, _ = optim.adam_update(grads, state.opt_state, current, lr=sc.lr,
+                                              weight_decay=self.wd, bias=(sc.bc1, sc.bc2))
+        else:
+            new_params, _ = optim.sgd_update(grads, state.opt_state, current, lr=sc.lr,
+                                             weight_decay=self.wd, momentum=self.momentum,
+                                             nesterov=self.nesterov)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(new_params[k])
+        correct = ops.correct_count(logits.detach(), y, w)
+        if self.debug:
+            return loss_sum.detach(), correct, optim.global_norm(grads)
+        return loss_sum.detach(), correct
+
+    def __call__(self, state: TrainState, x, y, w=None,
+                 generator: Optional[torch.Generator] = None, rng: Optional[DataRng] = None):
+        x, y, w = _on_device(_device_of(state.model), x, y, w)
+        self.prepare(state, rng)
+        return self.run(state, x, y, w, generator, rng)
+
+
 def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = False,
-                     stats=None, debug: bool = False):
+                     stats=None, debug: bool = False) -> TrainStep:
     """Return train_step(state, x, y, w=None, generator=None, rng=None) ->
-    (loss, correct), or (loss, correct, gradient global norm) when `debug`.
+    (loss, correct), or (loss, correct, gradient global norm) when `debug`
+    (a TrainStep).
 
     x: (N, H, W, C) uint8 or float batch (at another size than the model's
     only with `augment`, which then crops it to size); y (N,) int labels; w
@@ -157,63 +256,7 @@ def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = F
     the device. Settings read: weight_decay, grad_clip_norm/gc_max_norm,
     grad_clip_value/gc_value, momentum, nesterov, loss_reduction,
     label_smoothing, augment_affine, cutout, mixup."""
-    model = state.model
-    setting = model.setting
-    do_affine, cut, mix_a = _data_flags(setting)
-    wd = float(getattr(setting, "weight_decay", 0.0))
-    clip_norm = float(setting.gc_max_norm) if getattr(setting, "grad_clip_norm", False) else None
-    clip_value = float(setting.gc_value) if getattr(setting, "grad_clip_value", False) else None
-    mean_grad = getattr(setting, "loss_reduction", "sum") == "mean"
-    smoothing = float(getattr(setting, "label_smoothing", 0.0) or 0.0)
-    momentum = float(getattr(setting, "momentum", 0.9))
-    nesterov = bool(getattr(setting, "nesterov", False))
-    preprocess = _make_preprocess(model, norm, stats, augment, do_affine, cut)
-
-    def train_step(state: TrainState, x, y, w=None, generator: Optional[torch.Generator] = None,
-                   rng: Optional[DataRng] = None):
-        x, y, w = _on_device(_device_of(state.model), x, y, w)
-        state.model.train()
-        x = preprocess(x, rng)
-        if mix_a > 0.0:
-            if rng is None:
-                raise ValueError("a mixup step needs its DataRng")
-            draws = mixup_draws(rng.mixup, rng.mixup_host, x.shape[0], mix_a)
-            x, y_mix = mixup_apply(x, draws, y)
-        params = state.params()
-        with use_generator(generator):
-            logits = state.model(x).float()
-        if mix_a > 0.0:
-            loss_sum = ops.mixup_cross_entropy_sum(logits, y, y_mix, draws.lam, w,
-                                                   label_smoothing=smoothing)
-        else:
-            loss_sum = ops.cross_entropy_sum(logits, y, w, label_smoothing=smoothing)
-        objective = loss_sum
-        if mean_grad:
-            objective = loss_sum / torch.clamp_min(torch.sum(w), 1.0)
-        values = torch.autograd.grad(state.loss_scale.scale_loss(objective),
-                                     list(params.values()))
-        grads = state.loss_scale.unscale_grads(dict(zip(params, values)))
-        if clip_norm is not None:
-            grads = optim.clip_by_global_norm(grads, clip_norm)
-        if clip_value is not None:
-            grads = optim.clip_by_value(grads, clip_value)
-        current = {k: p.detach() for k, p in params.items()}
-        if state.optimizer == "adam":
-            new_params, state.opt_state = optim.adam_update(
-                grads, state.opt_state, current, lr=state.lr, weight_decay=wd)
-        else:
-            new_params, state.opt_state = optim.sgd_update(
-                grads, state.opt_state, current, lr=state.lr, weight_decay=wd,
-                momentum=momentum, nesterov=nesterov)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new_params[k])
-        correct = ops.correct_count(logits.detach(), y, w)
-        if debug:
-            return loss_sum.detach(), correct, optim.global_norm(grads)
-        return loss_sum.detach(), correct
-
-    return train_step
+    return TrainStep(state, augment=augment, norm=norm, stats=stats, debug=debug)
 
 
 def build_eval_step(model, norm: bool = False, stats=None):
@@ -242,10 +285,13 @@ def _fresh_epoch_results() -> dict:
 
 
 def _host_sum(values) -> float:
-    """The sum of per-step device scalars, read back once."""
-    if not values:
-        return 0.0
-    return float(np.sum(torch.stack(values).cpu().numpy()))
+    """The sum of per-step device scalars (a list of 0-d tensors, or one
+    1-d tensor), read back once and summed by numpy."""
+    if not isinstance(values, torch.Tensor):
+        if not values:
+            return 0.0
+        values = torch.stack(values)
+    return float(np.sum(values.cpu().numpy()))
 
 
 class Trainer:
@@ -270,6 +316,9 @@ class Trainer:
         self.model_path = self._checkpoint_path()
         self._train_step_fns = {}
         self._eval_step_fns = {}
+        # the replayed-graph epochs' steps (train/graph.py StepGraph), keyed
+        # as the JAX engine keys its epoch functions, plus the split's address
+        self._epoch_fns = {}
         # optional hook called as epoch_hook(trainer, epoch_index) after
         # every epoch's bookkeeping (tail snapshots for weight averaging,
         # custom logging, ...)
@@ -305,6 +354,7 @@ class Trainer:
         optimizer state; the steps built over the old state are dropped."""
         self._train_step_fns.clear()
         self._eval_step_fns.clear()
+        self._epoch_fns.clear()
         self.state = create_train_state(self.model, self.setting, self.optimizer_name)
         return self.state
 
@@ -445,10 +495,129 @@ class Trainer:
         hc = getattr(loader, "_host_count", None)
         return hc() if callable(hc) else loader.num_examples
 
+    @staticmethod
+    def _scan_denominator(loader) -> int:
+        """Denominator of the replayed epochs' per-example means. One
+        process: the examples this host's loader serves, as in the per-step
+        loop (the JAX package divides by the global count when several
+        processes share a mesh; data parallel is ROADMAP.md modules item 7)."""
+        return Trainer._loader_host_count(loader)
+
+    # ------------------------------------------------------------------
+    # the replayed-graph epoch over a split on the device (the JAX
+    # engine's whole-epoch scan and chunked epochs, engine.py:350-451,
+    # :568-682): one captured step, replayed once per batch
+
+    def _use_epoch_scan(self, loader, debug: bool = False) -> bool:
+        """The replayed epoch applies when the loader keeps its split on the
+        device (`scan_epochs`) and no per-step host work is asked for
+        (debug prints per-step scalars; sanity_check runs one step)."""
+        return (bool(getattr(loader, "scan_epochs", False)) and not debug
+                and not self.setting.sanity_check)
+
+    def _epoch_inputs(self, loader):
+        """The resident split and this epoch's (num_batches, bs) index and
+        weight matrices (on the host: the graph copies each once)."""
+        data, labels = loader.resident()
+        if data.device != self.device:
+            raise ValueError(f"the loader's split lies on {data.device}, the model on "
+                             f"{self.device}: a replayed epoch gathers on the model's device")
+        return (data, labels, *loader.epoch_matrices())
+
+    def _get_train_epoch_fn(self, augment: bool, norm: bool, stats, shape, data,
+                            labels) -> StepGraph:
+        """The train StepGraph for (num_steps, bs) = `shape` over `data` /
+        `labels`: the TrainStep's `run` as its body; before each step the
+        host reseeds the "dropout", "augment", "cutout" and "mixup"
+        generators to step (e, s)'s seeds and runs the TrainStep's
+        `prepare`."""
+        key = ("train", augment, norm, stats, _data_flags(self.setting),
+               getattr(self.setting, "loss_reduction", "sum"),
+               float(getattr(self.setting, "label_smoothing", 0.0) or 0.0),
+               self.optimizer_name, tuple(shape), data.data_ptr(), labels.data_ptr())
+        if key in self._epoch_fns:
+            return self._epoch_fns[key]
+        step = self._get_train_step(augment, norm, False, stats)
+        state, seed = self.state, self.setting.seed
+        draws = augment or _data_flags(self.setting)[2] > 0.0
+        gens = StepGenerators(seed, ("dropout", "augment", "cutout", "mixup") if draws
+                              else ("dropout",), self.device)
+        rng = DataRng(gens["augment"], gens["cutout"], gens["mixup"], None) if draws else None
+
+        def prologue(epoch, index):
+            gens.reseed(epoch, index)
+            host = generator_for(seed, "mixup", epoch, index) if step.mix_a > 0.0 else None
+            step.prepare(state, rng._replace(mixup_host=host) if draws else None)
+
+        def body(x, y, w):
+            return step.run(state, x, y, w, gens["dropout"], rng)
+
+        graph = StepGraph("train", body, data, labels, *shape, prologue=prologue,
+                          generators=gens, on_capture=self._ckpt_barrier)
+        self._epoch_fns[key] = graph
+        return graph
+
+    def _get_eval_epoch_fn(self, norm: bool, stats, shape, data, labels,
+                           collect_preds: bool = False) -> StepGraph:
+        key = ("eval", norm, stats, tuple(shape), collect_preds, data.data_ptr(),
+               labels.data_ptr())
+        if key not in self._epoch_fns:
+            self._epoch_fns[key] = StepGraph(
+                "eval", self._get_eval_step(norm, stats), data, labels, *shape,
+                preds=collect_preds, on_capture=self._ckpt_barrier)
+        return self._epoch_fns[key]
+
+    def _run_chunked_train_epoch(self, loader, epoch_index: int, augment: bool, norm: bool):
+        """Shard-rotation epoch (ShardRotationLoader, data/stream.py): the
+        chunks rotate through one static buffer on the device, which one
+        train graph reads; step s of chunk c is the epoch's step c·bpc + s,
+        so the epoch equals the resident one. The loader sends chunk c + 1
+        while chunk c's replays run."""
+        stats = self._resolve_stats(loader)
+        losses, corrects, graph = [], [], None
+        for ch in loader.epoch_chunks():
+            if graph is None:
+                graph = self._get_train_epoch_fn(augment, norm, stats, ch.idx_mat.shape,
+                                                 ch.data, ch.labels)
+            loss, correct = graph.run(ch.idx_mat, ch.w_mat, epoch_index, ch.first_step,
+                                      ch.num_steps)
+            losses.append(loss.clone())
+            corrects.append(correct.clone())
+        n = self._scan_denominator(loader)
+        return (_host_sum(torch.cat(losses)) / n, _host_sum(torch.cat(corrects)) / n)
+
+    def _run_chunked_eval_epoch(self, loader, norm: bool, collect_preds: bool = False):
+        stats = self._resolve_stats(loader)
+        outs, masks, targets, graph = [], [], [], None
+        for ch in loader.epoch_chunks():
+            if graph is None:
+                graph = self._get_eval_epoch_fn(norm, stats, ch.idx_mat.shape, ch.data,
+                                                ch.labels, collect_preds)
+            outs.append([o.clone() for o in graph.run(ch.idx_mat, ch.w_mat, 0,
+                                                       steps=ch.num_steps)])
+            real = ch.w_mat[:ch.num_steps].reshape(-1) > 0
+            masks.append(real)
+            targets.append(ch.host_labels[ch.idx_mat[:ch.num_steps].reshape(-1)[real]])
+        n = self._scan_denominator(loader)
+        result = tuple(_host_sum(torch.cat([o[j] for o in outs])) / n for j in (0, 1))
+        if collect_preds:
+            preds = torch.cat([o[2].reshape(-1) for o in outs]).cpu().numpy()
+            return (*result, np.concatenate(targets), preds[np.concatenate(masks)])
+        return result
+
     def _run_train_epoch(self, loader: DataLoader, epoch_index: int):
         augment, norm = self._resolve_flags(loader, train=True)
         debug = bool(self.setting.debug)
-        step_fn = self._get_train_step(augment, norm, debug, stats=self._resolve_stats(loader))
+        stats = self._resolve_stats(loader)
+        if self._use_epoch_scan(loader, debug):
+            if getattr(loader, "chunked", False):
+                return self._run_chunked_train_epoch(loader, epoch_index, augment, norm)
+            data, labels, idx_mat, w_mat = self._epoch_inputs(loader)
+            graph = self._get_train_epoch_fn(augment, norm, stats, idx_mat.shape, data, labels)
+            loss, correct = graph.run(idx_mat, w_mat, epoch_index)
+            n = self._scan_denominator(loader)
+            return _host_sum(loss) / n, _host_sum(correct) / n
+        step_fn = self._get_train_step(augment, norm, debug, stats=stats)
         draws = augment or _data_flags(self.setting)[2] > 0.0
 
         # per-step metrics stay on the device until the epoch ends: a
@@ -475,7 +644,22 @@ class Trainer:
 
     def _run_eval_epoch(self, loader: DataLoader, collect_preds: bool = False):
         _, norm = self._resolve_flags(loader, train=False)
-        step_fn = self._get_eval_step(norm, stats=self._resolve_stats(loader))
+        stats = self._resolve_stats(loader)
+        if self._use_epoch_scan(loader):
+            if getattr(loader, "chunked", False):
+                return self._run_chunked_eval_epoch(loader, norm, collect_preds)
+            data, labels, idx_mat, w_mat = self._epoch_inputs(loader)
+            graph = self._get_eval_epoch_fn(norm, stats, idx_mat.shape, data, labels,
+                                            collect_preds)
+            out = graph.run(idx_mat, w_mat, 0)
+            n = self._scan_denominator(loader)
+            result = (_host_sum(out[0]) / n, _host_sum(out[1]) / n)
+            if collect_preds:
+                real = w_mat.reshape(-1) > 0
+                targets = np.asarray(loader.dataset.all_labels())[idx_mat.reshape(-1)[real]]
+                return (*result, targets, out[2].cpu().numpy().reshape(-1)[real])
+            return result
+        step_fn = self._get_eval_step(norm, stats=stats)
 
         losses, corrects, preds, targets, weights = [], [], [], [], []
         for x, y, w in device_prefetch(loader, size=2, device=self.device):
@@ -957,6 +1141,7 @@ class Trainer:
         self.setting.load_values(hp)
         self._train_step_fns.clear()
         self._eval_step_fns.clear()
+        self._epoch_fns.clear()
         # data-order clock for fit(resume=True): rewind the loaders to the
         # permutation epoch this checkpoint was written at
         self._resume_loader_epochs = meta.get("extra", {}).get("loader_epochs")

@@ -7,6 +7,13 @@ outside the sqrt (optim.py:48-55); SGD with momentum, nesterov and the
 same decay (v = m·v + g; p -= lr·v); torch's clip_grad_norm_ and
 clip_grad_value_ over all gradients as one vector. The learning rate is
 an argument, not state.
+
+The new moments are written into the state's own tensors (each sum's
+kernel with an output), so a step captured once and replayed
+(train/graph.py) keeps updating the state. Such a step reads what changes
+per step from device tensors that the host fills before each replay: the
+learning rate and Adam's bias corrections, which the host computes as
+`adam_bias_corrections` does (`bias=`).
 """
 
 from __future__ import annotations
@@ -40,21 +47,30 @@ def _f32(v: float) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
 
-def adam_update(grads: Tensors, state: AdamState, params: Tensors, *, lr, weight_decay=0.0,
-                b1=0.9, b2=0.999, eps=1e-8):
-    """One Adam step. Returns (new_params, new_state)."""
-    count = state.count + 1
+def adam_bias_corrections(count: int, b1=0.9, b2=0.999):
+    """(1 − b1^count, 1 − b2^count) in fp32 (optim.py:48-49), as floats."""
     cf = _f32(float(count))
-    bc1 = 1.0 - torch.pow(_f32(b1), cf)
-    bc2 = 1.0 - torch.pow(_f32(b2), cf)
+    return (float(1.0 - torch.pow(_f32(b1), cf)), float(1.0 - torch.pow(_f32(b2), cf)))
+
+
+def adam_update(grads: Tensors, state: AdamState, params: Tensors, *, lr, weight_decay=0.0,
+                b1=0.9, b2=0.999, eps=1e-8, bias=None):
+    """One Adam step. Returns (new_params, new_state), new_state's moments
+    being state's tensors, updated. lr: a float or an fp32 0-d tensor;
+    bias: the step's (1 − b1^t, 1 − b2^t) as fp32 0-d tensors (computed
+    from state.count + 1 when None)."""
+    count = state.count + 1
+    if bias is None:
+        bias = tuple(_f32(v) for v in adam_bias_corrections(count, b1, b2))
+    bc1, bc2 = bias
     new_p, new_m, new_v = {}, {}, {}
     for k, g in grads.items():
         p = params[k]
         g = g.float()
         if weight_decay:
             g = g + weight_decay * p.float()
-        m = b1 * state.mu[k] + (1.0 - b1) * g
-        v = b2 * state.nu[k] + (1.0 - b2) * torch.square(g)
+        m = torch.add(b1 * state.mu[k], (1.0 - b1) * g, out=state.mu[k])
+        v = torch.add(b2 * state.nu[k], (1.0 - b2) * torch.square(g), out=state.nu[k])
         step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
         new_p[k], new_m[k], new_v[k] = p - step.to(p.dtype), m, v
     return new_p, AdamState(count=count, mu=new_m, nu=new_v)
@@ -67,14 +83,15 @@ def sgd_init(params: Tensors) -> SGDState:
 def sgd_update(grads: Tensors, state: SGDState, params: Tensors, *, lr, weight_decay=0.0,
                momentum=0.0, nesterov=False):
     """torch.optim.SGD semantics (v = m·v + g; p -= lr·v). Returns
-    (new_params, new_state)."""
+    (new_params, new_state), new_state's velocities being state's tensors,
+    updated; lr a float or an fp32 0-d tensor."""
     new_p, new_v = {}, {}
     for k, g in grads.items():
         p = params[k]
         g = g.float()
         if weight_decay:
             g = g + weight_decay * p.float()
-        v = momentum * state.momentum[k] + g
+        v = torch.add(momentum * state.momentum[k], g, out=state.momentum[k])
         d = g + momentum * v if nesterov else v
         new_p[k], new_v[k] = p - (lr * d).to(p.dtype), v
     return new_p, SGDState(momentum=new_v)

@@ -3,15 +3,40 @@
 The model (its parameters and BN running statistics), the optimizer state
 keyed by parameter name, the learning rate and the loss scale. Unlike the
 JAX package's immutable pytree, the port's step updates it in place.
+
+The learning rate stays a host float (the scheduler sets it, checkpoints
+carry it). The step reads it, and the other per-step scalars, from
+`scalars`: fp32 0-d tensors on the model's device that the host fills
+before each step, so a step captured once as a CUDA graph reads each
+replay's values.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
+
+import torch
 
 from convnets_tpu_torch.core.precision import LossScale
 from convnets_tpu_torch.train import optim
+
+
+class StepScalars:
+    """The learning rate, Adam's bias corrections (1 − b1^t, 1 − b2^t) and
+    mixup's λ of the current step, as fp32 0-d tensors on `device`. `fill`
+    writes each with `fill_`: a kernel that carries the value, rounded to
+    fp32 once, as the host rounds it; no copy crosses from the host."""
+
+    NAMES = ("lr", "bc1", "bc2", "lam")
+
+    def __init__(self, device):
+        for name in self.NAMES:
+            setattr(self, name, torch.zeros((), dtype=torch.float32, device=device))
+
+    def fill(self, **values: float) -> None:
+        for name, v in values.items():
+            getattr(self, name).fill_(float(v))
 
 
 @dataclasses.dataclass
@@ -21,6 +46,11 @@ class TrainState:
     opt_state: Union[optim.AdamState, optim.SGDState]
     lr: float
     loss_scale: LossScale = dataclasses.field(default_factory=LossScale)
+    scalars: Optional[StepScalars] = None
+
+    def __post_init__(self):
+        if self.scalars is None:
+            self.scalars = StepScalars(next(self.model.parameters()).device)
 
     def params(self):
         """name → parameter, in `named_parameters` order."""

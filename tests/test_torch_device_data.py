@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from convnets_tpu.data import ArrayDataset as JArrayDataset
+from convnets_tpu.data.loader import DeviceCacheLoader as JDeviceCacheLoader
 from convnets_tpu.data.manager import DataMngr as JDataMngr
 from convnets_tpu.train.engine import Trainer as JTrainer
 from convnets_tpu_torch.data import (
-    ArrayDataset, DataLoader, DataMngr, DeviceCacheLoader, synthetic_dataset,
+    ArrayDataset, DataLoader, DataMngr, DeviceCacheLoader, ShardRotationLoader, synthetic_dataset,
 )
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.settings import Settings
@@ -43,23 +45,35 @@ def _settings(tmp_path, **kw):
 @pytest.mark.parametrize("shuffle,drop_last,host", [(True, False, (0, 1)), (False, False, (0, 1)),
                                                     (True, True, (1, 2)), (True, False, (0, 3))])
 def test_device_cache_batches_equal_the_dataloaders(shuffle, drop_last, host):
-    """Same indices in the same order, the same zero padding and weights,
-    over two epochs; only the index batch is made on the host."""
+    """Same indices in the same order and the same weights, over two
+    epochs; only the index batch is made on the host. The last partial
+    batch is padded as the JAX DeviceCacheLoader pads it: index 0 (image 0,
+    label y[0]) at weight 0, where DataLoader has zero images, label 0; its
+    epoch_matrices are the JAX loader's, and it offers the scanned epoch."""
     ds = _uint8(21, 0)
     kw = dict(shuffle=shuffle, seed=4, drop_last=drop_last, host_id=host[0], num_hosts=host[1])
     host_loader, cached = DataLoader(ds, 4, **kw), DeviceCacheLoader(ds, 4, device="cpu", **kw)
+    theirs = JDeviceCacheLoader(JArrayDataset(ds.images, ds.labels), 4, **kw)
+    matrices = DeviceCacheLoader(ds, 4, device="cpu", **kw)
     assert len(host_loader) == len(cached) and cached._host_count() == host_loader._host_count()
-    assert not hasattr(cached, "scan_epochs")
+    assert cached.scan_epochs and theirs.scan_epochs
     for _ in range(2):
         batches = list(cached)
         want = list(host_loader)
         assert len(batches) == len(want)
         for (x, y, w), (xw, yw, ww) in zip(batches, want):
             assert x.dtype == torch.uint8 and y.dtype == torch.int32
-            np.testing.assert_array_equal(x.numpy(), xw)
-            np.testing.assert_array_equal(y.numpy(), yw)
             np.testing.assert_array_equal(w.numpy(), ww)
-    assert cached.epoch == host_loader.epoch == 2
+            real = ww > 0
+            np.testing.assert_array_equal(x.numpy()[real], xw[real])
+            np.testing.assert_array_equal(y.numpy()[real], yw[real])
+            np.testing.assert_array_equal(x.numpy()[~real], np.broadcast_to(
+                ds.images[0], xw[~real].shape))
+            np.testing.assert_array_equal(y.numpy()[~real], ds.labels[0])
+        for mine, want in zip(matrices.epoch_matrices(), theirs.epoch_matrices()):
+            assert mine.dtype == want.dtype
+            np.testing.assert_array_equal(mine, want)
+    assert cached.epoch == matrices.epoch == theirs.epoch == host_loader.epoch == 2
 
 
 def _write_image_folder(root, n_per_class=3, classes=("cat", "dog")):
@@ -76,9 +90,10 @@ def _write_image_folder(root, n_per_class=3, classes=("cat", "dog")):
 
 def test_datamngr_routes_follow_the_jax_rule(tmp_path, monkeypatch):
     """device_cache wins where set; else a split within
-    DEVICE_CACHE_AUTO_BYTES goes to DeviceCacheLoader; where the JAX package
-    would stream (ShardRotationLoader) the port raises, naming the ROADMAP
-    item, and with CONVNETS_TPU_STREAM=0 both take the host DataLoader."""
+    DEVICE_CACHE_AUTO_BYTES goes to DeviceCacheLoader; a larger one (or
+    device_cache=False) rotates through the device in chunks
+    (ShardRotationLoader) in both packages, and with CONVNETS_TPU_STREAM=0
+    both take the host DataLoader."""
     root = str(tmp_path / "folder")
     _write_image_folder(root)
     monkeypatch.chdir(tmp_path)  # the decode caches go under ./data/cache
@@ -103,11 +118,11 @@ def test_datamngr_routes_follow_the_jax_rule(tmp_path, monkeypatch):
 
     mine, theirs = routes(device_cache=False)
     assert type(theirs.load_train()).__name__ == "ShardRotationLoader"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mine.load_train()
+    assert type(mine.load_train()) is ShardRotationLoader
     monkeypatch.setattr(DataMngr, "DEVICE_CACHE_AUTO_BYTES", 64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        routes()[0].load_valid()
+    valid = routes()[0].load_valid()
+    assert type(valid) is ShardRotationLoader and valid.device.type == "cpu"
+    assert (valid.augment, valid.normalize, valid.shuffle) == (False, True, False)
     monkeypatch.setenv("CONVNETS_TPU_STREAM", "0")
     mine, theirs = routes(device_cache=False)
     assert type(mine.load_train()) is DataLoader
@@ -165,3 +180,84 @@ def test_augmented_step_crops_a_larger_batch_to_the_model(tmp_path):
     trainer.close()
     assert np.isfinite(trainer.epoch_results["train_loss"]).all()
     assert trainer.evaluate(DataLoader(big, 8), info=False) >= 0.0
+
+
+PAD_TRAIN, PAD_BATCH = 72, 32  # two full batches and one of 8 real rows and 24 padded
+LOSS_RTOL, PARAM_RTOL = 1e-3, 1e-3  # tests/test_torch_trainer.py:143-154's bars
+WITNESS, WITNESS_FACTOR = 1e-7, 10.0
+
+
+def _flat(tree):
+    from convnets_tpu_torch import bridge
+
+    return {"/".join(k): np.asarray(v) for k, v in bridge._flatten(tree).items()}
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def test_bn_fit_over_a_padded_split_matches_the_jax_device_cache_fit(tmp_path):
+    """One epoch of RN18@32 at b32 over 72 images from DeviceCacheLoaders in
+    both packages (their per-step routes), from the same bridged weights,
+    SGD, dropout 0, no augmentation: the last batch's 24 free rows replay
+    index 0 at weight 0 in both, and train-mode BN normalizes over them, so
+    the running statistics, the parameters and the epoch loss agree, each
+    leaf within the bar of tests/test_torch_trainer.py (PARAM_RTOL, or 10x
+    a JAX witness refitted with its conv weights x(1 + 1e-7·N(0,1))). With
+    zero images in those rows (the port's loader before) the running
+    statistics part far outside it."""
+    import jax
+
+    from convnets_tpu.models import build_model as jax_build_model
+    from convnets_tpu.settings import Settings as JSettings
+    from convnets_tpu_torch import bridge
+
+    kw = dict(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
+              batch_size=PAD_BATCH, epochs=1, optimizer="sgd", learning_rate=1e-3,
+              loss_reduction="mean", lr_scheduler="none", data_augment=False, data_norm=True,
+              dropout_rate=0.0, early_stop=False)
+    train, valid = _uint8(PAD_TRAIN, 0), _uint8(PAD_BATCH, 1)
+
+    def loaders(pkg):
+        if pkg == "jax":
+            pair = (JDeviceCacheLoader(JArrayDataset(train.images, train.labels), PAD_BATCH,
+                                       shuffle=True, seed=0),
+                    JDeviceCacheLoader(JArrayDataset(valid.images, valid.labels), PAD_BATCH))
+        else:
+            pair = (DeviceCacheLoader(train, PAD_BATCH, shuffle=True, seed=0, device="cpu"),
+                    DeviceCacheLoader(valid, PAD_BATCH, device="cpu"))
+        for loader in pair:
+            loader.scan_epochs = False
+        return pair
+
+    jt = JTrainer(jax_build_model("resnet", JSettings(**kw, output_dir=str(tmp_path / "j"))),
+                  use_mesh=False)
+    jt.init_state()
+    start = {"params": jax.tree.map(np.asarray, jt.state.params),
+             "state": jax.tree.map(np.asarray, jt.state.model_state)}
+    model = build_model("resnet", Settings(**kw, output_dir=str(tmp_path / "t")), device="cpu")
+    bridge.load_jax_variables(model, start)
+    tt = Trainer(model)
+    tt.fit(*loaders("port"))
+    tt.close()
+    jt.fit(*loaders("jax"))
+    jt.close()
+    want = {"params": _flat(jt.state.params), "state": _flat(jt.state.model_state)}
+    results = dict(jt.epoch_results)
+    rng = np.random.default_rng(1)
+    jt.state = jt.state._replace(model_state=start["state"], params=jax.tree.map(
+        lambda a: (a * (1 + WITNESS * rng.standard_normal(a.shape))).astype(a.dtype)
+        if a.ndim == 4 else a, start["params"]))
+    jt.fit(*loaders("jax"))
+    jt.close()
+    witness = {"params": _flat(jt.state.params), "state": _flat(jt.state.model_state)}
+    got = bridge.export_jax_variables(tt.model)
+    got = {"params": _flat(got["params"]), "state": _flat(got["state"])}
+    for k in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(tt.epoch_results[k], results[k], rtol=LOSS_RTOL, err_msg=k)
+    for coll in ("params", "state"):
+        assert set(got[coll]) == set(want[coll]) and want[coll]
+        for k in want[coll]:
+            bar = max(PARAM_RTOL, WITNESS_FACTOR * _rel(witness[coll][k], want[coll][k]))
+            assert _rel(got[coll][k], want[coll][k]) <= bar, (coll, k)

@@ -41,12 +41,15 @@ from convnets_tpu.train import metrics as jmetrics
 from convnets_tpu.train import scheduler as jsched
 from convnets_tpu_torch import bridge
 from convnets_tpu_torch.core.rng import generator_for
-from convnets_tpu_torch.data import ArrayDataset, DataLoader, synthetic_dataset
+from convnets_tpu_torch.data import (
+    ArrayDataset, DataLoader, DeviceCacheLoader, synthetic_dataset,
+)
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer, build_eval_step
 from convnets_tpu_torch.train import checkpoint as ckpt
 from convnets_tpu_torch.train import metrics
+from convnets_tpu_torch.train.graph import StepGraph
 from convnets_tpu_torch.train import scheduler as sched
 
 N_TRAIN, N_VALID, BATCH = 32, 20, 8  # the valid split's last batch: 4 real rows, 4 padded
@@ -515,7 +518,8 @@ def test_settings_are_the_jax_ones():
     assert mine.learning_rate == 0.5 and mine.distrib is not None
 
 
-def test_fit_debug_prints_gradient_norms_and_refuses_what_is_not_ported(tmp_path, capsys):
+def test_fit_debug_prints_gradient_norms_and_refuses_what_is_not_ported(tmp_path, capsys,
+                                                                       monkeypatch):
     tt = Trainer(build_model("resnet", Settings(**_kw(tmp_path, epochs=1, debug=True,
                                                        sanity_check=True)), device="cpu"))
     tt.fit(*_loaders("port", n_train=16))
@@ -524,15 +528,24 @@ def test_fit_debug_prints_gradient_norms_and_refuses_what_is_not_ported(tmp_path
     assert "grad_norm=" in out and "total params" in out and "item 8" in out
     with pytest.raises(NotImplementedError, match="item 8"):
         tt.debug_trace()
-    # the data path is ported: an augmented fit runs, and a loader that
-    # offers the JAX package's whole-epoch scan runs the per-step loop
+    # the data path is ported: an augmented fit runs (per-step under debug),
+    # and a loader that offers the whole-epoch scan takes the replayed-graph
+    # route once debug and sanity_check are off
     train, valid = _loaders("port", n_train=16)
     tt.setting.data_augment = True
     tt.fit(train, valid)
     assert "grad_norm=" in capsys.readouterr().out
     tt.setting.data_augment = False
-    train.scan_epochs = True
-    tt.fit(train, valid)
+    tt.setting.debug = tt.setting.sanity_check = False
+    scanning = DeviceCacheLoader(train.dataset, BATCH, shuffle=True, device="cpu")
+    assert scanning.scan_epochs and tt._use_epoch_scan(scanning)
+    runs = []
+    replay = StepGraph.run
+    monkeypatch.setattr(StepGraph, "run", lambda g, *a, **k: runs.append(g.kind) or
+                        replay(g, *a, **k))
+    tt.fit(scanning, valid)
+    assert "grad_norm=" not in capsys.readouterr().out
+    assert runs == ["train"] * tt.setting.epochs  # valid is a DataLoader: per-step
     tt.close()
     with pytest.raises(NotImplementedError, match="item 7"):
         Trainer(tt.model, use_mesh=True)
