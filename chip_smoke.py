@@ -6,7 +6,9 @@ as CUDA graphs, resident and chunked), the single-file
 serving artifact and the device data path (augmented RN26@32 fit → export
 → serve, RN50@224 served from the artifact), LeNet, ConvNet, the template
 net, VGG-16, SqueezeNet and InceptionNet-v1, the CLI (python -m
-convnets_tpu_torch) and the tuner on one NVIDIA GPU.
+convnets_tpu_torch) and the tuner, and AlexNet, SENet, SE-ResNet, SKNet,
+SK-ResNet and ShuffleNet-v1 on the widened conv kernels (dilation, wide
+groups, any dense stride) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -106,12 +108,14 @@ final line:
      F.conv2d and the bound, ms and TFLOP/s per shape, summed by layer use
      into the kernels line (ms_b256, simt_ms_b256, library_ms_b256,
      bound_ms_b256).
-  9. ResNeXt-50 (32x4d) at 3x224x224, 1000 classes, weights from --seed in
+  9. ResNeXt-26 (32x4d; the depth is cut from ResNeXt-50 to keep the whole
+     run well inside its time limit; phases 8 and 8b keep ResNeXt-50's
+     grouped shapes) at 3x224x224, 1000 classes, weights from --seed in
      the JAX layout, as phase 7 drives its families (exact launches per
-     forward: 37 conv2d_fused + 16 grouped_conv2d_fused + 1 max_pool2d;
-     per step: 37 conv2d_stats + 16 grouped_conv2d_stats + 53 reductions +
-     1 max_pool2d), then (v) one step of the batch_norm=False ResNeXt-50 at
-     batch 32 (16 grouped_conv2d_train forwards, finite gradients).
+     forward: 21 conv2d_fused + 8 grouped_conv2d_fused + 1 max_pool2d;
+     per step: 21 conv2d_stats + 8 grouped_conv2d_stats + 29 reductions +
+     1 max_pool2d), then (v) one step of the batch_norm=False ResNeXt-26 at
+     batch 32 (8 grouped_conv2d_train forwards, finite gradients).
   10. the Trainer on RN26@32 (CINIC-shaped), bf16, bench.py:93-98's
      settings without augmentation (SGD lr 0.05, momentum 0.9, the
      per-example-mean objective, step decay every 2 epochs, dropout 0.5,
@@ -227,8 +231,35 @@ final line:
      against two resident graphed epochs (DeviceCacheLoader) and two more
      (the control), same permutations, phase (i)'s bar, their img/s and
      peak device memory. Prints the graph JSON line.
+  14. the rest of the zoo on the widened conv kernels: (i) against their
+     plain versions, fp32 (TF32 off) and bf16, both epilogues (y with and
+     without scale/shift/ReLU; y, Σy, Σy² with the sums against those of
+     the kernel's own stored y), each on the route its plan gives it: every
+     distinct dilated grouped shape of SKNet-26 and SK-ResNet-26 at 32² (b64
+     fp32, b256 bf16) and of SKNet-50 at 224² (b8), every distinct
+     wide-group shape (Cin/G > 32) of ShuffleNet-v1 g2, g3, g4 and g8 at 32²
+     and 224² (b8), AlexNet's 11x11/4 stem at 224² (b8, b256) and a dilated
+     dense 3x3 (b8, b256); the b256 bf16 calls timed beside cuDNN's bf16
+     F.conv2d of the same stride, dilation and groups and the bound (the
+     rows' zoo2_*_b256 keys); conv_bn_relu_train on a dilated grouped shape,
+     grouped_conv2d_train on a wide one and conv2d_train at stride 4,
+     forward and gradients; (ii) AlexNet-cifar, SENet-26, SE-ResNet-26,
+     SKNet-26, SK-ResNet-26 and ShuffleNet-v1-g4 at 3x32x32 and
+     AlexNet-imagenet at 3x224x224, 10 classes, weights from --seed in the
+     JAX layout, each as phase 12 (i) drives its families (fp32 logits, the
+     fp32 SGD step with its control, bf16 learning, exact launches per
+     forward and step from model_launches, b256 serving against the plain
+     path and its img/s); a profiled b256 request of SK-ResNet-26 and of
+     ShuffleNet-g4 with no library convolution kernel in it; one step of
+     the batch_norm=False SK-ResNet-26 and ShuffleNet-g4 at b32 (rows 7 and
+     8); (iii) the CLI in process on phase 12's PNG tree: fit SE-ResNet-26,
+     SK-ResNet-26 and ShuffleNet-g4 at b256 for 2 epochs (replayed graphs
+     over DataMngr's DeviceCacheLoaders; launches per call, the falling
+     loss, epoch img/s, a profiled epoch's idle share), export SK-ResNet-26
+     and ShuffleNet-g4, served by a fresh process on the test split against
+     Trainer.test's argmax. Prints the zoo2 JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-13's paths (PATHS),
+  kernel: launches on its main path and on phases 10-14's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -273,7 +304,7 @@ POOL_TOL = 0.0  # a max of the same values is exact in either dtype
 AVG_POOL_TOL = 1e-6
 ARGMAX_MIN = 0.99
 SERVE_BATCHES = (1, 8, 64)  # RN50
-ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121, ResNeXt-50
+ZOO_SERVE_BATCHES = (8, 64)  # MobileNet-v1, DenseNet-121, ResNeXt-26
 THROUGHPUT_BATCHES = {"resnet": (64, 256), "mobilenet_v1": (64, 256), "densenet": (256,),
                       "resnext": (256,)}
 IMAGENET_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
@@ -287,25 +318,30 @@ LEARN_BATCH, LEARN_STEPS = 32, 10  # phases 5 (ii), 7 (ii), 9 (ii)
 # logit by ~lr·Σx, which at 1e-3 is tens of logits per step and the loss
 # climbs after three steps on both paths; the others read ≤ 2048.
 LEARN_LR = {"resnet": 1e-3, "mobilenet_v1": 1e-3, "densenet": 1e-3, "resnext": 1e-4}
-# zero-lr steps that bring (ii)'s BN running statistics to its batch's:
-# momentum 0.1 leaves 0.9^k of the initial running var (~1), which must be
-# small beside a layer's true var. MobileNet's depthwise outputs (He
-# fan-out init, std sqrt(2/(9C))) have var far below 1: after 40 steps the
-# 1.5% left over dominated them and eval mode served every image as one
-# class (train mode had learned all 32). 0.9^200 ≈ 7e-10.
-SETTLE_STEPS = 200
+# (ii)'s BN running statistics are brought to its batch's by zero-lr steps
+# with every BN's momentum set to SETTLE_MOMENTUM: at 1 a single step sets
+# them to that batch's statistics exactly. At the layers' own 0.1 a step
+# leaves 0.9^k of the initial running var (~1), which must be small beside a
+# layer's true var: MobileNet's depthwise outputs (He fan-out init, std
+# sqrt(2/(9C))) have var far below 1, and after 40 such steps the 1.5% left
+# over dominated them and eval mode served every image as one class (train
+# mode had learned all 32).
+SETTLE_STEPS, SETTLE_MOMENTUM = 1, 1.0
 WARMUP, TIMED = 5, 20  # bench.py's protocol
 # bench.py's batch per family (its first choice, 256, fits on an 80 GB card
 # for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
 TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256, "resnext": 256}
 NOBN_BATCH = 32  # phases 5 (iv), 9 (v)
-FAMILIES = {"resnet": "50", "mobilenet_v1": "v1", "densenet": "121", "resnext": "50"}
+FAMILIES = {"resnet": "50", "mobilenet_v1": "v1", "densenet": "121", "resnext": "26"}
+# phases 8 and 8b: the grouped kernels at ResNeXt-50's grouped shapes (7
+# shapes, 16 layers), whatever depth phase 9 runs
+GROUPED_SHAPES_KIND, GROUPED_SHAPES_LAYERS = "50", 16
 # kernel launches per forward (serving) and per train step, per family
 SERVE_LAUNCHES = {
     "resnet": {"conv2d_fused": 53, "max_pool2d": 1},
     "mobilenet_v1": {"conv2d_fused": 14, "depthwise_conv2d": 13},
     "densenet": {"conv2d_fused": 120, "max_pool2d": 1, "avg_pool2d": 3},
-    "resnext": {"conv2d_fused": 37, "grouped_conv2d_fused": 16, "max_pool2d": 1},
+    "resnext": {"conv2d_fused": 21, "grouped_conv2d_fused": 8, "max_pool2d": 1},
 }
 TRAIN_LAUNCHES = {
     "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1,
@@ -313,7 +349,7 @@ TRAIN_LAUNCHES = {
     "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13},
     "densenet": {"conv2d_stats": 1, "conv2d_stats_reduce": 1, "conv2d_fused": 119,
                  "max_pool2d": 1, "avg_pool2d": 3, "pool2d_backward": 4},
-    "resnext": {"conv2d_stats": 37, "grouped_conv2d_stats": 16, "conv2d_stats_reduce": 53,
+    "resnext": {"conv2d_stats": 21, "grouped_conv2d_stats": 8, "conv2d_stats_reduce": 29,
                 "max_pool2d": 1, "pool2d_backward": 1},
 }
 # the window kernels, whose route (vector or loop) is chosen by shape: on
@@ -457,21 +493,25 @@ def check_routes(what, launches, failures):
         failures.append(f"{what}: window kernels off the vector route: {routes}")
 
 
-def model_layers(model):
-    """(kind, H, W, Cin, Cout, k, stride, pad, relu, groups) of every conv
-    and pool of the model, in forward order, from its own modules. kind:
-    "conv" (a fused ConvBNReLU), "gconv" (a grouped one), "dwconv" (a
-    depthwise conv), "plainconv" (a Conv2d outside a ConvBNReLU), "maxpool",
-    "avgpool"."""
+def model_layers(model, with_dilation=False):
+    """(kind, H, W, Cin, Cout, k, stride, pad, relu, groups[, dilation]) of
+    every conv and pool of the model, in forward order, from its own
+    modules (SKConv's paths, descriptor and attention convs at their 1x1
+    input, ShuffleUnit's convs and the pool of its identity among them).
+    kind: "conv" (a fused ConvBNReLU), "gconv" (a grouped one), "dwconv" (a
+    depthwise one), "plainconv" / "plaingconv" / "plaindwconv" (a Conv2d
+    outside a ConvBNReLU), "maxpool", "avgpool"."""
     from convnets_tpu_torch import nn
+    from convnets_tpu_torch.models.blocks import SKConv
+    from convnets_tpu_torch.models.shufflenet_v1 import ShuffleUnit
 
     out = []
 
     def conv(kind, c, shape, relu):
         if c.groups > 1:
-            kind = "dwconv" if c.groups == shape[3] else "gconv"
+            kind = kind[:-4] + ("dwconv" if c.groups == shape[3] else "gconv")
         out.append((kind, shape[1], shape[2], shape[3], c.out_channels, c.kernel[0],
-                    c.stride[0], c.padding[0], relu, c.groups))
+                    c.stride[0], c.padding[0], relu, c.groups, c.dilation[0]))
 
     def walk(mod, shape):
         if isinstance(mod, nn.ConvBNReLU):
@@ -482,10 +522,23 @@ def model_layers(model):
             kind = "maxpool" if isinstance(mod, nn.MaxPool2d) else "avgpool"
             stride = mod.kernel if mod.stride is None else mod.stride
             out.append((kind, shape[1], shape[2], shape[3], shape[3], mod.kernel, stride,
-                        mod.padding, False, 1))
+                        mod.padding, False, 1, 1))
         elif isinstance(mod, (nn.Add, nn.Concat)):
             for branch in mod._modules.values():
                 walk(branch, shape)
+        elif isinstance(mod, SKConv):
+            for path in mod._paths():
+                walk(path, shape)
+            walk(mod.descriptor, (shape[0], 1, 1, mod.channels))
+            for att in mod._attentions():
+                walk(att, (shape[0], 1, 1, mod.desc_size))
+        elif isinstance(mod, ShuffleUnit):
+            inner = shape
+            for child in (mod.compress, mod.depthwise, mod.expand):
+                walk(child, inner)
+                inner = child.out_shape(inner)
+            if mod.pool is not None:
+                walk(mod.pool, shape)
         elif isinstance(mod, nn.Sequential):
             for child in mod._modules.values():
                 walk(child, shape)
@@ -494,11 +547,12 @@ def model_layers(model):
             walk(mod.child, shape)
 
     walk(model.module, model.batch_shape(1))
-    return out
+    return out if with_dilation else [layer[:-1] for layer in out]
 
 
 def distinct_shapes(model, kinds=("conv",)):
-    """{(H, W, Cin, Cout, k, stride, pad, groups): [relu flag of each layer]}."""
+    """{(H, W, Cin, Cout, k, stride, pad, groups): [relu flag of each layer]}
+    (of the families before phase 14, whose convs are all undilated)."""
     distinct = {}
     for _, h, w, cin, cout, k, s, p, relu, g in (l for l in model_layers(model)
                                                  if l[0] in kinds):
@@ -506,12 +560,12 @@ def distinct_shapes(model, kinds=("conv",)):
     return distinct
 
 
-def conv_work(n, h, w, cin, cout, k, s, p, groups=1, itemsize=2):
+def conv_work(n, h, w, cin, cout, k, s, p, groups=1, itemsize=2, dilation=1):
     """(FLOPs, bytes) of one conv call: 2·M·(k²·Cin/G)·Cout multiply-adds,
     and x and w read once, y written once, in the dtype of `itemsize`."""
     from convnets_tpu_torch.core.shapes import conv_out_size
 
-    oh, ow = conv_out_size(h, k, s, p), conv_out_size(w, k, s, p)
+    oh, ow = conv_out_size(h, k, s, p, dilation), conv_out_size(w, k, s, p, dilation)
     flops = 2 * n * oh * ow * cout * k * k * (cin // groups)
     return flops, itemsize * (n * h * w * cin + k * k * (cin // groups) * cout + n * oh * ow * cout)
 
@@ -521,9 +575,9 @@ def forward_gflop(model) -> float:
     modules (the pools, BN and the linear add < 0.1%, except ResNeXt's
     100,352 → 1000 classifier, which forward_linear_gflop counts)."""
     total = 0
-    for kind, h, w, cin, cout, k, s, p, _, g in model_layers(model):
+    for kind, h, w, cin, cout, k, s, p, _, g, d in model_layers(model, with_dilation=True):
         if not kind.endswith("pool"):
-            total += conv_work(1, h, w, cin, cout, k, s, p, g)[0]
+            total += conv_work(1, h, w, cin, cout, k, s, p, g, dilation=d)[0]
     return total / 1e9
 
 
@@ -792,19 +846,19 @@ def check_trainable(name, label, fn, args, dname, g, summary, failures, out_tol,
         add_times(row, 1, k_ms, p_ms, *work, lib_ms, peak)
 
 
-def conv_train_work(n, h, w, cin, cout, k, s, p, groups=1):
+def conv_train_work(n, h, w, cin, cout, k, s, p, groups=1, dilation=1):
     """(FLOPs, bytes) of a bf16 conv's fwd+bwd: three products (y, dx, dw);
     x, w and the cotangent read, y, dx and dw written."""
-    flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups)
+    flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups, dilation=dilation)
     return 3 * flops, 2 * nbytes
 
 
-def conv_lib(s, p, groups=1):
+def conv_lib(s, p, groups=1, dilation=1):
     """F.conv2d (cuDNN on the card) on NHWC x and HWIO w, NHWC out."""
     import torch.nn.functional as F
 
     return lambda a, b: F.conv2d(nchw(a), b.permute(3, 2, 0, 1), stride=s, padding=p,
-                                 groups=groups).permute(0, 2, 3, 1)
+                                 dilation=dilation, groups=groups).permute(0, 2, 3, 1)
 
 
 def pool_lib(mode, k, s, p):
@@ -815,10 +869,10 @@ def pool_lib(mode, k, s, p):
     return lambda a: pool(nchw(a), k, s, p).permute(0, 2, 3, 1)
 
 
-def conv_out_size(size, k, s, p):
+def conv_out_size(size, k, s, p, d=1):
     from convnets_tpu_torch.core.shapes import conv_out_size as out
 
-    return out(size, k, s, p)
+    return out(size, k, s, p, d)
 
 
 def stats_check(got, ref, dname, own=False):
@@ -1502,12 +1556,14 @@ def relu_outputs(model):
 
 
 def step_check(arch, seed, failures, make=None, batch=STEP_BATCH, image=IMAGE, classes=1000,
-               low_control=False):
+               low_control=False, cancelled=()):
     """(i) one fp32 SGD step at batch 8 with dropout 0: kernel path vs plain
     path, and the plain path against itself with perturbed conv weights.
     make(**setting fields): another model than the family's at 224² (phase
     10 runs RN26@32 at batch 64). low_control: also the plain path in bf16,
-    which the gradient bar must reject."""
+    which the gradient bar must reject. cancelled: suffixes of the leaves
+    whose true gradient is 0 (CANCELLED_LEAVES), each held to the bar
+    against the median leaf norm of the step instead of its own."""
     import torch
 
     from convnets_tpu_torch import bridge
@@ -1549,9 +1605,17 @@ def step_check(arch, seed, failures, make=None, batch=STEP_BATCH, image=IMAGE, c
     del masks
     (lk, gk, sk), (lp, gp, sp) = results["kernel"], results["plain"]
     gc = results["control"][1]
-    c_l2 = sorted(l2_err(gc[k], gp[k]) for k in gp)
+    zero = [k for k in gp if k.endswith(tuple(cancelled))] if cancelled else []
+    median = float(np.median([float(g.norm()) for g in gp.values()]))
+
+    def gap(a, b, k):
+        if k in zero:
+            return float((a - b).norm()) / median
+        return l2_err(a, b)
+
+    c_l2 = sorted(gap(gc[k], gp[k], k) for k in gp)
     loss_rel = abs(lk - lp) / abs(lp)
-    g_l2 = {k: l2_err(gk[k], gp[k]) for k in gp}
+    g_l2 = {k: gap(gk[k], gp[k], k) for k in gp}
     g_max = {k: rel_err(gk[k], gp[k]) for k in gp}
     worst_l2, worst_max = max(g_l2, key=g_l2.get), max(g_max, key=g_max.get)
     flat_k, flat_p = bridge._flatten(sk), bridge._flatten(sp)
@@ -1566,14 +1630,19 @@ def step_check(arch, seed, failures, make=None, batch=STEP_BATCH, image=IMAGE, c
         f"max|Δ|/max|g| {g_max[worst_max]:.2e} at {worst_max} (max|g| "
         f"{float(gp[worst_max].abs().max()):.3e}); median ‖Δ‖/‖g‖ "
         f"{float(np.median(list(g_l2.values()))):.2e}; BN running stats rel {s_err:.2e} "
-        f"(tol 1e-4) {'ok' if ok else 'FAIL'}\n    control, plain vs plain with conv weights "
+        f"(tol 1e-4) {'ok' if ok else 'FAIL'}"
+        + (f"\n    {len(zero)} leaves with a true gradient of 0 ({', '.join(cancelled)}: "
+           f"largest |g| {max(float(gp[k].abs().max()) for k in zero):.3e}) held against the "
+           f"step's median leaf norm {median:.3e}: worst {max(g_l2[k] for k in zero):.2e}"
+           if zero else "")
+        + f"\n    control, plain vs plain with conv weights "
         f"×(1 + {CONTROL_PERTURBATION:g}·N(0,1)): loss {results['control'][0]:.6f}, "
         f"{flips['control']} flips, ‖Δ‖/‖g‖ median {c_l2[len(c_l2) // 2]:.2e} max {c_l2[-1]:.2e}")
     if not ok:
         failures.append(f"fp32 {arch} train step: loss {loss_rel:.2e}, grads "
                         f"{g_l2[worst_l2]:.2e}, BN {s_err:.2e}")
     read = {"worst_grad_l2": g_l2[worst_l2], "control_worst_grad_l2": c_l2[-1],
-            "bar": STEP_GRAD_TOL}
+            "bar": STEP_GRAD_TOL, "zero_gradient_leaves": len(zero)}
     if low_control:
         b_l2 = sorted(l2_err(results["bf16"][1][k], gp[k]) for k in gp)
         rejects = b_l2[-1] > STEP_GRAD_TOL
@@ -1594,6 +1663,8 @@ def learn_check(arch, seed, failures):
     statistics brought to that batch, to be served."""
     import torch
 
+    from convnets_tpu_torch import nn
+
     rng = np.random.default_rng(seed + 3)
     x = torch.from_numpy(rng.integers(0, 256, (LEARN_BATCH, IMAGE, IMAGE, 3),
                                       dtype=np.uint8)).to(DEVICE)
@@ -1605,11 +1676,16 @@ def learn_check(arch, seed, failures):
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
             losses[path] = [float(step(state, x, y)[0]) for _ in range(LEARN_STEPS)]
     # steps at lr 0 leave the weights as they are and bring the BN running
-    # statistics (momentum 0.1) to this batch's, so eval mode computes what
-    # train mode learned
+    # statistics to this batch's, so eval mode computes what train mode
+    # learned
     state.lr = 0.0
+    bns = [(m, m.momentum) for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    for bn, _ in bns:
+        bn.momentum = SETTLE_MOMENTUM
     for _ in range(SETTLE_STEPS):
         step(state, x, y)
+    for bn, momentum in bns:
+        bn.momentum = momentum
     del state
     falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
     say(f"(ii) bf16 {arch}, {LEARN_STEPS} Adam steps (lr {LEARN_LR[arch]:g}) on one batch of "
@@ -1625,7 +1701,7 @@ def learn_check(arch, seed, failures):
 def nobn_check(arch, seed, failures):
     """The batch_norm=False net, one bf16 Adam step: conv2d_train on every
     dense conv, grouped_conv2d_train on every grouped one (RN50: phase 5
-    (iv); ResNeXt-50: phase 9 (v)). Its launches are those of the served
+    (iv); ResNeXt-26: phase 9 (v)). Its launches are those of the served
     forward and the stem pool's backward."""
     import torch
 
@@ -1995,7 +2071,8 @@ def grouped_shapes():
     modules."""
     from convnets_tpu_torch.models import build_model
 
-    model = build_model("resnext", model_setting("resnext", 0, True), device=DEVICE)
+    model = build_model("resnext", model_setting("resnext", 0, True, kind=GROUPED_SHAPES_KIND),
+                        device=DEVICE)
     return distinct_shapes(model, ("gconv",))
 
 
@@ -2052,7 +2129,7 @@ def phase_grouped_kernels(failures):
 
     distinct = grouped_shapes()
     n_layers = sum(len(v) for v in distinct.values())
-    if (len(distinct), n_layers) != (7, SERVE_LAUNCHES["resnext"]["grouped_conv2d_fused"]):
+    if (len(distinct), n_layers) != (7, GROUPED_SHAPES_LAYERS):
         failures.append(f"ResNeXt-50 walk found {len(distinct)} grouped shapes ({n_layers} layers)")
     rows = kernels.lib().grouped_block_rows()
     if rows != kernels.GroupedPlan("wgmma", 4).bm:
@@ -3566,6 +3643,13 @@ ZOO_CLASSES = 10
 ZOO_BATCH = 8  # (i): fp32 logits, the SGD step, the layer check (with CLI_FAMILY_BATCH)
 ZOO_FP32_TOL = 1e-4  # (i): fp32 eval logits, |Δ| ≤ tol · max |logit|
 ZOO_LEARN_LR = 1e-3  # (i): Adam on one batch of LEARN_BATCH
+# the step check's leaves whose true gradient is 0 by construction:
+# ShuffleNet's depthwise BN bias feeds the expand conv's BN, whose batch mean
+# removes any per-channel constant, so every path (and the control) holds
+# only rounding noise there (|g| ~1e-7 beside leaf gradients of ~1, and the
+# control's own ‖Δ‖/‖g‖ there is ~1.5); each is held to STEP_GRAD_TOL of the
+# step's median leaf norm instead of its own
+CANCELLED_LEAVES = {"shufflenet_v1": ("depthwise.1.bias",)}
 ZOO_SERVE_BATCH = 256
 # (ii): the CINIC-shaped PNG tree the CLI reads: images per split, 10 classes
 CLI_SPLITS = (("train", 2560), ("valid", 640), ("test", 640))
@@ -3598,22 +3682,32 @@ print(json.dumps({"argmax": np.concatenate(preds).tolist(),
 
 
 def model_launches(model):
-    """(per eval forward, per train step) launches of a dense model, read
-    off its modules (model_layers): per forward one conv2d_fused for each
-    conv and one max_pool2d for each max pool; per train step one
-    conv2d_stats and one reduction for each ConvBNReLU, one conv2d_fused
-    for each conv without BN (conv2d_train's forward), and one max_pool2d
-    and one pool2d_backward for each max pool."""
+    """(per eval forward, per train step) launches of a model, read off its
+    modules (model_layers): per forward one conv2d_fused for each dense
+    conv, one grouped_conv2d_fused for each grouped one, one
+    depthwise_conv2d for each depthwise one, one max_pool2d / avg_pool2d
+    for each pool; per train step one conv2d_stats (grouped_conv2d_stats)
+    and one reduction for each dense (grouped) ConvBNReLU, the forward
+    kernel of each conv without BN (conv2d_train, grouped_conv2d_train) and
+    of each depthwise conv (its ConvBNReLU runs unfused), and each pool's
+    forward and one pool2d_backward."""
     kinds = [layer[0] for layer in model_layers(model)]
-    bn, plain, pools = (kinds.count(k) for k in ("conv", "plainconv", "maxpool"))
-    return (launches_of({"conv2d_fused": bn + plain, "max_pool2d": pools}),
-            launches_of({"conv2d_stats": bn, "conv2d_stats_reduce": bn, "conv2d_fused": plain,
-                         "max_pool2d": pools, "pool2d_backward": pools}))
+    n = {k: kinds.count(k) for k in ("conv", "gconv", "dwconv", "plainconv", "plaingconv",
+                                     "plaindwconv", "maxpool", "avgpool")}
+    common = {"conv2d_fused": n["plainconv"], "grouped_conv2d_fused": n["plaingconv"],
+              "depthwise_conv2d": n["dwconv"] + n["plaindwconv"], "max_pool2d": n["maxpool"],
+              "avg_pool2d": n["avgpool"]}
+    return (launches_of({**common, "conv2d_fused": n["conv"] + n["plainconv"],
+                         "grouped_conv2d_fused": n["gconv"] + n["plaingconv"]}),
+            launches_of({**common, "conv2d_stats": n["conv"], "grouped_conv2d_stats": n["gconv"],
+                         "conv2d_stats_reduce": n["conv"] + n["gconv"],
+                         "pool2d_backward": n["maxpool"] + n["avgpool"]}))
 
 
-def zoo_model(arch, kind, image, seed, **kw):
+def zoo_model(arch, kind, image, seed, conv_gain=None, **kw):
     """The family at image² with 10 classes on the card, numpy weights from
-    `seed` in the JAX layout loaded by the bridge."""
+    `seed` in the JAX layout loaded by the bridge (conv_gain: as
+    random_jax_variables takes it, for a net without BN)."""
     from convnets_tpu_torch import bridge
     from convnets_tpu_torch.models import build_model
     from convnets_tpu_torch.settings import Settings
@@ -3623,7 +3717,7 @@ def zoo_model(arch, kind, image, seed, **kw):
                   seed=seed, learning_rate=ZOO_LEARN_LR, weight_decay=1e-4, optimizer="adam")
     fields.update(kw)
     model = build_model(arch, Settings(**fields), device=DEVICE)
-    bridge.load_jax_variables(model, random_jax_variables(model, seed))
+    bridge.load_jax_variables(model, random_jax_variables(model, seed, conv_gain))
     return model
 
 
@@ -3662,7 +3756,8 @@ def zoo_family(arch, kind, image, seed, card, failures):
 
     res["step"] = step_check(label, seed, failures, batch=ZOO_BATCH, image=image,
                              classes=ZOO_CLASSES,
-                             make=lambda **kw: zoo_model(arch, kind, image, seed, **kw))
+                             make=lambda **kw: zoo_model(arch, kind, image, seed, **kw),
+                             cancelled=CANCELLED_LEAVES.get(arch, ()))
 
     rng = np.random.default_rng(seed + 3)
     xb = torch.from_numpy(rng.integers(0, 256, (LEARN_BATCH, image, image, 3),
@@ -4410,9 +4505,510 @@ def path_entries(totals):
     return {k: v for k, v in out.items() if v}
 
 
-# the paths of phases 10-13 whose launches the kernels line carries as
+# phase 14: the rest of the zoo and the widened conv envelopes it needs.
+# (ii): the reference's CINIC configurations (3x32x32, 10 classes, full
+# width and depth) and AlexNet's ImageNet geometry
+ZOO2 = (("alexnet", "cifar", 32), ("senet", "26", 32), ("se_resnet", "26", 32),
+        ("sknet", "26", 32), ("sk_resnet", "26", 32), ("shufflenet_v1", "g4", 32),
+        ("alexnet", "imagenet", 224))
+ZOO2_NOBN = (("sk_resnet", "26"), ("shufflenet_v1", "g4"))  # (ii): rows 7 and 8 at NOBN_BATCH
+ZOO2_CLI = (("se_resnet", "26"), ("sk_resnet", "26"), ("shufflenet_v1", "g4"))  # (iii)
+ZOO2_EXPORT = ("sk_resnet", "shufflenet_v1")  # (iii): exported, served by a fresh process
+ZOO2_CLI_BATCH = 256
+# (i): the dilated grouped shapes of these (arch, kind, image) at their
+# batches, the wide-group ones (Cin/G > 32) of ShuffleNet's kinds at 32² and
+# 224², AlexNet's stem at 224² and one dilated dense shape (N, H, W, Cin,
+# Cout, k, stride, pad, dilation)
+ZOO2_DILATED = (("sknet", "26", 32), ("sk_resnet", "26", 32))
+ZOO2_DILATED_BATCHES = ((64, "float32"), (256, "bfloat16"))
+ZOO2_DILATED_224 = ("sknet", "50", 224)
+ZOO2_WIDE_KINDS = ("g2", "g3", "g4", "g8")
+ZOO2_STEM_BATCHES = (8, 256)
+ZOO2_DENSE_DILATED = (8, 28, 28, 64, 64, 3, 1, 2, 2)
+ZOO2_KEYS = ("zoo2_ms_b256", "zoo2_library_ms_b256", "zoo2_bound_ms_b256")
+# device kernels whose name marks a library convolution (cuDNN's and
+# CUTLASS's forward, data-gradient and weight-gradient kernels); the port's
+# own (OUR_KERNELS) are left out
+LIBRARY_CONV_MARKS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit", "conv", "winograd")
+
+
+def zoo2_shapes(arch, kind, image, want):
+    """{(H, W, Cin, Cout, k, stride, pad, dilation, groups)} of the grouped
+    convs of the model that `want` picks, "dilated" (dilation > 1) or
+    "wide" (Cin/G > 32), read off its modules (built on the CPU: only its
+    shapes are read)."""
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.settings import Settings
+
+    model = build_model(arch, Settings(kind=kind, input_size=(3, image, image),
+                                       num_classes=ZOO_CLASSES), device="cpu")
+    return {(h, w, cin, cout, k, s, p, d, g)
+            for layer, h, w, cin, cout, k, s, p, _, g, d in model_layers(model, with_dilation=True)
+            if layer.endswith("gconv") and ((want == "dilated" and d > 1)
+                                            or (want == "wide" and cin // g > 32))}
+
+
+def zoo2_kernel_fns(groups):
+    """(fused, fused plain, stats, stats plain, leading arguments) of the
+    kernels that take a conv of `groups`: the dense or the grouped ones."""
+    from convnets_tpu_torch.ops import kernels
+
+    if groups == 1:
+        return (kernels.conv2d_fused, kernels.conv2d_fused_plain, kernels.conv2d_stats,
+                kernels.conv2d_stats_plain, ())
+    return (kernels.grouped_conv2d_fused, kernels.grouped_conv2d_fused_plain,
+            kernels.grouped_conv2d_stats, kernels.grouped_conv2d_stats_plain, (groups,))
+
+
+def zoo2_route(dtype, n, h, w, cin, cout, k, s, p, d, groups):
+    """(the route the wrappers' plan gives the call, the route it must be:
+    bf16 on the tensor cores, dense always and grouped where Cin/G = Cout/G
+    in {4, 8, 16, 32} with Cin % 64 == 0, dilated or not; the rest and fp32
+    on the CUDA cores)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.ops.kernels.conv import GROUPED_WGMMA_CG
+
+    if groups == 1:
+        m = n * conv_out_size(h, k, s, p, d) * conv_out_size(w, k, s, p, d)
+        got = kernels.conv_plan(dtype, m, cin, cout).route
+        tensor_cores = True
+    else:
+        got = kernels.grouped_plan(dtype, cin, cout, groups).route
+        tensor_cores = cin == cout and cin % 64 == 0 and cin // groups in GROUPED_WGMMA_CG
+    return got, ("wgmma" if tensor_cores and dtype == torch.bfloat16 else "simt")
+
+
+def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
+    """One new shape against its plain versions on the card: conv2d_fused /
+    grouped_conv2d_fused with and without scale/shift/ReLU, and
+    conv2d_stats / grouped_conv2d_stats (y, and Σy, Σy² against the sums of
+    the kernel's own stored y), with phase 2/4/8's bars, on the route the
+    plan gives it. times: also the bf16 device ms of both kernels on that
+    route, cuDNN's bf16 F.conv2d of the same stride, dilation and groups,
+    and the bound, added to the rows' zoo2_*_b256. Returns the record."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w, cin, cout, k, s, p, d, groups = shape
+    dname = dname_of(dtype)
+    atol, rtol = CONV_TOL[dname]
+    cg = cin // groups
+    x = torch.randn(n, h, w, cin, device=DEVICE, generator=g).to(dtype)
+    wt = (torch.randn(k, k, cg, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cg)).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+    shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+    fused, fused_plain, stats, stats_plain, lead = zoo2_kernel_fns(groups)
+    route, want = zoo2_route(dtype, n, h, w, cin, cout, k, s, p, d, groups)
+    errs, ok = [], route == want
+    for epi in (None, (scale, shift)):
+        kw = dict(stride=s, padding=p, dilation=d, relu=epi is not None)
+        got = fused(x, wt, *lead, *(epi or ()), **kw)
+        ref = fused_plain(x, wt, *lead, *(epi or ()), **kw)
+        sync()
+        errs.append(float((got.float() - ref.float()).abs().max()))
+        ok = ok and within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+        del got, ref
+    kw = dict(stride=s, padding=p, dilation=d)
+    s_ok, y_err, e1, e2 = stats_check(stats(x, wt, *lead, **kw), stats_plain(x, wt, *lead, **kw),
+                                      dname, own=True)
+    rec = {"what": label, "n": n, "shape": list(shape), "dtype": dname, "route": route,
+           "fused_err": errs, "stats_y_err": y_err, "sum_rel": e1, "sumsq_rel": e2,
+           "ok": bool(ok and s_ok)}
+    fname = "conv2d_fused" if groups == 1 else "grouped_conv2d_fused"
+    sname = "conv2d_stats" if groups == 1 else "grouped_conv2d_stats"
+    entry(summary, fname)["err"] = max(entry(summary, fname)["err"], *errs)
+    entry(summary, sname)["err"] = max(entry(summary, sname)["err"], y_err)
+    text = ""
+    if times:
+        f_ms = time_ms(lambda: fused(x, wt, *lead, scale, shift, relu=True, **kw), REPS)
+        s_ms = time_ms(lambda: stats(x, wt, *lead, **kw), REPS)
+        xc, wc = nchw(x), oihw(wt)
+        c_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, dilation=d, groups=groups),
+                       REPS)
+        flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups, dilation=d)
+        bound = 1e3 * max(flops / PEAK_BF16, (nbytes + 8 * cout) / HBM_BPS)
+        for name, ms in ((fname, f_ms), (sname, s_ms)):
+            row = entry(summary, name)
+            for key, v in zip(ZOO2_KEYS, (ms, c_ms, bound)):
+                row[key] = row.get(key, 0.0) + v
+        rec.update(fused_ms=f_ms, stats_ms=s_ms, cudnn_ms=c_ms, bound_ms=bound,
+                   tflops=flops / f_ms / 1e9)
+        text = (f" | {f_ms:.4f} {s_ms:.4f} {c_ms:.4f} {bound:.4f} "
+                f"({flops / f_ms / 1e9:.1f} TFLOP/s)")
+    say(f"  {label} | {n} {' '.join(map(str, shape))} | {dname} {route} (want {want}) | "
+        f"{errs[0]:.3e} / {errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) | {y_err:.3e}, {e1:.2e}, "
+        f"{e2:.2e} ({STATS_TOL[dname]:g}, own y) {'ok' if rec['ok'] else 'FAIL'}{text}")
+    if not rec["ok"]:
+        failures.append(f"zoo2 {label} {n}x{shape} {dname} {route} (want {want}): fused {errs}, "
+                        f"stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}")
+    del x, wt
+    return rec
+
+
+def zoo2_kernels(summary, failures):
+    """Phase 14 (i): the widened envelopes against their plain versions,
+    fp32 (TF32 off) and bf16: every distinct dilated grouped shape of
+    SKNet-26 and SK-ResNet-26 at 32² (b64 fp32, b256 bf16, timed) and of
+    SKNet-50 at 224² (b8); every distinct wide-group shape of ShuffleNet-v1
+    g2, g3, g4, g8 at 32² and 224² (b8; the 32² ones also timed at b256
+    bf16); AlexNet's 11x11/4 stem at 224² (b8, b256, timed); one dilated
+    dense shape (b8, and timed at b256); then each train function at one
+    new shape, forward and gradients. Returns its records."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    f32, bf16 = torch.float32, torch.bfloat16
+    dtypes = {"float32": f32, "bfloat16": bf16}
+    cases = []  # (label, n, shape, dtype, timed)
+    dilated = {}
+    for arch, kind, image in ZOO2_DILATED:
+        for shape in zoo2_shapes(arch, kind, image, "dilated"):
+            dilated.setdefault(shape, []).append(f"{arch}{kind}")
+    for shape, where in sorted(dilated.items()):
+        for n, dname in ZOO2_DILATED_BATCHES:
+            cases.append((f"dilated {'/'.join(where)}@32", n, shape, dtypes[dname],
+                          dname == "bfloat16"))
+    arch, kind, image = ZOO2_DILATED_224
+    for shape in sorted(zoo2_shapes(arch, kind, image, "dilated")):
+        cases += [(f"dilated {arch}{kind}@{image}", KERNEL_BATCH, shape, dt, False)
+                  for dt in (f32, bf16)]
+    wide = {}
+    for gk in ZOO2_WIDE_KINDS:
+        for image in (32, IMAGE):
+            for shape in zoo2_shapes("shufflenet_v1", gk, image, "wide"):
+                wide.setdefault((image, shape), []).append(gk)
+    for (image, shape), where in sorted(wide.items()):
+        for dt in (f32, bf16):
+            cases.append((f"wide {'/'.join(where)}@{image}", KERNEL_BATCH, shape, dt, False))
+        if image == 32:
+            cases.append((f"wide {'/'.join(where)}@{image}", B256, shape, bf16, True))
+    stem = (IMAGE, IMAGE, 3, 64, 11, 4, 2, 1, 1)
+    for n in ZOO2_STEM_BATCHES:
+        cases += [("alexnet stem 11x11/4", n, stem, dt, n == B256 and dt == bf16)
+                  for dt in (f32, bf16)]
+    n, *dense = ZOO2_DENSE_DILATED
+    dense_shape = (*dense, 1)
+    cases += [("dilated dense", n, dense_shape, dt, False) for dt in (f32, bf16)]
+    cases.append(("dilated dense", B256, dense_shape, bf16, True))
+    say(f"(i) the widened envelopes, {len(cases)} calls: what | N H W Cin Cout k s p d G | dtype "
+        f"route | fused y err relu=0 / 1 (tol) | stats y err, Σ rel, Σ² rel (tol, own y) | at "
+        f"b{B256} bf16: fused ms, stats ms, cuDNN ms, bound ms")
+    records = [zoo2_conv_check(label, n, shape, dt, g, summary, failures, timed)
+               for label, n, shape, dt, timed in cases]
+    timed = [r for r in records if "fused_ms" in r]
+    say(f"(i) b{B256} bf16, the {len(timed)} timed shapes summed: fused "
+        f"{sum(r['fused_ms'] for r in timed):.3f} ms, stats {sum(r['stats_ms'] for r in timed):.3f}"
+        f" ms, cuDNN {sum(r['cudnn_ms'] for r in timed):.3f} ms, bound "
+        f"{sum(r['bound_ms'] for r in timed):.4f} ms")
+
+    say("(i) train functions at one new shape each: fn label | dtype | out max|Δ|/max|ref| (tol) "
+        "| gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms "
+        "plain_ms library_ms")
+    # the largest output of each kind (the shapes sort by H first)
+    dil = max(s_ for s_ in dilated if s_[5] == 2 and s_[2] // s_[8] >= 4)
+    wide_g4 = max(s_ for (im, s_), kinds in wide.items() if im == 32 and "g4" in kinds)
+    trains = (("conv_bn_relu_train_grouped", dil), ("grouped_conv2d_train", wide_g4),
+              ("conv2d_train", stem))
+    for name, (h, w, cin, cout, k, s, p, d, groups) in trains:
+        cg = cin // groups
+        x32 = torch.randn(KERNEL_BATCH, h, w, cin, device=DEVICE, generator=g)
+        w32 = torch.randn(k, k, cg, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cg)
+        sc = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        bi = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        work = conv_train_work(KERNEL_BATCH, h, w, cin, cout, k, s, p, groups, d)
+        label = f"{h} {cin} {cout} k{k} s{s} p{p} d{d} G{groups}"
+        for dtype in (f32, bf16):
+            dname = dname_of(dtype)
+            x, wt = x32.to(dtype), w32.to(dtype)
+            if name == "conv_bn_relu_train_grouped":
+                check_trainable(name, label, lambda a, b, c_, e: kernels.conv_bn_relu_train(
+                    a, b, c_, e, s, p, groups=groups, dilation=d)[0], [x, wt, sc, bi], dname, g,
+                    summary, failures, CONV_TOL[dname][1], work)
+            elif name == "grouped_conv2d_train":
+                check_trainable(name, label, lambda a, b: kernels.grouped_conv2d_train(
+                    a, b, groups, s, p, d), [x, wt], dname, g, summary, failures,
+                    CONV_TOL[dname][1], work, conv_lib(s, p, groups, d))
+            else:
+                check_trainable(name, label, lambda a, b: kernels.conv2d_train(a, b, s, p, d),
+                                [x, wt], dname, g, summary, failures, CONV_TOL[dname][1], work,
+                                conv_lib(s, p, 1, d))
+    return records
+
+
+def library_convs(prof):
+    """Names of the device kernels in a profile that look like a library's
+    convolution (LIBRARY_CONV_MARKS), the port's own kernels left out."""
+    from torch.autograd import DeviceType
+
+    names = {e.name for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA}
+    return sorted(n for n in names if any(m in n.lower() for m in LIBRARY_CONV_MARKS)
+                  and not any(o in n for o in OUR_KERNELS))
+
+
+def zoo2_no_library_conv(arch, kind, seed, failures):
+    """One bf16 b256 uint8 request of the family at 32² under the profiler:
+    no device kernel of it may be a library's convolution; returns (the
+    device kernels' names, the port's share of device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.serve import ServingModel
+
+    server = ServingModel(zoo_model(arch, kind, 32, seed), input_dtype="uint8",
+                          stats=IMAGENET_STATS)
+    req = np.random.default_rng(seed + 5).integers(0, 256, (ZOO_SERVE_BATCH, 32, 32, 3),
+                                                   dtype=np.uint8)
+    server(req)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server(req)
+        sync()
+    from torch.autograd import DeviceType
+
+    names = sorted({e.name for e in prof.events()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA})
+    device, ours, _ = device_split(prof, OUR_KERNELS)
+    bad = library_convs(prof)
+    ok = not bad and ours > 0
+    say(f"{arch}{kind}@32 bf16 b{ZOO_SERVE_BATCH} request under the profiler: {len(names)} "
+        f"distinct device kernels, the port's {ours / 1e3:.3f} of {device / 1e3:.3f} ms; library "
+        f"convolution kernels {bad} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{arch}{kind} served request ran library convolutions {bad}")
+    del server
+    return names, ours / max(device, 1e-9)
+
+
+def zoo2_nobn_step(arch, kind, seed, failures):
+    """(ii) one bf16 Adam step of the batch_norm=False net at NOBN_BATCH:
+    conv2d_train on every dense conv, grouped_conv2d_train on every grouped
+    one (rows 7 and 8), the launches model_launches reads off the model,
+    finite loss and gradients. Returns its launches."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    model = zoo_model(arch, kind, 32, seed, conv_gain=0.5, batch_norm=False)
+    state, step = train_state(model, debug=True)
+    rng = np.random.default_rng(seed + 4)
+    x = torch.from_numpy(rng.integers(0, 256, (NOBN_BATCH, 32, 32, 3), dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, ZOO_CLASSES, NOBN_BATCH)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    sync()
+    kernels.reset_launches()
+    loss, _, gnorm = step(state, x, y, generator=gen)
+    sync()
+    launches = dict(kernels.LAUNCHES)
+    want = model_launches(model)[1]
+    ok = launches == want and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss))
+    say(f"(ii) bf16 {arch}{kind}@32 batch_norm=False, one Adam step at b{NOBN_BATCH}: launches "
+        f"{launches_summary(launches)} (expected {launches_summary(want)}); loss "
+        f"{float(loss):.4f}, gradient global norm {float(gnorm):.4e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{arch}{kind} no-BN step: launches {launches}, loss {float(loss)}, "
+                        f"|g| {float(gnorm)}")
+    del model, state
+    return launches
+
+
+def zoo2_cli(seed, card, failures):
+    """Phase 14 (iii): `python -m convnets_tpu_torch`'s main in process on
+    phase 12's PNG tree: fit SE-ResNet-26, SK-ResNet-26 and ShuffleNet-v1-g4
+    at b256 for 2 epochs (replayed graphs over DataMngr's
+    DeviceCacheLoaders): launches per call, the falling loss, epoch img/s,
+    one more epoch under the profiler for the device time per step and the
+    idle share; export SK-ResNet-26 and ShuffleNet-g4 (--bake-norm), load
+    --testing, and serve the test split from a fresh process (both
+    processes started together after the last fit) against Trainer.test's
+    argmax. Returns (results, the record, the launches)."""
+    import torch
+
+    from convnets_tpu_torch.__main__ import main as cli_main
+    from convnets_tpu_torch.data.manager import DataMngr
+    from convnets_tpu_torch.ops import kernels
+
+    out, children = {}, []
+    n_train, n_test = CLI_SPLITS[0][1], CLI_SPLITS[2][1]
+    rec = new_record()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "cinic_like")
+        write_cli_tree(root, seed)
+        common = ["--input-size", "3,32,32", "--num-classes", str(ZOO_CLASSES), "--data-root",
+                  root, "--seed", str(seed), "--batch-size", str(ZOO2_CLI_BATCH)]
+        sync()
+        kernels.reset_launches()
+        with recorded_trainers(rec):
+            for arch, kind in ZOO2_CLI:
+                args = ["--arch", arch, "--kind", kind, *common, "--output-dir",
+                        os.path.join(tmp, arch)]
+                first = (len(rec["train"]), len(rec["eval"]), len(rec["epoch_s"]))
+                t0 = time.perf_counter()
+                rc = cli_main(["fit", *args, "--epochs", str(CLI_FAMILY_EPOCHS)])
+                sync()
+                seconds = {"fit": time.perf_counter() - t0}
+                trainer = rec["trainers"][-1]
+                loss = list(trainer.epoch_results["train_loss"])
+                epoch_s = rec["epoch_s"][first[2]:]
+                rates = [n_train / t for t in epoch_s]
+                ok = (rc == 0 and len(loss) == CLI_FAMILY_EPOCHS and all(np.isfinite(loss))
+                      and loss[-1] < loss[0])
+                fwd, step = model_launches(trainer.model)
+                sub = {"train": rec["train"][first[0]:], "eval": rec["eval"][first[1]:]}
+                ok_calls = check_calls(f"{arch}{kind} CLI", sub, step, fwd, failures)
+                # two more epochs: the first captures the graphs again (fit
+                # ends by loading its best checkpoint), the second, all
+                # replays, under the profiler
+                t0 = time.perf_counter()
+                loader = DataMngr(trainer.setting, root=root, device=DEVICE).load_train()
+                steps = len(loader)
+                trainer._run_train_epoch(loader, CLI_FAMILY_EPOCHS)
+                prof, host, _, _ = profiled_epoch(
+                    lambda: trainer._run_train_epoch(loader, CLI_FAMILY_EPOCHS + 1))
+                seconds["profiled_epoch"] = time.perf_counter() - t0
+                device, ours, _ = device_split(prof, OUR_KERNELS)
+                idle = 1.0 - device / 1e6 / host
+                timed_idle = 1.0 - device / 1e6 / epoch_s[-1]
+                say(f"(iii) CLI fit {arch}{kind}@32 b{ZOO2_CLI_BATCH}, {CLI_FAMILY_EPOCHS} epochs: "
+                    f"exit {rc}, train loss {loss} {'ok' if ok else 'FAIL'}; epoch img/s "
+                    f"{[round(r, 1) for r in rates]} ({card}); a profiled replayed epoch ({steps} "
+                    f"steps): device {device / 1e3 / steps:.3f} ms per step (the port's "
+                    f"kernels {ours / 1e3 / steps:.3f}), host {1e3 * host / steps:.3f} ms per "
+                    f"step, idle share {idle:.4f} there and {timed_idle:.4f} against the timed "
+                    f"epoch {CLI_FAMILY_EPOCHS - 1}")
+                if not ok:
+                    failures.append(f"zoo2 cli fit {arch}{kind}: exit {rc}, train loss {loss}")
+                res = {"train_loss": loss, "epoch_img_s": rates, "launches_ok": ok_calls,
+                       "launches_per_train_step": launches_summary(step),
+                       "launches_per_eval_call": launches_summary(fwd),
+                       "device_ms_per_step": device / 1e3 / steps,
+                       "kernels_ms_per_step": ours / 1e3 / steps, "idle_share": idle,
+                       "timed_epoch_idle_share": timed_idle, "seconds": seconds}
+                if arch in ZOO2_EXPORT:
+                    art = os.path.join(tmp, f"{arch}.bin")
+                    t0 = time.perf_counter()
+                    rc_e = cli_main(["export", *args, "--bake-norm", "--out", art])
+                    seconds["export"] = time.perf_counter() - t0
+                    rec["capture"] = True
+                    rc_t = cli_main(["load", *args, "--testing"])
+                    rec["capture"] = False
+                    sync()
+                    seconds["load_testing"] = time.perf_counter() - t0 - seconds["export"]
+                    batches = -(-n_test // ZOO2_CLI_BATCH)
+                    timed = rec["eval_io"][-batches:]  # test()'s timed loop
+                    xs = torch.cat([x[w > 0] for x, _, w in timed]).numpy()
+                    tested = torch.cat([p[w > 0] for _, p, w in timed]).numpy()
+                    xfile = os.path.join(tmp, f"{arch}_test_x.npy")
+                    np.save(xfile, xs)
+                    children.append((arch, kind, rc_e, rc_t, tested, [art, xfile]))
+                out[f"{arch}{kind}"] = res
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        # the fresh processes, all at once after the fits (each spends most
+        # of its time importing torch), so none runs beside a timed epoch
+        t0 = time.perf_counter()
+        children = [(*c[:5], subprocess.Popen([sys.executable, "-c", CLI_CHILD, HERE, *c[5]],
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True)) for c in children]
+        try:
+            for arch, kind, rc_e, rc_t, tested, proc in children:
+                child = finished(proc, 600)
+                served = (json.loads(child.stdout.strip().splitlines()[-1])
+                          if child.returncode == 0 else {})
+                agree = (float((np.asarray(served.get("argmax", [])) == tested).mean())
+                         if len(served.get("argmax", [])) == len(tested) else 0.0)
+                ok_art = (rc_e == 0 and rc_t == 0 and child.returncode == 0
+                          and agree >= ARGMAX_MIN and len(tested) == n_test)
+                say(f"(iii) {arch}{kind} exported (exit {rc_e}) and served by a fresh process on "
+                    f"the {len(tested)} test images (launches {served.get('launches')}): argmax = "
+                    f"Trainer.test's on {agree:.4f} (min {ARGMAX_MIN}) "
+                    f"{'ok' if ok_art else 'FAIL'}")
+                if not ok_art:
+                    failures.append(f"zoo2 artifact {arch}: rc {rc_e}/{rc_t}/{child.returncode}, "
+                                    f"agreement {agree}, {child.stderr[-2000:]}")
+                out[f"{arch}{kind}"]["artifact"] = {"agreement": agree,
+                                                    "launches": served.get("launches")}
+        finally:
+            for *_, proc in children:  # none outlives the phase
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        out["serving_processes_s"] = time.perf_counter() - t0
+    return out, rec, launches
+
+
+def phase_zoo2(seed, card, summary, failures):
+    """Phase 14: (i) the widened envelopes (zoo2_kernels); (ii) the seven
+    models of ZOO2 as phase 12 (i) drives its families (zoo_family), a
+    profiled b256 request of SK-ResNet-26 and ShuffleNet-g4 without a
+    library convolution, and the batch_norm=False SK-ResNet-26 and
+    ShuffleNet-g4 steps; (iii) the CLI (zoo2_cli). Prints the zoo2 JSON
+    line; returns the zoo2 path's launches per kernels-line entry."""
+    out, parts = {"card": card}, {}
+    t0 = time.perf_counter()
+    records = zoo2_kernels(summary, failures)
+    out["kernels"] = {
+        "calls": len(records), "ok": sum(r["ok"] for r in records),
+        "routes": {f"{r['dtype']} {r['route']}": sum(1 for q in records if (q["dtype"], q["route"])
+                                                      == (r["dtype"], r["route"]))
+                   for r in records},
+        "worst_fused_err": {d: max(max(r["fused_err"]) for r in records if r["dtype"] == d)
+                            for d in ("float32", "bfloat16")},
+        "b256": [{k: r[k] for k in ("what", "shape", "route", "fused_ms", "stats_ms", "cudnn_ms",
+                                    "bound_ms")} for r in records if "fused_ms" in r]}
+    parts["i"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["models"] = {}
+    for arch, kind, image in ZOO2:
+        t1 = time.perf_counter()
+        res, model32 = zoo_family(arch, kind, image, seed, card, failures)
+        del model32
+        res["seconds"] = time.perf_counter() - t1
+        out["models"][f"{arch}{kind}@{image}"] = res
+    out["served_kernels"] = {f"{arch}{kind}": zoo2_no_library_conv(arch, kind, seed, failures)[1]
+                             for arch, kind in ZOO2_NOBN}
+    nobn = {}
+    for arch, kind in ZOO2_NOBN:
+        for k, v in zoo2_nobn_step(arch, kind, seed, failures).items():
+            nobn[k] = nobn.get(k, 0) + v
+    parts["ii"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"], rec, cli = zoo2_cli(seed, card, failures)
+    parts["iii"] = time.perf_counter() - t0
+    out["seconds"] = parts
+
+    def in_train(name):
+        return sum(c[name] for c in rec["train"]) + nobn[name]
+
+    total = {k: cli[k] + nobn[k] for k in cli}
+    path = {k: total[k] for k in ("conv2d_fused", "grouped_conv2d_fused", "max_pool2d",
+                                  "avg_pool2d", "conv2d_stats", "conv2d_stats_reduce",
+                                  "grouped_conv2d_stats", "pool2d_backward", "depthwise_conv2d")}
+    path.update(conv_bn_relu_train=total["conv2d_stats"],
+                conv_bn_relu_train_grouped=total["grouped_conv2d_stats"],
+                conv2d_train=in_train("conv2d_fused"),
+                grouped_conv2d_train=in_train("grouped_conv2d_fused"),
+                depthwise_train=in_train("depthwise_conv2d"),
+                pool2d_train=in_train("max_pool2d"), pool2d_train_avg=in_train("avg_pool2d"))
+    bn_path = sum(c["conv2d_fused"] for c in rec["train"])
+    say(f"zoo2 path (the no-BN steps and the CLI): launches {path}; conv2d_train on a BN "
+        f"path (SK-ResNet's attention convs in the CLI fit's steps) {bn_path} "
+        f"{'ok' if bn_path > 0 else 'FAIL'}")
+    if bn_path <= 0:
+        failures.append("conv2d_train: no launch on a BN path")
+    out["launches"] = path
+    out["conv2d_train_bn_path"] = bn_path
+    say(json.dumps({"zoo2": out}))
+    return path
+
+
+# the paths of phases 10-14 whose launches the kernels line carries as
 # <path>_launches beside the main path's
-PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch")
+PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
+         "zoo2")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -4564,6 +5160,9 @@ def main():
     def phase_13():
         state["graphed_epoch"], state["chunked_epoch"] = phase_graph(args.seed, card, failures)
 
+    def phase_14():
+        state["zoo2"] = phase_zoo2(args.seed, card, summary, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -4582,6 +5181,7 @@ def main():
         "11": phase_11,
         "12": phase_12,
         "13": phase_13,
+        "14": phase_14,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -4626,7 +5226,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-13's {path} path")
+                failures.append(f"{name}: no launch on phase 10-14's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4638,7 +5238,7 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ("serving_ms",) if k in summary[name]}}
+            + ZOO2_KEYS + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

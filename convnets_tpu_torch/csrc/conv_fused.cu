@@ -24,8 +24,10 @@
 // serves the fp32 paths (the kernel-vs-plain checks in fp32): tensor-core
 // TF32 would not hold their bars. No bf16 call reaches the CUDA-core loop.
 //
-// Strides and padding are addressed directly: there is no space-to-depth
-// rewrite, no 1x1 decimation and no padded copy of the input.
+// Strides, dilation and padding are addressed directly: the tap (ky, kx)
+// of output pixel (oy, ox) reads input row oy*sh - ph + ky*dh and column
+// ox*sw - pw + kx*dw. There is no space-to-depth rewrite, no 1x1
+// decimation and no padded copy of the input.
 //
 // The fp32 loop, GEMM view: rows M = N*OH*OW output pixels, columns Cout,
 // depth K = kh*kw*Cin. A block owns a BM x BN output tile and walks K in
@@ -59,7 +61,7 @@ static_assert(THREADS == 256, "loader mapping assumes 256 threads");
 static_assert(BK * BN == THREADS * 4, "B loader moves 4 values per thread");
 
 struct ConvShape {
-  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw;
+  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw;
 };
 
 // STATS = false: scale/shift/relu epilogue, `partial` unused.
@@ -121,8 +123,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     const int kx = tap - ky * s.kw;
 #pragma unroll
     for (int r = 0; r < A_ROWS; ++r) {
-      const int ih = a_ih[r] + ky;
-      const int iw = a_iw[r] + kx;
+      const int ih = a_ih[r] + ky * s.dh;
+      const int iw = a_iw[r] + kx * s.dw;
       float v = 0.f;
       if (k_ok && (unsigned)ih < (unsigned)s.h && (unsigned)iw < (unsigned)s.w)
         v = x[a_base[r] + (ih * s.w + iw) * s.cin + ci];
@@ -269,8 +271,8 @@ int run_plan(bool stats, int dtype, int route, int bm, int bn, int gather, const
              const void* w, const void* scale, const void* shift, void* y, void* partial,
              const int* geo, int relu, void* stream) {
   if (route == 0 && dtype == 0 && bm == BM && bn == BN && gather == 0) {
-    const ConvShape s{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
-                      geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
+    const ConvShape s{geo[0], geo[1], geo[2],  geo[3],  geo[4],  geo[5],  geo[6], geo[7],
+                      geo[8], geo[9], geo[10], geo[11], geo[12], geo[13], geo[14]};
     return stats ? launch_simt<true>(x, w, nullptr, nullptr, y, partial, s, 0, stream)
                  : launch_simt<false>(x, w, scale, shift, y, nullptr, s, relu, stream);
   }
@@ -281,17 +283,17 @@ int run_plan(bool stats, int dtype, int route, int bm, int bn, int gather, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. scale/shift: both null (no epilogue)
-// or both (Cout,) fp32. route, bm, bn, gather: the plan of
+// dtype: 0 = float32, 1 = bfloat16. Any stride and dilation >= 1.
+// scale/shift: both null (no epilogue) or both (Cout,) fp32. route, bm, bn, gather: the plan of
 // ops/kernels/conv.py:conv_plan. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a plan that is not built.
 extern "C" int conv_fused_launch(int dtype, const void* x, const void* w,
                                  const void* scale, const void* shift, void* y,
                                  int n, int h, int wd, int cin, int oh, int ow,
                                  int cout, int kh, int kw, int sh, int sw,
-                                 int ph, int pw, int route, int bm, int bn,
-                                 int gather, int relu, void* stream) {
-  const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+                                 int ph, int pw, int dh, int dw, int route, int bm,
+                                 int bn, int gather, int relu, void* stream) {
+  const int geo[15] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw};
   return run_plan(false, dtype, route, bm, bn, gather, x, w, scale, shift, y, nullptr, geo,
                   relu, stream);
 }
@@ -301,10 +303,10 @@ extern "C" int conv_fused_launch(int dtype, const void* x, const void* w,
 extern "C" int conv_stats_launch(int dtype, const void* x, const void* w,
                                  void* y, void* partial, int n, int h, int wd,
                                  int cin, int oh, int ow, int cout, int kh,
-                                 int kw, int sh, int sw, int ph, int pw,
-                                 int route, int bm, int bn, int gather,
+                                 int kw, int sh, int sw, int ph, int pw, int dh,
+                                 int dw, int route, int bm, int bn, int gather,
                                  void* stream) {
-  const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+  const int geo[15] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw};
   return run_plan(true, dtype, route, bm, bn, gather, x, w, nullptr, nullptr, y, partial, geo,
                   0, stream);
 }

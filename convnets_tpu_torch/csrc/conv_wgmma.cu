@@ -26,8 +26,10 @@
 //  * A (the implicit im2col gather): K-major, 128-byte swizzle, one
 //    128-byte row of 64 depth values per output pixel. With Cin % 8 == 0
 //    each 16-byte chunk is 8 channels of one tap of one pixel, copied by
-//    cp.async (zero-filled outside the image, past M and past K); strides
-//    and padding are addressed directly. Otherwise (the 3-channel stems)
+//    cp.async (zero-filled outside the image, past M and past K); strides,
+//    dilation and padding are addressed directly (tap (ky, kx) of pixel
+//    (oy, ox) reads row oy*sh - ph + ky*dh, column ox*sw - pw + kx*dw).
+//    Otherwise (the 3-channel stems, Cin 68 and the like)
 //    the chunk is gathered value by value into the same swizzled layout.
 //  * B (weights, (K, Cout) row-major, Cout contiguous): MN-major, 128-byte
 //    swizzle, read by wgmma with its transpose bit; 16-byte cp.async per 8
@@ -45,7 +47,8 @@
 // n0 .. n0+63, i.e. 64/CG whole groups, whose inputs are the one slab of
 // input channels n0 .. n0+63. K is walked one tap per stage (KT = kh*kw)
 // through a ring of four slots loaded two stages ahead: A is the dense
-// 16-byte gather with the pixel's channel base moved to the slab. B is
+// 16-byte gather with the pixel's channel base moved to the slab, the tap
+// moved by ky*dh rows and kx*dw columns where the conv is dilated. B is
 // block-diagonal in shared memory only: K-major, one 128-byte swizzled row
 // of slab depth per output channel, laid out as A is. Every B slot is
 // zeroed once; the tap's CG x 64 weights (16-byte rows of w, read as
@@ -125,7 +128,7 @@ struct Ring {
 };
 
 struct Shape {
-  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw;
+  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw;
 };
 
 // The grouped mode's products: D(64 x N) += A(64 x 16, K-major) * B(16 x N,
@@ -340,8 +343,8 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         const bool k_ok = ta.ky < s.kh;
 #pragma unroll
         for (int i = 0; i < A_ROWS; ++i) {
-          const int iy = a_iy[i] + ta.ky;
-          const int ix = a_ix[i] + ta.kx;
+          const int iy = a_iy[i] + ta.ky * s.dh;
+          const int ix = a_ix[i] + ta.kx * s.dw;
           const bool ok = k_ok && (unsigned)iy < (unsigned)s.h && (unsigned)ix < (unsigned)s.w;
           const __nv_bfloat16* src = x;
           if (ok) src = x + ((a_pix[i] + iy * s.w + ix) * s.cin + ta.ci);
@@ -361,8 +364,8 @@ conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
           const bool k_ok = t.ky < s.kh;
 #pragma unroll
           for (int i = 0; i < A_ROWS; ++i) {
-            const int iy = a_iy[i] + t.ky;
-            const int ix = a_ix[i] + t.kx;
+            const int iy = a_iy[i] + t.ky * s.dh;
+            const int ix = a_ix[i] + t.kx * s.dw;
             if (k_ok && (unsigned)iy < (unsigned)s.h && (unsigned)ix < (unsigned)s.w)
               v[i][e >> 1] |= static_cast<uint32_t>(xs[(a_pix[i] + iy * s.w + ix) * s.cin + t.ci])
                               << ((e & 1) * 16);
@@ -619,12 +622,13 @@ int launch_grouped(bool stats, const void* x, const void* w, const void* scale,
 // bn 32, 64 or 128 output channels per CTA (BM = 128 rows), vec_a 1 for the
 // 16-byte gather (Cin % 8 == 0 and x 16-byte aligned, else refused) or 0
 // for the scalar one. geo: n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph,
-// pw. Returns a cudaError_t: cudaErrorInvalidValue for a plan not built.
+// pw, dh, dw. Returns a cudaError_t: cudaErrorInvalidValue for a plan not
+// built.
 int conv_wgmma_run(int stats, int bn, int vec_a, const void* x, const void* w,
                    const void* scale, const void* shift, void* y, void* partial,
                    const int* geo, int relu, void* stream) {
-  const Shape s{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
-                geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
+  const Shape s{geo[0], geo[1], geo[2],  geo[3],  geo[4],  geo[5],  geo[6], geo[7],
+                geo[8], geo[9], geo[10], geo[11], geo[12], geo[13], geo[14]};
   if (vec_a && (s.cin % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec_b = (s.cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) ? 1 : 0;
@@ -649,8 +653,8 @@ int conv_wgmma_run(int stats, int bn, int vec_a, const void* x, const void* w,
 int conv_wgmma_grouped_run(int stats, int groups, const void* x, const void* w,
                            const void* scale, const void* shift, void* y, void* partial,
                            const int* geo, int relu, void* stream) {
-  const Shape s{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6],
-                geo[7], geo[8], geo[9], geo[10], geo[11], geo[12]};
+  const Shape s{geo[0], geo[1], geo[2],  geo[3],  geo[4],  geo[5],  geo[6], geo[7],
+                geo[8], geo[9], geo[10], geo[11], geo[12], geo[13], geo[14]};
   if (groups < 1 || s.cin != s.cout || s.cin % 64 != 0 || s.cin % groups != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);

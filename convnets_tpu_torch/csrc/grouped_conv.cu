@@ -4,8 +4,9 @@
 // kinds) run on the tensor cores instead: route "wgmma", the grouped mode
 // of csrc/conv_wgmma.cu, which the entry points below call. This loop
 // serves fp32 (the fp32 checks) and the bf16 shapes outside that plan
-// (Cin/G = 2, Cout/G != Cin/G, Cin not a multiple of 64, a misaligned
-// operand), and it can be asked for on any shape of its envelope, so the
+// (Cin/G = 2, Cout/G != Cin/G, Cin/G above 32 as in ShuffleNet's wide 1x1s,
+// Cin not a multiple of 64, a dilated SKConv path off that plan, a
+// misaligned operand), and it can be asked for on any shape of its envelope, so the
 // two routes can be timed on the same inputs. Two epilogues, chosen by a
 // template parameter over one main loop, with the contracts of
 // conv_fused.cu:
@@ -29,20 +30,28 @@
 // stored, i.e. (kh*kw*cgi, Cout) with row tap*cgi + ci; output channel c
 // belongs to group c / cgo and reads input channels g*cgi .. g*cgi+cgi-1
 // (cgi = Cin/G, cgo = Cout/G). fp32 accumulation in (tap, ci) order.
-// Strides and padding are addressed in place.
+// Strides, dilation and padding are addressed in place: tap (ky, kx) of
+// output pixel (oy, ox) reads input row oy*sh - ph + ky*dh and column
+// ox*sw - pw + kx*dw.
 //
 // Tiling: a block owns BM output pixels and BN column slots. The slots hold
 // gpb whole groups of cw = min(cgo, BN) columns each (gpb = BN / max(cgo,
 // cgi), at least 1; a group wider than BN is split over nq = ceil(cgo/BN)
 // blocks), so the input channels the block reads are one contiguous slab of
-// gpb*cgi <= SLAB channels. For each tap (ky, kx) the block gathers the
-// slab of its BM pixels (A, zero outside the image) and the tap's weight
-// rows of its columns (B) into shared memory; each thread then accumulates
-// a TM x TN micro-tile over the cgi depth of its columns' group.
+// gpb*cgi channels. For each tap (ky, kx) the block walks that depth in
+// chunks: one chunk of the whole slab where cgi <= MAX_CGI (then gpb*cgi <=
+// SLAB), else (the wide groups: ShuffleNet's 1x1s with Cin/G up to 400,
+// where gpb = 1) chunks of MAX_CGI channels of the one group and a partial
+// last chunk (68 = 32 + 32 + 4). Per chunk the block gathers its channels
+// of its BM pixels (A, zero outside the image) and the chunk's weight rows
+// of its columns (B) into shared memory; each thread then accumulates a
+// TM x TN micro-tile over the chunk's depth of its columns' group. A wide
+// group's Cout/G (17 to 400) may leave slots of its block unused (cw < BN)
+// or take several blocks (nq > 1).
 //
-// What bounds it on the H100: per tap a thread issues 32 shared-memory
-// stores of A and 8 of B against cgi*TM*TN FMAs, one tap per pair of
-// barriers with no prefetch, so at cgi = 4 it is bound by the gather (load
+// What bounds it on the H100: per chunk a thread makes 32 shared-memory
+// stores of A and 8 of B against kc*TM*TN FMAs (kc: the chunk's depth),
+// one chunk per pair of barriers with no prefetch, so at cgi = 4 it is bound by the gather (load
 // instructions), not by FMAs or device memory; at cgi = 32 by the
 // CUDA-core FMA rate (67 TFLOP/s fp32), which alone keeps ResNeXt-50's 16
 // grouped layers at b256 above their 1.005 ms byte bound. That is why the
@@ -60,8 +69,8 @@ namespace {
 
 constexpr int BM = 128;   // output pixels per block
 constexpr int BN = 64;    // column slots per block
-constexpr int SLAB = 64;  // input channels gathered per pixel and tap
-constexpr int MAX_CGI = 32;
+constexpr int SLAB = 64;     // input channels gathered per pixel and chunk, at most
+constexpr int MAX_CGI = 32;  // depth of one chunk of B
 constexpr int TM = 8;     // rows per thread
 constexpr int TN = 4;     // columns per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
@@ -84,7 +93,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 struct GroupedShape {
-  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups;
+  int n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, groups;
   int cgi, cgo;  // channels per group, in and out
   int cw;        // columns of one group in one block: min(cgo, BN)
   int gpb;       // groups per block
@@ -125,7 +134,8 @@ grouped_conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   const int gb = by / s.nq;
   const int ch0 = gb * s.gpb * s.cgi;  // first input channel of the slab
   const int g_here = min(s.gpb, s.groups - gb * s.gpb);
-  const int slab = g_here * s.cgi;     // slab channels that exist (<= SLAB)
+  const int slab = g_here * s.cgi;       // slab channels that exist
+  const bool chunked = s.cgi > MAX_CGI;  // then gpb = 1: one group per block
 
   for (int m = tid; m < BM; m += THREADS) {
     const int p = m0 + m;
@@ -173,40 +183,46 @@ grouped_conv_kernel(const T* __restrict__ x, const T* __restrict__ wt,
   for (int tap = 0; tap < s.kh * s.kw; ++tap) {
     const int ky = tap / s.kw;
     const int kx = tap - ky * s.kw;
-    for (int m = a_m; m < BM; m += THREADS / SLAB) {
-      const int ih = pix_ih[m] + ky;
-      const int iw = pix_iw[m] + kx;
-      float v = 0.f;
-      if (a_c < slab && (unsigned)ih < (unsigned)s.h && (unsigned)iw < (unsigned)s.w)
-        v = to_f(x[pix_base[m] + (ih * s.w + iw) * s.cin + a_c]);
-      As[m * A_PITCH + a_c] = v;
-    }
-    for (int k = b_k; k < s.cgi; k += THREADS / BN) {
-      Bs[k * B_PITCH + b_slot] =
-          b_col >= 0 ? to_f(wt[(tap * s.cgi + k) * s.cout + b_col]) : 0.f;
-    }
-    __syncthreads();
-    for (int ci = 0; ci < s.cgi; ++ci) {
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[ci * B_PITCH + tx * TN]);
-      const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
-      if (one_group) {
-        const float* ap = &As[(ty * TM) * A_PITCH + mine[0].arow + ci];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float a = ap[i * A_PITCH];
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[i][j] = fmaf(As[(ty * TM + i) * A_PITCH + mine[j].arow + ci], b[j],
-                             acc[i][j]);
+    for (int k0 = 0; k0 < s.cgi; k0 += MAX_CGI) {
+      // this chunk: depth k0 .. k0+kc-1 of the group; A holds `width` channels
+      // from slab channel k0 on (the whole slab when unchunked, k0 = 0)
+      const int kc = chunked ? min(MAX_CGI, s.cgi - k0) : s.cgi;
+      const int width = chunked ? kc : slab;
+      for (int m = a_m; m < BM; m += THREADS / SLAB) {
+        const int ih = pix_ih[m] + ky * s.dh;
+        const int iw = pix_iw[m] + kx * s.dw;
+        float v = 0.f;
+        if (a_c < width && (unsigned)ih < (unsigned)s.h && (unsigned)iw < (unsigned)s.w)
+          v = to_f(x[pix_base[m] + (ih * s.w + iw) * s.cin + k0 + a_c]);
+        As[m * A_PITCH + a_c] = v;
       }
+      for (int k = b_k; k < kc; k += THREADS / BN) {
+        Bs[k * B_PITCH + b_slot] =
+            b_col >= 0 ? to_f(wt[(tap * s.cgi + k0 + k) * s.cout + b_col]) : 0.f;
+      }
+      __syncthreads();
+      for (int ci = 0; ci < kc; ++ci) {
+        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[ci * B_PITCH + tx * TN]);
+        const float b[TN] = {b4.x, b4.y, b4.z, b4.w};
+        if (one_group) {
+          const float* ap = &As[(ty * TM) * A_PITCH + mine[0].arow + ci];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float a = ap[i * A_PITCH];
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(As[(ty * TM + i) * A_PITCH + mine[j].arow + ci], b[j],
+                               acc[i][j]);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   if constexpr (!STATS) {
@@ -267,14 +283,13 @@ template <bool STATS>
 int launch_grouped(int dtype, const void* x, const void* w, const void* scale,
                    const void* shift, void* y, void* partial, int n, int h, int wd,
                    int cin, int oh, int ow, int cout, int kh, int kw, int sh, int sw,
-                   int ph, int pw, int groups, int relu, void* stream) {
+                   int ph, int pw, int dh, int dw, int groups, int relu, void* stream) {
   if (groups < 1 || cin % groups != 0 || cout % groups != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  GroupedShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups};
+  GroupedShape s{n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, groups};
   s.cgi = cin / groups;
   s.cgo = cout / groups;
-  if (s.cgi > MAX_CGI) return static_cast<int>(cudaErrorInvalidValue);
   s.cw = s.cgo < BN ? s.cgo : BN;
   const int widest = s.cgo > s.cgi ? s.cgo : s.cgi;
   s.gpb = widest >= BN ? 1 : BN / widest;
@@ -305,17 +320,17 @@ int launch_grouped(int dtype, const void* x, const void* w, const void* scale,
 int run_route(bool stats, int dtype, int route, const void* x, const void* w,
               const void* scale, const void* shift, void* y, void* partial, int n, int h,
               int wd, int cin, int oh, int ow, int cout, int kh, int kw, int sh, int sw, int ph,
-              int pw, int groups, int relu, void* stream) {
+              int pw, int dh, int dw, int groups, int relu, void* stream) {
   if (route == 0) {
     return stats ? launch_grouped<true>(dtype, x, w, nullptr, nullptr, y, partial, n, h, wd,
-                                        cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups, 0,
-                                        stream)
+                                        cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw,
+                                        groups, 0, stream)
                  : launch_grouped<false>(dtype, x, w, scale, shift, y, nullptr, n, h, wd, cin,
-                                         oh, ow, cout, kh, kw, sh, sw, ph, pw, groups, relu,
-                                         stream);
+                                         oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, groups,
+                                         relu, stream);
   }
   if (route == 1 && dtype == 1) {
-    const int geo[13] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw};
+    const int geo[15] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw};
     return conv_wgmma_grouped_run(stats, groups, x, w, scale, shift, y, partial, geo, relu,
                                   stream);
   }
@@ -329,17 +344,19 @@ int run_route(bool stats, int dtype, int route, const void* x, const void* w,
 extern "C" int grouped_block_rows() { return BM; }
 
 // dtype: 0 = float32, 1 = bfloat16. w (kh, kw, Cin/G, Cout); scale/shift:
-// both null (no epilogue) or both (Cout,) fp32. route: the plan of
-// ops/kernels/conv.py:grouped_plan (0 simt, Cin/G <= 32; 1 wgmma). Returns
+// both null (no epilogue) or both (Cout,) fp32. Any stride and dilation >=
+// 1. route: the plan of ops/kernels/conv.py:grouped_plan (0 simt, any Cin/G;
+// 1 wgmma). Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a plan
 // that is not built.
 extern "C" int grouped_fused_launch(int dtype, const void* x, const void* w,
                                     const void* scale, const void* shift, void* y,
                                     int n, int h, int wd, int cin, int oh, int ow,
                                     int cout, int kh, int kw, int sh, int sw, int ph,
-                                    int pw, int groups, int route, int relu, void* stream) {
+                                    int pw, int dh, int dw, int groups, int route, int relu,
+                                    void* stream) {
   return run_route(false, dtype, route, x, w, scale, shift, y, nullptr, n, h, wd, cin, oh, ow,
-                   cout, kh, kw, sh, sw, ph, pw, groups, relu, stream);
+                   cout, kh, kw, sh, sw, ph, pw, dh, dw, groups, relu, stream);
 }
 
 // y = grouped conv(x, w) in x's dtype, and partial (ceil(M /
@@ -348,7 +365,8 @@ extern "C" int grouped_fused_launch(int dtype, const void* x, const void* w,
 extern "C" int grouped_stats_launch(int dtype, const void* x, const void* w, void* y,
                                     void* partial, int n, int h, int wd, int cin, int oh,
                                     int ow, int cout, int kh, int kw, int sh, int sw,
-                                    int ph, int pw, int groups, int route, void* stream) {
+                                    int ph, int pw, int dh, int dw, int groups, int route,
+                                    void* stream) {
   return run_route(true, dtype, route, x, w, nullptr, nullptr, y, partial, n, h, wd, cin, oh,
-                   ow, cout, kh, kw, sh, sw, ph, pw, groups, 0, stream);
+                   ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, groups, 0, stream);
 }

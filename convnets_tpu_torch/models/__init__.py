@@ -3,6 +3,6 @@ from convnets_tpu_torch.models.base import (  # noqa: F401
 )
 # each import registers its families
 from convnets_tpu_torch.models import (  # noqa: F401
-    convnet, densenet, inceptionnet_v1, mobilenet_v1, resnet, resnext, squeezenet,
-    template_net, vggnet,
+    alexnet, convnet, densenet, inceptionnet_v1, mobilenet_v1, resnet, resnext, se_resnet,
+    senet, shufflenet_v1, sk_resnet, sknet, squeezenet, template_net, vggnet,
 )

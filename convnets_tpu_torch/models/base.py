@@ -120,8 +120,7 @@ def build_model(arch: str, setting, device="cuda",
     caller asks for another device (`device="cpu"`, as the tests do); with
     no CUDA device present that default raises rather than falling back."""
     if arch not in _REGISTRY:
-        raise KeyError(f"unknown architecture '{arch}'; have {sorted(_REGISTRY)} "
-                       f"(the rest of the zoo is ROADMAP.md modules item 5)")
+        raise KeyError(f"unknown architecture '{arch}'; have {sorted(_REGISTRY)}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"build_model: device {str(device)!r} asked for, but no CUDA "

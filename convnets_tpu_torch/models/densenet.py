@@ -50,7 +50,7 @@ def _dense_block(b: Builder, size: int, growth: int):
         raise NotImplementedError(
             "CONVNETS_TPU_DENSENET_FUSED=1: the shared-statistics DenseBlockFused "
             "(ops batch_stats / bn_apply_stats) is not ported yet (ROADMAP.md: modules "
-            "item 5)")
+            "item 8)")
     layers = []
     for _ in range(size):
         cin = b.in_channels

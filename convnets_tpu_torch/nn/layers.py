@@ -11,13 +11,16 @@ model, the Trainer's eval step and an exported program run the same graph;
 in train mode conv_bn_relu_train (conv2d_stats
 or grouped_conv2d_stats), conv2d_train, grouped_conv2d_train,
 depthwise_train and pool2d_train. A conv is dense, depthwise or grouped
-(`_check_conv_envelope`, tested in the JAX package's order). A depthwise
-ConvBNReLU runs unfused, as in the JAX package: the depthwise kernel, then
-BatchNorm2d, then ReLU; a grouped one runs fused, as a dense one. Train
-mode updates the BN running statistics in place, once per forward. What
-the port does not have yet (grouped convs outside `fits_grouped`, dilated
-convs, Remat in train mode) raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+(`_check_conv_envelope`, tested in the JAX package's order): a dense conv
+of any stride and dilation, a depthwise one (undilated), or a grouped one
+with Cin/G >= 2, at most 64 groups, stride 1 or 2, any dilation. A
+depthwise ConvBNReLU runs unfused, as in the JAX package: the depthwise
+kernel, then BatchNorm2d, then ReLU; a grouped one runs fused, as a dense
+one, dilated or not. Train mode updates the BN running statistics in
+place, once per forward. What no kernel takes (a grouped conv whose
+channels do not divide, with Cin/G = 1 but not depthwise, more than 64
+groups or stride 3 and up; a dilated depthwise conv) and train-mode Remat
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -56,12 +59,11 @@ def _check_conv_envelope(conv: "Conv2d", cin: int) -> str:
         return DEPTHWISE
     if kernels.fits_grouped(cin, conv.out_channels, conv.stride, conv.dilation, conv.groups):
         return GROUPED
-    if conv.groups > 1:
-        raise not_ported(f"grouped conv (groups={conv.groups}, Cin={cin}, dilation "
-                         f"{conv.dilation}) outside fits_grouped",
-                         "modules item 5, the SKNet/ShuffleNet grouped convs")
-    raise not_ported(f"conv with stride {conv.stride}, dilation {conv.dilation}",
-                     "kernels conv2d_fused envelope (stride 1 or 2, no dilation)")
+    raise not_ported(f"a conv with groups={conv.groups}, Cin={cin}, Cout={conv.out_channels}, "
+                     f"stride {conv.stride}, dilation {conv.dilation}, outside every kernel's "
+                     f"envelope (fits_grouped: Cin/G >= 2, channels that divide, at most 64 "
+                     f"groups, stride 1 or 2; fits_depthwise: undilated, multiplier 1)",
+                     "modules item 8, convs outside the kernels' envelopes")
 
 
 class Conv2d(Module):
@@ -109,19 +111,21 @@ class Conv2d(Module):
         family = _check_conv_envelope(self, x.shape[-1])
         cd = self.policy.compute_dtype
         x, w = x.to(cd), self.weight.to(cd)
+        geo = (list(self.stride), list(self.padding))
         if family == DEPTHWISE and self.training:
             y = kernels.depthwise_train(x, w, self.stride, self.padding)
         elif family == DEPTHWISE:
-            y = _OPS.depthwise_conv2d(x, w, list(self.stride), list(self.padding))
+            y = _OPS.depthwise_conv2d(x, w, *geo)
         elif family == GROUPED and self.training:
-            y = kernels.grouped_conv2d_train(x, w, self.groups, self.stride, self.padding)
+            y = kernels.grouped_conv2d_train(x, w, self.groups, self.stride, self.padding,
+                                             self.dilation)
         elif family == GROUPED:
-            y = _OPS.grouped_conv2d_fused(x, w, self.groups, None, None, list(self.stride),
-                                          list(self.padding), False)
+            y = _OPS.grouped_conv2d_fused(x, w, self.groups, None, None, *geo, False,
+                                          list(self.dilation))
         elif self.training:
-            y = kernels.conv2d_train(x, w, self.stride, self.padding)
+            y = kernels.conv2d_train(x, w, self.stride, self.padding, self.dilation)
         else:
-            y = _OPS.conv2d_fused(x, w, None, None, list(self.stride), list(self.padding), False)
+            y = _OPS.conv2d_fused(x, w, None, None, *geo, False, list(self.dilation))
         if self.bias is not None:
             y = y + self.bias.to(cd)
         return y
@@ -394,7 +398,12 @@ class ConvBNReLU(Sequential):
     of the JAX layer (:574-583). Children stay '0' Conv2d, '1'
     BatchNorm2d, ('2' ReLU), so the variable tree is the unfused one. A
     conv with a bias, and a depthwise conv (which fits neither fused kernel
-    in the JAX package either, :539-547), runs the unfused composition."""
+    in the JAX package either, :539-547), runs the unfused composition. A
+    dilated conv runs fused too (SKConv's second path), where the JAX
+    package runs it unfused on XLA (conv, then BatchNorm2d): the values
+    agree in fp32; in bf16 the fused path rounds y once (train: the stored
+    y the statistics are taken from; eval: after the folded epilogue)
+    where the JAX package rounds the conv output and then the BN output."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]
@@ -413,11 +422,11 @@ class ConvBNReLU(Sequential):
         if self.training:
             out, mean, var = kernels.conv_bn_relu_train(
                 x, w, bn.weight, bn.bias, conv.stride, conv.padding, bn.eps, self.act,
-                groups=conv.groups)
+                groups=conv.groups, dilation=conv.dilation)
             bn.update_running(mean, var, out.shape[0] * out.shape[1] * out.shape[2])
             return out
         s, sh = bn.folded()
-        geo = (list(conv.stride), list(conv.padding), self.act)
+        geo = (list(conv.stride), list(conv.padding), self.act, list(conv.dilation))
         if family == GROUPED:
             return _OPS.grouped_conv2d_fused(x, w, conv.groups, s, sh, *geo)
         return _OPS.conv2d_fused(x, w, s, sh, *geo)

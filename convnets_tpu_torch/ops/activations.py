@@ -11,8 +11,23 @@ def relu(x):
     return torch.clamp_min(x, 0)
 
 
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
 def softmax(x, dim=-1):
     return torch.softmax(x, dim=dim)
+
+
+def channel_shuffle(x, groups: int):
+    """ShuffleNet's channel shuffle on the channel (last) axis of NHWC, the
+    permutation of convnets_tpu/ops/activations.py:32: (…, g, C/g) → swap
+    the last two axes → (…, C). Channel j·g + i of the result is channel
+    i·(C/g) + j of x."""
+    *lead, c = x.shape
+    if c % groups:
+        raise ValueError(f"channel_shuffle: channels {c} not divisible by groups {groups}")
+    return x.reshape(*lead, groups, c // groups).transpose(-1, -2).reshape(*lead, c)
 
 
 def flatten(x):

@@ -14,10 +14,11 @@ import torch.nn.functional as F
 from convnets_tpu_torch.core.shapes import to_pair
 
 
-def conv2d(x, w, *, stride=1, padding=0, groups=1):
+def conv2d(x, w, *, stride=1, padding=0, dilation=1, groups=1):
     """x (N, H, W, C), w (kh, kw, C/groups, O). Returns (N, H', W', O) in x.dtype."""
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                 stride=to_pair(stride), padding=to_pair(padding), groups=groups)
+                 stride=to_pair(stride), padding=to_pair(padding), dilation=to_pair(dilation),
+                 groups=groups)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 

@@ -19,7 +19,10 @@ cores (csrc/conv_fused.cu), which only the fp32 checks use. The grouped
 conv (`grouped_conv2d_fused`, `grouped_conv2d_stats`) runs the plan of
 `grouped_plan`: bf16 at Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64 ==
 0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), fp32 and
-the other bf16 shapes on the CUDA cores (csrc/grouped_conv.cu). The
+the other bf16 shapes (among them the wide groups, Cin/G above 32) on the
+CUDA cores (csrc/grouped_conv.cu). Both conv families take any stride and
+dilation: the kernels address the tap (ky, kx) of output pixel (oy, ox)
+at input row oy·sh − ph + ky·dh and column ox·sw − pw + kx·dw. The
 window kernels (`depthwise_conv2d`, `max_pool2d`, `avg_pool2d`,
 `pool2d_backward`) run on the CUDA cores on the route that
 `depthwise_plan` / `pool_plan` pick by shape: "vector" (8 channels per
@@ -87,11 +90,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
-    # route, bm, bn, gather, relu, stream
-    "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 18 + [_P],
-    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
+    # dh, dw, route, bm, bn, gather, relu, stream
+    "conv_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 20 + [_P],
+    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw,
     # route, bm, bn, gather, stream
-    "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 17 + [_P],
+    "conv_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 19 + [_P],
     # partial, out, blocks, cout, stream
     "stats_reduce_launch": [_P, _P, _I, _I, _P],
     # dtype, x, y, taps, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, r, stream
@@ -104,11 +107,11 @@ _SIGNATURES = {
     # stream
     "depthwise_launch": [_I, _P, _P, _P] + [_I] * 18 + [_P],
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
-    # groups, route, relu, stream
-    "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 16 + [_P],
-    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, groups,
-    # route, stream
-    "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 15 + [_P],
+    # dh, dw, groups, route, relu, stream
+    "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 18 + [_P],
+    # dtype, x, w, y, partial, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw,
+    # groups, route, stream
+    "grouped_stats_launch": [_I, _P, _P, _P, _P] + [_I] * 17 + [_P],
     "grouped_block_rows": [],
     # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, route, th, stream
     "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -230,21 +233,22 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def fits_conv(stride, dilation, groups: int) -> bool:
-    """Envelope of conv2d_fused: dense, undilated, stride 1 or 2."""
-    sh, sw = to_pair(stride)
-    dh, dw = to_pair(dilation)
-    return groups == 1 and (dh, dw) == (1, 1) and (sh, sw) in ((1, 1), (2, 2))
+    """Envelope of conv2d_fused / conv2d_stats / conv2d_train: dense, any
+    stride and dilation >= 1 (AlexNet's 11x11/4 stem among them)."""
+    return groups == 1 and min(*to_pair(stride), *to_pair(dilation)) >= 1
 
 
 def fits_grouped(cin: int, cout: int, stride, dilation, groups: int) -> bool:
     """Envelope of the grouped kernels (grouped_conv2d_fused/_stats and
-    grouped_conv2d_train), that of the JAX package's grouped path
-    (ops/pallas/__init__.py:fits_grouped): 2 <= Cin/G <= 32, at most 64
-    groups, undilated, stride 1 or 2."""
+    grouped_conv2d_train): the JAX package's grouped path
+    (ops/pallas/__init__.py:fits_grouped: 2 <= Cin/G <= 32, at most 64
+    groups, undilated, stride 1 or 2) widened by dilation (SKConv's second
+    path) and by Cin/G above 32 (ShuffleNet's grouped 1x1s): any Cin/G >= 2
+    whose channels divide, at most 64 groups, stride 1 or 2, any dilation
+    >= 1."""
     sh, sw = to_pair(stride)
-    dh, dw = to_pair(dilation)
     return (1 < groups <= 64 and cin % groups == 0 and cout % groups == 0
-            and 2 <= cin // groups <= 32 and (dh, dw) == (1, 1)
+            and cin // groups >= 2 and min(to_pair(dilation)) >= 1
             and (sh, sw) in ((1, 1), (2, 2)))
 
 

@@ -29,8 +29,15 @@ in {4, 8, 16, 32} with Cin % 64 == 0 runs the grouped mode of the same
 tensor-core loop: 64 output channels (whole groups) per CTA, one tap per
 stage, the block-diagonal weight built in shared memory only and MMAs
 only on its blocks that hold weights (`grouped_slices`). fp32, and bf16
-outside that plan, run the CUDA-core loop of csrc/grouped_conv.cu, which
-sums each group's own products.
+outside that plan (the wide groups of ShuffleNet among them), run the
+CUDA-core loop of csrc/grouped_conv.cu, which sums each group's own
+products, walking a wide group's input channels in chunks of 32.
+
+Every conv kernel takes any dilation, and the dense ones any stride: the
+shape arguments of the C entry points (`geo`) are n, h, w, cin, oh, ow,
+cout, kh, kw, sh, sw, ph, pw, dh, dw, and the tap (ky, kx) of output
+pixel (oy, ox) reads input row oy·sh − ph + ky·dh, column ox·sw − pw +
+kx·dw.
 """
 
 from __future__ import annotations
@@ -134,10 +141,11 @@ class GroupedPlan(NamedTuple):
 
 def grouped_plan(dtype, cin: int, cout: int, groups: int, aligned: bool = True) -> GroupedPlan:
     """The plan of a grouped conv, Cin → Cout in `groups` groups, in
-    `dtype`. bf16 with Cin/G = Cout/G in GROUPED_WGMMA_CG, Cin % 64 == 0
-    and x and w 16-byte aligned (`aligned`): the tensor cores. fp32, and
-    every other bf16 shape of `fits_grouped` (Cin/G = 2, Cout/G ≠ Cin/G,
-    Cin not a multiple of 64, a misaligned operand): the CUDA-core loop."""
+    `dtype`, dilated or not. bf16 with Cin/G = Cout/G in GROUPED_WGMMA_CG,
+    Cin % 64 == 0 and x and w 16-byte aligned (`aligned`): the tensor
+    cores. fp32, and every other bf16 shape of `fits_grouped` (Cin/G = 2,
+    Cout/G ≠ Cin/G, Cin/G above 32, Cin not a multiple of 64, a misaligned
+    operand): the CUDA-core loop."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"grouped_plan: dtype {dtype} not supported (float32, bfloat16)")
     cg = cin // groups
@@ -174,36 +182,39 @@ def _epilogue_operands(scale, shift, cout, device):
     return scale.float().reshape(cout), shift.float().reshape(cout)
 
 
-def _conv_geometry(name, x, w, stride, padding, groups=1):
+def _conv_geometry(name, x, w, stride, padding, groups=1, dilation=1):
     """Check the operands of a conv kernel (dense, or grouped when groups >
     1); return its shape arguments (n, h, w, cin, oh, ow, cout, kh, kw, sh,
-    sw, ph, pw)."""
+    sw, ph, pw, dh, dw)."""
     n, h, wd, cin = x.shape
     kh, kw, wc, cout = w.shape
     if wc * groups != cin:
         raise ValueError(f"{name}: weight expects Cin={wc * groups}, input has {cin}")
     sh, sw = to_pair(stride)
     ph, pw = to_pair(padding)
-    if groups > 1 and not _k.fits_grouped(cin, cout, (sh, sw), 1, groups):
+    dh, dw = to_pair(dilation)
+    if groups > 1 and not _k.fits_grouped(cin, cout, (sh, sw), (dh, dw), groups):
         raise NotImplementedError(f"{name}: groups={groups} with Cin={cin}, Cout={cout}, "
-                                  f"stride {(sh, sw)} is outside the grouped kernel's envelope")
-    if not _k.fits_conv((sh, sw), 1, 1):
-        raise NotImplementedError(f"{name}: stride {(sh, sw)} (1 or 2 only)")
+                                  f"stride {(sh, sw)}, dilation {(dh, dw)} is outside the "
+                                  f"grouped kernel's envelope")
+    if not _k.fits_conv((sh, sw), (dh, dw), 1):
+        raise NotImplementedError(f"{name}: stride {(sh, sw)}, dilation {(dh, dw)} (each >= 1)")
     _k.check_cuda_operand(f"{name} x", x)
     _k.check_cuda_operand(f"{name} w", w, x.dtype)
-    oh = conv_out_size(h, kh, sh, ph)
-    ow = conv_out_size(wd, kw, sw, pw)
+    oh = conv_out_size(h, kh, sh, ph, dh)
+    ow = conv_out_size(wd, kw, sw, pw, dw)
     if n * oh * ow * cout >= 2 ** 31:
         raise ValueError(f"{name}: output of {n * oh * ow * cout} elements exceeds the "
                          f"kernels' 32-bit indexing")
-    return n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw
+    return n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw
 
 
-def _fused_plain(x, w, scale, shift, stride, padding, relu, groups):
+def _fused_plain(x, w, scale, shift, stride, padding, relu, groups, dilation=1):
     """The fused kernels' contract in plain PyTorch: fp32 (grouped) conv,
     fp32 epilogue, one cast to x.dtype."""
     scale, shift = _epilogue_operands(scale, shift, w.shape[-1], x.device)
-    y = ops.conv2d(x.float(), w.float(), stride=stride, padding=padding, groups=groups)
+    y = ops.conv2d(x.float(), w.float(), stride=stride, padding=padding, dilation=dilation,
+                   groups=groups)
     if scale is not None:
         y = y * scale + shift
     if relu:
@@ -218,11 +229,12 @@ def _with_sums(y):
     return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
 
 
-def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, route=None):
+def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, route=None,
+                  dilation=1):
     """Check the operands, then launch conv_fused_launch with its plan, or
     grouped_fused_launch with its (groups > 1; `route` forces one), and
     count it under `name`; returns y (N, OH, OW, Cout)."""
-    geo = _conv_geometry(name, x, w, stride, padding, groups)
+    geo = _conv_geometry(name, x, w, stride, padding, groups, dilation)
     n, _, _, _, oh, ow, cout = geo[:7]
     scale, shift = _epilogue_operands(scale, shift, cout, x.device)
     if scale is not None:
@@ -243,12 +255,12 @@ def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, rou
     return y
 
 
-def _launch_stats(name, x, w, stride, padding, groups=1, route=None):
+def _launch_stats(name, x, w, stride, padding, groups=1, route=None, dilation=1):
     """Check the operands, then launch conv_stats_launch with its plan, or
     grouped_stats_launch with its (groups > 1; `route` forces one): y and
     per-CTA partial sums, one row per tile of output pixels; then the
     fixed-order reduction kernel. Counts both. Returns (y, Σy, Σy²)."""
-    geo = _conv_geometry(name, x, w, stride, padding, groups)
+    geo = _conv_geometry(name, x, w, stride, padding, groups, dilation)
     n, _, _, _, oh, ow, cout = geo[:7]
     lib = _k.lib()
     if groups > 1:
@@ -275,79 +287,85 @@ def _launch_stats(name, x, w, stride, padding, groups=1, route=None):
 
 def conv2d_fused_plain(x, w, scale: Optional[torch.Tensor] = None,
                        shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                       relu: bool = False):
+                       relu: bool = False, dilation=1):
     """The kernel's contract in plain PyTorch: fp32 conv, fp32 epilogue,
     one cast to x.dtype."""
-    return _fused_plain(x, w, scale, shift, stride, padding, relu, 1)
+    return _fused_plain(x, w, scale, shift, stride, padding, relu, 1, dilation)
 
 
 def conv2d_fused(x, w, scale: Optional[torch.Tensor] = None,
                  shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                 relu: bool = False):
+                 relu: bool = False, dilation=1):
     """x (N, H, W, Cin) NHWC, w (kh, kw, Cin, Cout) HWIO in x.dtype;
     scale/shift (Cout,) fp32 — the BN-folded multiplier and offset of a
     conv → BN(inference) → ReLU block — or None for a plain conv.
-    Stride 1 or 2 (each axis), any padding. Returns (N, OH, OW, Cout)."""
+    Any stride and dilation (each axis), any padding. Returns (N, OH, OW,
+    Cout)."""
     if x.device.type == "cpu":
         return conv2d_fused_plain(x, w, scale, shift, stride=stride, padding=padding,
-                                  relu=relu)
-    return _launch_fused("conv2d_fused", x, w, scale, shift, stride, padding, relu)
+                                  relu=relu, dilation=dilation)
+    return _launch_fused("conv2d_fused", x, w, scale, shift, stride, padding, relu,
+                         dilation=dilation)
 
 
-def conv2d_stats_plain(x, w, *, stride=1, padding=0):
+def conv2d_stats_plain(x, w, *, stride=1, padding=0, dilation=1):
     """The statistics kernel's contract in plain PyTorch: y as
     conv2d_fused_plain gives it, and Σ, Σ² over (N, OH, OW) of y.float()."""
-    return _with_sums(conv2d_fused_plain(x, w, stride=stride, padding=padding))
+    return _with_sums(conv2d_fused_plain(x, w, stride=stride, padding=padding,
+                                         dilation=dilation))
 
 
-def conv2d_stats(x, w, *, stride=1, padding=0):
+def conv2d_stats(x, w, *, stride=1, padding=0, dilation=1):
     """Conv forward plus the per-channel batch statistics of its STORED
     output: returns (y, Σy, Σy²), y (N, OH, OW, Cout) in x.dtype, the sums
     fp32 (Cout,) over N·OH·OW (conv.py:534-538: the sums of the rounded y
     keep the fused path consistent with conv → BN over y). Two launches:
     the conv with per-block partial sums, then their fixed-order sum."""
     if x.device.type == "cpu":
-        return conv2d_stats_plain(x, w, stride=stride, padding=padding)
-    return _launch_stats("conv2d_stats", x, w, stride, padding)
+        return conv2d_stats_plain(x, w, stride=stride, padding=padding, dilation=dilation)
+    return _launch_stats("conv2d_stats", x, w, stride, padding, dilation=dilation)
 
 
 def grouped_conv2d_fused_plain(x, w, groups: int, scale: Optional[torch.Tensor] = None,
                                shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                               relu: bool = False):
+                               relu: bool = False, dilation=1):
     """The grouped kernel's contract in plain PyTorch: fp32 grouped conv,
     fp32 epilogue, one cast to x.dtype."""
-    return _fused_plain(x, w, scale, shift, stride, padding, relu, groups)
+    return _fused_plain(x, w, scale, shift, stride, padding, relu, groups, dilation)
 
 
 def grouped_conv2d_fused(x, w, groups: int, scale: Optional[torch.Tensor] = None,
                          shift: Optional[torch.Tensor] = None, *, stride=1, padding=0,
-                         relu: bool = False):
+                         relu: bool = False, dilation=1):
     """conv2d_fused for a grouped conv: x (N, H, W, Cin), w (kh, kw, Cin/G,
     Cout) in x.dtype, output channel c reading group c // (Cout/G) only.
-    Envelope `fits_grouped` (2 <= Cin/G <= 32, stride 1 or 2); the main
-    loop is the one `grouped_plan` picks. Returns (N, OH, OW, Cout)."""
+    Envelope `fits_grouped` (Cin/G >= 2, stride 1 or 2, any dilation); the
+    main loop is the one `grouped_plan` picks. Returns (N, OH, OW, Cout)."""
     if x.device.type == "cpu":
         return grouped_conv2d_fused_plain(x, w, groups, scale, shift, stride=stride,
-                                          padding=padding, relu=relu)
+                                          padding=padding, relu=relu, dilation=dilation)
     return _launch_fused("grouped_conv2d_fused", x, w, scale, shift, stride, padding, relu,
-                         groups)
+                         groups, dilation=dilation)
 
 
-def grouped_conv2d_stats_plain(x, w, groups: int, *, stride=1, padding=0):
+def grouped_conv2d_stats_plain(x, w, groups: int, *, stride=1, padding=0, dilation=1):
     """The grouped statistics kernel's contract in plain PyTorch."""
-    return _with_sums(grouped_conv2d_fused_plain(x, w, groups, stride=stride, padding=padding))
+    return _with_sums(grouped_conv2d_fused_plain(x, w, groups, stride=stride, padding=padding,
+                                                 dilation=dilation))
 
 
-def grouped_conv2d_stats(x, w, groups: int, *, stride=1, padding=0):
+def grouped_conv2d_stats(x, w, groups: int, *, stride=1, padding=0, dilation=1):
     """conv2d_stats for a grouped conv: (y, Σy, Σy²) of the stored y. Two
     launches: the grouped conv with per-block partial sums, then the same
     fixed-order reduction kernel as conv2d_stats."""
     if x.device.type == "cpu":
-        return grouped_conv2d_stats_plain(x, w, groups, stride=stride, padding=padding)
-    return _launch_stats("grouped_conv2d_stats", x, w, stride, padding, groups)
+        return grouped_conv2d_stats_plain(x, w, groups, stride=stride, padding=padding,
+                                          dilation=dilation)
+    return _launch_stats("grouped_conv2d_stats", x, w, stride, padding, groups,
+                         dilation=dilation)
 
 
-def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
+def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1, dilation=1):
     """(dx, dw) of y = conv(x, w) for the cotangent g, NHWC / HWIO in
     x.dtype; an entry is None where `need` says so. Plain PyTorch
     (aten.convolution_backward on channels_last views; cuDNN on the card):
@@ -356,7 +374,8 @@ def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
     wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
     dx, dw, _ = torch.ops.aten.convolution_backward(
         g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None,
-        list(to_pair(stride)), list(to_pair(padding)), [1, 1], False, [0, 0], groups,
+        list(to_pair(stride)), list(to_pair(padding)), list(to_pair(dilation)), False, [0, 0],
+        groups,
         [bool(need[0]), bool(need[1]), False])
     if dx is not None:
         dx = dx.permute(0, 2, 3, 1).contiguous()
@@ -367,32 +386,33 @@ def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1):
 
 class _Conv2dTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, padding, groups):
+    def forward(ctx, x, w, stride, padding, groups, dilation):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding)
-        ctx.groups = groups
+        ctx.groups, ctx.dilation = groups, dilation
         if groups == 1:
-            return _k.conv2d_fused(x, w, stride=stride, padding=padding)
-        return _k.grouped_conv2d_fused(x, w, groups, stride=stride, padding=padding)
+            return _k.conv2d_fused(x, w, stride=stride, padding=padding, dilation=dilation)
+        return _k.grouped_conv2d_fused(x, w, groups, stride=stride, padding=padding,
+                                       dilation=dilation)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = conv2d_backward(x, w, g, *ctx.conf, need=ctx.needs_input_grad[:2],
-                                 groups=ctx.groups)
-        return dx, dw, None, None, None
+                                 groups=ctx.groups, dilation=ctx.dilation)
+        return dx, dw, None, None, None, None
 
 
-def conv2d_train(x, w, stride=1, padding=0):
+def conv2d_train(x, w, stride=1, padding=0, dilation=1):
     """Trainable conv (conv.py:conv2d_train): forward through the
     conv2d_fused kernel with no epilogue, dx and dw by transposed
     convolution in plain PyTorch."""
-    return _Conv2dTrain.apply(x, w, stride, padding, 1)
+    return _Conv2dTrain.apply(x, w, stride, padding, 1, dilation)
 
 
-def grouped_conv2d_train(x, w, groups: int, stride=1, padding=0):
+def grouped_conv2d_train(x, w, groups: int, stride=1, padding=0, dilation=1):
     """Trainable grouped conv (conv.py:grouped_conv2d_train): forward
     through the grouped_conv2d_fused kernel with no epilogue, dx and dw by
     the grouped conv's VJP in plain PyTorch with the cotangent cast to
     x.dtype (conv.py:662-668); dw comes back (kh, kw, Cin/G, Cout)."""
-    return _Conv2dTrain.apply(x, w, stride, padding, groups)
+    return _Conv2dTrain.apply(x, w, stride, padding, groups, dilation)

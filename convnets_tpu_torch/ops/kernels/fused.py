@@ -23,11 +23,12 @@ from convnets_tpu_torch.ops.norm import _apply_norm, bn_input_grad
 
 class _ConvBNReLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups):
+    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups, dilation):
         if groups == 1:
-            y, s1, s2 = _k.conv2d_stats(x, w, stride=stride, padding=padding)
+            y, s1, s2 = _k.conv2d_stats(x, w, stride=stride, padding=padding, dilation=dilation)
         else:
-            y, s1, s2 = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding)
+            y, s1, s2 = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding,
+                                                dilation=dilation)
         n = y.shape[0] * y.shape[1] * y.shape[2]
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
@@ -36,14 +37,14 @@ class _ConvBNReLUTrain(torch.autograd.Function):
         out = torch.clamp_min(z, 0.0) if relu else z
         # y (the conv output), not out: x̂ and the ReLU mask are recomputed
         ctx.save_for_backward(x, w, scale, bias, y, mean, inv)
-        ctx.conf = (stride, padding, relu, groups)
+        ctx.conf = (stride, padding, relu, groups, dilation)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
     @staticmethod
     def backward(ctx, g, _dmean, _dvar):
         x, w, scale, bias, y, mean, inv = ctx.saved_tensors
-        stride, padding, relu, groups = ctx.conf
+        stride, padding, relu, groups, dilation = ctx.conf
         cd = y.dtype
         n = y.shape[0] * y.shape[1] * y.shape[2]
         xhat = (y - mean.to(cd)) * inv.to(cd)
@@ -56,14 +57,18 @@ class _ConvBNReLUTrain(torch.autograd.Function):
             dz = g.to(cd)
         dy, dscale, dbias = bn_input_grad(dz, xhat, scale, inv, n)
         dx, dw = conv2d_backward(x, w, dy, stride, padding, need=ctx.needs_input_grad[:2],
-                                 groups=groups)
+                                 groups=groups, dilation=dilation)
         return (dx, dw, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None,
-                None)
+                None, None)
 
 
-def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1):
+def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1,
+                       dilation=1):
     """x (N, H, W, Cin) and w (kh, kw, Cin/groups, Cout) in the compute
-    dtype, scale/bias (Cout,) fp32; groups > 1 within `fits_grouped`.
-    Returns (out, mean, var): out in x.dtype, mean and biased var fp32
-    (Cout,) for the caller's running update (they carry no gradient)."""
-    return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu, groups)
+    dtype, scale/bias (Cout,) fp32; groups > 1 within `fits_grouped`; any
+    dilation (SKConv's second path). Returns (out, mean, var): out in
+    x.dtype, mean and biased var fp32 (Cout,) for the caller's running
+    update (they carry no gradient). At 1x1 spatial (SKConv's descriptor)
+    the statistics are over the N values of each channel."""
+    return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu, groups,
+                                  dilation)

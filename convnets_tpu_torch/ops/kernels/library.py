@@ -20,6 +20,10 @@ Each op has two implementations and no other:
 There is no composite or default implementation: a tensor on any other
 device raises, and a CUDA tensor never reaches a plain version.
 
+The two conv ops take the dilation as their last argument, with the
+default [1, 1] in their schema, so a program saved before the argument
+existed still loads and runs undilated.
+
 Importing this module registers the ops; it compiles nothing.
 """
 
@@ -37,14 +41,19 @@ NAMESPACE = "convnets_torch"
 OPS = ("conv2d_fused", "grouped_conv2d_fused", "depthwise_conv2d", "max_pool2d", "avg_pool2d")
 
 
-def _out_hw(x, kernel, stride, padding):
+def _out_hw(x, kernel, stride, padding, dilation=1):
     (kh, kw), (sh, sw), (ph, pw) = to_pair(kernel), to_pair(stride), to_pair(padding)
-    return conv_out_size(x.shape[1], kh, sh, ph), conv_out_size(x.shape[2], kw, sw, pw)
+    dh, dw = to_pair(dilation)
+    return (conv_out_size(x.shape[1], kh, sh, ph, dh), conv_out_size(x.shape[2], kw, sw, pw, dw))
 
 
-def _conv_fake(x, w, stride, padding):
-    oh, ow = _out_hw(x, w.shape[:2], stride, padding)
+def _conv_fake(x, w, stride, padding, dilation):
+    oh, ow = _out_hw(x, w.shape[:2], stride, padding, dilation)
     return x.new_empty((x.shape[0], oh, ow, w.shape[-1]))
+
+
+_EPILOGUE = "Tensor? scale, Tensor? shift, int[] stride, int[] padding, bool relu"
+_DILATION = "int[2] dilation=[1, 1]"
 
 
 def _pool_fake(x, kernel, stride, padding):
@@ -52,33 +61,37 @@ def _pool_fake(x, kernel, stride, padding):
     return x.new_empty((x.shape[0], oh, ow, x.shape[-1]))
 
 
-@custom_op(f"{NAMESPACE}::conv2d_fused", mutates_args=(), device_types=("cpu", "cuda"))
+@custom_op(f"{NAMESPACE}::conv2d_fused", mutates_args=(), device_types=("cpu", "cuda"),
+           schema=f"(Tensor x, Tensor w, {_EPILOGUE}, {_DILATION}) -> Tensor")
 def conv2d_fused(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
                  shift: Optional[torch.Tensor], stride: List[int], padding: List[int],
-                 relu: bool) -> torch.Tensor:
+                 relu: bool, dilation: List[int] = (1, 1)) -> torch.Tensor:
     """ops/kernels/conv.py:conv2d_fused as an op: x NHWC, w HWIO, the fp32
-    epilogue scale/shift (or None), stride and padding pairs."""
-    return _k.conv2d_fused(x, w, scale, shift, stride=stride, padding=padding, relu=relu)
+    epilogue scale/shift (or None), stride, padding and dilation pairs."""
+    return _k.conv2d_fused(x, w, scale, shift, stride=stride, padding=padding, relu=relu,
+                           dilation=dilation)
 
 
 @conv2d_fused.register_fake
-def _(x, w, scale, shift, stride, padding, relu):
-    return _conv_fake(x, w, stride, padding)
+def _(x, w, scale, shift, stride, padding, relu, dilation=(1, 1)):
+    return _conv_fake(x, w, stride, padding, dilation)
 
 
-@custom_op(f"{NAMESPACE}::grouped_conv2d_fused", mutates_args=(), device_types=("cpu", "cuda"))
+@custom_op(f"{NAMESPACE}::grouped_conv2d_fused", mutates_args=(), device_types=("cpu", "cuda"),
+           schema=f"(Tensor x, Tensor w, SymInt groups, {_EPILOGUE}, {_DILATION}) -> Tensor")
 def grouped_conv2d_fused(x: torch.Tensor, w: torch.Tensor, groups: int,
                          scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
-                         stride: List[int], padding: List[int], relu: bool) -> torch.Tensor:
+                         stride: List[int], padding: List[int], relu: bool,
+                         dilation: List[int] = (1, 1)) -> torch.Tensor:
     """ops/kernels/conv.py:grouped_conv2d_fused as an op: w (kh, kw, Cin/G,
     Cout)."""
     return _k.grouped_conv2d_fused(x, w, groups, scale, shift, stride=stride, padding=padding,
-                                   relu=relu)
+                                   relu=relu, dilation=dilation)
 
 
 @grouped_conv2d_fused.register_fake
-def _(x, w, groups, scale, shift, stride, padding, relu):
-    return _conv_fake(x, w, stride, padding)
+def _(x, w, groups, scale, shift, stride, padding, relu, dilation=(1, 1)):
+    return _conv_fake(x, w, stride, padding, dilation)
 
 
 @custom_op(f"{NAMESPACE}::depthwise_conv2d", mutates_args=(), device_types=("cpu", "cuda"))

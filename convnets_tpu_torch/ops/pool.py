@@ -27,6 +27,7 @@ def avg_pool2d(x, kernel, stride=None, padding=0):
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def global_avg_pool2d(x):
-    """Mean over H, W taken in fp32, then cast back to x.dtype."""
-    return x.float().mean(dim=(-3, -2)).to(x.dtype)
+def global_avg_pool2d(x, keepdims: bool = False):
+    """Mean over H, W taken in fp32, then cast back to x.dtype; keepdims
+    keeps them as 1 × 1 (SKConv's descriptor input)."""
+    return x.float().mean(dim=(-3, -2), keepdim=keepdims).to(x.dtype)

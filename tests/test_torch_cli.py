@@ -85,9 +85,10 @@ def _jax_setting(output_dir):
 def test_models_lists_the_ten_registered_names(capsys):
     assert main(["models"]) == 0
     out = capsys.readouterr().out.split()
-    assert out == available_models() and len(out) == 10
+    assert out == available_models() and len(out) == 16
     assert {"convnet", "lenet", "mynetwork", "vggnet", "squeezenet", "inceptionnet_v1",
-            "resnet", "mobilenet_v1", "densenet", "resnext"} == set(out)
+            "resnet", "mobilenet_v1", "densenet", "resnext", "alexnet", "senet", "se_resnet",
+            "shufflenet_v1", "sknet", "sk_resnet"} == set(out)
 
 
 def test_fit_sanity_check_writes_a_checkpoint_and_plots(port_ckpt):

@@ -49,8 +49,11 @@ def _grouped_convs(kind):
 def test_every_resnext_grouped_conv_has_a_tensor_core_plan(kind, batch):
     convs = _grouped_convs(kind)
     assert convs and all(g == 32 for *_, g in convs)
-    if kind == "50":  # one grouped_conv2d_fused launch per grouped layer of a forward
+    if kind == chip_smoke.FAMILIES["resnext"]:  # phase 9's kind: one grouped_conv2d_fused
+        # launch per grouped layer of a forward
         assert len(convs) == chip_smoke.SERVE_LAUNCHES["resnext"]["grouped_conv2d_fused"]
+    if kind == chip_smoke.GROUPED_SHAPES_KIND:  # phases 8 and 8b's shapes
+        assert len(convs) == chip_smoke.GROUPED_SHAPES_LAYERS
     for h, w, cin, cout, k, s, p, g in convs:
         assert kernels.fits_grouped(cin, cout, s, 1, g)
         m = batch * conv_out_size(h, k, s, p) * conv_out_size(w, k, s, p)

@@ -223,9 +223,11 @@ def test_non_cpu_non_cuda_tensor_is_refused():
 
 
 @pytest.mark.parametrize("stride,dilation,groups,fits", [
-    (1, 1, 1, True), (2, 1, 1, True), ((1, 2), 1, 1, False), (3, 1, 1, False),
-    (1, 2, 1, False), (1, 1, 4, False)])
+    (1, 1, 1, True), (2, 1, 1, True), ((1, 2), 1, 1, True), (3, 1, 1, True),
+    (1, 2, 1, True), (1, 1, 4, False)])
 def test_fits_conv(stride, dilation, groups, fits):
+    """The dense kernels take any stride and dilation (AlexNet's 11x11/4
+    stem, a dilated dense conv); a grouped conv is not theirs."""
     assert kernels.fits_conv(stride, dilation, groups) is fits
 
 

@@ -19,7 +19,7 @@ from convnets_tpu.serve.export import _metadata as jax_metadata
 from convnets_tpu.serve.export import _serving_forward as jax_serving_forward
 from convnets_tpu.settings import Settings
 from convnets_tpu.train.checkpoint import save_checkpoint
-from convnets_tpu_torch import bridge, nn
+from convnets_tpu_torch import bridge, nn, ops
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.serve import ServingModel
 from convnets_tpu_torch.train import build_train_step, create_train_state, load_jax_checkpoint
@@ -191,9 +191,12 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
 def test_outside_the_slice_raises_not_implemented(monkeypatch):
     """Train mode runs; what is still outside it raises, naming ROADMAP.md:
     Remat in train mode, DenseNet's shared-statistics block, and (eval or
-    train) grouped convs outside fits_grouped: dilated, or with more than
-    32 input channels per group. Mixup is ported: its step builds, and
-    refuses to run without the step's DataRng."""
+    train) a conv outside every kernel's envelope (Cin/G = 1 with a
+    channel multiplier of 2). The dilated grouped conv and the one with 64
+    input channels per group, which raised before the grouped envelope
+    was widened, now run and equal the plain conv → BN → ReLU. Mixup is
+    ported: its step builds, and refuses to run without the step's
+    DataRng."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
                                            mixed_precision=False, remat=True), device="cpu")
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
@@ -211,9 +214,27 @@ def test_outside_the_slice_raises_not_implemented(monkeypatch):
     mixup_state = create_train_state(build_model("resnet", mixup, device="cpu"))
     with pytest.raises(ValueError, match="DataRng"):
         build_train_step(mixup_state)(mixup_state, x, torch.zeros(2, dtype=torch.int64))
+    gen = torch.Generator().manual_seed(0)
     for cin, dilation in ((4, 2), (128, 1)):
         grouped = nn.conv_block(8, 3, padding=dilation, dilation=dilation, groups=2)
-        grouped.init(torch.Generator().manual_seed(0), (1, 8, 8, cin))
-        for mode in (grouped.eval(), grouped.train()):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                mode(torch.zeros(1, 8, 8, cin))
+        grouped.init(gen, (1, 8, 8, cin))
+        conv, bn = grouped._modules["0"], grouped._modules["1"]
+        with torch.no_grad():
+            bn.running_mean.copy_(0.1 * torch.randn(8, generator=gen))
+            bn.running_var.uniform_(0.7, 1.3, generator=gen)
+        xg = torch.randn(2, 8, 8, cin, generator=gen)
+        y = ops.conv2d(xg, conv.weight, padding=dilation, dilation=dilation, groups=2)
+        want = ops.relu(ops.batch_norm_inference(y, bn.running_mean, bn.running_var,
+                                                 bn.weight, bn.bias))
+        with torch.no_grad():
+            np.testing.assert_allclose(grouped.eval()(xg).numpy(), want.numpy(), rtol=TOL,
+                                       atol=TOL)
+            want = ops.relu(ops.batch_norm_train(y, bn.running_mean, bn.running_var,
+                                                 bn.weight, bn.bias)[0])
+            np.testing.assert_allclose(grouped.train()(xg).numpy(), want.numpy(), rtol=TOL,
+                                       atol=TOL)
+    multiplier = nn.conv_block(16, 3, padding=1, groups=8)
+    multiplier.init(gen, (1, 8, 8, 8))
+    for mode in (multiplier.eval(), multiplier.train()):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            mode(torch.zeros(1, 8, 8, 8))

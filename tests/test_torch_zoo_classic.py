@@ -263,11 +263,13 @@ def _exact_conv_bn_relu_train(fp32_fn, conditioning):
     dtypes go to `fp32_fn`. Appends each call's largest mean²/var to
     `conditioning`, the factor by which a one-pass E[y²] - E[y]² variance
     multiplies the rounding of its sums."""
-    def fn(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1):
+    def fn(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1, dilation=1):
         if x.dtype != torch.float64:
-            return fp32_fn(x, w, scale, bias, stride, padding, eps, relu, groups=groups)
+            return fp32_fn(x, w, scale, bias, stride, padding, eps, relu, groups=groups,
+                           dilation=dilation)
         y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                                       stride=stride, padding=padding, groups=groups)
+                                       stride=stride, padding=padding, dilation=dilation,
+                                       groups=groups)
         y = y.permute(0, 2, 3, 1)
         mean, var = y.mean((0, 1, 2)), y.var((0, 1, 2), unbiased=False)
         conditioning.append(float((mean * mean / var).max().detach()))
