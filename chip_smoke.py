@@ -8,7 +8,9 @@ serving artifact and the device data path (augmented RN26@32 fit → export
 net, VGG-16, SqueezeNet and InceptionNet-v1, the CLI (python -m
 convnets_tpu_torch) and the tuner, and AlexNet, SENet, SE-ResNet, SKNet,
 SK-ResNet and ShuffleNet-v1 on the widened conv kernels (dilation, wide
-groups, any dense stride) on one NVIDIA GPU.
+groups, any dense stride), and DenseNet's shared-statistics block,
+train-mode Remat, the debug trace, the side-stream host feed and
+adaptive_avg_pool2d, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -239,9 +241,11 @@ final line:
      fp32, b256 bf16) and of SKNet-50 at 224² (b8), every distinct
      wide-group shape (Cin/G > 32) of ShuffleNet-v1 g2, g3, g4 and g8 at 32²
      and 224² (b8), AlexNet's 11x11/4 stem at 224² (b8, b256) and a dilated
-     dense 3x3 (b8, b256); the b256 bf16 calls timed beside cuDNN's bf16
-     F.conv2d of the same stride, dilation and groups and the bound (the
-     rows' zoo2_*_b256 keys); conv_bn_relu_train on a dilated grouped shape,
+     dense 3x3 (b8, b256); SKNet-50's dilated grouped 3x3s and the 224²
+     wide-group 1x1s also at b256 bf16; the b256 bf16 calls timed beside
+     cuDNN's bf16 F.conv2d of the same stride, dilation and groups and the
+     bound (the rows' zoo2_*_b256 keys, zoo2_224_*_b256 at 224²);
+     conv_bn_relu_train on a dilated grouped shape,
      grouped_conv2d_train on a wide one and conv2d_train at stride 4,
      forward and gradients; (ii) AlexNet-cifar, SENet-26, SE-ResNet-26,
      SKNet-26, SK-ResNet-26 and ShuffleNet-v1-g4 at 3x32x32 and
@@ -258,8 +262,37 @@ final line:
      loss, epoch img/s, a profiled epoch's idle share), export SK-ResNet-26
      and ShuffleNet-g4, served by a fresh process on the test split against
      Trainer.test's argmax. Prints the zoo2 JSON line.
+  15. the last single-card modules, at 3x224x224, 1000 classes, bf16
+     unless stated: (i) DenseNet-121 with the shared-statistics
+     DenseBlockFused (CONVNETS_TPU_DENSENET_FUSED=1) against the standard
+     layout with the same weights: the fp32 b8 SGD step (loss, every
+     gradient leaf beside the perturbed control, each bank's running
+     statistics against the matching bn1's), the fp32 b8 eval logits, the
+     fused model's kernel-vs-plain step check, a served b256 request's
+     launches with no library convolution in it; (ii) bench.py's b256
+     train step, standard and fused in turns: img/s, peak memory, launches
+     per step (both 1 + 1 + 119 conv2d_fused + 1 + 3 + 4), device ms per
+     step with the BN statistics and normalize passes split out; (iii)
+     Remat on RN50 and the fused DN121 against no remat: the fp32 b8 SGD
+     step (BN buffers bit for bit, gradients within the step bar, launches
+     exactly the step's plus the recomputed forwards'; the fused DN121 also
+     with dropout 0.5 inside the wrapped blocks, where a control whose
+     recompute redraws its masks must fall outside the bar), then b256
+     img/s and peak memory in turns; (iv) a replayed RN26@32 fit with
+     remat=True over a DeviceCacheLoader against the per-step loop, phase
+     13's protocol, launches per replay exact; (v) fit(debug=True) from a
+     host DataLoader: one trace line per module that runs, before the first
+     epoch, then a replayed epoch with no hook left; (vi) RN50 b256 steps
+     from a host DataLoader (side-stream copies) against the same batches
+     placed on the card first, bit for bit, and, under two profiles (CPU
+     and CUDA activity; CUDA alone), the copies' streams, their overlap
+     with kernels, the device's backlog as each copy was issued and the
+     pinned allocations and host waits; (vii) nn.AdaptiveAvgPool2d
+     (adaptive_avg_pool2d): one avg_pool2d launch per even call within
+     row 3's bars, uneven bins against the CPU. Prints the
+     last_modules JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-14's paths (PATHS),
+  kernel: launches on its main path and on phases 10-15's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -328,6 +361,11 @@ LEARN_LR = {"resnet": 1e-3, "mobilenet_v1": 1e-3, "densenet": 1e-3, "resnext": 1
 # mode had learned all 32).
 SETTLE_STEPS, SETTLE_MOMENTUM = 1, 1.0
 WARMUP, TIMED = 5, 20  # bench.py's protocol
+# phase 7 (iv)'s DN121 turns, (warm-up, timed) steps a run: the DN121 b256
+# step on the kernel path runs bench.py's protocol in phase 15 (ii), beside
+# the fused layout, so phase 7 keeps its plain-vs-kernel turns at this depth
+# to hold the whole run well inside its time limit
+DN121_TURNS = (2, 8)
 # bench.py's batch per family (its first choice, 256, fits on an 80 GB card
 # for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
 TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256, "resnext": 256}
@@ -493,21 +531,25 @@ def check_routes(what, launches, failures):
         failures.append(f"{what}: window kernels off the vector route: {routes}")
 
 
-def model_layers(model, with_dilation=False):
+def model_layers(model, with_dilation=False, inside_remat=False):
     """(kind, H, W, Cin, Cout, k, stride, pad, relu, groups[, dilation]) of
     every conv and pool of the model, in forward order, from its own
     modules (SKConv's paths, descriptor and attention convs at their 1x1
-    input, ShuffleUnit's convs and the pool of its identity among them).
-    kind: "conv" (a fused ConvBNReLU), "gconv" (a grouped one), "dwconv" (a
-    depthwise one), "plainconv" / "plaingconv" / "plaindwconv" (a Conv2d
-    outside a ConvBNReLU), "maxpool", "avgpool"."""
+    input, ShuffleUnit's convs and the pool of its identity among them,
+    DenseBlockFused's convs). kind: "conv" (a fused ConvBNReLU), "gconv" (a
+    grouped one), "dwconv" (a depthwise one), "plainconv" / "plaingconv" /
+    "plaindwconv" (a Conv2d outside a ConvBNReLU), "maxpool", "avgpool".
+    inside_remat: only those under a Remat (what its recompute runs)."""
     from convnets_tpu_torch import nn
     from convnets_tpu_torch.models.blocks import SKConv
+    from convnets_tpu_torch.models.densenet import DenseBlockFused
     from convnets_tpu_torch.models.shufflenet_v1 import ShuffleUnit
 
-    out = []
+    out, remat = [], []
 
     def conv(kind, c, shape, relu):
+        if inside_remat and not remat:
+            return
         if c.groups > 1:
             kind = kind[:-4] + ("dwconv" if c.groups == shape[3] else "gconv")
         out.append((kind, shape[1], shape[2], shape[3], c.out_channels, c.kernel[0],
@@ -518,7 +560,15 @@ def model_layers(model, with_dilation=False):
             conv("conv", mod._modules["0"], shape, mod.act)
         elif isinstance(mod, nn.Conv2d):
             conv("plainconv", mod, shape, False)
+        elif isinstance(mod, DenseBlockFused):
+            for i in range(mod.size):
+                c1 = mod._modules[f"conv1_{i}"]
+                conv("plainconv", c1, (*shape[:3], mod.c0 + i * mod.growth), False)
+                conv("plainconv", mod._modules[f"conv2_{i}"], (*shape[:3], c1.out_channels),
+                     False)
         elif isinstance(mod, (nn.MaxPool2d, nn.AvgPool2d)):
+            if inside_remat and not remat:
+                return
             kind = "maxpool" if isinstance(mod, nn.MaxPool2d) else "avgpool"
             stride = mod.kernel if mod.stride is None else mod.stride
             out.append((kind, shape[1], shape[2], shape[3], shape[3], mod.kernel, stride,
@@ -544,7 +594,9 @@ def model_layers(model, with_dilation=False):
                 walk(child, shape)
                 shape = child.out_shape(shape)
         elif isinstance(mod, nn.Remat):
+            remat.append(mod)
             walk(mod.child, shape)
+            remat.pop()
 
     walk(model.module, model.batch_shape(1))
     return out if with_dilation else [layer[:-1] for layer in out]
@@ -1732,25 +1784,67 @@ def nobn_check(arch, seed, failures):
     return launches
 
 
-def timed_steps(step, state, x, y, gen):
-    """bench.py's protocol: WARMUP steps, then TIMED steps on the host
-    clock, fenced by synchronize. Returns (seconds per step, last loss)."""
-    for _ in range(WARMUP):
+def timed_steps(step, state, x, y, gen, depth=(WARMUP, TIMED)):
+    """bench.py's protocol: depth = (warm-up, timed) steps, the timed ones
+    on the host clock, fenced by synchronize. Returns (seconds per step,
+    last loss)."""
+    warmup, timed = depth
+    for _ in range(warmup):
         step(state, x, y, generator=gen)
     sync()
     t0 = time.perf_counter()
-    for _ in range(TIMED):
+    for _ in range(timed):
         loss, _ = step(state, x, y, generator=gen)
     sync()
-    return (time.perf_counter() - t0) / TIMED, loss
+    return (time.perf_counter() - t0) / timed, loss
 
 
-def train_throughput(arch, seed, failures):
-    """bench.py's train step at TRAIN_BATCH[arch], bf16, kernel and plain
-    paths in turns on one model; returns (launches of one kernel run, img/s)."""
+def steps_in_turns(label, turns, x, y, gen, failures, want=None, depth=(WARMUP, TIMED),
+                   path=None, routes=()):
+    """Train steps in turns on one card (a, b, b, a), each run timed_steps
+    at `depth`: turns maps a name to (state, step, context), context()
+    wrapping its runs (plain_kernels for the plain path). Each run's
+    launches per step must equal want[name] where it is given, and are added
+    to path; the runs of the names in `routes` must keep every window
+    kernel on the vector route (check_routes, read just after the run).
+    Returns {name: {"seconds": [per step, each run], "peak": bytes,
+    "launches": [each run's]}}."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
+
+    names = list(turns)
+    out = {name: {"seconds": [], "peak": 0, "launches": []} for name in names}
+    for name in (names[0], names[1], names[1], names[0]):
+        state, step, context = turns[name]
+        r = out[name]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with context():
+            seconds, loss = timed_steps(step, state, x, y, gen, depth)
+        r["seconds"].append(seconds)
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+        r["launches"].append(dict(kernels.LAUNCHES))
+        if name in routes:
+            check_routes(f"{label} run", r["launches"][-1], failures)
+        if path is not None:
+            for k, v in r["launches"][-1].items():
+                path[k] = path.get(k, 0) + v
+        per_step = {k: v / sum(depth) for k, v in r["launches"][-1].items()}
+        if want is not None and name in want and per_step != want[name]:
+            failures.append(f"{label} {name} launches per step {launches_summary(per_step)} != "
+                            f"{launches_summary(want[name])}")
+        if not bool(torch.isfinite(loss)):
+            failures.append(f"{label} {name}: loss {float(loss)}")
+    return out
+
+
+def train_throughput(arch, seed, failures, depth=(WARMUP, TIMED)):
+    """bench.py's train step at TRAIN_BATCH[arch], bf16, kernel and plain
+    paths in turns on one model, `depth` steps a run; returns (launches of
+    one kernel run, img/s)."""
+    import torch
 
     batch = TRAIN_BATCH[arch]
     model = make_model(arch, seed, True)
@@ -1760,40 +1854,24 @@ def train_throughput(arch, seed, failures):
     x = torch.randint(0, 256, (batch, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
                       generator=gen)
     y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
-
-    def seconds_per_step():
-        seconds, loss = timed_steps(step, state, x, y, gen)
-        if not bool(torch.isfinite(loss)):
-            failures.append(f"{arch} b{batch} train step: loss {float(loss)}")
-        return seconds
-
-    runs = {"kernel": [], "plain": []}
-    launch_runs, peak = [], 0
     want = launches_of(TRAIN_LAUNCHES[arch])
-    for path in ("plain", "kernel", "kernel", "plain"):  # in turns, one card
-        if path == "kernel":
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launches()
-        with plain_kernels() if path == "plain" else contextlib.nullcontext():
-            runs[path].append(seconds_per_step())
-        if path == "kernel":
-            peak = max(peak, torch.cuda.max_memory_allocated())
-            launch_runs.append(dict(kernels.LAUNCHES))
-            check_routes(f"{arch} b{batch} train run", launch_runs[-1], failures)
-            per_step = {k: v / (WARMUP + TIMED) for k, v in launch_runs[-1].items()}
-            if per_step != want:
-                failures.append(f"{arch} b{batch} train launches per step {per_step} != {want}")
-    dt, dt_plain = (float(np.mean(runs[p])) for p in ("kernel", "plain"))
+    label = f"{arch} b{batch} train"
+    runs = steps_in_turns(label, {"plain": (state, step, plain_kernels),
+                                  "kernel": (state, step, contextlib.nullcontext)},
+                          x, y, gen, failures, {"kernel": want}, depth, routes=("kernel",))
+    launch_runs = runs["kernel"]["launches"]
+    dt, dt_plain = (float(np.mean(runs[p]["seconds"])) for p in ("kernel", "plain"))
     rate = batch / dt
     say(f"(iii/iv) train {arch}@224 bf16 b{batch} (Adam, wd 1e-4, dropout 0.5, uint8 batch on "
         f"the card): kernel path {rate:.1f} img/s ({1e3 * dt:.2f} ms/step; runs "
-        f"{[round(1e3 * t, 2) for t in runs['kernel']]} ms), plain path "
+        f"{[round(1e3 * t, 2) for t in runs['kernel']['seconds']]} ms), plain path "
         f"{batch / dt_plain:.1f} img/s ({1e3 * dt_plain:.2f} ms/step; runs "
-        f"{[round(1e3 * t, 2) for t in runs['plain']]} ms); peak memory (kernel path) "
-        f"{peak / 2 ** 30:.2f} GiB; {rate * gflop_train / 1e3:.2f} TFLOP/s of model "
-        f"arithmetic ({gflop_train:.3f} GFLOP/img: 3 × the forward convs and classifier)")
-    say(f"    launches per kernel run of {WARMUP + TIMED} steps: {launch_runs} "
-        f"(per step expected {want})")
+        f"{[round(1e3 * t, 2) for t in runs['plain']['seconds']]} ms); peak memory (kernel "
+        f"path) {runs['kernel']['peak'] / 2 ** 30:.2f} GiB; {rate * gflop_train / 1e3:.2f} "
+        f"TFLOP/s of model arithmetic ({gflop_train:.3f} GFLOP/img: 3 × the forward convs and "
+        f"classifier)")
+    say(f"    launches per kernel run of {sum(depth)} steps ({depth[0]} warm-up, {depth[1]} "
+        f"timed): {launch_runs} (per step expected {want})")
     print_train_profile(arch, step, state, x, y, gen)
     return launch_runs[0], rate
 
@@ -2047,7 +2125,7 @@ def copies_text(copies, calls, matrix_bytes) -> str:
             f"{sorted(set(copies))}")
 
 
-def phase_family(arch, seed, failures):
+def phase_family(arch, seed, failures, depth=(WARMUP, TIMED)):
     """Phase 7 for one family: (i) the fp32 step check, (ii) the bf16
     learning check, (iii) serving the model (ii) trained, (iv) bench.py's
     train step. Returns (serving launches, train launches)."""
@@ -2061,7 +2139,7 @@ def phase_family(arch, seed, failures):
     served = learn_check(arch, seed, failures)
     serve_launches = serve_check(served, arch, seed, ZOO_SERVE_BATCHES, failures)
     del served
-    train_launches, _ = train_throughput(arch, seed, failures)
+    train_launches, _ = train_throughput(arch, seed, failures, depth)
     return serve_launches, train_launches
 
 
@@ -4526,6 +4604,9 @@ ZOO2_WIDE_KINDS = ("g2", "g3", "g4", "g8")
 ZOO2_STEM_BATCHES = (8, 256)
 ZOO2_DENSE_DILATED = (8, 28, 28, 64, 64, 3, 1, 2, 2)
 ZOO2_KEYS = ("zoo2_ms_b256", "zoo2_library_ms_b256", "zoo2_bound_ms_b256")
+# the same at 224² (rows 1g and 5g: SKNet-50's dilated grouped 3x3s and
+# ShuffleNet g2-g8's wide-group 1x1s at b256 bf16)
+ZOO2_224_KEYS = ("zoo2_224_ms_b256", "zoo2_224_library_ms_b256", "zoo2_224_bound_ms_b256")
 # device kernels whose name marks a library convolution (cuDNN's and
 # CUTLASS's forward, data-gradient and weight-gradient kernels); the port's
 # own (OUR_KERNELS) are left out
@@ -4587,7 +4668,8 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
     the kernel's own stored y), with phase 2/4/8's bars, on the route the
     plan gives it. times: also the bf16 device ms of both kernels on that
     route, cuDNN's bf16 F.conv2d of the same stride, dilation and groups,
-    and the bound, added to the rows' zoo2_*_b256. Returns the record."""
+    and the bound, added to the rows' zoo2_*_b256 (ZOO2_KEYS), or to the
+    keys `times` names. Returns the record."""
     import torch
     import torch.nn.functional as F
 
@@ -4631,7 +4713,7 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
         bound = 1e3 * max(flops / PEAK_BF16, (nbytes + 8 * cout) / HBM_BPS)
         for name, ms in ((fname, f_ms), (sname, s_ms)):
             row = entry(summary, name)
-            for key, v in zip(ZOO2_KEYS, (ms, c_ms, bound)):
+            for key, v in zip(ZOO2_KEYS if times is True else times, (ms, c_ms, bound)):
                 row[key] = row.get(key, 0.0) + v
         rec.update(fused_ms=f_ms, stats_ms=s_ms, cudnn_ms=c_ms, bound_ms=bound,
                    tflops=flops / f_ms / 1e9)
@@ -4676,6 +4758,7 @@ def zoo2_kernels(summary, failures):
     for shape in sorted(zoo2_shapes(arch, kind, image, "dilated")):
         cases += [(f"dilated {arch}{kind}@{image}", KERNEL_BATCH, shape, dt, False)
                   for dt in (f32, bf16)]
+        cases.append((f"dilated {arch}{kind}@{image}", B256, shape, bf16, ZOO2_224_KEYS))
     wide = {}
     for gk in ZOO2_WIDE_KINDS:
         for image in (32, IMAGE):
@@ -4684,8 +4767,8 @@ def zoo2_kernels(summary, failures):
     for (image, shape), where in sorted(wide.items()):
         for dt in (f32, bf16):
             cases.append((f"wide {'/'.join(where)}@{image}", KERNEL_BATCH, shape, dt, False))
-        if image == 32:
-            cases.append((f"wide {'/'.join(where)}@{image}", B256, shape, bf16, True))
+        cases.append((f"wide {'/'.join(where)}@{image}", B256, shape, bf16,
+                      True if image == 32 else ZOO2_224_KEYS))
     stem = (IMAGE, IMAGE, 3, 64, 11, 4, 2, 1, 1)
     for n in ZOO2_STEM_BATCHES:
         cases += [("alexnet stem 11x11/4", n, stem, dt, n == B256 and dt == bf16)
@@ -4699,11 +4782,20 @@ def zoo2_kernels(summary, failures):
         f"b{B256} bf16: fused ms, stats ms, cuDNN ms, bound ms")
     records = [zoo2_conv_check(label, n, shape, dt, g, summary, failures, timed)
                for label, n, shape, dt, timed in cases]
-    timed = [r for r in records if "fused_ms" in r]
-    say(f"(i) b{B256} bf16, the {len(timed)} timed shapes summed: fused "
-        f"{sum(r['fused_ms'] for r in timed):.3f} ms, stats {sum(r['stats_ms'] for r in timed):.3f}"
-        f" ms, cuDNN {sum(r['cudnn_ms'] for r in timed):.3f} ms, bound "
-        f"{sum(r['bound_ms'] for r in timed):.4f} ms")
+    kinds = {}
+    for r in records:
+        if "fused_ms" in r:
+            what = r["what"]
+            kinds.setdefault(what.split(" ")[0] + "@" + what.rsplit("@", 1)[1] if "@" in what
+                             else what, []).append(r)
+    for kind, timed in kinds.items():
+        say(f"(i) b{B256} bf16, {kind}: the {len(timed)} timed shapes summed: fused "
+            f"{sum(r['fused_ms'] for r in timed):.3f} ms, stats "
+            f"{sum(r['stats_ms'] for r in timed):.3f} ms, cuDNN "
+            f"{sum(r['cudnn_ms'] for r in timed):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in timed):.4f} ms; fused / cuDNN per shape "
+            f"{min(r['fused_ms'] / r['cudnn_ms'] for r in timed):.2f}-"
+            f"{max(r['fused_ms'] / r['cudnn_ms'] for r in timed):.2f}")
 
     say("(i) train functions at one new shape each: fn label | dtype | out max|Δ|/max|ref| (tol) "
         "| gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms "
@@ -4749,38 +4841,40 @@ def library_convs(prof):
                   and not any(o in n for o in OUR_KERNELS))
 
 
-def zoo2_no_library_conv(arch, kind, seed, failures):
-    """One bf16 b256 uint8 request of the family at 32² under the profiler:
-    no device kernel of it may be a library's convolution; returns (the
-    device kernels' names, the port's share of device time)."""
-    import torch
+def served_no_library_conv(label, model, image, seed, failures):
+    """One bf16 b256 uint8 request of image² to `model` under the profiler:
+    no device kernel of it may be a library's convolution; returns (its
+    launches, the device kernels' names, the port's share of device
+    time)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from convnets_tpu_torch.ops import kernels
     from convnets_tpu_torch.serve import ServingModel
 
-    server = ServingModel(zoo_model(arch, kind, 32, seed), input_dtype="uint8",
-                          stats=IMAGENET_STATS)
-    req = np.random.default_rng(seed + 5).integers(0, 256, (ZOO_SERVE_BATCH, 32, 32, 3),
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    req = np.random.default_rng(seed + 5).integers(0, 256, (ZOO_SERVE_BATCH, image, image, 3),
                                                    dtype=np.uint8)
     server(req)
     sync()
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server(req)
+        logits = server(req)
         sync()
-    from torch.autograd import DeviceType
-
+    launches = dict(kernels.LAUNCHES)
     names = sorted({e.name for e in prof.events()
                     if getattr(e, "device_type", None) == DeviceType.CUDA})
     device, ours, _ = device_split(prof, OUR_KERNELS)
     bad = library_convs(prof)
-    ok = not bad and ours > 0
-    say(f"{arch}{kind}@32 bf16 b{ZOO_SERVE_BATCH} request under the profiler: {len(names)} "
-        f"distinct device kernels, the port's {ours / 1e3:.3f} of {device / 1e3:.3f} ms; library "
-        f"convolution kernels {bad} {'ok' if ok else 'FAIL'}")
+    ok = not bad and ours > 0 and bool(logits.isfinite().all())
+    say(f"{label} bf16 b{ZOO_SERVE_BATCH} request under the profiler: launches "
+        f"{launches_summary(launches)}; {len(names)} distinct device kernels, the port's "
+        f"{ours / 1e3:.3f} of {device / 1e3:.3f} ms; library convolution kernels {bad} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"{arch}{kind} served request ran library convolutions {bad}")
+        failures.append(f"{label} served request ran library convolutions {bad}")
     del server
-    return names, ours / max(device, 1e-9)
+    return launches, names, ours / max(device, 1e-9)
 
 
 def zoo2_nobn_step(arch, kind, seed, failures):
@@ -4968,7 +5062,8 @@ def phase_zoo2(seed, card, summary, failures):
         del model32
         res["seconds"] = time.perf_counter() - t1
         out["models"][f"{arch}{kind}@{image}"] = res
-    out["served_kernels"] = {f"{arch}{kind}": zoo2_no_library_conv(arch, kind, seed, failures)[1]
+    out["served_kernels"] = {f"{arch}{kind}": served_no_library_conv(
+        f"{arch}{kind}@32", zoo_model(arch, kind, 32, seed), 32, seed, failures)[2]
                              for arch, kind in ZOO2_NOBN}
     nobn = {}
     for arch, kind in ZOO2_NOBN:
@@ -5005,10 +5100,857 @@ def phase_zoo2(seed, card, summary, failures):
     return path
 
 
-# the paths of phases 10-14 whose launches the kernels line carries as
+# phase 15: the last single-card modules. DenseNet's shared-statistics
+# block (CONVNETS_TPU_DENSENET_FUSED, read when a model is built),
+# train-mode Remat, the activation trace, the side-stream host feed and
+# adaptive_avg_pool2d
+FUSED_ENV = "CONVNETS_TPU_DENSENET_FUSED"
+REMAT_TURNS = (2, 6)  # (iii)'s b256 turns: (warm-up, timed) steps a run
+REMAT_FIT_TRAIN = 2048  # (iv): RN26@32 images, 8 steps of TRAINER_BATCH per epoch
+DEBUG_FIT_TRAIN = 2048  # (v)
+FEED_STEPS = 10  # (vi): RN50@224 b256 steps from a host DataLoader
+DROPOUT_REMAT = 0.5  # (iii): DN121's dropout inside the wrapped blocks
+# (vii): (N, H, W, C, output size) of adaptive_avg_pool2d, even bins (the
+# avg-pool kernel) and uneven ones (plain PyTorch)
+ADAPTIVE_EVEN = ((8, 14, 14, 512, (7, 7)), (8, 7, 7, 1024, (1, 1)), (256, 56, 56, 128, (28, 28)))
+ADAPTIVE_UNEVEN = ((8, 7, 7, 1024, (3, 3)), (8, 10, 13, 64, (4, 5)))
+# the forward BN passes and the backward nodes (profiler names) that
+# (ii)'s split reads: statistics + normalize in one (the standard layout's
+# every BN, the fused layout's bn2), the fused layout's shared statistics
+# and its normalize with them
+BN_RANGES = ("bn_train", "bn_stats", "bn_apply")
+BN_BACKWARD = ("_BNCoreBackward", "_BNApplyStatsBackward")
+
+
+@contextlib.contextmanager
+def densenet_fused(on: bool):
+    """CONVNETS_TPU_DENSENET_FUSED for the models built inside."""
+    old = os.environ.get(FUSED_ENV)
+    os.environ[FUSED_ENV] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(FUSED_ENV)
+        else:
+            os.environ[FUSED_ENV] = old
+
+
+def fused_blocks(variables):
+    """The keys of the dense blocks in a fused DN121's variables."""
+    return [k for k, v in variables["state"].items() if "bank_0" in v]
+
+
+def dn121_pair(seed, mixed, **kw):
+    """(standard DN121, fused DN121) at 224² on the card holding the same
+    weights: numpy draws in the standard layout, each layer's bn1 running
+    statistics made the concatenation of its source blocks' (bank_j is
+    layer j's slice of block j, as one update would leave them), and the
+    fused layout mapped from them (tests/test_densenet_fused.py:
+    _map_params: body 0, 3, 4, 7 are bn1, conv1, bn2, conv2)."""
+    from convnets_tpu_torch import bridge
+    from convnets_tpu_torch.models import build_model
+
+    std = make_model("densenet", seed, mixed, **kw)
+    with densenet_fused(True):
+        fused = build_model("densenet", model_setting("densenet", seed, mixed, **kw),
+                            device=DEVICE)
+    sv = bridge.export_jax_variables(std)
+    fv = bridge.export_jax_variables(fused)
+    for k in fused_blocks(fv):
+        layers = sv["state"][k]
+        banks = {}
+        for j in range(len(layers)):
+            first = layers[str(j)]["1"]["0"]
+            c = fv["state"][k][f"bank_{j}"]["mean"].shape[0]
+            banks[j] = {leaf: first[leaf][-c:].copy() for leaf in ("mean", "var")}
+        params, state = {}, {}
+        for i in range(len(layers)):
+            body, body_state = sv["params"][k][str(i)]["1"], layers[str(i)]["1"]
+            for leaf in ("mean", "var"):
+                body_state["0"][leaf] = np.concatenate([banks[j][leaf] for j in range(i + 1)])
+            params.update({f"bn1_{i}": body["0"], f"conv1_{i}": body["3"],
+                           f"bn2_{i}": body["4"], f"conv2_{i}": body["7"]})
+            state[f"bn2_{i}"] = body_state["4"]
+            state[f"bank_{i}"] = banks[i]
+        fv["params"][k], fv["state"][k] = params, state
+    for coll in ("params", "state"):
+        for k, v in sv[coll].items():
+            if k not in fused_blocks(fv):
+                fv[coll][k] = v
+    bridge.load_jax_variables(std, sv)
+    bridge.load_jax_variables(fused, fv)
+    return std, fused
+
+
+def fused_dn121(seed, mixed, **kw):
+    """The fused DN121 at 224² with numpy weights drawn in its own layout."""
+    from convnets_tpu_torch import bridge
+    from convnets_tpu_torch.models import build_model
+
+    with densenet_fused(True):
+        model = build_model("densenet", model_setting("densenet", seed, mixed, **kw),
+                            device=DEVICE)
+    bridge.load_jax_variables(model, random_jax_variables(model, seed))
+    return model
+
+
+def to_standard_paths(flat):
+    """{fused-layout path: v} → {standard-layout path: v} for the dense
+    blocks' parameters (conv1_i / bn1_i … → i/1/3, i/1/0 …)."""
+    names = {"bn1": "0", "conv1": "3", "bn2": "4", "conv2": "7"}
+    out = {}
+    for path, v in flat.items():
+        hit = [i for i, p in enumerate(path) if p.split("_")[0] in names and "_" in p]
+        if hit:
+            i = hit[0]
+            name, layer = path[i].split("_")
+            path = (*path[:i], layer, "1", names[name], *path[i + 1:])
+        out[path] = v
+    return out
+
+
+def one_step(model, x, y, lr, gen=None):
+    """One SGD step (no momentum or decay) at `lr`; returns (loss, {JAX
+    param path: gradient read back as (before − after) / lr}, the JAX state
+    tree's leaves)."""
+    from convnets_tpu_torch import bridge
+
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    state, step = train_state(model)
+    loss, _ = step(state, x, y, generator=gen)
+    sync()
+    paths = bridge.param_paths(model)
+    grads = {paths[k]: (before[k] - p.detach()) / lr for k, p in model.named_parameters()}
+    flat = bridge._flatten(bridge.export_jax_variables(model)["state"])
+    return float(loss), grads, {k: v.copy() for k, v in flat.items()}
+
+
+def step_batch(seed, batch=STEP_BATCH, image=IMAGE, classes=1000):
+    import torch
+
+    rng = np.random.default_rng(seed + 2)
+    x = torch.from_numpy(rng.integers(0, 256, (batch, image, image, 3), dtype=np.uint8))
+    return x.to(DEVICE), torch.from_numpy(rng.integers(0, classes, batch)).to(DEVICE)
+
+
+SGD_READBACK = dict(optimizer="sgd", learning_rate=2.0 ** 20, momentum=0.0, weight_decay=0.0)
+
+
+def fused_vs_standard(seed, failures):
+    """(i) the fp32 b8 SGD step (dropout 0) of the fused DN121 against the
+    standard one with the same weights: loss, each gradient leaf (beside
+    the perturbed control), each bank's running statistics against the
+    matching bn1's, every other state leaf; then the eval logits."""
+    import torch
+
+    x, y = step_batch(seed)
+    lr = SGD_READBACK["learning_rate"]
+    runs = {}
+    std, fused = dn121_pair(seed, False, dropout_rate=0.0, **SGD_READBACK)
+    start = {id(m): {k: v.clone() for k, v in m.state_dict().items()} for m in (std, fused)}
+    for name in ("standard", "fused", "control"):
+        model = fused if name == "fused" else std
+        model.load_state_dict(start[id(model)])
+        if name == "control":
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.ndim == 4:
+                        p.mul_(1 + CONTROL_PERTURBATION * torch.randn(
+                            p.shape, device=DEVICE, generator=gen))
+        loss, grads, state = one_step(model, x, y, lr)
+        if name == "fused":
+            grads = to_standard_paths(grads)
+        runs[name] = (loss, grads, state)
+    (ls, gs, ss), (lf, gf, sf), (_, gc, _) = runs["standard"], runs["fused"], runs["control"]
+    loss_rel = abs(lf - ls) / abs(ls)
+    same_leaves = set(gf) == set(gs)
+    g_l2 = {k: l2_err(gf[k], gs[k]) for k in gs if k in gf}
+    c_l2 = {k: l2_err(gc[k], gs[k]) for k in gs}
+    worst = max(g_l2, key=g_l2.get)
+    bank_err, other_err = 0.0, 0.0
+    for path, v in sf.items():
+        if path[-2].startswith("bank_"):
+            k, j = path[0], int(path[-2].split("_")[1])
+            ref = ss[(k, str(j), "1", "0", path[-1])][-v.shape[0]:]  # layer j's bn1, block j
+        elif path[-2].startswith("bn2_"):
+            ref = ss[(path[0], path[-2].split("_")[1], "1", "4", path[-1])]
+        else:
+            ref = ss[path]
+        err = float(np.abs(v - ref).max() / max(np.abs(ref).max(), 1e-30))
+        if path[-2].startswith("bank_"):
+            bank_err = max(bank_err, err)
+        else:
+            other_err = max(other_err, err)
+    ok = (same_leaves and loss_rel <= 1e-4 and g_l2[worst] <= STEP_GRAD_TOL
+          and bank_err <= 1e-4 and other_err <= 1e-4 and np.isfinite(lf))
+    say(f"(i) fp32 DN121 SGD step (b{STEP_BATCH}, dropout 0), fused vs standard layout, same "
+        f"weights: loss {lf:.6f} vs {ls:.6f} (rel {loss_rel:.2e}, tol 1e-4); {len(g_l2)} "
+        f"gradient leaves, worst ‖Δ‖/‖g‖ {g_l2[worst]:.2e} at {'/'.join(worst)} (tol "
+        f"{STEP_GRAD_TOL:g}; control ×(1 + {CONTROL_PERTURBATION:g}·N(0,1)): median "
+        f"{float(np.median(list(c_l2.values()))):.2e} max {max(c_l2.values()):.2e}); banks vs "
+        f"the matching bn1 running statistics {bank_err:.2e}, every other state leaf "
+        f"{other_err:.2e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fused DN121 vs standard step: loss {loss_rel:.2e}, grads "
+                        f"{g_l2[worst]:.2e}, banks {bank_err:.2e}, state {other_err:.2e}, "
+                        f"leaves match {same_leaves}")
+    # eval logits, fp32 b8: fused vs standard (the banks hold what the
+    # standard layout's bn1s hold), and the fused kernel path vs plain
+    for model in (std, fused):
+        model.load_state_dict(start[id(model)])
+    with torch.no_grad():
+        xf = x.float() / 255.0
+        ref = std.eval()(xf)
+        got = fused.eval()(xf)
+        with plain_kernels():
+            plain = fused(xf)
+    scale = float(ref.abs().max())
+    e_std, e_plain = (float((got - r).abs().max()) / scale for r in (ref, plain))
+    ok = e_std <= 1e-4 and e_plain <= 1e-4 and bool(torch.isfinite(got).all())
+    say(f"(i) fp32 DN121 eval logits (b{STEP_BATCH}): fused vs standard max|Δ|/max|logit| "
+        f"{e_std:.2e}, fused kernel vs plain path {e_plain:.2e} (tol 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"fused DN121 eval logits: vs standard {e_std:.2e}, vs plain "
+                        f"{e_plain:.2e}")
+    return {"loss_rel": loss_rel, "worst_grad_l2": g_l2[worst],
+            "control_worst_grad_l2": max(c_l2.values()), "bank_rel": bank_err,
+            "eval_vs_standard": e_std, "eval_vs_plain": e_plain}
+
+
+@contextlib.contextmanager
+def bn_ranges():
+    """Each forward BN pass of the models under a torch.profiler range of
+    BN_RANGES (ops.batch_norm_train, ops.batch_stats, ops.bn_apply_stats,
+    as the layers call them through the ops package)."""
+    from torch.profiler import record_function
+
+    from convnets_tpu_torch import ops
+
+    saved = {name: getattr(ops, name) for name in ("batch_norm_train", "batch_stats",
+                                                   "bn_apply_stats")}
+
+    def ranged(label, fn):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    for label, name in zip(BN_RANGES, saved):
+        setattr(ops, name, ranged(label, saved[name]))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def bn_split(prof, per):
+    """Device ms per step (`per` steps traced) of the kernels launched under
+    each BN range and each BN backward node of a profile: the host-side
+    events' device time, their children's included (the range's own
+    device-side annotation and the node's inner event left out, which
+    would count the same kernels again)."""
+    from torch.autograd import DeviceType
+
+    names = {**{label: label for label in BN_RANGES},
+             **{f"autograd::engine::evaluate_function: {label}": label for label in BN_BACKWARD}}
+    out = {label: 0.0 for label in BN_RANGES + BN_BACKWARD}
+    for e in prof.events():
+        if e.name in names and getattr(e, "device_type", None) == DeviceType.CPU:
+            out[names[e.name]] += float(getattr(e, "device_time_total", 0.0)) / per / 1e3
+    return out
+
+
+def annotation_us(prof):
+    """Device µs of the BN ranges' device-side annotations (spans, not
+    kernels), which device_split counts among the device events."""
+    from torch.autograd import DeviceType
+
+    return sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in prof.events()
+               if e.name in BN_RANGES and getattr(e, "device_type", None) == DeviceType.CUDA)
+
+
+def turns_throughput(label, models, seed, failures, want=None, depth=(WARMUP, TIMED),
+                     path=None):
+    """bf16 b256 train steps with bench.py's settings, the models in turns
+    (steps_in_turns): img/s, peak memory, launches per step (each run
+    exactly `want[name]` where given); then three profiled steps each with
+    the BN split. Returns {name: summary}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 256, (B256, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 1000, (B256,), device=DEVICE, generator=gen)
+    steps = {name: train_state(m) for name, m in models.items()}
+    names = list(models)
+    turns = steps_in_turns(label, {name: (*steps[name], contextlib.nullcontext)
+                                   for name in names}, x, y, gen, failures, want, depth, path)
+    runs = {name: [B256 / t for t in turns[name]["seconds"]] for name in names}
+    peaks = {name: turns[name]["peak"] for name in names}
+    out = {}
+    for name in names:
+        state, step = steps[name]
+        with bn_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(state, x, y, generator=gen)
+            sync()
+        device, ours, bwd = device_split(prof, OUR_KERNELS)
+        device -= annotation_us(prof)
+        out[name] = {"img_s": runs[name], "peak_gib": peaks[name] / 2 ** 30,
+                     "device_ms_per_step": device / 3e3, "kernels_ms_per_step": ours / 3e3,
+                     "backward_convs_ms_per_step": bwd / 3e3, "bn_ms_per_step": bn_split(prof, 3)}
+    say(f"{label}, bf16 b{B256} (Adam, wd 1e-4, dropout 0.5, uint8 batch on the card), in turns "
+        f"({depth[0]} + {depth[1]} steps a run):")
+    for name, r in out.items():
+        bn = ", ".join(f"{k} {v:.3f}" for k, v in r["bn_ms_per_step"].items())
+        say(f"    {name}: img/s {[round(v, 1) for v in r['img_s']]}, peak memory "
+            f"{r['peak_gib']:.2f} GiB; device ms per step (profiler, 3 steps) "
+            f"{r['device_ms_per_step']:.3f}: the port's kernels {r['kernels_ms_per_step']:.3f}, "
+            f"backward convs {r['backward_convs_ms_per_step']:.3f}; BN passes {bn}")
+    del steps
+    return out
+
+
+def remat_launches(model):
+    """The launches a remat train step adds: each Remat's child's train
+    forward once more, read off the modules (model_layers inside_remat)."""
+    kinds = [layer[0] for layer in model_layers(model, inside_remat=True)]
+    n = {k: kinds.count(k) for k in ("conv", "gconv", "dwconv", "plainconv", "plaingconv",
+                                     "plaindwconv", "maxpool", "avgpool")}
+    return launches_of({"conv2d_stats": n["conv"], "grouped_conv2d_stats": n["gconv"],
+                        "conv2d_stats_reduce": n["conv"] + n["gconv"],
+                        "conv2d_fused": n["plainconv"], "grouped_conv2d_fused": n["plaingconv"],
+                        "depthwise_conv2d": n["dwconv"] + n["plaindwconv"],
+                        "max_pool2d": n["maxpool"], "avg_pool2d": n["avgpool"]})
+
+
+def remat_want(model):
+    """Launches per remat train step: the step's without remat plus the
+    recomputed forwards'."""
+    base, extra = model_launches(model)[1], remat_launches(model)
+    return {k: base[k] + extra[k] for k in base}
+
+
+def remat_checks(seed, failures, path):
+    """(iii) Remat against no remat: the fp32 b8 SGD step of RN50 and the
+    fused DN121 (BN buffers bit for bit, gradients within the step bar,
+    launches exact), the fused DN121 with dropout 0.5 inside the wrapped
+    blocks (within the bar; a recompute that redraws its masks outside
+    it); then bf16 b256 img/s and peak memory in turns."""
+    import torch
+
+    from convnets_tpu_torch import nn
+    from convnets_tpu_torch.nn.module import MaskTape
+    from convnets_tpu_torch.ops import kernels
+
+    x, y = step_batch(seed)
+    lr = SGD_READBACK["learning_rate"]
+    makers = {"RN50": lambda mixed, **kw: make_model("resnet", seed, mixed, **kw),
+              "DN121-fused": lambda mixed, **kw: fused_dn121(seed, mixed, **kw)}
+    res = {}
+    for label, make in makers.items():
+        cases = [("dropout 0", 0.0, None)]
+        if label == "DN121-fused":
+            cases.append((f"dropout {DROPOUT_REMAT:g}", DROPOUT_REMAT, "redrawn"))
+        for what, rate, control in cases:
+            runs = {}
+            for remat in (False, True) + ((control,) if control else ()):
+                model = make(False, dropout_rate=rate, remat=bool(remat), **SGD_READBACK)
+                gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+                want = remat_want(model) if remat else model_launches(model)[1]
+                kernels.reset_launches()
+                if remat == "redrawn":
+                    kept = MaskTape.next_mask
+                    fresh = torch.Generator(device=DEVICE).manual_seed(99)
+
+                    def redraw(self, shape, kept=kept, fresh=fresh):
+                        kept(self, shape)  # moves the tape's cursor on
+                        return torch.rand(shape, generator=fresh, device=DEVICE) < (
+                            1.0 - DROPOUT_REMAT)
+
+                    MaskTape.next_mask = redraw
+                    try:
+                        runs[remat] = one_step(model, x, y, lr, gen)
+                    finally:
+                        MaskTape.next_mask = kept
+                else:
+                    runs[remat] = one_step(model, x, y, lr, gen)
+                launches = dict(kernels.LAUNCHES)
+                for k, v in launches.items():
+                    path[k] = path.get(k, 0) + v
+                if remat is True and launches != want:
+                    failures.append(f"remat {label} {what} step launches "
+                                    f"{launches_summary(launches)} != {launches_summary(want)}")
+                if remat is True:
+                    res[f"{label} {what} launches"] = launches_summary(launches)
+                    wrapped = sum(isinstance(m, nn.Remat) for m in model.modules())
+                del model
+            (l0, g0, s0), (l1, g1, s1) = runs[False], runs[True]
+            gaps = {k: l2_err(g1[k], g0[k]) for k in g0}
+            worst = max(gaps, key=gaps.get)
+            buffers_equal = set(s0) == set(s1) and all(np.array_equal(s0[k], s1[k]) for k in s0)
+            ok = buffers_equal and gaps[worst] <= STEP_GRAD_TOL and np.isfinite(l1)
+            text = ""
+            if control:
+                cg = runs[control][1]
+                c_gaps = {k: l2_err(cg[k], g0[k]) for k in g0}
+                rejects = max(c_gaps.values()) > STEP_GRAD_TOL
+                ok = ok and rejects
+                text = (f"; the control whose recompute redraws its masks: worst "
+                        f"{max(c_gaps.values()):.2e}, outside the bar: "
+                        f"{'ok' if rejects else 'FAIL'}")
+                res[f"{label} {what} control_worst"] = max(c_gaps.values())
+            say(f"(iii) fp32 {label} SGD step (b{STEP_BATCH}, {what}), remat ({wrapped} wrapped "
+                f"modules) vs none: loss {l1:.6f} vs {l0:.6f}; BN buffers bit for bit "
+                f"{buffers_equal}; worst gradient ‖Δ‖/‖g‖ {gaps[worst]:.2e} at "
+                f"{'/'.join(worst)} (tol {STEP_GRAD_TOL:g}); launches "
+                f"{res[f'{label} {what} launches']}{text} {'ok' if ok else 'FAIL'}")
+            res[f"{label} {what} worst"] = gaps[worst]
+            if not ok:
+                failures.append(f"remat {label} {what}: buffers equal {buffers_equal}, grads "
+                                f"{gaps[worst]:.2e}{text}")
+    for label, make in makers.items():
+        models = {"no remat": make(True), "remat": make(True, remat=True)}
+        want = {"no remat": model_launches(models["no remat"])[1],
+                "remat": remat_want(models["remat"])}
+        want = {k: {n: float(c) for n, c in v.items()} for k, v in want.items()}
+        res[f"{label} b{B256}"] = turns_throughput(f"(iii) {label} remat", models, seed,
+                                                   failures, want, REMAT_TURNS, path)
+        del models
+    return res
+
+
+def remat_fit_check(seed, out_dir, failures):
+    """(iv) RN26@32 with remat=True over a DeviceCacheLoader: the replayed
+    epochs against the per-step loop and the per-step loop again (the
+    control), phase 13's protocol (hold_to_control), with every replay's
+    launches exact (the step's without remat plus the recomputed
+    forwards'). Returns (results, the graphed trainer's launches)."""
+    from convnets_tpu_torch.data import ArrayDataset, DeviceCacheLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import Trainer
+
+    train_ds, _ = trainer_data(seed)
+    train_ds = ArrayDataset(train_ds.images[:REMAT_FIT_TRAIN], train_ds.labels[:REMAT_FIT_TRAIN])
+    setting = trainer_setting(seed, out_dir, remat=True, data_augment=True,
+                              augment_affine=True, data_norm=True, cutout=AUG_CUTOUT,
+                              mixup=AUG_MIXUP)
+    routes = ("graphed", "per_step", "control")
+    trainers, loaders, calls, path = {}, {}, new_record(), {}
+    first = None
+    for name in routes:
+        model = build_model("resnet", setting, device=DEVICE)
+        if first is None:
+            first = model.state_dict()
+        model.load_state_dict(first)
+        trainers[name] = Trainer(model)
+        trainers[name]._new_state()
+        loaders[name] = DeviceCacheLoader(train_ds, TRAINER_BATCH, shuffle=True, seed=seed,
+                                          device=DEVICE)
+        loaders[name].augment, loaders[name].normalize = True, True
+        loaders[name].scan_epochs = name == "graphed"
+    count_calls(trainers["graphed"], calls)
+    results = {name: [] for name in routes}
+    for e in range(GRAPH_EPOCHS):
+        for name in routes if e % 2 == 0 else routes[::-1]:
+            def epoch(name=name, e=e):
+                return trainers[name]._run_train_epoch(loaders[name], e)
+            results[name].append(counted_run(epoch, path) if name == "graphed" else epoch())
+    leaves = {name: run_leaves(trainers[name], results[name]) for name in routes}
+    exact, worst, cworst = hold_to_control(
+        f"(iv) RN26@32 remat=True, {GRAPH_EPOCHS} epochs of {len(loaders['graphed'])} steps, "
+        f"graphed vs per-step: every parameter and BN buffer, each epoch's loss and score",
+        leaves["graphed"], leaves["per_step"], leaves["control"], "the per-step route twice",
+        failures)
+    model = trainers["graphed"].model
+    want = remat_want(model)
+    replays = {g.kind: launches_summary(g.per_replay[0]) for g in graphs_of(trainers["graphed"])
+               if g.per_replay}
+    ok = (len(calls["train"]) == len(loaders["graphed"]) * GRAPH_EPOCHS
+          and all(c == want for c in calls["train"]) and "train" in replays)
+    say(f"(iv) launches: {len(calls['train'])} graphed steps, each {launches_summary(want)} "
+        f"(the step's "
+        f"{launches_summary(model_launches(model)[1])} plus the recomputed forwards' "
+        f"{launches_summary(remat_launches(model))}); per replay, counted at the capture: "
+        f"{replays} {'ok' if ok else 'FAIL'}; losses graphed {results['graphed']}")
+    if not ok:
+        failures.append(f"remat graphed epoch launches: {[c for c in calls['train'] if c != want][:1]}")
+    for t in trainers.values():
+        t.close()
+    return {"bit_identical": exact, "worst_gap": worst, "control_gap": cworst,
+            "per_step_launches": launches_summary(want), "results": results}, path
+
+
+def forward_modules(model) -> int:
+    """The modules whose forward runs in an eval forward, read off the
+    model: every module under the root but the children of a fused
+    ConvBNReLU (a dense or grouped conv without bias), which its kernel
+    computes without calling them."""
+    from convnets_tpu_torch import nn
+    from convnets_tpu_torch.nn.layers import DEPTHWISE, _check_conv_envelope
+
+    skipped = set()
+    for mod in model.module.modules():
+        if isinstance(mod, nn.ConvBNReLU):
+            conv = mod._modules["0"]
+            cin = conv.weight.shape[2] * conv.groups
+            if conv.bias is None and _check_conv_envelope(conv, cin) != DEPTHWISE:
+                skipped.update(id(m) for m in mod._modules.values())
+    return sum(id(mod) not in skipped for mod in model.module.modules())
+
+
+def debug_fit_check(seed, out_dir, failures):
+    """(v) fit(debug=True), one RN26@32 epoch from a host DataLoader: the
+    summary and one trace line per module that runs before the first
+    epoch, every value finite, the epoch per-step; then a replayed epoch
+    over a DeviceCacheLoader with the step's launches exact and no hook
+    left on any module. Returns (results, launches)."""
+    import io
+
+    from convnets_tpu_torch.data import ArrayDataset, DataLoader, DeviceCacheLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.train import Trainer
+
+    train_ds, valid_ds = trainer_data(seed)
+    train_ds = ArrayDataset(train_ds.images[:DEBUG_FIT_TRAIN], train_ds.labels[:DEBUG_FIT_TRAIN])
+    valid_ds = ArrayDataset(valid_ds.images[:TRAINER_BATCH], valid_ds.labels[:TRAINER_BATCH])
+    setting = trainer_setting(seed, out_dir, epochs=1, debug=True)
+    trainer = Trainer(build_model("resnet", setting, device=DEVICE))
+    calls, path = new_record(), {}
+    count_calls(trainer, calls)
+    out = io.StringIO()
+    loaders = [DataLoader(ds, TRAINER_BATCH, shuffle=ds is train_ds, seed=seed)
+               for ds in (train_ds, valid_ds)]
+    with contextlib.redirect_stdout(out):
+        counted_run(lambda: trainer.fit(*loaders), path)
+    text = out.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("[trace] ")]
+    want = forward_modules(trainer.model)
+    values = [float(v) for ln in lines for v in (ln.split("mean=")[1].split()[0],
+                                                 ln.split("std=")[1])]
+    first_epoch = text.find("grad_norm=")
+    per_step = not graphs_of(trainer) and len(calls["train"]) == len(loaders[0])
+    ok = (len(lines) == want and all(np.isfinite(values)) and per_step
+          and 0 <= text.find(lines[-1]) < first_epoch and "total params" in text)
+    say(f"(v) fit(debug=True), RN26@32, {len(loaders[0])} steps from a host DataLoader: "
+        f"{len(lines)} trace lines before the first epoch (modules whose forward runs, read off "
+        f"the model: {want}), all finite {all(np.isfinite(values))}; per-step {per_step} "
+        f"{'ok' if ok else 'FAIL'}\n    first: {lines[0] if lines else None}\n    last:  "
+        f"{lines[-1] if lines else None}")
+    if not ok:
+        failures.append(f"debug fit: {len(lines)} trace lines (want {want}), per-step {per_step}")
+    hooks = sum(len(m._forward_hooks) + len(m._forward_pre_hooks)
+                for m in trainer.model.modules())
+    trainer.setting.debug = False
+    cached = DeviceCacheLoader(train_ds, TRAINER_BATCH, shuffle=True, seed=seed, device=DEVICE)
+    calls["train"].clear()
+    counted_run(lambda: trainer._run_train_epoch(cached, 1), path)
+    step_want = model_launches(trainer.model)[1]
+    ok = (hooks == 0 and bool(graphs_of(trainer)) and calls["train"]
+          and all(c == step_want for c in calls["train"]))
+    say(f"(v) then a replayed epoch ({len(calls['train'])} steps): each "
+        f"{launches_summary(step_want)}; forward hooks left on the model {hooks} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"after the debug fit: hooks {hooks}, launches "
+                        f"{[c for c in calls['train'] if c != step_want][:1]}")
+    trainer.close()
+    return {"trace_lines": len(lines), "modules": want, "hooks_left": hooks}, path
+
+
+# runtime calls that allocate pinned host memory or make the host wait for
+# the device, counted in (vi)'s profiles
+HOST_WAITS = ("cudaHostAlloc", "cudaMallocHost", "cuMemHostAlloc", "cudaStreamSynchronize",
+              "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy", "cudaFreeHost")
+
+
+def copy_timeline(prof):
+    """The host-to-device copies of a profile's Chrome trace: their streams
+    and the kernels' ("copy_streams", "kernel_streams"), their device µs
+    and the µs of it that overlaps a kernel ("copy_us", "overlap_us"), the
+    HOST_WAITS calls by name ("waits") and how many of them lie between
+    the first and the last image copy's call ("waits_between"), and for each
+    copy of 1 MiB or more (an image batch)
+    its backlog: the µs from its cudaMemcpyAsync call to the device end of
+    the last kernel launched before that call, ≤ 0 where the device had
+    run out of work when the copy was issued, None before the first kernel
+    ("backlog_us"; empty where the trace holds no runtime calls)."""
+    import bisect
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    end_of = lambda e: float(e["ts"]) + float(e.get("dur", 0))
+    spans = sorted((float(e["ts"]), end_of(e)) for e in kernels)
+    total = overlap = 0.0
+    for c in copies:
+        a, b = float(c["ts"]), end_of(c)
+        total += b - a
+        covered, end = 0.0, a
+        for s0, s1 in spans:
+            if s1 <= end or s0 >= b:
+                continue
+            lo = max(s0, end)
+            covered += max(0.0, min(s1, b) - lo)
+            end = max(end, min(s1, b))
+        overlap += covered
+    corr = lambda e: e.get("args", {}).get("correlation")
+    issued = {corr(e): float(e["ts"]) for e in calls if corr(e) is not None}
+    launched = sorted((issued[corr(k)], end_of(k)) for k in kernels if corr(k) in issued)
+    ends, last = [], float("-inf")
+    for _, t in launched:
+        last = max(last, t)
+        ends.append(last)
+    starts = [t for t, _ in launched]
+    backlog = []
+    for c in sorted(copies, key=lambda e: float(e["ts"])):
+        at = issued.get(corr(c))
+        if at is None or c.get("args", {}).get("bytes", 1 << 20) < 1 << 20:
+            continue
+        i = bisect.bisect_left(starts, at)
+        backlog.append(ends[i - 1] - at if i else None)  # None: no kernel before it
+    image_calls = [issued[corr(c)] for c in copies if corr(c) in issued
+                   and c.get("args", {}).get("bytes", 1 << 20) >= 1 << 20]
+    first, last = (min(image_calls), max(image_calls)) if image_calls else (0.0, -1.0)
+    waits, waits_between = {}, 0
+    for e in calls:
+        if e.get("name") in HOST_WAITS:
+            waits[e["name"]] = waits.get(e["name"], 0) + 1
+            waits_between += first <= float(e["ts"]) <= last
+    stream = lambda e: e.get("args", {}).get("stream")
+    return {"copy_streams": {stream(e) for e in copies},
+            "kernel_streams": {stream(e) for e in kernels}, "copy_us": total,
+            "overlap_us": overlap, "waits": waits, "waits_between": waits_between,
+            "backlog_us": backlog}
+
+
+def side_stream_check(seed, failures):
+    """(vi) RN50@224 bf16 b256, FEED_STEPS steps from a host DataLoader of
+    uint8 images through device_prefetch (side-stream copies) against the
+    same steps over the same batches placed on the card beforehand:
+    parameters and buffers bit for bit; two profiled runs, one with the
+    CPU and CUDA activities and one with the CUDA activity alone (no host
+    op records): every H2D
+    copy on a stream of its own, the share of copy time that overlaps
+    kernels, the device's backlog as each image copy was issued, the
+    pinned allocations and host waits (copy_timeline); in the unprofiled
+    fed run, the compute work still queued as each batch was asked for
+    (CUDA events); and the per-step img/s. Returns (results, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.core.rng import generator_for
+    from convnets_tpu_torch.data import ArrayDataset, DataLoader, device_prefetch
+
+    rng = np.random.default_rng(seed + 6)
+    n = FEED_STEPS * B256
+    ds = ArrayDataset(rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8),
+                      rng.integers(0, 1000, n).astype(np.int32))
+    loader = DataLoader(ds, B256, shuffle=False, seed=seed)
+    placed = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for a in b)
+              for b in loader]
+    sync()
+    runs, path, seconds, timelines = {}, {}, {}, {}
+    profiled = {"profiled": [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                "profiled_cuda": [ProfilerActivity.CUDA]}
+    marks = []
+
+    def marked(batches):
+        """The host batches, recording as device_prefetch asks for each an
+        event on the compute stream beside one on an idle stream: the time
+        between them is the compute work still queued then."""
+        idle = torch.cuda.Stream(DEVICE)
+        for b in batches:
+            asked, drained = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            asked.record(idle)
+            drained.record(torch.cuda.current_stream(DEVICE))
+            marks.append((asked, drained))
+            yield b
+
+    for name in ("placed", "fed", *profiled):
+        model = make_model("resnet", seed, True)
+        state, step = train_state(model)
+        batches = (placed if name == "placed" else
+                   device_prefetch(marked(loader) if name == "fed" else loader, 2, DEVICE))
+
+        def run(batches=batches, state=state, step=step):
+            for s, (x, y, w) in enumerate(batches):
+                step(state, x, y.long(), w, generator=generator_for(seed, "dropout", 0, s,
+                                                                     device=DEVICE))
+            sync()
+
+        sync()
+        t0 = time.perf_counter()
+        if name in profiled:
+            with profile(activities=profiled[name]) as prof:
+                counted_run(run, path)
+            seconds[name] = time.perf_counter() - t0
+            timelines[name] = copy_timeline(prof)
+        else:
+            counted_run(run, path)
+            seconds[name] = time.perf_counter() - t0
+        runs[name] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, state, step
+    exact = all(torch.equal(runs["fed"][k], runs["placed"][k]) for k in runs["placed"])
+    queued = [asked.elapsed_time(drained) for asked, drained in marks]
+    copy_streams = set().union(*(t["copy_streams"] for t in timelines.values()))
+    kernel_streams = set().union(*(t["kernel_streams"] for t in timelines.values()))
+    own = bool(copy_streams) and not copy_streams & kernel_streams
+    rate = {k: n / v for k, v in seconds.items()}
+    ok = exact and own
+    say(f"(vi) RN50@224 bf16 b{B256}, {FEED_STEPS} steps from a host DataLoader of uint8 images "
+        f"(side-stream copies) vs the same batches placed on the card first: parameters and "
+        f"buffers bit for bit {exact}; profiled runs: H2D copies on streams {sorted(copy_streams)}, "
+        f"kernels on {sorted(kernel_streams)} (the copies on a stream of their own: {own}); "
+        f"img/s fed {rate['fed']:.1f}, placed {rate['placed']:.1f} {'ok' if ok else 'FAIL'}")
+    say(f"    fed, unprofiled: the compute work still queued as each batch was asked for (ms, "
+        f"CUDA events) {[round(q, 3) for q in queued]}")
+    for name, t in timelines.items():
+        backlog = [None if b is None else round(b / 1e3, 3) for b in t["backlog_us"]]
+        say(f"    {name} ({'+'.join(a.name for a in profiled[name])} activity, "
+            f"{rate[name]:.1f} img/s): copy time {t['copy_us'] / 1e3:.3f} ms, "
+            f"{100 * t['overlap_us'] / max(t['copy_us'], 1e-9):.1f}% of it overlapping kernels; "
+            f"the device's backlog when each batch's image copy was issued (ms; ≤ 0: the device "
+            f"had run out of work) {backlog}; pinned allocations and host waits {t['waits']}, "
+            f"{t['waits_between']} of them between the first and the last image copy")
+    if not ok:
+        failures.append(f"side-stream feed: bit for bit {exact}, copy streams "
+                        f"{sorted(copy_streams)} vs kernel streams {sorted(kernel_streams)}")
+    return {"bit_identical": exact, "copy_streams": sorted(copy_streams),
+            "kernel_streams": sorted(kernel_streams), "img_s": rate, "queued_ms": queued,
+            "profiles": {name: {"copy_ms": t["copy_us"] / 1e3,
+                                "overlap_share": t["overlap_us"] / max(t["copy_us"], 1e-9),
+                                "backlog_ms": [None if b is None else b / 1e3
+                                               for b in t["backlog_us"]],
+                                "waits": t["waits"], "waits_between": t["waits_between"]}
+                         for name, t in timelines.items()}}, path
+
+
+def adaptive_pool_check(summary, failures):
+    """(vii) nn.AdaptiveAvgPool2d (eval) on the card: each even case
+    exactly one avg_pool2d launch per call, within row 3's bars against the
+    plain avg pool, fp32 and bf16; each uneven case against
+    ops.adaptive_avg_pool2d on the CPU within 1e-6 relative in fp32.
+    Returns the launches."""
+    import torch
+
+    from convnets_tpu_torch import nn, ops
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    path, worst = {}, 0.0
+    for n, h, w, c, out in ADAPTIVE_EVEN:
+        pool = nn.AdaptiveAvgPool2d(out).eval()
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, h, w, c, device=DEVICE, generator=g).to(dtype)
+            got = counted_run(lambda: pool(x), path)
+            calls = kernels.LAUNCHES["avg_pool2d"]
+            k = (h // out[0], w // out[1])
+            ref = kernels.avg_pool2d_plain(x, k, k, 0)
+            err = float((got.float() - ref.float()).abs().max())
+            ok = calls == 1 and tuple(got.shape) == (n, *out, c) and avg_pool_ok(
+                got, ref, dname_of(dtype))
+            worst = max(worst, err)
+            say(f"(vii) adaptive_avg_pool2d even {n}x{h}x{w}x{c} → {out} {dname_of(dtype)}: "
+                f"avg_pool2d launches {calls} (want 1), max|Δ| vs plain {err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"adaptive_avg_pool2d even {(n, h, w, c, out)} "
+                                f"{dname_of(dtype)}: launches {calls}, err {err:.3e}")
+    entry(summary, "avg_pool2d")["err"] = max(entry(summary, "avg_pool2d")["err"], worst)
+    for n, h, w, c, out in ADAPTIVE_UNEVEN:
+        x = torch.randn(n, h, w, c, device=DEVICE, generator=g)
+        got = counted_run(lambda: nn.AdaptiveAvgPool2d(out).eval()(x), path)
+        ref = ops.adaptive_avg_pool2d(x.cpu(), out)
+        err = rel_err(got.cpu(), ref)
+        ok = err <= AVG_POOL_TOL and kernels.LAUNCHES["avg_pool2d"] == 0
+        say(f"(vii) adaptive_avg_pool2d uneven {n}x{h}x{w}x{c} → {out} fp32: max|Δ|/max|ref| vs "
+            f"the CPU {err:.2e} (tol {AVG_POOL_TOL:g}), no kernel launch {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"adaptive_avg_pool2d uneven {(n, h, w, c, out)}: {err:.2e}")
+    return path
+
+
+def train_entries(totals):
+    """A train path's launches per kernels-line entry: each kernel's count,
+    conv_bn_relu_train by its conv2d_stats launches, conv2d_train by the
+    conv2d_fused launches (in a train step every one is a plain conv's
+    forward), pool2d_train and pool2d_train_avg by the max and avg pool
+    forwards."""
+    out = {k: totals.get(k, 0) for k in ("conv2d_fused", "max_pool2d", "avg_pool2d",
+                                          "conv2d_stats", "conv2d_stats_reduce",
+                                          "pool2d_backward")}
+    out.update(conv_bn_relu_train=totals.get("conv2d_stats", 0),
+               conv2d_train=totals.get("conv2d_fused", 0),
+               pool2d_train=totals.get("max_pool2d", 0),
+               pool2d_train_avg=totals.get("avg_pool2d", 0))
+    return {k: v for k, v in out.items() if v}
+
+
+def phase_last_modules(seed, card, summary, failures):
+    """Phase 15 (i)-(vii). Returns {path: launches per kernels-line entry}."""
+    import tempfile
+
+    out = {}
+    paths = {}
+    # (i) DN121-fused against the standard layout
+    out["fused_vs_standard"] = fused_vs_standard(seed, failures)
+    step_check("densenet (fused)", seed, failures,
+               make=lambda **kw: fused_dn121(seed, False, **kw))
+    fused = fused_dn121(seed, True)
+    served = served_no_library_conv("(i) DN121-fused@224", fused, IMAGE, seed, failures)[0]
+    want = launches_of(SERVE_LAUNCHES["densenet"])
+    if served != want:
+        failures.append(f"fused DN121 served launches {launches_summary(served)} != "
+                        f"{launches_summary(want)}")
+    del fused
+    # (ii) the b256 train step, standard and fused in turns
+    train_path = {}
+    models = {"standard": make_model("densenet", seed, True), "fused": fused_dn121(seed, True)}
+    want = {k: {n: float(c) for n, c in launches_of(TRAIN_LAUNCHES["densenet"]).items()}
+            for k in models}
+    out["dn121_b256"] = turns_throughput("(ii) DN121, standard and fused layouts", models, seed,
+                                         failures, want, path=train_path)
+    del models
+    # (iii) Remat on RN50 and the fused DN121
+    out["remat"] = remat_checks(seed, failures, train_path)
+    paths["fused_densenet"] = {**train_entries(train_path), "conv2d_fused":
+                               train_path.get("conv2d_fused", 0) + served["conv2d_fused"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (iv) the replayed remat fit
+        out["remat_fit"], fit_path = remat_fit_check(seed, tmp, failures)
+        # (v) the debug fit
+        out["debug_fit"], debug_path = debug_fit_check(seed, tmp, failures)
+    # (vi) the side-stream feed
+    out["side_stream"], feed_path = side_stream_check(seed, failures)
+    # (vii) adaptive_avg_pool2d
+    pool_path = adaptive_pool_check(summary, failures)
+    fits = {}
+    for p in (fit_path, debug_path, feed_path):
+        for k, v in p.items():
+            fits[k] = fits.get(k, 0) + v
+    paths["remat_debug_feed"] = train_entries(fits)
+    paths["adaptive_pool"] = {"avg_pool2d": pool_path.get("avg_pool2d", 0)}
+    say(json.dumps({"last_modules": {"card": card, **out}}, default=str))
+    return paths
+
+
+# the paths of phases 10-15 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
-         "zoo2")
+         "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -5114,8 +6056,10 @@ def main():
                                       failures)
 
     def phase_7():
-        for arch in ("mobilenet_v1", "densenet"):
-            serve[arch], train[arch] = phase_family(arch, args.seed, failures)
+        serve["mobilenet_v1"], train["mobilenet_v1"] = phase_family("mobilenet_v1", args.seed,
+                                                                    failures)
+        serve["densenet"], train["densenet"] = phase_family("densenet", args.seed, failures,
+                                                            DN121_TURNS)
 
     def phase_8():
         summary.update(phase_grouped_kernels(failures))
@@ -5163,6 +6107,9 @@ def main():
     def phase_14():
         state["zoo2"] = phase_zoo2(args.seed, card, summary, failures)
 
+    def phase_15():
+        state.update(phase_last_modules(args.seed, card, summary, failures))
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -5182,6 +6129,7 @@ def main():
         "12": phase_12,
         "13": phase_13,
         "14": phase_14,
+        "15": phase_15,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -5226,7 +6174,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-14's {path} path")
+                failures.append(f"{name}: no launch on phase 10-15's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -5238,7 +6186,7 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ZOO2_KEYS + ("serving_ms",) if k in summary[name]}}
+            + ZOO2_KEYS + ZOO2_224_KEYS + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

@@ -10,8 +10,8 @@ Replaces the reference's torch DataLoader(shuffle, pin_memory, num_workers)
     0/1 weight vector, so every step sees one batch shape;
   * a background thread decodes batch k+1 while batch k is on the device,
     with `num_workers` decode threads; `device_prefetch` queues each
-    host-to-device copy without making the host wait for it (on the
-    device it runs in order with the steps, on the same stream);
+    host-to-device copy on a side stream without making the host wait for
+    it, so on the device it overlaps the steps queued before it;
   * per-host sharding hook (`shard(host_id, num_hosts)`) for multi-host DP:
     each host iterates its disjoint slice of every epoch's permutation.
 
@@ -164,25 +164,44 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     `device`, `size` batches ahead of consumption.
 
     On a CUDA device each array is copied into a fresh pinned host tensor
-    and sent with `non_blocking=True`: the host does not wait for the copy
-    and goes on to queue the next step, but the device runs the copy on the
-    current stream, in order with the steps queued before it, so it does not
-    overlap their compute (a side stream would; ROADMAP.md keeps it open).
-    A pinned tensor is never refilled: each batch gets
-    its own, and PyTorch's pinned-memory allocator does not hand its block
-    out again before the copy that reads it has finished. Arrays cross in
-    their own dtype (a uint8 batch as 1 byte per value; the steps convert
-    on the device). On the CPU it yields plain tensors over the arrays. A
-    batch of tensors already on `device` passes through as it is."""
+    and sent with `non_blocking=True` on a side stream of the generator's
+    own, so the copy of the next batch runs while the steps queued before
+    it compute, as the JAX package's asynchronous device_put does (where
+    the host runs ahead of the device; a host-bound loop has drained the
+    device by then, and the copy fills its idle gap). Before a
+    batch is handed over, the consumer's current stream waits on the event
+    its copy recorded, and each tensor is tied to that stream
+    (`record_stream`), so the allocator does not reuse its memory before
+    the consumer's work on it has run. A pinned tensor is never refilled:
+    each batch gets its own, and PyTorch's pinned-memory allocator does not
+    hand its block out again before the copy that reads it has finished.
+    Arrays cross in their own dtype (a uint8 batch as 1 byte per value; the
+    steps convert on the device). On the CPU it yields plain tensors over
+    the arrays. A batch of tensors already on `device` passes through as
+    it is."""
     device = torch.device(device)
+    copies = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def put(batch):
         if all(isinstance(a, torch.Tensor) and a.device == device for a in batch):
-            return batch  # a DeviceCacheLoader's batch: already there
+            return batch, None  # a DeviceCacheLoader's batch: already there
         tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in batch)
-        if device.type != "cuda":
-            return tuple(t.to(device) for t in tensors)
-        return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
+        if copies is None:
+            return tuple(t.to(device) for t in tensors), None
+        with torch.cuda.stream(copies):
+            out = tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
+        done = torch.cuda.Event()
+        done.record(copies)
+        return out, done
+
+    def hand_over(item):
+        batch, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            for t in batch:
+                t.record_stream(consumer)
+        return batch
 
     buf = collections.deque()
     it = iter(iterator)
@@ -192,7 +211,7 @@ def device_prefetch(iterator, size: int = 2, device="cuda"):
     except StopIteration:
         pass
     while buf:
-        yield buf.popleft()
+        yield hand_over(buf.popleft())
         try:
             buf.append(put(next(it)))
         except StopIteration:

@@ -45,7 +45,7 @@ def _residual_block(b: Builder, block_type: str, filters: int, expansion: int, s
     b.in_channels = out_ch
     block = nn.Add([body, shortcut], post_relu=True)
     if getattr(b.setting, "remat", False):
-        block = nn.Remat(block)  # eval only: train-mode Remat raises
+        block = nn.Remat(block)
     return block
 
 

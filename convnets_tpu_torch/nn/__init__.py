@@ -1,7 +1,9 @@
 from convnets_tpu_torch.nn.module import (  # noqa: F401
-    Module, current_generator, current_policy, use_generator, use_policy,
+    MaskTape, Module, current_generator, current_policy, recomputing, use_generator, use_policy,
 )
 from convnets_tpu_torch.nn.layers import (  # noqa: F401
-    Add, AvgPool2d, BatchNorm2d, Concat, Conv2d, ConvBNReLU, Dropout, Flatten, GlobalAvgPool2d,
-    Identity, Linear, MaxPool2d, ReLU, Remat, Sequential, conv_block,
+    AdaptiveAvgPool2d, Add, AvgPool2d, BatchNorm2d, Concat, Conv2d, ConvBNReLU, Dropout, Flatten,
+    GlobalAvgPool2d, Identity, Lambda, Linear, MaxPool2d, ReLU, Remat, Sequential, conv_block,
+    dropout, write_running,
 )
+from convnets_tpu_torch.nn.trace import activation_trace  # noqa: F401

@@ -17,22 +17,25 @@ with Cin/G >= 2, at most 64 groups, stride 1 or 2, any dilation. A
 depthwise ConvBNReLU runs unfused, as in the JAX package: the depthwise
 kernel, then BatchNorm2d, then ReLU; a grouped one runs fused, as a dense
 one, dilated or not. Train mode updates the BN running statistics in
-place, once per forward. What no kernel takes (a grouped conv whose
-channels do not divide, with Cin/G = 1 but not depthwise, more than 64
-groups or stride 3 and up; a dilated depthwise conv) and train-mode Remat
-raise NotImplementedError.
+place, once per forward (not again in a Remat recompute). What no kernel
+takes (a grouped conv whose channels do not divide, with Cin/G = 1 but not
+depthwise, more than 64 groups or stride 3 and up; a dilated depthwise
+conv) raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 
 from convnets_tpu_torch import ops
 from convnets_tpu_torch.core import shapes
-from convnets_tpu_torch.nn.module import Module, current_generator
+from convnets_tpu_torch.nn.module import (
+    MaskTape, Module, current_generator, current_tape, recomputing,
+)
 from convnets_tpu_torch.ops import initializers as init
 from convnets_tpu_torch.ops import kernels
 from convnets_tpu_torch.ops.kernels import library
@@ -165,24 +168,30 @@ class BatchNorm2d(Module):
         return s, self.bias.float() - self.running_mean.float() * s
 
     def update_running(self, mean, var, n: int) -> None:
-        """The running-statistics update, in place and outside autograd."""
-        with torch.no_grad():
-            new_mean, new_var = running_update(self.running_mean, self.running_var,
-                                               mean.detach(), var.detach(), n, self.momentum)
-            self.running_mean.copy_(new_mean)
-            self.running_var.copy_(new_var)
+        """The running-statistics update, in place and outside autograd;
+        none in a Remat recompute."""
+        write_running(self, *running_update(self.running_mean, self.running_var,
+                                            mean.detach(), var.detach(), n, self.momentum))
 
     def forward(self, x):
         if self.training:
             y, new_mean, new_var = ops.batch_norm_train(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 eps=self.eps, momentum=self.momentum)
-            with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
+            write_running(self, new_mean, new_var)
             return y
         return ops.batch_norm_inference(x, self.running_mean, self.running_var,
                                         self.weight, self.bias, eps=self.eps)
+
+
+def write_running(mod, new_mean, new_var) -> None:
+    """Copy new running statistics into `mod`'s buffers, except in a Remat
+    recompute."""
+    if recomputing():
+        return
+    with torch.no_grad():
+        mod.running_mean.copy_(new_mean)
+        mod.running_var.copy_(new_var)
 
 
 class Linear(Module):
@@ -224,15 +233,38 @@ class ReLU(Module):
         return ops.relu(x)
 
 
+def dropout(x, rate: float, train: bool):
+    """ops.dropout with the mask from the generator of the enclosing
+    `use_generator` context; inside a train-mode Remat the mask is kept on
+    its MaskTape, and its recompute takes it from there."""
+    if not train or rate <= 0.0:
+        return x
+    tape = current_tape()
+    if tape is not None and tape.cursor is not None:
+        mask = tape.next_mask(x.shape)
+    else:
+        mask = ops.dropout_mask(x, rate, current_generator())
+        if tape is not None:
+            tape.masks.append(mask)
+    return ops.apply_dropout(x, mask, rate)
+
+
 class Dropout(Module):
     def __init__(self, rate):
         super().__init__()
         self.rate = float(rate)
 
     def forward(self, x):
-        """At train time the mask comes from the generator of the enclosing
-        `use_generator` context."""
-        return ops.dropout(x, self.rate, current_generator(), train=self.training)
+        return dropout(x, self.rate, self.training)
+
+
+def _pool2d(x, mode, kernel, stride, padding, train):
+    """The pool kernels: pool2d_train in train mode, else the max- or
+    avg-pool custom op."""
+    if train:
+        return kernels.pool2d_train(x, mode, kernel, stride, padding)
+    pool = _OPS.max_pool2d if mode == "max" else _OPS.avg_pool2d
+    return pool(x, *library.pool_args(kernel, stride, padding))
 
 
 class _Pool2d(Module):
@@ -246,10 +278,7 @@ class _Pool2d(Module):
         return shapes.pool2d_out_shape(in_shape, self.kernel, self.stride, self.padding)
 
     def forward(self, x):
-        if self.training:
-            return kernels.pool2d_train(x, self.MODE, self.kernel, self.stride, self.padding)
-        pool = _OPS.max_pool2d if self.MODE == "max" else _OPS.avg_pool2d
-        return pool(x, *library.pool_args(self.kernel, self.stride, self.padding))
+        return _pool2d(x, self.MODE, self.kernel, self.stride, self.padding, self.training)
 
 
 class MaxPool2d(_Pool2d):
@@ -260,6 +289,28 @@ class MaxPool2d(_Pool2d):
 class AvgPool2d(_Pool2d):
     """count_include_pad average pool (torch AvgPool2d)."""
     MODE = "avg"
+
+
+class AdaptiveAvgPool2d(Module):
+    """Adaptive average pool to output_size (ops.adaptive_avg_pool2d).
+    Where (H, W) divide into it, the avg pool of window and stride (H/oh,
+    W/ow) runs on the pool kernels as AvgPool2d's does; uneven bins are
+    plain."""
+
+    def __init__(self, output_size):
+        super().__init__()
+        self.output_size = shapes.to_pair(output_size)
+
+    def out_shape(self, in_shape):
+        *lead, _, _, c = in_shape
+        return (*lead, *self.output_size, c)
+
+    def forward(self, x):
+        (oh, ow), (_, h, w, _) = self.output_size, x.shape
+        if (h, w) == (oh, ow) or h % oh or w % ow:
+            return ops.adaptive_avg_pool2d(x, self.output_size)
+        k = (h // oh, w // ow)
+        return _pool2d(x, "avg", k, k, 0, self.training)
 
 
 class GlobalAvgPool2d(Module):
@@ -284,6 +335,26 @@ class Flatten(Module):
 class Identity(Module):
     def forward(self, x):
         return x
+
+
+class Lambda(Module):
+    """A pure elementwise or shape op fn(x) (nn/layers.py:Lambda); shape_fn
+    gives its output shape (the input's by default)."""
+
+    def __init__(self, fn: Callable, shape_fn: Optional[Callable] = None, name="Lambda"):
+        super().__init__()
+        self.fn = fn
+        self.shape_fn = shape_fn
+        self._name = name
+
+    def out_shape(self, in_shape):
+        return tuple(in_shape) if self.shape_fn is None else tuple(self.shape_fn(in_shape))
+
+    def forward(self, x):
+        return self.fn(x)
+
+    def extra_repr(self):
+        return self._name
 
 
 def _named(mods) -> Dict[str, Module]:
@@ -321,9 +392,15 @@ class Sequential(Module):
 class Remat(Module):
     """Rematerialization wrapper (nn/layers.py:Remat in the JAX package):
     its child's variables sit at the child's own paths. Eval mode runs the
-    child. Train mode is not ported: under torch.utils.checkpoint the
-    recomputed forward would apply every BN running update a second time,
-    which JAX's functional state never does."""
+    child. Train mode runs it under torch.utils.checkpoint (non-reentrant):
+    autograd keeps only the child's input, and the backward runs the
+    child's forward again, kernels included, to rebuild what it needs. The
+    recompute writes no running statistics (`recomputing`) and reuses the
+    dropout masks the forward drew (MaskTape: capture-safe, unlike saving
+    and restoring a generator's state); it always runs the whole forward
+    (no early stop), so its launches are those of one forward. A Remat
+    inside another's forward runs its child directly: the outer recompute
+    covers it."""
 
     JAX_TRANSPARENT = True
 
@@ -338,10 +415,13 @@ class Remat(Module):
         return self.child.out_shape(in_shape)
 
     def forward(self, x):
-        if self.training:
-            raise not_ported("train-mode Remat (a recompute would update the BN running "
-                             "statistics twice)", "modules item 8, Remat")
-        return self.child(x)
+        if not (self.training and torch.is_grad_enabled()) or current_tape() is not None:
+            return self.child(x)
+        tape = MaskTape()
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(
+                self.child, x, use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (tape.recording(), tape.replaying()))
 
 
 class _MultiBranch(Module):

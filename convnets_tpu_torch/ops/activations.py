@@ -37,6 +37,22 @@ def flatten(x):
     return x.reshape(x.shape[0], -1)
 
 
+def dropout_mask(x, rate: float, generator: Optional[torch.Generator]):
+    """The keep mask of dropout(x, rate, generator, train=True): each element
+    kept with probability 1 - rate, drawn from `generator` (on x's device)."""
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator at train time")
+    return torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+
+
+def apply_dropout(x, mask, rate: float):
+    """x scaled by 1/(1 - rate) where `mask` keeps it, 0 elsewhere."""
+    # keep, rounded to x.dtype, as a CPU scalar: it enters the kernel as an
+    # argument, with no host-to-device copy
+    return torch.where(mask, x / torch.tensor(1.0 - rate, dtype=x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x, rate: float, generator: Optional[torch.Generator] = None, *, train: bool):
     """Inverted dropout, torch semantics: at train time each element is
     kept with probability 1 - rate and scaled by 1/(1 - rate). The mask
@@ -44,11 +60,4 @@ def dropout(x, rate: float, generator: Optional[torch.Generator] = None, *, trai
     identity. The masks cannot equal JAX's bits: the streams differ."""
     if not train or rate <= 0.0:
         return x
-    if generator is None:
-        raise ValueError("dropout needs a torch.Generator at train time")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    # keep, rounded to x.dtype, as a CPU scalar: it enters the kernel as an
-    # argument, with no host-to-device copy
-    return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype),
-                       torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_dropout(x, dropout_mask(x, rate, generator), rate)

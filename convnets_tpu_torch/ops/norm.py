@@ -103,3 +103,43 @@ def batch_norm_train(x, running_mean, running_var, scale, bias, *, eps=1e-5, mom
     n = x.numel() // c
     new_mean, new_var = running_update(running_mean, running_var, mean, var, n, momentum)
     return out, new_mean, new_var
+
+
+def batch_stats(x):
+    """Per-channel (mean, biased var) of x over (N, H, W) in fp32, the var
+    as E[x²] − mean² clamped at 0 (norm.py:batch_stats): the shared
+    statistics of DenseBlockFused, where every layer's BN would reduce the
+    same concatenated blocks again."""
+    axes = tuple(range(x.ndim - 1))
+    xf = x.float()
+    mean = xf.mean(axes)
+    return mean, torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+
+
+class _BNApplyStats(torch.autograd.Function):
+    """y = _apply_norm(x, mean, rsqrt(var + eps), scale, bias) in x's dtype;
+    the backward is the total-derivative BN gradient (norm.py:
+    _bn_apply_stats_bwd), which already holds the path through the
+    statistics, so mean and var get a cotangent of zero."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, eps):
+        inv = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, mean, inv, scale)
+        return _apply_norm(x, mean, inv, scale, bias).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, inv, scale = ctx.saved_tensors
+        cd = x.dtype
+        xhat = (x - mean.to(cd)) * inv.to(cd)
+        dx, dscale, dbias = bn_input_grad(dy.to(cd), xhat, scale, inv, x.numel() // x.shape[-1])
+        return (dx, torch.zeros_like(mean), torch.zeros_like(inv), dscale.to(scale.dtype),
+                dbias.to(scale.dtype), None)
+
+
+def bn_apply_stats(x, mean, var, scale, bias, eps=1e-5):
+    """Train-mode batch norm with given batch statistics (fp32 `mean`, biased
+    `var`), which must be those of x itself (batch_stats over the same
+    values): the gradient is exact for that case only."""
+    return _BNApplyStats.apply(x, mean, var, scale, bias, eps)

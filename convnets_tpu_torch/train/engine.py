@@ -750,9 +750,10 @@ class Trainer:
         start_time = time.perf_counter()
         print("\n=== RESUME TRAINING ===\n" if resume else "\n=== START TRAINING ===\n")
         if self.setting.debug:
+            # the summary and one synthetic batch's per-module trace before
+            # the first epoch; per-step gradient norms follow
             self.print_summary()
-            print("[debug] the per-layer activation trace is not ported yet "
-                  "(ROADMAP.md modules item 8); per-step gradient norms follow")
+            self.debug_trace()
 
         # global epoch index: continues the dropout RNG stream across resume
         # so a resumed run draws the same per-epoch masks the uninterrupted
@@ -1153,7 +1154,30 @@ class Trainer:
     def print_summary(self):
         print(self.model.summary())
 
-    def debug_trace(self, *args, **kwargs):
-        """The JAX package's per-layer activation trace (nn/trace.py)."""
-        raise NotImplementedError("debug_trace needs nn/trace.py, which is not ported yet "
-                                  "(ROADMAP.md modules item 8)")
+    def debug_trace(self, batch_size: int = 2, train: bool = False):
+        """One uniform fp32 batch from generator_for(seed, "bench") through
+        the model's root module under nn/trace.py's activation_trace: each
+        module that runs prints its path, output shape, dtype and mean/std.
+        train=True runs train mode (the dropout masks from the "dropout"
+        stream) and puts the BN running statistics back afterwards, as the
+        JAX package drops the state its trace returns. fit() calls it once
+        before the first epoch when Settings.debug is set."""
+        from convnets_tpu_torch.nn.trace import activation_trace
+
+        self._require_state("debug_trace")
+        model, seed = self.model, self.setting.seed
+        device = _device_of(model)
+        x = torch.rand((batch_size, *model.input_shape_nhwc),
+                       generator=generator_for(seed, "bench", device=device), device=device)
+        buffers = {k: b.clone() for k, b in model.named_buffers()}
+        was_training = model.training
+        model.train(train)
+        try:
+            with torch.no_grad(), use_generator(generator_for(seed, "dropout", device=device)), \
+                    activation_trace(model.module):
+                model.module(x)
+        finally:
+            model.train(was_training)
+            with torch.no_grad():
+                for k, b in model.named_buffers():
+                    b.copy_(buffers[k])

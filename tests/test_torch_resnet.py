@@ -188,27 +188,31 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
     assert model.policy.compute_dtype == torch.bfloat16
 
 
-def test_outside_the_slice_raises_not_implemented(monkeypatch):
-    """Train mode runs; what is still outside it raises, naming ROADMAP.md:
-    Remat in train mode, DenseNet's shared-statistics block, and (eval or
-    train) a conv outside every kernel's envelope (Cin/G = 1 with a
-    channel multiplier of 2). The dilated grouped conv and the one with 64
-    input channels per group, which raised before the grouped envelope
-    was widened, now run and equal the plain conv → BN → ReLU. Mixup is
-    ported: its step builds, and refuses to run without the step's
-    DataRng."""
+def test_remat_trains_the_fused_densenet_builds_and_the_rest_runs_or_raises(monkeypatch):
+    """Train mode runs, Remat in train mode too (its recompute: tests/
+    test_torch_remat.py), and CONVNETS_TPU_DENSENET_FUSED=1 builds the
+    shared-statistics blocks (tests/test_torch_densenet_fused.py); a conv
+    outside every kernel's envelope (Cin/G = 1 with a channel multiplier of
+    2) raises, naming ROADMAP.md, in eval and train. The dilated grouped
+    conv and the one with 64 input channels per group, which raised before
+    the grouped envelope was widened, now run and equal the plain conv → BN
+    → ReLU. Mixup is ported: its step builds, and refuses to run without
+    the step's DataRng."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
                                            mixed_precision=False, remat=True), device="cpu")
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
     x = torch.from_numpy(_images())
     remat(x)  # eval mode runs the wrapped blocks
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        remat.train()(x)
+    with nn.use_generator(torch.Generator().manual_seed(0)):
+        logits = remat.train()(x)
+    torch.autograd.grad(logits.sum(), [p for p in remat.parameters()])  # the recompute runs
+    assert logits.shape == (2, 10) and bool(torch.isfinite(logits).all())
+    remat.eval()
     with monkeypatch.context() as m:
         m.setenv("CONVNETS_TPU_DENSENET_FUSED", "1")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model("densenet", Settings(kind="121", input_size=(3, 32, 32),
-                                             num_classes=10), device="cpu")
+        fused = build_model("densenet", Settings(kind="121", input_size=(3, 32, 32),
+                                                 num_classes=10), device="cpu")
+    assert sum(type(m).__name__ == "DenseBlockFused" for m in fused.modules()) == 4
     mixup = Settings(kind="18", input_size=(3, 32, 32), num_classes=10, mixed_precision=False,
                      mixup=0.2)
     mixup_state = create_train_state(build_model("resnet", mixup, device="cpu"))

@@ -518,16 +518,17 @@ def test_settings_are_the_jax_ones():
     assert mine.learning_rate == 0.5 and mine.distrib is not None
 
 
-def test_fit_debug_prints_gradient_norms_and_refuses_what_is_not_ported(tmp_path, capsys,
-                                                                       monkeypatch):
+def test_fit_debug_prints_the_trace_and_gradient_norms(tmp_path, capsys, monkeypatch):
     tt = Trainer(build_model("resnet", Settings(**_kw(tmp_path, epochs=1, debug=True,
                                                        sanity_check=True)), device="cpu"))
     tt.fit(*_loaders("port", n_train=16))
     tt.close()
     out = capsys.readouterr().out
-    assert "grad_norm=" in out and "total params" in out and "item 8" in out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.debug_trace()
+    assert "grad_norm=" in out and "total params" in out and "not ported" not in out
+    trace = [line for line in out.splitlines() if line.startswith("[trace] ")]
+    assert trace and out.index(trace[-1]) < out.index("grad_norm=")  # before the first epoch
+    tt.debug_trace()
+    assert capsys.readouterr().out.count("[trace] ") == len(trace)
     # the data path is ported: an augmented fit runs (per-step under debug),
     # and a loader that offers the whole-epoch scan takes the replayed-graph
     # route once debug and sanity_check are off
