@@ -10,7 +10,9 @@ convnets_tpu_torch) and the tuner, and AlexNet, SENet, SE-ResNet, SKNet,
 SK-ResNet and ShuffleNet-v1 on the widened conv kernels (dilation, wide
 groups, any dense stride), and DenseNet's shared-statistics block,
 train-mode Remat, the debug trace, the side-stream host feed and
-adaptive_avg_pool2d, on one NVIDIA GPU.
+adaptive_avg_pool2d, and data parallel (a world of one rank over NCCL, two
+ranks sharing the card over gloo, the CLI under torchrun), on one NVIDIA
+GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -227,9 +229,9 @@ final line:
      index and weight matrices; (iii) the graphed and per-step epochs'
      img/s (host clock around _run_train_epoch, fenced by its read-back),
      device ms per step and the idle share, the capture's seconds; (iv)
-     RN50@224 bf16 b256 with bench.py:39-43's settings over 9,216 uint8
-     images (1.39 GB): two chunked epochs (ShardRotationLoader, 512 MiB
-     chunks: 3 of 13 batches, the last one's 3 empty batches not run)
+     RN50@224 bf16 b256 with bench.py:39-43's settings over 4,096 uint8
+     images (0.617 GB): two chunked epochs (ShardRotationLoader, 256 MiB
+     chunks: 3 of 6 batches, the last one's 2 empty batches not run)
      against two resident graphed epochs (DeviceCacheLoader) and two more
      (the control), same permutations, phase (i)'s bar, their img/s and
      peak device memory. Prints the graph JSON line.
@@ -291,8 +293,29 @@ final line:
      (adaptive_avg_pool2d): one avg_pool2d launch per even call within
      row 3's bars, uneven bins against the CPU. Prints the
      last_modules JSON line.
+  16. data parallel (convnets_tpu_torch/parallel) on the one card: (i) a
+     world of one rank over NCCL: phase 13's replayed RN26@32 fit (2
+     epochs) with Trainer(mesh=make_mesh()) against the same fit without a
+     mesh, bit for bit (parameters, BN buffers, epoch losses and scores,
+     evaluate's loss and predictions), 29 + 29 + 1 + 1 launches per
+     replay, the all-reduces captured into the step (2 per BN layer, the
+     gradient bucket, Σw) and none issued by a replay, img/s with and
+     without the mesh in turns, the NCCL kernels of a profiled epoch; (ii)
+     NCCL with two ranks on the card (expected refused), then two ranks
+     that share the card over gloo: an fp32 global-b8 SGD step (2 × 4)
+     against one process at b8 by phase 5 (i)'s bar beside its perturbed
+     control, a no-sync control (one rank's half alone) outside the BN
+     bar; RN50@224 with bench.py's settings at a global batch of 256, 10
+     Adam steps: 53 + 53 + 1 + 1 launches per step on each rank, the
+     replicas bit for bit after every step, the loss falls, the
+     gloo-on-one-card img/s of steps 2-7; (iii) `torchrun --nproc-per-node
+     1 -m convnets_tpu_torch fit` on phase 12's PNG tree (RN26, 1 epoch):
+     exit 0, one checkpoint, exact launches per call (recorded inside the
+     worker), its test argmax = an in-process Trainer.test's of the same
+     checkpoint; (iv) dryrun_multichip(2, "cuda"). Prints the
+     data_parallel JSON line.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-15's paths (PATHS),
+  kernel: launches on its main path and on phases 10-16's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -360,12 +383,11 @@ LEARN_LR = {"resnet": 1e-3, "mobilenet_v1": 1e-3, "densenet": 1e-3, "resnext": 1
 # over dominated them and eval mode served every image as one class (train
 # mode had learned all 32).
 SETTLE_STEPS, SETTLE_MOMENTUM = 1, 1.0
-WARMUP, TIMED = 5, 20  # bench.py's protocol
-# phase 7 (iv)'s DN121 turns, (warm-up, timed) steps a run: the DN121 b256
-# step on the kernel path runs bench.py's protocol in phase 15 (ii), beside
-# the fused layout, so phase 7 keeps its plain-vs-kernel turns at this depth
-# to hold the whole run well inside its time limit
-DN121_TURNS = (2, 8)
+# the b256 train turns' depth, (warm-up, timed) steps a run: bench.py's
+# protocol is 5 + 20; cut to 2 + 8 (phase 7 (iv)'s DN121 to 2 + 4) to hold
+# the whole run inside its time limit once phase 16 was added (~120 s)
+WARMUP, TIMED = 2, 8
+DN121_TURNS = (2, 4)
 # bench.py's batch per family (its first choice, 256, fits on an 80 GB card
 # for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
 TRAIN_BATCH = {"resnet": 256, "mobilenet_v1": 256, "densenet": 256, "resnext": 256}
@@ -1785,9 +1807,9 @@ def nobn_check(arch, seed, failures):
 
 
 def timed_steps(step, state, x, y, gen, depth=(WARMUP, TIMED)):
-    """bench.py's protocol: depth = (warm-up, timed) steps, the timed ones
-    on the host clock, fenced by synchronize. Returns (seconds per step,
-    last loss)."""
+    """bench.py's protocol at another depth: depth = (warm-up, timed) steps,
+    the timed ones on the host clock, fenced by synchronize. Returns
+    (seconds per step, last loss)."""
     warmup, timed = depth
     for _ in range(warmup):
         step(state, x, y, generator=gen)
@@ -2903,8 +2925,8 @@ def trainer_fp32_check(seed, out_dir, failures):
 
 
 def step_loop_rate(seed):
-    """train_throughput's protocol on RN26@32 at b256: bench.py's warm-up and
-    timed steps on one uint8 batch already on the card, fenced."""
+    """train_throughput's protocol on RN26@32 at b256: WARMUP and TIMED
+    steps on one uint8 batch already on the card, fenced."""
     import torch
 
     from convnets_tpu_torch.models import build_model
@@ -4266,11 +4288,12 @@ def phase_cli(seed, card, failures):
 # per-step loop. (i)-(iii): RN26@32 with phase 11's settings on a train
 # split that is not a multiple of the batch (its last batch: 164 real rows,
 # 92 replaying index 0 at weight 0); (iv): RN50@224 with bench.py's
-# settings, chunked (ShardRotationLoader, 3 chunks of 13 batches, the last
-# one's 3 batches without an example not run) against resident
+# settings, chunked (ShardRotationLoader, 3 chunks of 6 batches, the last
+# one's 2 batches without an example not run, the third chunk refilling a
+# pinned slot) against resident
 GRAPH_TRAIN = 8100
 GRAPH_EPOCHS = 2
-CHUNK_IMAGES, CHUNK_BYTES, CHUNK_BATCH, CHUNK_EPOCHS = 9216, 512 << 20, 256, 2
+CHUNK_IMAGES, CHUNK_BYTES, CHUNK_BATCH, CHUNK_EPOCHS = 4096, 256 << 20, 256, 2
 
 
 def leaf_gaps(a: dict, b: dict) -> dict:
@@ -4532,7 +4555,7 @@ def graph_chunked_check(seed, out_dir, card, failures):
         gc.collect()
         torch.cuda.empty_cache()
     steps = -(-CHUNK_IMAGES // CHUNK_BATCH)
-    per_chunk = CHUNK_BYTES // (CHUNK_BATCH * IMAGE * IMAGE * 3)  # 13 at 224²
+    per_chunk = CHUNK_BYTES // (CHUNK_BATCH * IMAGE * IMAGE * 3)  # 6 at 224²
     ok_plan = plan == (steps, per_chunk, -(-steps // per_chunk)) and all(
         r["steps"] == steps * CHUNK_EPOCHS and r["launches_ok"] for r in runs.values())
     say(f"(iv) RN50@224 bf16 b{CHUNK_BATCH}, {CHUNK_IMAGES} uint8 images "
@@ -5105,7 +5128,7 @@ def phase_zoo2(seed, card, summary, failures):
 # train-mode Remat, the activation trace, the side-stream host feed and
 # adaptive_avg_pool2d
 FUSED_ENV = "CONVNETS_TPU_DENSENET_FUSED"
-REMAT_TURNS = (2, 6)  # (iii)'s b256 turns: (warm-up, timed) steps a run
+REMAT_TURNS = (2, 4)  # (iii)'s b256 turns: (warm-up, timed) steps a run
 REMAT_FIT_TRAIN = 2048  # (iv): RN26@32 images, 8 steps of TRAINER_BATCH per epoch
 DEBUG_FIT_TRAIN = 2048  # (v)
 FEED_STEPS = 10  # (vi): RN50@224 b256 steps from a host DataLoader
@@ -5947,10 +5970,572 @@ def phase_last_modules(seed, card, summary, failures):
     return paths
 
 
-# the paths of phases 10-15 whose launches the kernels line carries as
+# phase 16: data parallel (convnets_tpu_torch/parallel) on the one card.
+# (i) a world of one rank over NCCL: phase 13's replayed RN26@32 fit with a
+# mesh against the same fit without one; (ii) two ranks that share the card
+# over gloo (NCCL refuses two ranks on one device, which (ii) confirms
+# first): RN50@224 with bench.py's settings at a global batch of 256; (iii)
+# the CLI under torchrun; (iv) dryrun_multichip(2, "cuda").
+DP_EPOCHS = 2  # (i)
+DP_RANK_BATCH = 128  # (ii): 2 ranks, a global batch of 256
+DP_DEPTH = (2, 6)  # (ii): warm-up and timed steps, the first 8 of DP_LEARN_STEPS
+DP_LEARN_STEPS = 10  # (ii): bf16 Adam steps on one global batch, the loss must fall
+DP_CHECK_BATCH = 8  # (ii): the fp32 SGD step, 2 × 4 against one process at 8
+DP_TIMEOUT = 900  # (ii)-(iv): seconds for a group of rank processes
+DP_PROBE_TIMEOUT = 120  # (ii): the NCCL probe of two ranks on one card
+DP_CLI_EPOCHS = 1  # (iii)
+# (iii): installed as the torchrun worker's sitecustomize (a directory put
+# first on PYTHONPATH), it records that process's Trainers as phase 12's
+# in-process CLI records its own, and writes the record at exit; it then
+# runs the sitecustomize it shadows, if there is one
+DP_SITE = """
+import os
+if "RANK" in os.environ and os.environ.get("CHIP_SMOKE_RECORD"):
+    import atexit, json, sys
+    sys.path.insert(0, os.environ["CHIP_SMOKE_HERE"])
+    import chip_smoke
+    rec = chip_smoke.new_record()
+    rec["capture"] = True
+    _recording = chip_smoke.recorded_trainers(rec)  # kept: its exit would end the recording
+    _recording.__enter__()
+
+    def _dump():
+        t = rec["trainers"][0]
+        per_eval, per_step = chip_smoke.model_launches(t.model)
+        timed = rec["eval_io"][-int(os.environ["CHIP_SMOKE_TEST_BATCHES"]):]
+        preds = [p[w > 0].tolist() for _, p, w in timed]
+        with open(os.environ["CHIP_SMOKE_RECORD"], "w") as f:
+            json.dump({"train": rec["train"], "eval": rec["eval"], "per_step": per_step,
+                       "per_eval": per_eval, "test_preds": sum(preds, []),
+                       "world": t.world, "mesh": t.mesh is not None,
+                       "epoch_s": rec["epoch_s"]}, f)
+
+    atexit.register(_dump)
+import importlib.machinery, importlib.util, sys as _sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in _sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _mod = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_mod)
+"""
+
+
+def dp_world_one(seed, out_dir, card, failures):
+    """Phase 16 (i). Returns (results, the mesh fit's launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from convnets_tpu_torch.data import ArrayDataset, DeviceCacheLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.parallel import init_distributed, make_mesh
+    from convnets_tpu_torch.train import Trainer
+    from convnets_tpu_torch.train.graph import WARMUP_STEPS
+
+    res, path = {}, {}
+    init_distributed("file://" + os.path.join(out_dir, "nccl-store"), 1, 0, device=DEVICE)
+    try:
+        mesh = make_mesh()
+        train_ds, valid_ds = trainer_data(seed)
+        train_ds = ArrayDataset(train_ds.images[:GRAPH_TRAIN], train_ds.labels[:GRAPH_TRAIN])
+        setting = trainer_setting(seed, out_dir, data_augment=True, augment_affine=True,
+                                  data_norm=True, cutout=AUG_CUTOUT, mixup=AUG_MIXUP)
+        routes = ("no_mesh", "mesh")
+        trainers, loaders, calls = {}, {}, new_record()
+        first = None
+        for name in routes:
+            model = build_model("resnet", setting, device=DEVICE)
+            if first is None:
+                first = model.state_dict()
+            model.load_state_dict(first)
+            trainers[name] = Trainer(model, mesh=mesh if name == "mesh" else None)
+            trainers[name]._new_state()
+            pair = [DeviceCacheLoader(ds, TRAINER_BATCH, shuffle=shuffle, seed=seed,
+                                      device=DEVICE)
+                    for ds, shuffle in ((train_ds, True), (valid_ds, False))]
+            for loader in pair:
+                loader.augment, loader.normalize = loader is pair[0], True
+            loaders[name] = pair
+        count_calls(trainers["mesh"], calls)
+        # the all-reduces the mesh trainer's host issues: per eager step and
+        # at the capture (what every replay then runs), none in a replay
+        issued = []
+        all_reduce = dist.all_reduce
+
+        def counted_all_reduce(*a, **k):
+            issued[-1] += 1
+            return all_reduce(*a, **k)
+
+        dist.all_reduce = counted_all_reduce
+        results = {name: [] for name in routes}
+        seconds = {name: [] for name in routes}
+        try:
+            for e in range(DP_EPOCHS):
+                for name in routes if e % 2 == 0 else routes[::-1]:  # in turns
+                    def epoch(name=name, e=e):
+                        return trainers[name]._run_train_epoch(loaders[name][0], e)
+                    issued.append(0)
+                    sync()
+                    t0 = time.perf_counter()
+                    out = counted_run(epoch, path) if name == "mesh" else epoch()
+                    seconds[name].append(time.perf_counter() - t0)
+                    results[name].append(out)
+                    if name == "no_mesh" and issued[-1]:
+                        failures.append(f"the mesh-less fit issued {issued[-1]} all-reduces")
+                    if name == "no_mesh":
+                        issued.pop()
+        finally:
+            dist.all_reduce = all_reduce
+        evals = {}
+        for name in routes:
+            def run_eval(name=name):
+                return trainers[name]._run_eval_epoch(loaders[name][1], collect_preds=True)
+            evals[name] = counted_run(run_eval, path) if name == "mesh" else run_eval()
+        leaves = {name: run_leaves(trainers[name], results[name]) for name in routes}
+        for name in routes:
+            leaves[name]["eval/loss"] = torch.tensor(evals[name][0], dtype=torch.float64)
+            leaves[name]["eval/preds"] = torch.from_numpy(np.asarray(evals[name][3]))
+        unequal = [k for k in leaves["no_mesh"]
+                   if not torch_equal(leaves["mesh"][k], leaves["no_mesh"][k])]
+        exact = not unequal
+        steps = len(loaders["mesh"][0])
+        say(f"(i) RN26@32 bf16 b{TRAINER_BATCH}, {GRAPH_TRAIN} train images ({steps} steps), "
+            f"phase 13's settings, {DP_EPOCHS} replayed epochs with a mesh (one rank, "
+            f"{dist.get_backend()}) and without, in turns: train (loss, score) mesh "
+            f"{results['mesh']}, no mesh {results['no_mesh']}; every parameter and BN buffer, "
+            f"each epoch's loss and score, evaluate's loss and predictions over "
+            f"{len(leaves['mesh'])} leaves bit-identical {exact} {'ok' if exact else 'FAIL'}")
+        if not exact:
+            gaps = leaf_gaps(leaves["mesh"], leaves["no_mesh"])
+            failures.append(f"world-1 mesh fit != mesh-less fit: {unequal[:4]} "
+                            f"(worst gap {max(gaps.values()):.3e})")
+
+        model = trainers["mesh"].model
+        n = conv_count(model)
+        per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
+                                "pool2d_backward": 1})
+        per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
+        replays = {g.kind: launches_summary(g.per_replay[0]) for g in graphs_of(trainers["mesh"])
+                   if g.per_replay}
+        ok_calls = (len(calls["train"]) == steps * DP_EPOCHS
+                    and all(c == per_step for c in calls["train"])
+                    and all(c == per_eval for c in calls["eval"])
+                    and replays.get("train") == launches_summary(per_step))
+        # one all-reduce per BN forward and per BN backward, one for the
+        # gradient bucket, one for Σw (loss_reduction "mean")
+        want_ar = 2 * n + 2
+        ok_ar = issued == [(WARMUP_STEPS + 1) * want_ar] + [0] * (DP_EPOCHS - 1)
+        say(f"(i) launches: {len(calls['train'])} mesh train steps each "
+            f"{launches_summary(per_step)}, {len(calls['eval'])} eval batches each "
+            f"{launches_summary(per_eval)} (per replay: {replays}) "
+            f"{'ok' if ok_calls else 'FAIL'}; all-reduces the host issued per epoch {issued} "
+            f"(want {WARMUP_STEPS} eager steps and the capture × {want_ar} = 2 × {n} BN + the "
+            f"gradient bucket + Σw, then none: the replays run the captured ones) "
+            f"{'ok' if ok_ar else 'FAIL'}")
+        if not ok_calls:
+            failures.append(f"world-1 mesh fit launches off: "
+                            f"{[c for c in calls['train'] if c != per_step][:1]} {replays}")
+        if not ok_ar:
+            failures.append(f"world-1 mesh fit all-reduces per epoch {issued}, want "
+                            f"{(WARMUP_STEPS + 1) * want_ar} then 0")
+
+        # one more replayed epoch of the mesh trainer under the profiler: the
+        # NCCL kernels the device ran (an in-place sum over one rank may run
+        # none), device ms per step
+        sync()
+        prof, host, _, _ = profiled_epoch(lambda: counted_run(
+            lambda: Trainer._run_train_epoch(trainers["mesh"], loaders["mesh"][0], DP_EPOCHS),
+            path))
+        device, ours, _ = device_split(prof, OUR_KERNELS)
+        from torch.autograd import DeviceType
+
+        nccl = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA
+                and "nccl" in e.name.lower()]
+        rates = {name: [GRAPH_TRAIN / t for t in seconds[name]] for name in routes}
+        say(f"(i) {card}: replayed epoch img/s with the mesh "
+            f"{[round(r, 1) for r in rates['mesh']]}, without "
+            f"{[round(r, 1) for r in rates['no_mesh']]} (epoch 0 holds the {WARMUP_STEPS} "
+            f"eager steps and the capture); profiled mesh epoch ({steps} replays): NCCL "
+            f"kernels the device ran {len(nccl)} ({len(nccl) / steps:.2f} per replay; "
+            f"{sorted({e.name for e in nccl})[:3]}), device {device / 1e3 / steps:.3f} ms per "
+            f"step, host {1e3 * host / steps:.3f} ms per step, the port's kernels "
+            f"{ours / 1e3 / steps:.3f} ms per step")
+        res.update(results=results, bit_identical=exact, img_s=rates,
+                   launches_per_train_step=launches_summary(per_step), per_replay=replays,
+                   all_reduces_issued=issued, all_reduces_per_step=want_ar,
+                   nccl_kernels_profiled=len(nccl),
+                   profiled_epoch={"host_ms_per_step": 1e3 * host / steps,
+                                   "device_ms_per_step": device / 1e3 / steps,
+                                   "kernels_ms_per_step": ours / 1e3 / steps})
+        del trainers, loaders
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return res, path
+
+
+def replicas_equal(model) -> bool:
+    """Every rank's parameters and buffers equal data rank 0's, bit for bit
+    (rank 0's broadcast and compared on each rank; the answer is every
+    rank's)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().float().reshape(-1) for t in model.state_dict().values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    same = torch.tensor([float(torch.equal(flat, ref))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item() == 1.0)
+
+
+def sgd_readback(model, trainer_step, state, x, y, lr):
+    """One step; returns (loss, gradients read back as (before - after) / lr,
+    the BN state in the JAX layout)."""
+    from convnets_tpu_torch import bridge
+
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    loss, _ = trainer_step(state, x, y)
+    sync()
+    grads = {k: (before[k] - p.detach()) / lr for k, p in model.named_parameters()}
+    return loss, grads, bridge._flatten(bridge.export_jax_variables(model)["state"])
+
+
+def dp_rank(rank, world, init, payload):
+    """A rank of phase 16 (ii), run by parallel.dryrun.run_ranks in a process of
+    its own; writes its results to <workdir>/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from convnets_tpu_torch.core.rng import generator_for
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.parallel import init_distributed, make_mesh
+    from convnets_tpu_torch.train import Trainer
+
+    init_distributed(init, world, rank, device=DEVICE, backend=payload["backend"])
+    if payload["backend"] == "nccl":  # the probe: one all-reduce over NCCL
+        t = torch.ones(1, device=DEVICE)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"rank {rank}: NCCL all-reduce over {world} ranks on one card gave {t.item()}")
+        dist.destroy_process_group()
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.lib()
+    mesh = make_mesh()
+    seed, out = payload["seed"], {}
+
+    # the fp32 global-b8 SGD step, each rank its block; rank 0 then takes
+    # the same step in one process at b8, the perturbed control, and the
+    # no-sync control (its half alone through the plain BN)
+    lr = 2.0 ** 20
+    rng = np.random.default_rng(seed + 2)
+    xg = torch.from_numpy(rng.integers(0, 256, (DP_CHECK_BATCH, IMAGE, IMAGE, 3),
+                                       dtype=np.uint8)).to(DEVICE)
+    yg = torch.from_numpy(rng.integers(0, 1000, DP_CHECK_BATCH)).to(DEVICE)
+    k = DP_CHECK_BATCH // world
+
+    weights = {}
+
+    def sgd(mesh_=None, perturb=False):
+        # the numpy draw of RN50's weights once; every later model copies them
+        from convnets_tpu_torch.models import build_model
+
+        kw = dict(dropout_rate=0.0, optimizer="sgd", learning_rate=lr, momentum=0.0,
+                  weight_decay=0.0)
+        if not weights:
+            model = make_model("resnet", seed, False, **kw)
+            weights.update({k: t.clone() for k, t in model.state_dict().items()})
+        else:
+            model = build_model("resnet", model_setting("resnet", seed, False, **kw),
+                                device=DEVICE)
+            model.load_state_dict(weights)
+        if perturb:
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.ndim == 4:
+                        p.mul_(1 + CONTROL_PERTURBATION * torch.randn(p.shape, device=DEVICE,
+                                                                      generator=gen))
+        trainer = Trainer(model, mesh=mesh_)
+        trainer._new_state()
+        return model, trainer, trainer._get_train_step(augment=False, norm=False)
+
+    model, trainer, step = sgd(mesh)
+    loss, grads, bn = sgd_readback(model, step, trainer.state, xg[rank * k:(rank + 1) * k],
+                                   yg[rank * k:(rank + 1) * k], lr)
+    dist.all_reduce(loss)
+    out["sgd_replicas_equal"] = replicas_equal(model)
+    del model, trainer, step
+    if rank == 0:
+        runs = {}
+        for name, perturb, rows, plain in (("one", False, DP_CHECK_BATCH, False),
+                                           ("control", True, DP_CHECK_BATCH, False),
+                                           ("half", False, k, True)):
+            m, t, s = sgd(perturb=perturb)
+            with plain_kernels() if plain else contextlib.nullcontext():
+                runs[name] = sgd_readback(m, s, t.state, xg[:rows], yg[:rows], lr)
+            del m, t, s
+        lo, go, so = runs["one"]
+        gaps = {n: l2_err(grads[n], go[n]) for n in go}
+        cgaps = sorted(l2_err(runs["control"][1][n], go[n]) for n in go)
+
+        def bn_rel(s):
+            return max(float(np.abs(s[n] - so[n]).max() / max(np.abs(so[n]).max(), 1e-30))
+                       for n in so)
+
+        worst = max(gaps, key=gaps.get)
+        out["sgd"] = {"loss_rel": abs(float(loss) - float(lo)) / abs(float(lo)),
+                      "loss": float(loss), "loss_one": float(lo),
+                      "worst_grad_l2": gaps[worst], "worst_leaf": worst,
+                      "median_grad_l2": float(np.median(list(gaps.values()))),
+                      "control_max_grad_l2": cgaps[-1],
+                      "control_median_grad_l2": cgaps[len(cgaps) // 2],
+                      "bn_rel": bn_rel(bn), "half_bn_rel": bn_rel(runs["half"][2]),
+                      "finite": all(bool(torch.isfinite(g).all()) for g in grads.values())}
+        del runs
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # bench.py's step in bf16 at DP_RANK_BATCH per rank: launches per step,
+    # replicas after every step, the global loss, the timed steps
+    model = make_model("resnet", seed, True, learning_rate=LEARN_LR["resnet"])
+    trainer = Trainer(model, mesh=mesh)
+    trainer._new_state()
+    step = trainer._get_train_step(augment=False, norm=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = DP_RANK_BATCH
+    x = torch.randint(0, 256, (n * world, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)[rank * n:(rank + 1) * n]
+    y = torch.randint(0, 1000, (n * world,), device=DEVICE, generator=gen)[rank * n:(rank + 1) * n]
+    want = launches_of(TRAIN_LAUNCHES["resnet"])
+    steps = []
+    for s in range(DP_LEARN_STEPS):
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = step(trainer.state, x, y, None,
+                       generator_for(seed, "dropout", 0, s, rank, device=DEVICE))
+        sync()
+        seconds = time.perf_counter() - t0
+        launches_ok = dict(kernels.LAUNCHES) == want
+        dist.all_reduce(loss)
+        steps.append({"seconds": seconds, "loss": float(loss), "launches_ok": launches_ok,
+                      "launches": launches_summary(dict(kernels.LAUNCHES)),
+                      "replicas_equal": replicas_equal(model)})
+    out["bf16"] = {"steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with open(os.path.join(payload["workdir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def dp_nccl_probe(seed, out_dir) -> str:
+    """Phase 16 (ii)'s probe: two ranks on the one card over NCCL, one
+    all-reduce; what happened, in a line."""
+    from convnets_tpu_torch.parallel.dryrun import run_ranks
+
+    probe = os.path.join(out_dir, "probe")
+    os.makedirs(probe)
+    try:
+        outs = run_ranks("chip_smoke:dp_rank", 2, {"backend": "nccl", "seed": seed,
+                                                  "workdir": probe},
+                         workdir=probe, timeout=DP_PROBE_TIMEOUT, paths=[HERE])
+        return "ran: " + " | ".join(o.strip()[-200:] for o in outs)
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln for ln in str(e).splitlines() if "rror" in ln or "uplicate" in ln]
+        return "refused: " + " | ".join(lines[-3:])[-600:]
+
+
+def dp_two_ranks(seed, out_dir, card, failures):
+    """Phase 16 (ii): two gloo ranks on the card."""
+    from convnets_tpu_torch.parallel.dryrun import run_ranks
+
+    res = {}
+    work = os.path.join(out_dir, "ranks")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    try:
+        run_ranks("chip_smoke:dp_rank", 2, {"backend": "gloo", "seed": seed, "workdir": work},
+                  workdir=work, timeout=DP_TIMEOUT, paths=[HERE], threads=4)
+    except (RuntimeError, TimeoutError) as e:
+        failures.append(f"two gloo ranks on the card: {str(e)[-3000:]}")
+        say(f"(ii) two gloo ranks FAIL: {str(e)[-3000:]}")
+        return res
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    sgd = ranks[0]["sgd"]
+    ok_sgd = (sgd["loss_rel"] <= 1e-4 and sgd["worst_grad_l2"] <= STEP_GRAD_TOL
+              and sgd["bn_rel"] <= 1e-4 and sgd["finite"]
+              and all(r["sgd_replicas_equal"] for r in ranks))
+    ok_half = sgd["half_bn_rel"] > 1e-4
+    say(f"(ii) fp32 SGD step, global b{DP_CHECK_BATCH} on 2 gloo ranks ({DP_CHECK_BATCH // 2} "
+        f"each) vs one process at b{DP_CHECK_BATCH}: loss {sgd['loss']:.6f} vs "
+        f"{sgd['loss_one']:.6f} (rel {sgd['loss_rel']:.2e}, tol 1e-4); worst ‖Δ‖/‖g‖ "
+        f"{sgd['worst_grad_l2']:.2e} at {sgd['worst_leaf']} (median "
+        f"{sgd['median_grad_l2']:.2e}; tol {STEP_GRAD_TOL:g}; control, conv weights ×(1 + "
+        f"{CONTROL_PERTURBATION:g}·N(0,1)): median {sgd['control_median_grad_l2']:.2e} max "
+        f"{sgd['control_max_grad_l2']:.2e}); BN running stats rel {sgd['bn_rel']:.2e} (tol "
+        f"1e-4); replicas bit-identical {[r['sgd_replicas_equal'] for r in ranks]} "
+        f"{'ok' if ok_sgd else 'FAIL'}\n    no-sync control, rank 0's half alone through "
+        f"the plain BN: running stats rel {sgd['half_bn_rel']:.2e}, outside 1e-4: "
+        f"{'ok' if ok_half else 'FAIL'}")
+    if not ok_sgd:
+        failures.append(f"2-rank fp32 SGD step vs one process: {sgd}")
+    if not ok_half:
+        failures.append(f"the no-sync control is inside the bar: {sgd['half_bn_rel']:.2e}")
+    steps = [r["bf16"]["steps"] for r in ranks]
+    ok_launch = all(s["launches_ok"] for st in steps for s in st)
+    ok_equal = all(s["replicas_equal"] for st in steps for s in st)
+    losses = [s["loss"] for s in steps[0]]
+    ok_learn = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    timed = [max(steps[r][i]["seconds"] for r in range(2))
+             for i in range(DP_DEPTH[0], sum(DP_DEPTH))]
+    rate = 2 * DP_RANK_BATCH / float(np.mean(timed))
+    say(f"(ii) RN50@224 bf16, bench.py's settings (Adam lr {LEARN_LR['resnet']:g}, wd 1e-4, "
+        f"dropout 0.5), global b{2 * DP_RANK_BATCH} on 2 gloo ranks sharing the card: "
+        f"{DP_LEARN_STEPS} steps, each rank's launches per step "
+        f"{steps[0][0]['launches']} every step {'ok' if ok_launch else 'FAIL'}; replicas "
+        f"bit-identical after every step {'ok' if ok_equal else 'FAIL'}; global loss "
+        f"{[round(v, 4) for v in losses]} {'falls, ok' if ok_learn else 'FAIL'}")
+    say(f"(ii) {card}: a gloo-on-one-card rate, not a DDP rate: {rate:.1f} img/s over steps "
+        f"{DP_DEPTH[0]}-{sum(DP_DEPTH) - 1} ({[round(1e3 * t, 1) for t in timed]} ms, the "
+        f"slower rank's); peak memory per rank "
+        f"{[round(r['bf16']['peak_gib'], 2) for r in ranks]} GiB; ranks' wall {wall:.1f} s")
+    if not ok_launch:
+        bad = [s["launches"] for st in steps for s in st if not s["launches_ok"]]
+        failures.append(f"2-rank RN50 launches per step off: {bad[:2]}")
+    if not ok_equal:
+        failures.append("2-rank RN50: the replicas differ after a step")
+    if not ok_learn:
+        failures.append(f"2-rank RN50 bf16 loss does not fall: {losses}")
+    res.update(sgd=sgd, gloo_img_s=rate, timed_ms=[1e3 * t for t in timed], losses=losses,
+               launches_per_step=steps[0][0]["launches"])
+    return res
+
+
+def dp_torchrun_cli(seed, out_dir, card, failures):
+    """Phase 16 (iii): `torchrun --nproc-per-node 1 -m convnets_tpu_torch fit` on
+    phase 12's PNG tree, recorded from inside by DP_SITE; then the same
+    checkpoint's Trainer.test in this process."""
+    from convnets_tpu_torch.data.manager import DataMngr
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.settings import Settings
+    from convnets_tpu_torch.train import Trainer
+    from convnets_tpu_torch.train import checkpoint as ckpt
+
+    root = os.path.join(out_dir, "cli_tree")
+    write_cli_tree(root, seed)
+    site = os.path.join(out_dir, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(DP_SITE)
+    record = os.path.join(out_dir, "cli_record.json")
+    run_dir = os.path.join(out_dir, "cli_fit")
+    test_batches = -(-CLI_SPLITS[2][1] // CLI_BATCH)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [site, HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
+        "CHIP_SMOKE_RECORD": record, "CHIP_SMOKE_HERE": HERE,
+        "CHIP_SMOKE_TEST_BATCHES": str(test_batches)}
+    # torchrun is torch.distributed.run's console script; the module is the
+    # same program, found whether or not the script is on PATH
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "convnets_tpu_torch", "fit", "--arch", "resnet", "--kind", "26",
+           "--batch-size", str(CLI_BATCH), "--epochs", str(DP_CLI_EPOCHS), "--input-size",
+           "3,32,32", "--num-classes", str(ZOO_CLASSES), "--data-root", root, "--seed",
+           str(seed), "--output-dir", run_dir]
+    t0 = time.perf_counter()
+    proc = finished(subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True), DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    written = [f for f in os.listdir(run_dir) if f.endswith(ckpt.EXT)] \
+        if os.path.isdir(run_dir) else []
+    rec = {}
+    if os.path.exists(record):
+        with open(record) as f:
+            rec = json.load(f)
+    ok_exit = proc.returncode == 0 and len(written) == 1 and rec.get("mesh") \
+        and rec.get("world") == 1
+    say(f"(iii) torchrun --nproc-per-node 1 -m convnets_tpu_torch fit RN26@32 (b{CLI_BATCH}, "
+        f"{DP_CLI_EPOCHS} epoch, {CLI_SPLITS[0][1]} train PNGs): exit {proc.returncode} in "
+        f"{wall:.1f} s, checkpoints {written}, the Trainer's mesh {rec.get('mesh')} over "
+        f"{rec.get('world')} rank {'ok' if ok_exit else 'FAIL'}")
+    if not ok_exit:
+        failures.append(f"torchrun CLI fit: exit {proc.returncode}, files {written}, record "
+                        f"{bool(rec)}: {proc.stderr[-3000:]}")
+        return {"exit": proc.returncode}
+    rec_calls = {"train": rec["train"], "eval": rec["eval"]}
+    check_calls("torchrun CLI", rec_calls, rec["per_step"], rec["per_eval"], failures)
+    # the same checkpoint's Trainer.test in this process, no mesh
+    trainer = Trainer(build_model("resnet", Settings(
+        kind="26", input_size=(3, 32, 32), num_classes=ZOO_CLASSES, batch_size=CLI_BATCH,
+        seed=seed, output_dir=run_dir), device=DEVICE))
+    trainer.load_checkpoint(os.path.join(run_dir, written[0]))
+    mine = new_record()
+    mine["capture"] = True
+    count_calls(trainer, mine)
+    trainer.test(DataMngr(trainer.setting, root=root, device=DEVICE).load_test())
+    here = sum((p[w > 0].tolist() for _, p, w in mine["eval_io"][-test_batches:]), [])
+    agree = here == rec["test_preds"] and len(here) == CLI_SPLITS[2][1]
+    say(f"    its test argmax over the {len(here)} test images = an in-process Trainer.test of "
+        f"the same checkpoint: {agree} {'ok' if agree else 'FAIL'}; epoch seconds "
+        f"{[round(s, 2) for s in rec['epoch_s']]} ({card})")
+    if not agree:
+        failures.append("torchrun CLI: test argmax differs from the in-process Trainer.test")
+    return {"exit": proc.returncode, "checkpoints": written, "argmax_equal": agree,
+            "epoch_s": rec["epoch_s"], "wall_s": wall}
+
+
+def dp_dryrun() -> tuple:
+    """Phase 16 (iv): (rank 0's line or the error, whether it is OK)."""
+    from convnets_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    try:
+        line = dryrun_multichip(2, DEVICE, timeout=DP_TIMEOUT)
+        return line, line.endswith("OK")
+    except (RuntimeError, TimeoutError) as e:
+        return str(e)[-2000:], False
+
+
+def phase_data_parallel(seed, card, failures):
+    """Phase 16: (i)-(iv); (i) and (ii)'s gloo ranks alone on the card (they
+    are timed), then the untimed runs started together: (ii)'s NCCL probe,
+    (iii) and (iv). Prints the data_parallel JSON line; returns the
+    launches of (i)'s mesh fit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out, parts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["world_one"], path = dp_world_one(seed, tmp, card, failures)
+        parts["i"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["two_ranks"] = dp_two_ranks(seed, tmp, card, failures)
+        parts["ii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            probe, dry = pool.submit(dp_nccl_probe, seed, tmp), pool.submit(dp_dryrun)
+            out["torchrun"] = dp_torchrun_cli(seed, tmp, card, failures)
+            out["two_ranks"]["nccl_two_ranks_one_card"] = probe.result()
+            line, ok = dry.result()
+        parts["ii_probe_iii_iv"] = time.perf_counter() - t0
+    say(f"(ii) NCCL with two ranks on one card: {out['two_ranks']['nccl_two_ranks_one_card']}")
+    say(f"(iv) {line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"dryrun_multichip(2, 'cuda'): {line}")
+    out["dryrun"] = line
+    out["seconds"] = parts
+    say(json.dumps({"data_parallel": {"card": card, **out}}, default=str))
+    return path_entries(path)
+
+
+# the paths of phases 10-16 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
-         "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool")
+         "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -6110,6 +6695,9 @@ def main():
     def phase_15():
         state.update(phase_last_modules(args.seed, card, summary, failures))
 
+    def phase_16():
+        state["data_parallel"] = phase_data_parallel(args.seed, card, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -6130,6 +6718,7 @@ def main():
         "13": phase_13,
         "14": phase_14,
         "15": phase_15,
+        "16": phase_16,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -6174,7 +6763,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-15's {path} path")
+                failures.append(f"{name}: no launch on phase 10-16's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -9,7 +9,7 @@ Ported so far: the serving and train paths of ten families (ResNet,
 MobileNet-v1, DenseNet, ResNeXt, LeNet, ConvNet, the template net, VGG,
 SqueezeNet, InceptionNet-v1), the Trainer with its host feed and the
 device data path, the single-file serving artifact, the CLI with its
-drivers, and the tuner.
+drivers, the tuner, and data parallel over a mesh of processes.
   settings.py   run configuration (a copy of the JAX package's)
   core/      dtype policy, shape math, random-number streams
   ops/       plain tensor ops (NHWC), the CPU oracles of the kernels
@@ -24,6 +24,8 @@ drivers, and the tuner.
   train/     train and eval steps, Trainer, optimizers, schedulers,
              metrics, checkpoints in the JAX package's format
   tune/      ParameterSampler and the random-search Tuner
+  parallel/  the data-parallel DeviceMesh, sync-BN sums over its data group,
+             init_distributed, dryrun_multichip
   viz/       plots (matplotlib, imported only where a driver plots)
   bridge.py  JAX variables and optimizer state <-> port tensors, by path
   drivers.py process_fit / process_tune / process_load / process_export /

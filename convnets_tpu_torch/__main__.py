@@ -7,11 +7,17 @@ onto Settings and the drivers.
 The subcommands and flags are the JAX package's, plus --device: the card
 by default (`cuda`); without one the command fails naming the missing
 device, unless `--device cpu` asks for the CPU. `models` needs no device.
+
+Data parallel: `torchrun --nproc-per-node N -m convnets_tpu_torch fit ...`
+trains over every rank (the drivers read torchrun's environment); rank 0
+alone prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 
 from convnets_tpu_torch.drivers import (
@@ -83,6 +89,24 @@ def _setting(args) -> Settings:
 
 
 def main(argv=None):
+    """Parse argv and run its subcommand; under torchrun, ranks other than 0
+    print nothing, and the process group the drivers started is destroyed
+    at the end."""
+    import torch.distributed as dist
+
+    had_group = dist.is_initialized()
+    quiet = open(os.devnull, "w") if int(os.environ.get("RANK", "0")) != 0 else None
+    try:
+        with contextlib.redirect_stdout(quiet) if quiet else contextlib.nullcontext():
+            return _main(argv)
+    finally:
+        if quiet is not None:
+            quiet.close()
+        if dist.is_initialized() and not had_group:
+            dist.destroy_process_group()
+
+
+def _main(argv):
     parser = argparse.ArgumentParser(prog="convnets_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 

@@ -232,7 +232,12 @@ class DeviceCacheLoader:
     `scan_epochs` (True; the JAX package's switch): the Trainer runs its
     epochs as replays of one captured step over `epoch_matrices()` (one
     copy of the epoch's index and weight matrices); False selects the
-    per-step loop over `__iter__` (one 4-byte index per image per step)."""
+    per-step loop over `__iter__` (one 4-byte index per image per step).
+
+    Under data parallel each rank keeps the whole split on its card (the
+    JAX package replicates it over the mesh) and `epoch_matrices()` gives
+    that rank's block: its host slice (host_id = its data rank, num_hosts
+    = the data group's size) of the epoch's permutation."""
 
     def __init__(self, dataset: Dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False, host_id: int = 0, num_hosts: int = 1,

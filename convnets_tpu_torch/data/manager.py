@@ -10,7 +10,9 @@ is set; otherwise a split of at most DEVICE_CACHE_AUTO_BYTES decoded bytes
 goes to DeviceCacheLoader; a larger split with `load_raw` rotates through
 the device in chunks (ShardRotationLoader, data/stream.py), unless
 CONVNETS_TPU_STREAM=0 (the JAX package's switch) sends it to the host
-DataLoader.
+DataLoader. With a data-parallel `mesh`, each loader is this rank's host
+slice (host_id = its data rank, num_hosts = the data group's size) unless
+the call names one.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 from convnets_tpu_torch.data.datasets import CINIC_MEAN, CINIC_STD, Dataset, ImageFolderDataset
 from convnets_tpu_torch.data.loader import DataLoader, DeviceCacheLoader
 from convnets_tpu_torch.data.stream import ShardRotationLoader
+from convnets_tpu_torch.parallel.mesh import data_rank, data_size
 
 
 class DataMngr:
@@ -31,12 +34,16 @@ class DataMngr:
     DEVICE_CACHE_AUTO_BYTES = 1 << 30
 
     def __init__(self, setting, root: Optional[str] = None, device="cuda",
-                 datasets: Optional[Dict[str, Dataset]] = None):
+                 datasets: Optional[Dict[str, Dataset]] = None, mesh=None):
         """`datasets`: {split: Dataset} in place of the ImageFolder splits
         under `root` (in-memory or synthetic data). `device`: where a
         DeviceCacheLoader keeps its split and a ShardRotationLoader its
-        chunks."""
+        chunks. `mesh`: the data-parallel mesh whose data rank and size give
+        the loaders' default host slice."""
         self.setting = setting
+        axis = getattr(setting, "data_axis", None) or "data"
+        self.hosts = ((0, 1) if mesh is None
+                      else (data_rank(mesh, axis), data_size(mesh, axis)))
         # data/CINIC-10 and data/cache/<dataset>-<split>.npy under the
         # working directory, as in the JAX package
         base = os.path.join(os.getcwd(), "data")
@@ -64,7 +71,10 @@ class DataMngr:
             return bool(flag)
         return len(ds) * int(np.prod(ds.image_shape)) <= self.DEVICE_CACHE_AUTO_BYTES
 
-    def _make_loader(self, split: str, shuffle: bool, host_id: int, num_hosts: int):
+    def _make_loader(self, split: str, shuffle: bool, host_id: Optional[int],
+                     num_hosts: Optional[int]):
+        if host_id is None or num_hosts is None:
+            host_id, num_hosts = self.hosts
         ds = self._dataset(split)
         if self._use_device_cache(ds):
             return DeviceCacheLoader(ds, self.batch_size, shuffle=shuffle, seed=self.setting.seed,
@@ -77,19 +87,19 @@ class DataMngr:
                           num_workers=self.setting.num_workers, host_id=host_id,
                           num_hosts=num_hosts)
 
-    def load_train(self, host_id: int = 0, num_hosts: int = 1):
+    def load_train(self, host_id: Optional[int] = None, num_hosts: Optional[int] = None):
         loader = self._make_loader("train", True, host_id, num_hosts)
         loader.augment = self.data_augment
         loader.normalize = self.data_norm
         return loader
 
-    def load_valid(self, host_id: int = 0, num_hosts: int = 1):
+    def load_valid(self, host_id: Optional[int] = None, num_hosts: Optional[int] = None):
         loader = self._make_loader("valid", False, host_id, num_hosts)
         loader.augment = False
         loader.normalize = self.data_norm
         return loader
 
-    def load_test(self, host_id: int = 0, num_hosts: int = 1):
+    def load_test(self, host_id: Optional[int] = None, num_hosts: Optional[int] = None):
         # the reference shuffles the test loader deliberately for its
         # statistical subsampling protocol (mngrdata.py:211)
         loader = self._make_loader("test", True, host_id, num_hosts)

@@ -17,6 +17,11 @@ convnets_tpu/data/stream.py).
     epoch's step c·batches_per_chunk + s, so the epoch equals a
     DeviceCacheLoader epoch over the same permutation.
 
+Under data parallel each rank rotates its own disjoint rows: its host
+slice of the epoch's permutation (host_id, num_hosts), cut into chunks of
+one geometry on every rank (as convnets_tpu/data/stream.py:125-140 gives
+each process its block of the global chunk).
+
 Every chunk has one shape. The last one's free rows replay index 0 of the
 split at weight 0, as DeviceCacheLoader pads its last batch, and its
 batches that hold no example are not run. (The JAX package runs them, at

@@ -8,6 +8,14 @@ its DataMngr there; without a card the default raises (build_model), it
 never falls back to the CPU. The plots need matplotlib, which is imported
 only when a driver plots: where it is missing, process_eval says so once
 and computes every score just the same.
+
+Under torchrun (WORLD_SIZE in the environment) process_fit, process_tune
+and process_load call parallel.init_distributed() and train over a
+data-parallel mesh of every rank (`torchrun --nproc-per-node N -m
+convnets_tpu_torch fit ...`: one card per rank, each rank its host slice
+of every split); data rank 0 alone writes checkpoints and plots, and
+process_export runs on rank 0 alone. There is no flag for it: the JAX CLI
+has none either, and takes every local device by default.
 """
 
 from __future__ import annotations
@@ -17,9 +25,20 @@ from typing import Optional
 
 from convnets_tpu_torch.data.manager import DataMngr
 from convnets_tpu_torch.models import build_model
+from convnets_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train.engine import Trainer
 from convnets_tpu_torch.tune.tuner import Tuner
+
+
+def _torchrun_mesh(setting: Settings, device):
+    """Under torchrun, the process group (init_distributed) and a mesh over
+    every rank; otherwise None."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    init_distributed(device=device)
+    return make_mesh(axis_name=getattr(setting, "data_axis", None) or "data",
+                     mesh_shape=getattr(setting, "mesh_shape", None))
 
 
 def _plot_manager(plot_dir: str):
@@ -42,7 +61,7 @@ def process_eval(trainer: Trainer, trainset, validset, testset,
     per-batch seconds, img/s)."""
     if plot_dir is None:
         plot_dir = os.path.join(trainer.setting.output_dir, "plots")
-    plot = _plot_manager(plot_dir)
+    plot = _plot_manager(plot_dir) if trainer.rank == 0 else None
 
     def confusion(name):
         if plot is not None:
@@ -69,10 +88,11 @@ def process_fit(arch: str, setting: Settings, data_root: Optional[str] = None,
                 optimizer: Optional[str] = None, device="cuda") -> Trainer:
     """Train a fresh model end-to-end, then evaluate
     (reference template_net.py:96-156)."""
+    mesh = _torchrun_mesh(setting, device)
     model = build_model(arch, setting, device=device)
-    data = DataMngr(setting, root=data_root, device=device)
+    data = DataMngr(setting, root=data_root, device=device, mesh=mesh)
     trainset, validset = data.load_train(), data.load_valid()
-    trainer = Trainer(model, optimizer=optimizer)
+    trainer = Trainer(model, optimizer=optimizer, mesh=mesh)
     trainer.print_summary()
     trainer.fit(trainset, validset)
     process_eval(trainer, trainset, validset, data.load_test())
@@ -84,14 +104,16 @@ def process_tune(arch: str, setting: Settings, num_iter: int,
                  device="cuda"):
     """Random search over setting.distrib, then evaluate the winner
     (reference template_net.py:158-219). Returns (best Trainer, results)."""
+    mesh = _torchrun_mesh(setting, device)
+
     def make_loaders(s):
-        data = DataMngr(s, root=data_root, device=device)
+        data = DataMngr(s, root=data_root, device=device, mesh=mesh)
         return data.load_train(), data.load_valid()
 
-    tuner = Tuner(arch, setting, make_loaders, optimizer=optimizer, device=device)
+    tuner = Tuner(arch, setting, make_loaders, optimizer=optimizer, device=device, mesh=mesh)
     trainer, results = tuner.process(num_iter=num_iter)
     if trainer is not None:
-        data = DataMngr(trainer.setting, root=data_root, device=device)
+        data = DataMngr(trainer.setting, root=data_root, device=device, mesh=mesh)
         process_eval(trainer, data.load_train(), data.load_valid(), data.load_test(),
                      tuning=True, results={"tuning_results": results})
     return trainer, results
@@ -105,12 +127,13 @@ def process_load(arch: str, setting: Settings, path: Optional[str] = None,
     evaluate (reference template_net.py:221-261). With testing=True returns
     (model_name, subset_scores) for cross-model comparison
     (mngrutility.py:61-114), else (trainer, checkpoint meta)."""
+    mesh = _torchrun_mesh(setting, device)
     model = build_model(arch, setting, device=device)
-    trainer = Trainer(model, optimizer=optimizer)
+    trainer = Trainer(model, optimizer=optimizer, mesh=mesh)
     meta = trainer.load_checkpoint(path)
     trainer.setting.show()
 
-    data = DataMngr(trainer.setting, root=data_root, device=device)
+    data = DataMngr(trainer.setting, root=data_root, device=device, mesh=mesh)
     if resume_training:
         if epochs is not None:
             trainer.setting.epochs = epochs
@@ -136,8 +159,12 @@ def process_export(arch: str, setting: Settings, out_path: str,
     (serve/export.py). With bake_norm=True the train split's per-channel
     normalization is part of the served program and requests send raw
     [0, 1] pixels. The JAX driver's `platforms` (its StableHLO lowering
-    targets) has no counterpart: the artifact runs where it is loaded."""
+    targets) has no counterpart: the artifact runs where it is loaded.
+    Under torchrun only rank 0 exports (the others return None)."""
     from convnets_tpu_torch.serve import export_trainer
+
+    if int(os.environ.get("RANK", "0")) != 0:
+        return None
 
     model = build_model(arch, setting, device=device)
     trainer = Trainer(model)

@@ -22,6 +22,7 @@ import torch
 from convnets_tpu_torch import nn, ops
 from convnets_tpu_torch.models.base import Builder, Model, register
 from convnets_tpu_torch.ops.norm import running_update
+from convnets_tpu_torch.parallel.mesh import global_count
 
 # copied from convnets_tpu/models/densenet.py (importing it would pull in
 # jax): (growth_rate, block_sizes, init_features)
@@ -125,7 +126,7 @@ class DenseBlockFused(nn.Module):
         if not self.training:
             return bank.running_mean.float(), bank.running_var.float()
         mean, var = ops.batch_stats(t.detach())  # bn_apply_stats gives them no cotangent
-        n = t.numel() // t.shape[-1]
+        n = global_count(t.numel() // t.shape[-1])
         nn.write_running(bank, *running_update(bank.running_mean, bank.running_var, mean, var,
                                                n, self.momentum))
         return mean, var

@@ -40,6 +40,7 @@ from convnets_tpu_torch.ops import initializers as init
 from convnets_tpu_torch.ops import kernels
 from convnets_tpu_torch.ops.kernels import library
 from convnets_tpu_torch.ops.norm import running_update
+from convnets_tpu_torch.parallel.mesh import global_count
 
 _OPS = getattr(torch.ops, library.NAMESPACE)
 
@@ -169,7 +170,8 @@ class BatchNorm2d(Module):
 
     def update_running(self, mean, var, n: int) -> None:
         """The running-statistics update, in place and outside autograd;
-        none in a Remat recompute."""
+        none in a Remat recompute. n: the count per channel behind mean and
+        var (the global count under a data-parallel mesh)."""
         write_running(self, *running_update(self.running_mean, self.running_var,
                                             mean.detach(), var.detach(), n, self.momentum))
 
@@ -503,7 +505,7 @@ class ConvBNReLU(Sequential):
             out, mean, var = kernels.conv_bn_relu_train(
                 x, w, bn.weight, bn.bias, conv.stride, conv.padding, bn.eps, self.act,
                 groups=conv.groups, dilation=conv.dilation)
-            bn.update_running(mean, var, out.shape[0] * out.shape[1] * out.shape[2])
+            bn.update_running(mean, var, global_count(out.shape[0] * out.shape[1] * out.shape[2]))
             return out
         s, sh = bn.folded()
         geo = (list(conv.stride), list(conv.padding), self.act, list(conv.dilation))

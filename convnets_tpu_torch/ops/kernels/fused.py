@@ -10,6 +10,16 @@ fused.py:49-60). Backward (_fused_bwd, :70-103): the ReLU mask is
 recomputed through the same _apply_norm as the forward, the two
 per-channel reductions run in fp32, and dx/dw come from transposed convs
 in plain PyTorch, as the JAX package leaves them to XLA.
+
+Under an active data-parallel mesh (parallel/mesh.py) the statistics are
+the global batch's, as GSPMD reduces them over the sharded batch: the
+kernel's Σy and Σy² are summed over the data group as one 2·Cout buffer in
+one all-reduce, and n is the global count; the backward's Σdy and Σdy·x̂
+are summed likewise for dx (ops/norm.py:bn_input_grad), and dscale/dbias
+are returned as this rank's sums, which the train step's gradient
+all-reduce adds up once with dw. The JAX package leaves the fused kernel
+under a multi-device mesh, because its statistics would be per shard; the
+port keeps the kernel and reduces its sums.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 from convnets_tpu_torch.ops import kernels as _k
 from convnets_tpu_torch.ops.kernels.conv import conv2d_backward
 from convnets_tpu_torch.ops.norm import _apply_norm, bn_input_grad
+from convnets_tpu_torch.parallel.mesh import active_mesh, data_sum_
 
 
 class _ConvBNReLUTrain(torch.autograd.Function):
@@ -30,6 +41,10 @@ class _ConvBNReLUTrain(torch.autograd.Function):
             y, s1, s2 = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding,
                                                 dilation=dilation)
         n = y.shape[0] * y.shape[1] * y.shape[2]
+        if active_mesh() is not None:
+            sums = torch.cat([s1, s2])
+            n = data_sum_(sums, n)
+            s1, s2 = sums.split(s1.shape[0])
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         inv = torch.rsqrt(var + eps)
@@ -68,7 +83,8 @@ def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=Tr
     dtype, scale/bias (Cout,) fp32; groups > 1 within `fits_grouped`; any
     dilation (SKConv's second path). Returns (out, mean, var): out in
     x.dtype, mean and biased var fp32 (Cout,) for the caller's running
-    update (they carry no gradient). At 1x1 spatial (SKConv's descriptor)
+    update (they carry no gradient; the global batch's under an active
+    mesh). At 1x1 spatial (SKConv's descriptor)
     the statistics are over the N values of each channel."""
     return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu, groups,
                                   dilation)

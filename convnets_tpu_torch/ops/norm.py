@@ -4,11 +4,22 @@ torch.nn.BatchNorm2d semantics: eps 1e-5, momentum 0.1 with
 new_running = (1 - momentum)·running + momentum·batch_stat, the biased
 batch variance for normalizing and the unbiased one in running_var.
 Statistics are always fp32, whatever the compute dtype.
+
+Under a data-parallel mesh (parallel/mesh.py) the statistics are the
+global batch's: the forward's per-channel mean and E[x²] and the
+backward's Σdy and Σdy·x̂ are reduced over the data group, each pair in
+one call, and the counts are global (`global_count`), so the unbiased
+running variance corrects by the global count as GSPMD's does. The scale
+and bias gradients stay this rank's sums: the train step's one gradient
+all-reduce sums them with every other gradient, and a global sum here
+would enter it world times.
 """
 
 from __future__ import annotations
 
 import torch
+
+from convnets_tpu_torch.parallel.mesh import active_mesh, data_mean_, data_sum_, global_count
 
 
 def _apply_norm(x, mean, inv, scale, bias):
@@ -39,17 +50,25 @@ def bn_input_grad(dy, xhat, scale, inv, n: int):
     """The textbook batch-norm gradient of norm.py:_bn_core_bwd (:77-95):
         dx = γ·inv · (dy − mean(dy) − x̂·mean(dy·x̂))
     with the two per-channel reductions in fp32 and the elementwise work
-    in dy's dtype. Returns (dx, Σdy·x̂, Σdy); the last two are the scale and
-    bias gradients in fp32."""
+    in dy's dtype; n is this rank's count per channel. Returns (dx, Σdy·x̂,
+    Σdy); the last two are the scale and bias gradients in fp32. Under an
+    active mesh dx takes the two sums over the data group (one all-reduce
+    of a 2·C buffer) and the global count, while the returned sums stay
+    this rank's: the step's gradient all-reduce adds them up once."""
     cd = dy.dtype
     axes = tuple(range(dy.ndim - 1))
     dyf = dy.float()
     sum_dy = dyf.sum(axes)
     sum_dy_xhat = (dyf * xhat.float()).sum(axes)
+    g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+    if active_mesh() is not None:
+        both = torch.cat([sum_dy, sum_dy_xhat])
+        n = data_sum_(both, n)
+        g_dy, g_dy_xhat = both.split(sum_dy.shape[0])
     g = scale.float() * inv
     dx = (g.to(cd) * (dy
-                      - (sum_dy / n).to(cd)
-                      - xhat * (sum_dy_xhat / n).to(cd))).to(cd)
+                      - (g_dy / n).to(cd)
+                      - xhat * (g_dy_xhat / n).to(cd))).to(cd)
     return dx, sum_dy_xhat, sum_dy
 
 
@@ -60,10 +79,7 @@ class _BNCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        axes = tuple(range(x.ndim - 1))
-        xf = x.float()
-        mean = xf.mean(axes)
-        var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+        mean, var = batch_stats(x)
         inv = torch.rsqrt(var + eps)
         y = _apply_norm(x, mean, inv, scale, bias).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, scale)
@@ -83,7 +99,8 @@ class _BNCore(torch.autograd.Function):
 def running_update(running_mean, running_var, mean, var, n: int, momentum: float):
     """torch's running-statistics update in fp32, with the unbiased
     variance: (1 - m)·r + m·stat, written out (not lerp) as the JAX
-    package writes it, so the last ulp agrees."""
+    package writes it, so the last ulp agrees. n: the count per channel
+    behind the statistics, the global one under a mesh."""
     unbiased = var * (n / max(n - 1, 1))
     new_mean = (1.0 - momentum) * running_mean.float() + momentum * mean
     new_var = (1.0 - momentum) * running_var.float() + momentum * unbiased
@@ -100,7 +117,7 @@ def batch_norm_train(x, running_mean, running_var, scale, bias, *, eps=1e-5, mom
     if bias is None:
         bias = torch.zeros(c, dtype=torch.float32, device=x.device)
     out, mean, var = _BNCore.apply(x, scale, bias, eps)
-    n = x.numel() // c
+    n = global_count(x.numel() // c)
     new_mean, new_var = running_update(running_mean, running_var, mean, var, n, momentum)
     return out, new_mean, new_var
 
@@ -109,11 +126,16 @@ def batch_stats(x):
     """Per-channel (mean, biased var) of x over (N, H, W) in fp32, the var
     as E[x²] − mean² clamped at 0 (norm.py:batch_stats): the shared
     statistics of DenseBlockFused, where every layer's BN would reduce the
-    same concatenated blocks again."""
+    same concatenated blocks again. Under an active mesh the mean and
+    E[x²] are the global batch's: this rank's pair, averaged over the data
+    group in one all-reduce."""
     axes = tuple(range(x.ndim - 1))
     xf = x.float()
-    mean = xf.mean(axes)
-    return mean, torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+    mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+    if active_mesh() is not None:
+        both = data_mean_(torch.cat([mean, ex2]))
+        mean, ex2 = both.split(mean.shape[0])
+    return mean, torch.clamp_min(ex2 - mean * mean, 0.0)
 
 
 class _BNApplyStats(torch.autograd.Function):

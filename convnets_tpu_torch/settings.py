@@ -12,8 +12,9 @@ Keeps the reference's two-schema design (reference settings.py:14-319):
   (reference settings.py:294-299).
 
 The fields are the JAX package's, so a checkpoint's settings meta has the
-same keys in both packages. ``mesh_shape``/``data_axis`` are kept for that
-reason; the port has no mesh yet (ROADMAP.md modules item 7), and
+same keys in both packages. ``mesh_shape``/``data_axis`` shape the
+Trainer's data-parallel mesh (``Trainer(use_mesh=True)`` calls
+``parallel.make_mesh(axis_name=data_axis, mesh_shape=mesh_shape)``), and
 ``mixed_precision`` selects the bf16 compute policy.
 """
 

@@ -34,8 +34,21 @@ chooses (engine.py:568-573, :667-682, :738-756):
 The random draws of step s of global epoch e come from the seeds of
 generator_for(seed, stream, e, s): "dropout" for the masks, "augment",
 "cutout" and "mixup" for the data side (`DataRng`); the replayed route
-reseeds long-lived generators to those seeds before each step. Data
-parallel is ROADMAP.md modules item 7.
+reseeds long-lived generators to those seeds before each step.
+
+Data parallel (`Trainer(model, mesh=make_mesh())`, parallel/mesh.py):
+one process per card, each rank feeding its loader's host slice
+(host_id = its data rank, num_hosts = the data group's size) as its block
+of the global batch. The parameters and BN buffers start from rank 0's
+(broadcast), every BN site reduces its statistics over the data group
+while the mesh's steps run (`mesh_scope`), and the step sums the gradients
+over the group as one flat fp32 buffer before clipping: the global
+batch's gradient, a sum as in the JAX step. The dropout, augmentation,
+cutout and mixup-permutation draws of step (e, s) on data rank r come from
+the streams at (e, s, r), which at r = 0 are those at (e, s), so rank 0
+draws what one process draws; mixup's λ is one host draw at (e, s),
+the same on every rank. Only data rank 0 writes checkpoints and metrics;
+the others wait at a barrier before they read one.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnets_tpu_torch import bridge, ops
 from convnets_tpu_torch.core.precision import LossScale
@@ -59,6 +73,10 @@ from convnets_tpu_torch.data.augment import (
 from convnets_tpu_torch.data.datasets import CINIC_MEAN, CINIC_STD
 from convnets_tpu_torch.data.loader import DataLoader, device_prefetch
 from convnets_tpu_torch.nn import use_generator
+from convnets_tpu_torch.parallel.mesh import (
+    broadcast_object, broadcast_tensors, data_group, data_rank, data_size, data_sum_,
+    make_mesh, mesh_backend, mesh_scope,
+)
 from convnets_tpu_torch.train import checkpoint as ckpt
 from convnets_tpu_torch.train import metrics as M
 from convnets_tpu_torch.train import optim
@@ -80,10 +98,11 @@ class DataRng(NamedTuple):
     mixup_host: torch.Generator
 
 
-def data_rng(seed: int, device, *index: int) -> DataRng:
-    """Step `index` = (e, s)'s DataRng: the "augment", "cutout" and
-    "mixup" streams at (e, s)."""
-    return DataRng(*(generator_for(seed, stream, *index, device=device)
+def data_rng(seed: int, device, *index: int, rank: int = 0) -> DataRng:
+    """Step `index` = (e, s)'s DataRng on data rank `rank`: the "augment",
+    "cutout" and "mixup" streams at (e, s, rank) on the device (at (e, s)
+    for rank 0), and the host's λ generator at (e, s) on every rank."""
+    return DataRng(*(generator_for(seed, stream, *index, rank, device=device)
                      for stream in ("augment", "cutout", "mixup")),
                    generator_for(seed, "mixup", *index))
 
@@ -144,6 +163,18 @@ def _make_preprocess(model, norm: bool, stats, augment: bool = False, do_affine:
     return preprocess
 
 
+def _sum_over_ranks(grads: dict) -> dict:
+    """The gradients summed over the active mesh's data group as one flat
+    fp32 buffer (one all-reduce), each back in its shape and dtype."""
+    flat = torch.cat([g.float().reshape(-1) for g in grads.values()])
+    data_sum_(flat, 1)
+    out, at = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[at:at + g.numel()].view(g.shape).to(g.dtype)
+        at += g.numel()
+    return out
+
+
 def _data_flags(setting):
     """(do_affine, cutout side, mixup α) of the settings."""
     return (bool(getattr(setting, "augment_affine", True)),
@@ -158,12 +189,16 @@ class TrainStep:
     rng.mixup_host), and `run(state, x, y, w, generator, rng)`, the
     device's, which reads only tensors and generators and changes nothing
     on the host, so it can be captured once and replayed (train/graph.py).
-    Calling the step does both."""
+    Calling the step does both. With a `mesh`, `run` makes it the active
+    mesh (the BN sites reduce over its data group) and sums the gradients
+    over that group before clipping; loss_reduction "mean" then divides by
+    the global Σw. Without one, it makes no mesh active."""
 
     def __init__(self, state: TrainState, *, augment: bool = False, norm: bool = False,
-                 stats=None, debug: bool = False):
+                 stats=None, debug: bool = False, mesh=None, axis: str = "data"):
         model = state.model
         setting = model.setting
+        self.mesh, self.axis = mesh, axis
         do_affine, cut, self.mix_a = _data_flags(setting)
         self.debug = debug
         self.wd = float(getattr(setting, "weight_decay", 0.0))
@@ -190,6 +225,10 @@ class TrainStep:
 
     def run(self, state: TrainState, x, y, w, generator: Optional[torch.Generator] = None,
             rng: Optional[DataRng] = None):
+        with mesh_scope(self.mesh, self.axis):
+            return self._run(state, x, y, w, generator, rng)
+
+    def _run(self, state: TrainState, x, y, w, generator, rng):
         sc = state.scalars
         state.model.train()
         x = self.preprocess(x, rng)
@@ -208,10 +247,17 @@ class TrainStep:
             loss_sum = ops.cross_entropy_sum(logits, y, w, label_smoothing=self.smoothing)
         objective = loss_sum
         if self.mean_grad:
-            objective = loss_sum / torch.clamp_min(torch.sum(w), 1.0)
+            total = torch.sum(w)
+            if self.mesh is not None:
+                total = total.reshape(1)
+                data_sum_(total, 1)
+                total = total[0]
+            objective = loss_sum / torch.clamp_min(total, 1.0)
         values = torch.autograd.grad(state.loss_scale.scale_loss(objective),
                                      list(params.values()))
         grads = state.loss_scale.unscale_grads(dict(zip(params, values)))
+        if self.mesh is not None:
+            grads = _sum_over_ranks(grads)
         if self.clip_norm is not None:
             grads = optim.clip_by_global_norm(grads, self.clip_norm)
         if self.clip_value is not None:
@@ -241,7 +287,7 @@ class TrainStep:
 
 
 def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = False,
-                     stats=None, debug: bool = False) -> TrainStep:
+                     stats=None, debug: bool = False, mesh=None, axis: str = "data") -> TrainStep:
     """Return train_step(state, x, y, w=None, generator=None, rng=None) ->
     (loss, correct), or (loss, correct, gradient global norm) when `debug`
     (a TrainStep).
@@ -255,8 +301,10 @@ def build_train_step(state: TrainState, *, augment: bool = False, norm: bool = F
     correct its count of right argmaxes against y, both fp32 scalars on
     the device. Settings read: weight_decay, grad_clip_norm/gc_max_norm,
     grad_clip_value/gc_value, momentum, nesterov, loss_reduction,
-    label_smoothing, augment_affine, cutout, mixup."""
-    return TrainStep(state, augment=augment, norm=norm, stats=stats, debug=debug)
+    label_smoothing, augment_affine, cutout, mixup. mesh: a data-parallel
+    mesh whose data dimension is `axis` (TrainStep)."""
+    return TrainStep(state, augment=augment, norm=norm, stats=stats, debug=debug, mesh=mesh,
+                     axis=axis)
 
 
 def build_eval_step(model, norm: bool = False, stats=None):
@@ -296,15 +344,34 @@ def _host_sum(values) -> float:
 
 class Trainer:
     """fit / evaluate / test / checkpoint for one Model, on the model's
-    device (build_model puts it on the card); the Trainer never moves it."""
+    device (build_model puts it on the card); the Trainer never moves it.
+
+    mesh: a data-parallel DeviceMesh (parallel/mesh.py make_mesh) whose
+    data dimension is Settings.data_axis; use_mesh=True builds
+    make_mesh(axis_name=data_axis, mesh_shape=Settings.mesh_shape) over the
+    initialized default group. Either needs init_distributed() first. The
+    JAX Trainer's use_mesh defaults to True (a mesh over the local
+    devices); the port's to False, since its mesh spans processes."""
 
     def __init__(self, model, optimizer: Optional[str] = None, mesh=None,
                  use_mesh: bool = False):
-        if mesh is not None or use_mesh:
-            raise NotImplementedError("data parallel is not ported yet "
-                                      "(ROADMAP.md modules item 7)")
         self.model = model
         self.setting = model.setting
+        self.axis = getattr(self.setting, "data_axis", None) or "data"
+        if mesh is not None or use_mesh:
+            if not dist.is_initialized():
+                raise RuntimeError("Trainer(mesh=...) needs an initialized process group: call "
+                                   "convnets_tpu_torch.parallel.init_distributed() first")
+            if mesh is None:
+                mesh = make_mesh(axis_name=self.axis,
+                                 mesh_shape=getattr(self.setting, "mesh_shape", None))
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else data_rank(mesh, self.axis)
+        self.world = 1 if mesh is None else data_size(mesh, self.axis)
+        if self.world > 1:
+            # the checkpoint files are named by the model's version (its
+            # build time): every rank names rank 0's file
+            model.version = broadcast_object(model.version, mesh, self.axis)
         self.device = _device_of(model)
         self.optimizer_name = optimizer or getattr(self.setting, "optimizer", "adam")
         self.state: Optional[TrainState] = None
@@ -355,8 +422,46 @@ class Trainer:
         self._train_step_fns.clear()
         self._eval_step_fns.clear()
         self._epoch_fns.clear()
+        self._replicate()
         self.state = create_train_state(self.model, self.setting, self.optimizer_name)
         return self.state
+
+    def _replicate(self) -> None:
+        """With a mesh, every parameter and buffer becomes data rank 0's."""
+        if self.mesh is not None:
+            with torch.no_grad():
+                broadcast_tensors([t.detach() for t in self.model.state_dict().values()],
+                                  self.mesh, self.axis)
+
+    def _over_ranks(self, *values: float) -> list:
+        """The host numbers summed over the data group when it has more than
+        one rank (one all-reduce in fp64 on the model's device), else as
+        they are."""
+        if self.world == 1:
+            return [float(v) for v in values]
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=data_group(self.mesh, self.axis))
+        return t.tolist()
+
+    def _check_shard(self, loader) -> None:
+        """Under more than one rank, a train loader must be this rank's host
+        slice, and every rank's slice must give the same number of steps
+        (each step runs collectives that every rank joins)."""
+        if self.world == 1:
+            return
+        hosts, host = getattr(loader, "num_hosts", 1), getattr(loader, "host_id", 0)
+        if (hosts, host) != (self.world, self.rank):
+            raise ValueError(f"data rank {self.rank} of {self.world} needs its loader's host "
+                             f"slice (host_id={self.rank}, num_hosts={self.world}), got "
+                             f"host_id={host}, num_hosts={hosts}")
+        n, bs = loader.num_examples, loader.batch_size
+        counts = [n // hosts + (1 if h < n % hosts else 0) for h in range(hosts)]
+        drop_last = getattr(loader, "drop_last", False)
+        steps = {c // bs if drop_last else -(-c // bs) for c in counts}
+        if len(steps) > 1:
+            raise ValueError(f"{n} examples over {hosts} ranks at batch {bs} give the ranks "
+                             f"{sorted(steps)} steps: every rank must take the same number "
+                             f"(drop_last=True, or a split size that divides evenly)")
 
     def init_optimizer(self):
         """Fresh scheduler per Settings.lr_scheduler (reference
@@ -393,7 +498,8 @@ class Trainer:
         key = (augment, norm, debug, stats, _data_flags(self.setting))
         if key not in self._train_step_fns:
             self._train_step_fns[key] = build_train_step(
-                self.state, augment=augment, norm=norm, stats=stats, debug=debug)
+                self.state, augment=augment, norm=norm, stats=stats, debug=debug,
+                mesh=self.mesh, axis=self.axis)
         return self._train_step_fns[key]
 
     def _get_eval_step(self, norm: bool, stats=None):
@@ -426,6 +532,9 @@ class Trainer:
         preprocess = _make_preprocess(self.model, norm, self._resolve_stats(loader), aug,
                                       do_affine, cut)
         host_n = loader._host_count() if hasattr(loader, "_host_count") else loader.num_examples
+        if self.world > 1:
+            # the smallest rank's share: every rank runs the same forwards
+            host_n = loader.num_examples // self.world
         n_full = max(host_n // loader.batch_size, 1)
 
         buffers = {k: b.clone() for k, b in self.model.named_buffers()}
@@ -433,18 +542,18 @@ class Trainer:
         steps = 0
         self.model.train()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), mesh_scope(self.mesh, self.axis):
                 for _ in range(int(passes)):
                     for i, (x, _, _) in enumerate(device_prefetch(loader, 2, self.device)):
                         if i >= n_full:
                             break
-                        gen = generator_for(self.setting.seed, "bn_reestimate", steps,
-                                            device=self.device)
+                        gen = generator_for(self.setting.seed, "bn_reestimate", steps, 0,
+                                            self.rank, device=self.device)
                         rng = None
                         if aug:
                             aug_gen, cut_gen = (generator_for(
-                                self.setting.seed, "bn_reestimate", steps, k, device=self.device)
-                                for k in (1, 2))
+                                self.setting.seed, "bn_reestimate", steps, k, self.rank,
+                                device=self.device) for k in (1, 2))
                             rng = DataRng(aug_gen, cut_gen, None, None)
                         with use_generator(gen):
                             self.model(preprocess(x, rng))
@@ -495,13 +604,29 @@ class Trainer:
         hc = getattr(loader, "_host_count", None)
         return hc() if callable(hc) else loader.num_examples
 
-    @staticmethod
-    def _scan_denominator(loader) -> int:
-        """Denominator of the replayed epochs' per-example means. One
-        process: the examples this host's loader serves, as in the per-step
-        loop (the JAX package divides by the global count when several
-        processes share a mesh; data parallel is ROADMAP.md modules item 7)."""
-        return Trainer._loader_host_count(loader)
+    def _scan_denominator(self, loader) -> int:
+        """Denominator of the replayed epochs' per-example means: with more
+        than one rank the global count (their loss and correct sums are
+        summed over the ranks, as the JAX package's replicated sums are),
+        else the examples this host's loader serves, as in the per-step
+        loop."""
+        if self.world > 1:
+            return loader.num_examples
+        return self._loader_host_count(loader)
+
+    def _scan_means(self, loader, *sums: float) -> tuple:
+        """A replayed epoch's per-example means (`_scan_denominator`)."""
+        n = self._scan_denominator(loader)
+        return tuple(v / n for v in self._over_ranks(*sums))
+
+    def _step_means(self, loader, *sums: float) -> tuple:
+        """A per-step epoch's per-example means over this rank's count
+        (`_loader_host_count`); with more than one rank the sums and the
+        counts are summed over the ranks first, so every rank reads the
+        same means and takes the same checkpoint, plateau and early-stop
+        decisions."""
+        *totals, n = self._over_ranks(*sums, self._loader_host_count(loader))
+        return tuple(v / n for v in totals)
 
     # ------------------------------------------------------------------
     # the replayed-graph epoch over a split on the device (the JAX
@@ -510,10 +635,14 @@ class Trainer:
 
     def _use_epoch_scan(self, loader, debug: bool = False) -> bool:
         """The replayed epoch applies when the loader keeps its split on the
-        device (`scan_epochs`) and no per-step host work is asked for
-        (debug prints per-step scalars; sanity_check runs one step)."""
+        device (`scan_epochs`), no per-step host work is asked for (debug
+        prints per-step scalars; sanity_check runs one step), and the mesh,
+        if any, reduces over NCCL: a CUDA graph captures NCCL's
+        collectives, and no other backend's (gloo's run on the host), so a
+        gloo mesh takes the per-step route."""
         return (bool(getattr(loader, "scan_epochs", False)) and not debug
-                and not self.setting.sanity_check)
+                and not self.setting.sanity_check
+                and (self.mesh is None or mesh_backend(self.mesh, self.axis) == "nccl"))
 
     def _epoch_inputs(self, loader):
         """The resident split and this epoch's (num_batches, bs) index and
@@ -545,15 +674,19 @@ class Trainer:
         rng = DataRng(gens["augment"], gens["cutout"], gens["mixup"], None) if draws else None
 
         def prologue(epoch, index):
-            gens.reseed(epoch, index)
+            gens.reseed(epoch, index, self.rank)
             host = generator_for(seed, "mixup", epoch, index) if step.mix_a > 0.0 else None
             step.prepare(state, rng._replace(mixup_host=host) if draws else None)
 
         def body(x, y, w):
             return step.run(state, x, y, w, gens["dropout"], rng)
 
+        # the process group's watchdog thread queries events while a step
+        # with NCCL collectives is captured: a capture that only checks
+        # this thread's calls
         graph = StepGraph("train", body, data, labels, *shape, prologue=prologue,
-                          generators=gens, on_capture=self._ckpt_barrier)
+                          generators=gens, on_capture=self._ckpt_barrier,
+                          capture_error_mode="global" if self.mesh is None else "thread_local")
         self._epoch_fns[key] = graph
         return graph
 
@@ -583,8 +716,8 @@ class Trainer:
                                       ch.num_steps)
             losses.append(loss.clone())
             corrects.append(correct.clone())
-        n = self._scan_denominator(loader)
-        return (_host_sum(torch.cat(losses)) / n, _host_sum(torch.cat(corrects)) / n)
+        return self._scan_means(loader, _host_sum(torch.cat(losses)),
+                                _host_sum(torch.cat(corrects)))
 
     def _run_chunked_eval_epoch(self, loader, norm: bool, collect_preds: bool = False):
         stats = self._resolve_stats(loader)
@@ -598,8 +731,8 @@ class Trainer:
             real = ch.w_mat[:ch.num_steps].reshape(-1) > 0
             masks.append(real)
             targets.append(ch.host_labels[ch.idx_mat[:ch.num_steps].reshape(-1)[real]])
-        n = self._scan_denominator(loader)
-        result = tuple(_host_sum(torch.cat([o[j] for o in outs])) / n for j in (0, 1))
+        result = self._scan_means(loader, *(_host_sum(torch.cat([o[j] for o in outs]))
+                                            for j in (0, 1)))
         if collect_preds:
             preds = torch.cat([o[2].reshape(-1) for o in outs]).cpu().numpy()
             return (*result, np.concatenate(targets), preds[np.concatenate(masks)])
@@ -609,14 +742,14 @@ class Trainer:
         augment, norm = self._resolve_flags(loader, train=True)
         debug = bool(self.setting.debug)
         stats = self._resolve_stats(loader)
+        self._check_shard(loader)
         if self._use_epoch_scan(loader, debug):
             if getattr(loader, "chunked", False):
                 return self._run_chunked_train_epoch(loader, epoch_index, augment, norm)
             data, labels, idx_mat, w_mat = self._epoch_inputs(loader)
             graph = self._get_train_epoch_fn(augment, norm, stats, idx_mat.shape, data, labels)
             loss, correct = graph.run(idx_mat, w_mat, epoch_index)
-            n = self._scan_denominator(loader)
-            return _host_sum(loss) / n, _host_sum(correct) / n
+            return self._scan_means(loader, _host_sum(loss), _host_sum(correct))
         step_fn = self._get_train_step(augment, norm, debug, stats=stats)
         draws = augment or _data_flags(self.setting)[2] > 0.0
 
@@ -625,9 +758,10 @@ class Trainer:
         # the launch queue
         losses, corrects = [], []
         for step, (x, y, w) in enumerate(device_prefetch(loader, size=2, device=self.device)):
-            gen = generator_for(self.setting.seed, "dropout", epoch_index, step,
+            gen = generator_for(self.setting.seed, "dropout", epoch_index, step, self.rank,
                                 device=self.device)
-            rng = data_rng(self.setting.seed, self.device, epoch_index, step) if draws else None
+            rng = (data_rng(self.setting.seed, self.device, epoch_index, step, rank=self.rank)
+                   if draws else None)
             if debug:
                 loss, correct, gnorm = step_fn(self.state, x, y, w, gen, rng)
                 print(f"[debug] step {step}: x{tuple(x.shape)}/{x.dtype} "
@@ -639,8 +773,7 @@ class Trainer:
             corrects.append(correct)
             if self.setting.sanity_check:
                 break
-        n = self._loader_host_count(loader)
-        return _host_sum(losses) / n, _host_sum(corrects) / n
+        return self._step_means(loader, _host_sum(losses), _host_sum(corrects))
 
     def _run_eval_epoch(self, loader: DataLoader, collect_preds: bool = False):
         _, norm = self._resolve_flags(loader, train=False)
@@ -652,8 +785,7 @@ class Trainer:
             graph = self._get_eval_epoch_fn(norm, stats, idx_mat.shape, data, labels,
                                             collect_preds)
             out = graph.run(idx_mat, w_mat, 0)
-            n = self._scan_denominator(loader)
-            result = (_host_sum(out[0]) / n, _host_sum(out[1]) / n)
+            result = self._scan_means(loader, _host_sum(out[0]), _host_sum(out[1]))
             if collect_preds:
                 real = w_mat.reshape(-1) > 0
                 targets = np.asarray(loader.dataset.all_labels())[idx_mat.reshape(-1)[real]]
@@ -672,8 +804,7 @@ class Trainer:
                 weights.append(w)
             if self.setting.sanity_check:
                 break
-        n = self._loader_host_count(loader)
-        out = (_host_sum(losses) / n, _host_sum(corrects) / n)
+        out = self._step_means(loader, _host_sum(losses), _host_sum(corrects))
         if collect_preds:
             if not preds:
                 return (*out, np.zeros(0, np.int64), np.zeros(0, np.int64))
@@ -870,7 +1001,10 @@ class Trainer:
 
     def _log_metrics(self, record: dict):
         """Structured per-epoch metrics (jsonl) alongside the checkpoints —
-        the machine-readable twin of the epoch_results dict."""
+        the machine-readable twin of the epoch_results dict (data rank 0's
+        alone)."""
+        if self.rank != 0:
+            return
         try:
             os.makedirs(self.setting.output_dir, exist_ok=True)
             path = os.path.join(self.setting.output_dir,
@@ -904,6 +1038,7 @@ class Trainer:
     def evaluate(self, loader: DataLoader, info: bool = True) -> float:
         self._require_state("evaluate")
         loss, score, targets, preds = self._run_eval_epoch(loader, collect_preds=True)
+        targets, preds = self._gather_preds(targets, preds)
         num_classes = self.setting.num_classes
         self.class_names = getattr(loader.dataset, "class_names", None)
         self.confusion_matrix = M.confusion_matrix(targets, preds, num_classes)
@@ -914,6 +1049,16 @@ class Trainer:
         if info:
             print(report_str)
         return self.eval_score(targets, preds, info=info)
+
+    def _gather_preds(self, targets, preds):
+        """With more than one rank, every rank's (targets, predictions) in
+        rank order, so the scores and reports cover the whole split."""
+        if self.world == 1:
+            return targets, preds
+        parts = [None] * self.world
+        dist.all_gather_object(parts, (np.asarray(targets), np.asarray(preds)),
+                               group=data_group(self.mesh, self.axis))
+        return (np.concatenate([t for t, _ in parts]), np.concatenate([p for _, p in parts]))
 
     def inference_time(self, times: np.ndarray, num_images: int, info=True,
                        full_batches: Optional[np.ndarray] = None):
@@ -1002,8 +1147,8 @@ class Trainer:
             if self.setting.sanity_check:
                 break
 
-        targets = np.concatenate(all_targets)
-        preds = np.concatenate(all_preds)
+        targets, preds = self._gather_preds(np.concatenate(all_targets),
+                                            np.concatenate(all_preds))
         num_classes = self.setting.num_classes
         self.class_names = getattr(loader.dataset, "class_names", None)
         self.confusion_matrix = M.confusion_matrix(targets, preds, num_classes)
@@ -1073,8 +1218,12 @@ class Trainer:
         publishes the file. The clones are what the file holds: the next
         step overwrites the live tensors in place. A snapshot of
         epoch_results travels with the payload so later epochs can't
-        mutate what gets written."""
+        mutate what gets written. With a mesh only data rank 0 writes (the
+        others return the path); a rank that reads the file waits for it at
+        load_checkpoint's barrier."""
         path = path or self.model_path
+        if self.rank != 0:
+            return path
         self._ckpt_barrier()  # one outstanding write at a time
         meta = dict(
             epoch_results=copy.deepcopy(self.epoch_results
@@ -1109,8 +1258,12 @@ class Trainer:
 
     def load_checkpoint(self, path: Optional[str] = None) -> dict:
         """Restore params/BN state/opt/scheduler/history from a checkpoint of
-        either package; returns the checkpoint meta."""
+        either package; returns the checkpoint meta. With more than one
+        rank, every rank first waits until data rank 0's writes are done,
+        and the weights read are then made rank 0's (broadcast)."""
         self._ckpt_barrier()  # never read under an in-flight async write
+        if self.world > 1:
+            dist.barrier(group=data_group(self.mesh, self.axis))
         if path is None:
             path = ckpt.get_last_checkpoint(self.setting.output_dir, self.model.model_name)
             if path is None:
@@ -1120,6 +1273,7 @@ class Trainer:
         trees, meta = ckpt.load_checkpoint(path)
         bridge.load_jax_variables(self.model, {"params": trees["params"],
                                                "state": trees["model_state"]})
+        self._replicate()
         # the optimizer kind travels with the checkpoint (reference
         # load_checkpoint restores the optimizer object wholesale,
         # basemodel.py:935-943) — the restored state must drive the
@@ -1174,7 +1328,7 @@ class Trainer:
         model.train(train)
         try:
             with torch.no_grad(), use_generator(generator_for(seed, "dropout", device=device)), \
-                    activation_trace(model.module):
+                    mesh_scope(self.mesh, self.axis), activation_trace(model.module):
                 model.module(x)
         finally:
             model.train(was_training)

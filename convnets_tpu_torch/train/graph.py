@@ -78,13 +78,17 @@ class StepGraph:
     the StepGenerators the body draws from (registered before the
     capture); on_capture: called before the capture (the Trainer waits for
     its checkpoint writer there: no other thread may call CUDA during a
-    capture)."""
+    capture); capture_error_mode: torch.cuda.graph's, "thread_local" for a
+    step with NCCL collectives, whose process group's watchdog thread
+    queries events during the capture."""
 
     def __init__(self, kind: str, body: Callable, data: torch.Tensor, labels: torch.Tensor,
                  rows: int, batch: int, *, preds: bool = False,
                  prologue: Optional[Callable[[int, int], None]] = None,
-                 generators=None, on_capture: Optional[Callable[[], None]] = None):
+                 generators=None, on_capture: Optional[Callable[[], None]] = None,
+                 capture_error_mode: str = "global"):
         dev = data.device
+        self.capture_error_mode = capture_error_mode
         self.kind, self.body, self.data, self.labels = kind, body, data, labels
         self.prologue, self.generators, self.on_capture = prologue, generators, on_capture
         self.idx = torch.zeros((rows, batch), dtype=torch.int32, device=dev)
@@ -119,7 +123,8 @@ class StepGraph:
             self.generators.register(graph)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode=self.capture_error_mode):
                 self._device_step()
         except Exception as e:
             raise RuntimeError(f"capturing the {self.kind} step as a CUDA graph failed: "

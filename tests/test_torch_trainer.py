@@ -45,6 +45,7 @@ from convnets_tpu_torch.data import (
     ArrayDataset, DataLoader, DeviceCacheLoader, synthetic_dataset,
 )
 from convnets_tpu_torch.models import build_model
+from convnets_tpu_torch.parallel import init_distributed
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer, build_eval_step
 from convnets_tpu_torch.train import checkpoint as ckpt
@@ -548,8 +549,17 @@ def test_fit_debug_prints_the_trace_and_gradient_norms(tmp_path, capsys, monkeyp
     assert "grad_norm=" not in capsys.readouterr().out
     assert runs == ["train"] * tt.setting.epochs  # valid is a DataLoader: per-step
     tt.close()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Trainer(tt.model, use_mesh=True)
+    # the Trainer takes a mesh: here a world of one over gloo, on whose
+    # per-step route (gloo's collectives are not captured) it trains
+    init_distributed(device="cpu")
+    try:
+        meshed = Trainer(tt.model, use_mesh=True)
+        assert meshed.mesh.mesh_dim_names == ("data",) and meshed.world == 1
+        assert not meshed._use_epoch_scan(scanning)
+        meshed._new_state()
+        assert np.isfinite(meshed._run_train_epoch(train, 0)).all()
+    finally:
+        torch.distributed.destroy_process_group()
     assert next(tt.model.parameters()).device.type == "cpu"
     fresh = Trainer(tt.model)
     with pytest.raises(RuntimeError, match="load_checkpoint"):
