@@ -43,6 +43,20 @@ final line:
      RN50@224 shape, beside cuDNN's bf16 F.conv2d: ms and TFLOP/s per
      shape, summed by layer use into the kernels line (ms_b256,
      library_ms_b256, bound_ms_b256).
+  4c. the BN passes of the fused conv sites (csrc/bn_act.cu) vs plain:
+     bn_act_forward (normalize + ReLU from the conv's (2, C) sums) and
+     bn_act_backward (partial sums, their reduction, the apply pass) at
+     every distinct fused-site shape of RN50@224 at batch 8 (fp32 and bf16,
+     ReLU on and off) and at b256 (bf16), at RN26@32's at b256 and at C = 6
+     on the loop route: out within one bf16 ulp (fp32 1e-6 of max|ref|)
+     off the ReLU-mask flips (at most 1e-4 of the elements), mean and var
+     within 1e-6, the backward's sums within 1e-4, dy within CONV_TOL,
+     every launch on its route; the backward's recomputed mask against the
+     forward's, exactly (Σdz of an integer cotangent); device ms at N=8
+     and b256 of both kernels, their plain versions and ATen's
+     F.batch_norm + relu forward and backward (a yardstick the port never
+     calls), summed over RN50's 53 sites into rows 6, bn_act_forward and
+     bn_act_backward.
   5. the train slice, RN50 at 3x224x224, 1000 classes, weights made with
      numpy from --seed in the JAX variable layout and loaded by the bridge:
      (i) one fp32 SGD step at batch 8, kernel path vs plain path (loss,
@@ -51,7 +65,8 @@ final line:
      throughput at batch 256 with bench.py's settings (Adam, weight decay
      1e-4, dropout 0.5), synthetic uint8 batch on the card, kernel and
      plain paths in turns, launches per step (exactly 53 conv2d_stats, 53
-     reductions, 1 max_pool2d, 0 conv2d_fused), peak memory and a
+     reductions, 53 bn_act_forward + 53 × 3 bn_act_backward launches, 1
+     max_pool2d, 0 conv2d_fused), peak memory and a
      torch.profiler split of three steps; (iv) one step of the
      batch_norm=False RN50 at batch 32 (53 conv2d_fused launches, finite
      gradients).
@@ -314,6 +329,14 @@ final line:
      worker), its test argmax = an in-process Trainer.test's of the same
      checkpoint; (iv) dryrun_multichip(2, "cuda"). Prints the
      data_parallel JSON line.
+  --train-profile ROOT (no phases, no result line): RN50@224 bf16 b256's
+     step ms and profiled device split (the fused sites' BN forward and
+     backward apart, the backward nodes' kernels by name), RN26@32 b256's
+     step img/s, the grouped conv_bn_relu_train sites' fwd+bwd ms (N=8,
+     and b256 at ResNeXt-26@224's grouped shapes), and the world-of-one
+     RN26@32 replayed fit with and without the mesh (img/s of epochs in
+     turns, device events by name) of the checkout at ROOT; run over the
+     parent and the change in turns.
   last lines: the card's name and power limit, the kernels JSON line (per
   kernel: launches on its main path and on phases 10-16's paths (PATHS),
   max error against the plain version,
@@ -403,21 +426,35 @@ SERVE_LAUNCHES = {
     "densenet": {"conv2d_fused": 120, "max_pool2d": 1, "avg_pool2d": 3},
     "resnext": {"conv2d_fused": 21, "grouped_conv2d_fused": 8, "max_pool2d": 1},
 }
+# the BN passes of the fused conv sites (conv_bn_relu_train, csrc/bn_act.cu):
+# one forward launch per site, three backward launches (partial sums, their
+# reduction, the apply pass)
+BN_ACT_BACKWARD = ("bn_act_backward_sums", "bn_act_backward_reduce", "bn_act_backward_apply")
+
+
+def bn_sites(n: int, backward: bool = True) -> dict:
+    """The BN-pass launches of n fused conv sites: bn_act_forward each and,
+    with the backward, its three launches each."""
+    return {"bn_act_forward": n, **(dict.fromkeys(BN_ACT_BACKWARD, n) if backward else {})}
+
+
 TRAIN_LAUNCHES = {
     "resnet": {"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1,
-               "pool2d_backward": 1},
-    "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13},
+               "pool2d_backward": 1, **bn_sites(53)},
+    "mobilenet_v1": {"conv2d_stats": 14, "conv2d_stats_reduce": 14, "depthwise_conv2d": 13,
+                     **bn_sites(14)},
     "densenet": {"conv2d_stats": 1, "conv2d_stats_reduce": 1, "conv2d_fused": 119,
-                 "max_pool2d": 1, "avg_pool2d": 3, "pool2d_backward": 4},
+                 "max_pool2d": 1, "avg_pool2d": 3, "pool2d_backward": 4, **bn_sites(1)},
     "resnext": {"conv2d_stats": 21, "grouped_conv2d_stats": 8, "conv2d_stats_reduce": 29,
-                "max_pool2d": 1, "pool2d_backward": 1},
+                "max_pool2d": 1, "pool2d_backward": 1, **bn_sites(29)},
 }
 # the window kernels, whose route (vector or loop) is chosen by shape: on
 # every family's paths each launch must take the vector route
 WINDOW_ROUTED = ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")
 OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_vec_kernel<",
                "pool_bwd_kernel<", "depthwise_kernel<", "depthwise_vec_kernel<",
-               "grouped_conv_kernel<", "bottleneck_kernel<")
+               "grouped_conv_kernel<", "bottleneck_kernel<", "bn_act_forward_kernel<",
+               "bn_act_sums_kernel<", "bn_act_apply_kernel<")
 # the window kernels as the profiler names them, for their share of a
 # request's or a step's device time
 WINDOW_KERNELS = (("depthwise", ("depthwise_kernel<", "depthwise_vec_kernel<")),
@@ -731,7 +768,8 @@ PLAIN = {"conv2d_fused": "conv2d_fused_plain", "conv2d_stats": "conv2d_stats_pla
          "depthwise_conv2d": "depthwise_conv2d_plain",
          "grouped_conv2d_fused": "grouped_conv2d_fused_plain",
          "grouped_conv2d_stats": "grouped_conv2d_stats_plain",
-         "bottleneck_block": "bottleneck_block_plain"}
+         "bottleneck_block": "bottleneck_block_plain",
+         "bn_act_forward": "bn_act_forward_plain", "bn_act_backward": "bn_act_backward_plain"}
 
 
 @contextlib.contextmanager
@@ -950,7 +988,7 @@ def conv_out_size(size, k, s, p, d=1):
 
 
 def stats_check(got, ref, dname, own=False):
-    """(ok, y max|Δ|, Σ error, Σ² error) of conv2d_stats' (y, Σy, Σy²)
+    """(ok, y max|Δ|, Σ error, Σ² error) of conv2d_stats' (y, [Σy; Σy²])
     against its plain version: y within CONV_TOL, |ΔΣ| / max Σ|y| and
     |ΔΣ²| / Σ² within STATS_TOL. own: the sums against those of the
     kernel's own stored y (the epilogue's contract), for shapes with so few
@@ -959,7 +997,7 @@ def stats_check(got, ref, dname, own=False):
     2·2⁻⁸·max y² / Σy², ~2e-3); y is still held to the plain version."""
     import torch
 
-    (y, s1, s2), (ry, r1, r2) = got, ref
+    (y, (s1, s2)), (ry, (r1, r2)) = got, ref
     sync()
     atol, rtol = CONV_TOL[dname]
     err = float((y.float() - ry.float()).abs().max())
@@ -1072,6 +1110,260 @@ def phase_b256_conv(model, summary):
         f"({total / stats['ms_b256'] / 1e9:.1f} TFLOP/s, {stats['ms_b256'] / lib_ms:.3f}x cuDNN), "
         f"no epilogue {train['ms_b256']:.3f} ms, cuDNN bf16 {lib_ms:.3f} ms ({total / lib_ms / 1e9:.1f} TFLOP/s), bound "
         f"{fused['bound_ms_b256']:.4f} ms")
+
+
+# phase 4c: the BN passes of the fused conv sites (csrc/bn_act.cu)
+BN_EPS = 1e-5
+BN_FLIP_SHARE = 1e-4  # ReLU-mask flips allowed, as a share of the elements
+BN_FP32_REL = 1e-6  # forward out (fp32), mean and var: |Δ| / max|ref|
+BN_SUMS_REL = 1e-4  # the backward's Σdz·x̂ and Σdz: summation order only
+BN_LOOP_SHAPE = (8, 28, 28, 6)  # LeNet's first ConvBNReLU: C % 8 != 0, the loop route
+# the extra keys of rows 6 (b256 sums over RN50's 53 sites) and of the two
+# bn_act rows (their N=8 sums beside the b256 ones in ms, plain_ms, ...)
+BN_KEYS = ("ms_n8", "plain_ms_n8", "bound_ms_n8", "library_ms_n8", "bn_act_ms_b256",
+           "bn_act_plain_ms_b256", "bn_act_bound_ms_b256", "bn_act_library_ms_b256")
+
+
+def bn_sites_of(model):
+    """{(OH, OW, C): [relu flag of each fused site]} of a model's ConvBNReLUs
+    (dense and grouped): the shapes bn_act runs at."""
+    out = {}
+    for kind, h, w, _, cout, k, s, p, relu, _ in model_layers(model):
+        if kind in ("conv", "gconv"):
+            out.setdefault((conv_out_size(h, k, s, p), conv_out_size(w, k, s, p), cout),
+                           []).append(relu)
+    return out
+
+
+def bn_inputs(n, oh, ow, c, dtype, g):
+    """A conv output y (per-channel means and spreads of a BN input), its
+    (2, C) row of Σy, Σy², scale, bias and a cotangent, on the card."""
+    import torch
+
+    mu = 0.5 * torch.randn(c, device=DEVICE, generator=g)
+    sd = 0.5 + torch.rand(c, device=DEVICE, generator=g)
+    y = (torch.randn(n, oh, ow, c, device=DEVICE, generator=g) * sd + mu).to(dtype)
+    yf = y.float()
+    sums = torch.stack([yf.sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])
+    scale = 1.0 + 0.2 * torch.randn(c, device=DEVICE, generator=g)
+    bias = 0.1 * torch.randn(c, device=DEVICE, generator=g)
+    cot = torch.randn(n, oh, ow, c, device=DEVICE, generator=g).to(dtype)
+    return y, sums, scale, bias, cot
+
+
+def bn_route_launches():
+    from convnets_tpu_torch.ops import kernels
+
+    return {k: dict(kernels.ROUTE_LAUNCHES[k]) for k in ("bn_act_forward",
+                                                          "bn_act_backward_sums",
+                                                          "bn_act_backward_apply")}
+
+
+def bn_check(label, y, sums, scale, bias, cot, relu, route, failures):
+    """bn_act_forward and bn_act_backward against their plain versions on
+    the same inputs (the backward on the kernel forward's mean and inv):
+    out within one bf16 ulp (fp32: BN_FP32_REL of max|ref|) off the
+    ReLU-mask flips, which must be at most BN_FLIP_SHARE of the elements;
+    mean and var within BN_FP32_REL; Σdz·x̂, Σdz within BN_SUMS_REL; dy
+    within CONV_TOL; every launch on `route`. Returns the largest |Δ|."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    dname = dname_of(y.dtype)
+    m = y.numel() // y.shape[-1]
+    before = bn_route_launches()
+    out, mean, var, inv = kernels.bn_act_forward(y, sums, m, scale, bias, BN_EPS, relu)
+    dy, dsc, dbi = kernels.bn_act_backward(cot, y, mean, inv, scale, bias, relu, m)
+    after = bn_route_launches()
+    rout, rmean, rvar, _ = kernels.bn_act_forward_plain(y, sums, m, scale, bias, BN_EPS, relu)
+    rdy, rdsc, rdbi = kernels.bn_act_backward_plain(cot, y, mean, inv, scale, bias, relu, m)
+    sync()
+    flips = (out > 0) != (rout > 0)
+    n_flips = int(flips.sum())
+    d = (out.float() - rout.float()).abs().masked_fill(flips, 0.0)
+    if dname == "bfloat16":
+        out_err = float((d / bf16_ulp(rout)).max())
+        out_ok = out_err <= 1.0
+    else:
+        out_err = float(d.max() / rout.float().abs().max().clamp_min(1e-30))
+        out_ok = out_err <= BN_FP32_REL
+    stat_err = max(rel_err(mean, rmean), rel_err(var, rvar))
+    sum_err = max(rel_err(dsc, rdsc), rel_err(dbi, rdbi))
+    atol, rtol = CONV_TOL[dname]
+    dy_ok = within(dy, rdy, atol, rtol)
+    routed = all(after[k][route] - before[k][route] == 1 and
+                 sum(after[k].values()) - sum(before[k].values()) == 1 for k in after)
+    ok = (out_ok and n_flips <= BN_FLIP_SHARE * out.numel() and stat_err <= BN_FP32_REL
+          and sum_err <= BN_SUMS_REL and dy_ok and routed
+          and all(bool(torch.isfinite(t).all()) for t in (out, dy, dsc, dbi)))
+    dy_err = float((dy.float() - rdy.float()).abs().max())
+    say(f"  {label} | {dname} relu={int(relu)} {route} | out {out_err:.2e} "
+        f"({'ulp' if dname == 'bfloat16' else f'{BN_FP32_REL:g}'}) flips {n_flips} | mean/var "
+        f"{stat_err:.2e} | Σ {sum_err:.2e} ({BN_SUMS_REL:g}) | dy max|Δ| {dy_err:.2e} "
+        f"({atol:g}+{rtol:g}|ref|) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"bn_act {label} {dname} relu={relu}: out {out_err:.2e}, flips "
+                        f"{n_flips}, stats {stat_err:.2e}, sums {sum_err:.2e}, dy {dy_err:.2e}, "
+                        f"routes {before} -> {after}")
+    return max(float(d.max()), dy_err)
+
+
+def bn_mask_check(label, y, sums, scale, bias, failures):
+    """The ReLU mask the backward kernels recompute equals the forward
+    kernel's own, exactly: with a cotangent of small integers (exact in any
+    fp32 summation order below 2^24), Σdz per channel equals the sum of the
+    cotangent over the forward's out > 0."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    m = y.numel() // y.shape[-1]
+    g = torch.Generator(device=DEVICE).manual_seed(m)
+    cot = torch.randint(1, 64, y.shape, device=DEVICE, generator=g).to(y.dtype)
+    out, mean, var, inv = kernels.bn_act_forward(y, sums, m, scale, bias, BN_EPS, True)
+    _, _, dbias = kernels.bn_act_backward(cot, y, mean, inv, scale, bias, True, m)
+    want = torch.where(out > 0, cot.double(), 0.0).sum((0, 1, 2))
+    ok = bool((dbias.double() == want).all())
+    say(f"  {label} | {dname_of(y.dtype)} | backward mask = forward mask: Σdz over "
+        f"{int((out > 0).sum())} of {out.numel()} elements {'exact' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"bn_act {label} {dname_of(y.dtype)}: the backward's mask differs from "
+                        f"the forward's ({int((dbias.double() != want).sum())} channels)")
+
+
+def bn_times(y, sums, scale, bias, cot, relu):
+    """Device ms of bn_act_forward, bn_act_backward (its three launches),
+    their plain versions, and the ATen yardstick's forward and backward
+    (F.batch_norm with training=True, then relu, on the channels-last NCHW
+    view of y; the backward through autograd on one recorded graph: it
+    recomputes the statistics that the kernels are handed, so it is a
+    yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
+
+    m = y.numel() // y.shape[-1]
+    out, mean, var, inv = kernels.bn_act_forward(y, sums, m, scale, bias, BN_EPS, relu)
+    fwd = time_ms(lambda: kernels.bn_act_forward(y, sums, m, scale, bias, BN_EPS, relu), REPS)
+    bwd = time_ms(lambda: kernels.bn_act_backward(cot, y, mean, inv, scale, bias, relu, m), REPS)
+    pfwd = time_ms(lambda: kernels.bn_act_forward_plain(y, sums, m, scale, bias, BN_EPS, relu),
+                   REPS)
+    pbwd = time_ms(lambda: kernels.bn_act_backward_plain(cot, y, mean, inv, scale, bias, relu,
+                                                         m), REPS)
+    yc, gc = nchw(y), nchw(cot)
+
+    def aten_forward(yi):
+        z = F.batch_norm(yi, None, None, scale, bias, training=True, eps=BN_EPS)
+        return F.relu(z) if relu else z
+
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: aten_forward(yc), REPS)
+    yi = yc.detach().requires_grad_()
+    z = aten_forward(yi)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(z, yi, gc, retain_graph=True), REPS)
+    return fwd, bwd, pfwd, pbwd, lib_fwd, lib_bwd
+
+
+def bn_work(n, oh, ow, c, itemsize):
+    """(forward bytes, backward bytes, forward ops, backward ops): y read and
+    out written; g and y read and dy written (each input once, each output
+    once); the sums and per-channel vectors beside them. About 6 operations
+    an element forward (normalize, ReLU) and 16 backward."""
+    t = n * oh * ow * c
+    return (2 * itemsize * t + 4 * 5 * c, 3 * itemsize * t + 4 * 8 * c, 6 * t, 16 * t)
+
+
+def phase_bn_act(model, summary, failures):
+    """Phase 4c: bn_act_forward and bn_act_backward (csrc/bn_act.cu) against
+    their plain versions: every distinct fused-site shape of RN50@224 at
+    N=8 (fp32 and bf16, ReLU on and off) and at b256 (bf16, the sites' own
+    ReLU), every one of RN26@32 at b256, and C = 6 on the loop route; the
+    backward's recomputed mask against the forward's at N=8; times at N=8
+    and at b256, summed over RN50's 53 sites into rows 6, bn_act_forward
+    and bn_act_backward (kernel, plain, ATen yardstick, bound)."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    fwd_row, bwd_row = entry(summary, "bn_act_forward"), entry(summary, "bn_act_backward")
+    for row in (fwd_row, bwd_row):
+        row.update(dict.fromkeys(("ms_n8", "plain_ms_n8", "bound_ms_n8", "library_ms_n8"), 0.0))
+    row6 = entry(summary, "conv_bn_relu_train")
+    row6.update(dict.fromkeys(BN_KEYS[4:], 0.0))
+    rn50 = bn_sites_of(model)
+    say(f"bn_act vs plain (N={KERNEL_BATCH}, RN50@224's {len(rn50)} distinct fused-site shapes "
+        f"of {sum(map(len, rn50.values()))}): OH OW C | dtype relu route | out err (bar) "
+        f"ReLU flips | mean/var rel | Σdz·x̂, Σdz rel (bar) | dy | ok")
+    for (oh, ow, c), relus in sorted(rn50.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            y, sums, scale, bias, cot = bn_inputs(KERNEL_BATCH, oh, ow, c, dtype, g)
+            for relu in (True, False):
+                err = bn_check(f"{oh} {ow} {c}", y, sums, scale, bias, cot, relu, "vector",
+                               failures)
+                for row in (fwd_row, bwd_row):
+                    row["err"] = max(row["err"], err)
+            bn_mask_check(f"{oh} {ow} {c}", y, sums, scale, bias, failures)
+            for relu in sorted(set(relus)) if dtype == torch.bfloat16 else ():
+                uses = relus.count(relu)
+                fwd, bwd, pfwd, pbwd, lfwd, lbwd = bn_times(y, sums, scale, bias, cot, relu)
+                fb, bb, fo, bo = bn_work(KERNEL_BATCH, oh, ow, c, 2)
+                for row, k_ms, p_ms, l_ms, nb, ops in ((fwd_row, fwd, pfwd, lfwd, fb, fo),
+                                                       (bwd_row, bwd, pbwd, lbwd, bb, bo)):
+                    row["ms_n8"] += uses * k_ms
+                    row["plain_ms_n8"] += uses * p_ms
+                    row["library_ms_n8"] += uses * l_ms
+                    row["bound_ms_n8"] += uses * 1e3 * max(nb / HBM_BPS, ops / PEAK_OTHER)
+            del y, sums, scale, bias, cot
+    loop = BN_LOOP_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        y, sums, scale, bias, cot = bn_inputs(*loop, dtype, g)
+        for relu in (True, False):
+            bn_check(" ".join(map(str, loop[1:])), y, sums, scale, bias, cot, relu, "loop",
+                     failures)
+        bn_mask_check(" ".join(map(str, loop[1:])), y, sums, scale, bias, failures)
+
+    say(f"bn_act at batch {B256}, bf16 (each shape's checks first): OH OW C relu | kernel fwd "
+        f"bwd ms | plain fwd bwd ms | ATen F.batch_norm+relu fwd bwd ms | bound fwd bwd ms | "
+        f"sites")
+    total = {"k": 0.0, "p": 0.0, "lib": 0.0, "bound": 0.0}
+    for (oh, ow, c), relus in sorted(rn50.items()):
+        y, sums, scale, bias, cot = bn_inputs(B256, oh, ow, c, torch.bfloat16, g)
+        for relu in sorted(set(relus)):
+            uses = relus.count(relu)
+            bn_check(f"{oh} {ow} {c}", y, sums, scale, bias, cot, relu, "vector", failures)
+            fwd, bwd, pfwd, pbwd, lfwd, lbwd = bn_times(y, sums, scale, bias, cot, relu)
+            fb, bb, fo, bo = bn_work(B256, oh, ow, c, 2)
+            say(f"  {oh} {ow} {c} {int(relu)} | {fwd:.4f} {bwd:.4f} | {pfwd:.4f} {pbwd:.4f} | "
+                f"{lfwd:.4f} {lbwd:.4f} | {1e3 * fb / HBM_BPS:.4f} {1e3 * bb / HBM_BPS:.4f} | "
+                f"{uses}")
+            add_times(fwd_row, uses, fwd, pfwd, fo, fb, lfwd, PEAK_OTHER)
+            add_times(bwd_row, uses, bwd, pbwd, bo, bb, lbwd, PEAK_OTHER)
+            total["k"] += uses * (fwd + bwd)
+            total["p"] += uses * (pfwd + pbwd)
+            total["lib"] += uses * (lfwd + lbwd)
+            total["bound"] += uses * 1e3 * max((fb + bb) / HBM_BPS, (fo + bo) / PEAK_OTHER)
+        del y, sums, scale, bias, cot
+    row6.update(bn_act_ms_b256=total["k"], bn_act_plain_ms_b256=total["p"],
+                bn_act_library_ms_b256=total["lib"], bn_act_bound_ms_b256=total["bound"])
+    say(f"RN50@224 BN passes at b{B256} bf16, summed over the 53 fused sites: kernels "
+        f"{total['k']:.3f} ms (forward {fwd_row['ms']:.3f}, backward {bwd_row['ms']:.3f}), plain "
+        f"{total['p']:.3f} ms, ATen F.batch_norm+relu fwd+bwd {total['lib']:.3f} ms (forward "
+        f"{fwd_row['library_ms']:.3f}, backward {bwd_row['library_ms']:.3f}), bound "
+        f"{total['bound']:.3f} ms ({100 * total['bound'] / total['k']:.1f}% of it reached); at "
+        f"N={KERNEL_BATCH}: kernels {fwd_row['ms_n8'] + bwd_row['ms_n8']:.3f} ms, plain "
+        f"{fwd_row['plain_ms_n8'] + bwd_row['plain_ms_n8']:.3f} ms, bound "
+        f"{fwd_row['bound_ms_n8'] + bwd_row['bound_ms_n8']:.4f} ms")
+
+    rn26 = bn_sites_of(build_model("resnet", trainer_setting(0, ""), device=DEVICE))
+    say(f"bn_act vs plain at RN26@32's {len(rn26)} distinct fused-site shapes, b{B256} bf16:")
+    for (oh, ow, c), relus in sorted(rn26.items()):
+        y, sums, scale, bias, cot = bn_inputs(B256, oh, ow, c, torch.bfloat16, g)
+        for relu in sorted(set(relus)):
+            bn_check(f"{oh} {ow} {c}", y, sums, scale, bias, cot, relu, "vector", failures)
+        del y, sums, scale, bias, cot
 
 
 def sass_check(failures):
@@ -2986,7 +3278,7 @@ def phase_trainer(seed, card, summary, failures):
         trainer.close()
         first = dict(trainer.epoch_results)
         per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
-                                "pool2d_backward": 1})
+                                "pool2d_backward": 1, **bn_sites(n)})
         per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
         steps, evals = len(train) * TRAINER_EPOCHS, len(valid) * TRAINER_EPOCHS
         full = TRAINER_BATCH * 32 * 32 * 3
@@ -3087,7 +3379,7 @@ def phase_trainer(seed, card, summary, failures):
         re_launches = dict(kernels.LAUNCHES)
         check_routes("RN26@32 reestimate_bn", re_launches, failures)
         want_re = launches_of({k: v * full_batches for k, v in per_step.items()
-                               if k != "pool2d_backward"})
+                               if k not in ("pool2d_backward", *BN_ACT_BACKWARD)})
         moved = sum(not torch.equal(b, running[k]) for k, b in resumed.model.named_buffers()
                     if k in running)
         same = all(torch.equal(p, params[k]) for k, p in resumed.model.named_parameters())
@@ -3573,7 +3865,7 @@ def aug_fit_check(seed, out_dir, failures):
     trainer.close()
     r = trainer.epoch_results
     per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
-                            "pool2d_backward": 1})
+                            "pool2d_backward": 1, **bn_sites(n)})
     per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
     ok_calls = (len(calls["train"]) == len(train) * AUG_EPOCHS
                 and len(calls["eval"]) == len(valid) * AUG_EPOCHS
@@ -3710,6 +4002,312 @@ def serve_rate(seed):
     return out
 
 
+TRAIN_PROFILE_DEPTH = (3, 10)  # --train-profile: warm-up and timed steps
+TRAIN_PROFILE_STEPS = 3  # --train-profile: steps under the profiler
+FUSED_BWD = "autograd::engine::evaluate_function: _ConvBNReLUTrainBackward"
+# the conv main loops as the profiler names them: in a train step of a
+# model whose convs are all fused sites, only the statistics convs (row 5
+# / 5g) launch them
+CONV_MAIN_LOOPS = ("conv_wgmma_kernel<", "conv_kernel<", "grouped_conv_kernel<")
+
+
+def train_profile(seed):
+    """--train-profile: the RN50@224 bf16 b256 train step with bench.py's
+    settings (Adam, weight decay 1e-4, dropout 0.5, a uint8 batch on the
+    card) of the port first on sys.path: ms per step (host clock, fenced),
+    then TRAIN_PROFILE_STEPS steps under torch.profiler, their device ms
+    per step split into the statistics convs' main loops (CONV_MAIN_LOOPS,
+    by name), the fused sites' BN forward (the rest of what
+    kernels.conv_bn_relu_train launches, under a range: the statistics'
+    53 fixed-order reductions with it), the BN backward
+    (the _ConvBNReLUTrainBackward nodes less their
+    aten::convolution_backward; their kernels by name, kernels_under), the
+    backward convs and the rest, and the device kernels per step; then
+    the RN26@32 bf16 b256 step's img/s (step_loop_rate), the grouped
+    sites' times (grouped_site_times) and the world of one (mesh_profile).
+    Uses only what checkouts of the port since its data-parallel slice
+    have too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+
+    model = build_model("resnet", model_setting("resnet", seed, True))
+    state, step = train_state(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    batch = TRAIN_BATCH["resnet"]
+    x = torch.randint(0, 256, (batch, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
+    kernels.reset_launches()
+    seconds = timed_steps(step, state, x, y, gen, TRAIN_PROFILE_DEPTH)[0]
+    launches = {k: v / sum(TRAIN_PROFILE_DEPTH) for k, v in kernels.LAUNCHES.items() if v}
+
+    def ranged(label, fn):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+
+    saved = {"conv_bn_relu_train": kernels.conv_bn_relu_train}
+    for name, fn in saved.items():
+        setattr(kernels, name, ranged(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRAIN_PROFILE_STEPS):
+                step(state, x, y, generator=gen)
+            sync()
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+    per = TRAIN_PROFILE_STEPS
+    events = prof.events()
+
+    def host_ms(name):
+        return sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in events
+                   if e.name == name and getattr(e, "device_type", None) == DeviceType.CPU
+                   ) / per / 1e3
+
+    device = [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
+              and e.name not in saved]
+    device_ms = sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in device) / per / 1e3
+    def named_ms(*names):
+        return sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in device
+                   if any(n in e.name for n in names)) / per / 1e3
+
+    loops_ms, reduce_ms = named_ms(*CONV_MAIN_LOOPS), named_ms("stats_reduce_kernel")
+    bn_act_ms = named_ms("bn_act_")
+    site_ms = host_ms("conv_bn_relu_train")
+    bwd_node_ms, conv_bwd_ms = host_ms(FUSED_BWD), host_ms("aten::convolution_backward")
+    split = {"device_ms": device_ms, "conv_main_loops_ms": loops_ms,
+             "bn_forward_ms": site_ms - loops_ms, "bn_backward_ms": bwd_node_ms - conv_bwd_ms,
+             "bn_act_kernels_ms": bn_act_ms, "stats_reduce_kernels_ms": reduce_ms,
+             "conv_backward_ms": conv_bwd_ms, "other_ms": device_ms - site_ms - bwd_node_ms,
+             "device_events_per_step": len(device) / per,
+             "bn_backward_kernels": kernels_under(events, FUSED_BWD, per,
+                                                  skip=("aten::convolution_backward",))}
+    say(f"train profile: RN50@224 bf16 b{batch}: {1e3 * seconds:.2f} ms per step "
+        f"({batch / seconds:.1f} img/s); device per step {device_ms:.3f} ms: the statistics "
+        f"convs' main loops {loops_ms:.3f}, BN forward {split['bn_forward_ms']:.3f}, BN backward "
+        f"{split['bn_backward_ms']:.3f} (of the two: the bn_act kernels {bn_act_ms:.3f}, the "
+        f"reductions {reduce_ms:.3f}), backward convs {conv_bwd_ms:.3f}, the rest "
+        f"{split['other_ms']:.3f}; "
+        f"{split['device_events_per_step']:.0f} device events per step; the BN backward "
+        f"nodes' kernels outside aten::convolution_backward, ms per step and calls: "
+        f"{split['bn_backward_kernels']}")
+    del model, state, step, x, y
+    torch.cuda.empty_cache()
+    return {"rn50_b256": {"ms_per_step": 1e3 * seconds, "img_s": batch / seconds,
+                          "launches_per_step": launches, **split},
+            "rn26_32_b256_img_s": step_loop_rate(seed),
+            "grouped_sites": grouped_site_times(seed),
+            "world_of_one": mesh_profile(seed)}
+
+
+def kernels_under(events, name, per, skip=()):
+    """{kernel name: [device ms per step, launches per step]} of the device
+    kernels launched under the host ops called `name` (their children
+    included, but not those under an op named in `skip`), largest first:
+    at most 8 names, the rest summed under "rest"."""
+    totals = {}
+
+    def walk(e):
+        if e.name in skip:
+            return
+        for k in e.kernels:
+            t = totals.setdefault(k.name[:60], [0.0, 0])
+            t[0] += k.duration / 1e3 / per
+            t[1] += 1 / per
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in events:
+        if e.name == name:
+            walk(e)
+    return top_names(totals)
+
+
+GROUPED_SITE_REPS = 20  # --train-profile: calls per time_ms of a grouped site
+
+
+def grouped_site_times(seed):
+    """--train-profile: row 6's grouped conv_bn_relu_train, bf16, forward +
+    backward (dx, dw, dscale, dbias for one cotangent), GROUPED_SITE_REPS
+    calls per time_ms: phase 8's two N=8 shapes, and at B256 every grouped
+    shape of the main path's ResNeXt@224 summed by uses; then one profiled
+    call of each B256 shape, its device kernels by name (ms per step of
+    the model's grouped sites)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = build_model("resnext", model_setting("resnext", seed, True), device=DEVICE)
+    shapes = distinct_shapes(model, ("gconv",))
+    del model
+
+    def site(n, h, cin, cout, k, s, p, groups):
+        x = torch.randn(n, h, h, cin, device=DEVICE, generator=g).to(torch.bfloat16)
+        w = (torch.randn(k, k, cin // groups, cout, device=DEVICE, generator=g)
+             / np.sqrt(k * k * cin // groups)).to(torch.bfloat16)
+        sc = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        bi = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        ins = [t.requires_grad_() for t in (x, w, sc, bi)]
+        out = kernels.conv_bn_relu_train(*ins, s, p, groups=groups)[0]
+        cot = torch.randn(out.shape, device=DEVICE, generator=g).to(out.dtype)
+        del out
+
+        def run():
+            return torch.autograd.grad(kernels.conv_bn_relu_train(*ins, s, p, groups=groups)[0],
+                                       ins, cot)
+        return run
+
+    res = {"n8_ms": {}, "b256_ms": 0.0}
+    for h, c, s in ((IMAGE // 4, 128, 1), (IMAGE // 4, 256, 2)):
+        res["n8_ms"][f"{h} {c} {c} {s} 32"] = time_ms(site(8, h, c, c, 3, s, 1, 32),
+                                                      GROUPED_SITE_REPS)
+    runs = {key: site(B256, key[0], *key[2:]) for key in sorted(shapes)}
+    for key, run in runs.items():
+        res["b256_ms"] += len(shapes[key]) * time_ms(run, GROUPED_SITE_REPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for key, run in runs.items():
+            for _ in shapes[key]:
+                run()
+        sync()
+    res["b256_kernels"] = events_by_name(prof.events(), 1)
+    say(f"train profile: grouped conv_bn_relu_train bf16 fwd+bwd ({GROUPED_SITE_REPS} calls "
+        f"each): N=8 {res['n8_ms']} ms; B{B256} at the main path's ResNeXt@224 grouped "
+        f"shapes {sorted(shapes)} summed by uses {res['b256_ms']:.4f} ms; its device events "
+        f"by name (ms, events per step of the grouped sites): {res['b256_kernels']}")
+    del runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def events_by_name(events, per, top=8):
+    """{name: [device ms per step, events per step]} of a profile's device
+    events, largest first: `top` names, the rest summed under "rest"."""
+    from torch.autograd import DeviceType
+
+    totals = {}
+    for e in events:
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            t = totals.setdefault(e.name[:60], [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3 / per
+            t[1] += 1 / per
+    return top_names(totals, top)
+
+
+def top_names(totals, top=8):
+    """{name: [ms, count]} rounded, largest ms first: `top` names, then
+    the rest summed under "rest"."""
+    ranked = sorted(totals.items(), key=lambda kv: -abs(kv[1][0]))
+    out = {k: [round(v[0], 4), round(v[1], 2)] for k, v in ranked[:top]}
+    if len(ranked) > top:
+        out["rest"] = [round(sum(v[0] for _, v in ranked[top:]), 4),
+                       round(sum(v[1] for _, v in ranked[top:]), 2)]
+    return out
+
+
+MESH_PROFILE_EPOCHS = 6  # --train-profile: replayed epochs per route, in turns
+
+
+def mesh_profile(seed):
+    """--train-profile: phase 16 (i)'s world-of-one RN26@32 replayed fit
+    (NCCL), with the mesh and without: one epoch each that runs the eager
+    steps and the capture, then MESH_PROFILE_EPOCHS replayed epochs each in
+    turns (img/s), then one profiled replayed epoch each: device ms per
+    step (the sum of the device events), the busy ms (their union) and
+    the span (first start to last end) per step, and the device events by
+    name where the two routes differ, mesh less no mesh, in ms and events
+    per step."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from convnets_tpu_torch.data import ArrayDataset, DeviceCacheLoader
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.parallel import init_distributed, make_mesh
+    from convnets_tpu_torch.train import Trainer
+
+    routes = ("no_mesh", "mesh")
+    with tempfile.TemporaryDirectory() as out_dir:
+        init_distributed("file://" + os.path.join(out_dir, "nccl-store"), 1, 0, device=DEVICE)
+        try:
+            mesh = make_mesh()
+            train_ds, _ = trainer_data(seed)
+            train_ds = ArrayDataset(train_ds.images[:GRAPH_TRAIN], train_ds.labels[:GRAPH_TRAIN])
+            setting = trainer_setting(seed, out_dir, data_augment=True, augment_affine=True,
+                                      data_norm=True, cutout=AUG_CUTOUT, mixup=AUG_MIXUP)
+            trainers, loaders, first = {}, {}, None
+            for name in routes:
+                model = build_model("resnet", setting, device=DEVICE)
+                if first is None:
+                    first = model.state_dict()
+                model.load_state_dict(first)
+                trainers[name] = Trainer(model, mesh=mesh if name == "mesh" else None)
+                trainers[name]._new_state()
+                loaders[name] = DeviceCacheLoader(train_ds, TRAINER_BATCH, shuffle=True,
+                                                  seed=seed, device=DEVICE)
+                loaders[name].augment, loaders[name].normalize = True, True
+            rates = {name: [] for name in routes}
+            for e in range(MESH_PROFILE_EPOCHS + 1):
+                for name in routes if e % 2 == 0 else routes[::-1]:
+                    sync()
+                    t0 = time.perf_counter()
+                    trainers[name]._run_train_epoch(loaders[name], e)
+                    sync()
+                    if e:
+                        rates[name].append(GRAPH_TRAIN / (time.perf_counter() - t0))
+            steps = len(loaders["mesh"])
+            prof = {}
+            for name in routes:
+                prof[name] = profiled_epoch(lambda name=name: trainers[name]._run_train_epoch(
+                    loaders[name], MESH_PROFILE_EPOCHS + 1))[0]
+        finally:
+            dist.destroy_process_group()
+    res = {"epochs_img_s": rates}
+    by_name = {}
+    for name in routes:
+        dev = [e for e in prof[name].events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+        busy, reach = 0.0, None
+        for a, b in spans:
+            if reach is None or a > reach:
+                busy += b - a
+                reach = b
+            elif b > reach:
+                busy += b - reach
+                reach = b
+        res[name] = {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in dev)
+                     / steps / 1e3,
+                     "busy_ms_per_step": busy / steps / 1e3,
+                     "span_ms_per_step": (spans[-1][1] - spans[0][0] if spans else 0.0)
+                     / steps / 1e3}
+        for e in dev:
+            t = by_name.setdefault(e.name[:60], {r: [0.0, 0] for r in routes})[name]
+            t[0] += e.time_range.elapsed_us() / steps / 1e3
+            t[1] += 1 / steps
+    res["mesh_less_no_mesh"] = top_names(
+        {k: [v["mesh"][0] - v["no_mesh"][0], v["mesh"][1] - v["no_mesh"][1]]
+         for k, v in by_name.items() if v["mesh"] != v["no_mesh"]})
+    say(f"train profile: world-of-one RN26@32 replayed epochs in turns ({steps} steps each), "
+        f"img/s {({k: [round(r, 1) for r in v] for k, v in rates.items()})}; profiled epoch "
+        f"per step: " + "; ".join(f"{name} device {res[name]['device_ms_per_step']:.4f} ms, "
+                                  f"busy {res[name]['busy_ms_per_step']:.4f}, span "
+                                  f"{res[name]['span_ms_per_step']:.4f}" for name in routes)
+        + f"; events by name, mesh less no mesh (ms, events per step): "
+        f"{res['mesh_less_no_mesh']}")
+    del trainers, loaders
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_artifact(seed, card, failures):
     """Phase 11: (i)-(ii) the RN50 artifact, (iii)-(iv) the augmented fit,
     its export and its profile, (v) the augmentation on the card. Prints
@@ -3786,8 +4384,9 @@ def model_launches(model):
     modules (model_layers): per forward one conv2d_fused for each dense
     conv, one grouped_conv2d_fused for each grouped one, one
     depthwise_conv2d for each depthwise one, one max_pool2d / avg_pool2d
-    for each pool; per train step one conv2d_stats (grouped_conv2d_stats)
-    and one reduction for each dense (grouped) ConvBNReLU, the forward
+    for each pool; per train step one conv2d_stats (grouped_conv2d_stats),
+    one reduction and the four BN-pass launches (bn_sites) for each dense
+    (grouped) ConvBNReLU, the forward
     kernel of each conv without BN (conv2d_train, grouped_conv2d_train) and
     of each depthwise conv (its ConvBNReLU runs unfused), and each pool's
     forward and one pool2d_backward."""
@@ -3801,7 +4400,8 @@ def model_launches(model):
                          "grouped_conv2d_fused": n["gconv"] + n["plaingconv"]}),
             launches_of({**common, "conv2d_stats": n["conv"], "grouped_conv2d_stats": n["gconv"],
                          "conv2d_stats_reduce": n["conv"] + n["gconv"],
-                         "pool2d_backward": n["maxpool"] + n["avgpool"]}))
+                         "pool2d_backward": n["maxpool"] + n["avgpool"],
+                         **bn_sites(n["conv"] + n["gconv"])}))
 
 
 def zoo_model(arch, kind, image, seed, conv_gain=None, **kw):
@@ -4021,8 +4621,9 @@ def path_launches(totals, rec):
     its conv2d_stats launches, pool2d_train by the max_pool2d launches of
     train steps, conv2d_train by the conv2d_fused launches of train steps)."""
     out = {k: totals[k] for k in ("conv2d_fused", "max_pool2d", "conv2d_stats",
-                                  "conv2d_stats_reduce", "pool2d_backward")}
+                                  "conv2d_stats_reduce", "pool2d_backward", "bn_act_forward")}
     out["conv_bn_relu_train"] = totals["conv2d_stats"]
+    out["bn_act_backward"] = totals["bn_act_backward_apply"]
     out["pool2d_train"] = sum(c["max_pool2d"] for c in rec["train"])
     train_fused = sum(c["conv2d_fused"] for c in rec["train"])
     if train_fused:
@@ -4429,7 +5030,7 @@ def graph_rn26_check(seed, out_dir, card, failures):
     model = trainers["graphed"].model
     n = conv_count(model)
     per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
-                            "pool2d_backward": 1})
+                            "pool2d_backward": 1, **bn_sites(n)})
     per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
     graphs = graphs_of(trainers["graphed"])
     replays = {g.kind: launches_summary(g.per_replay[0]) for g in graphs if g.per_replay}
@@ -4524,7 +5125,7 @@ def graph_chunked_check(seed, out_dir, card, failures):
                             data_norm=False, output_dir=out_dir)
     path, runs, leaves = {}, {}, {}
     per_step = launches_of({"conv2d_stats": 53, "conv2d_stats_reduce": 53, "max_pool2d": 1,
-                            "pool2d_backward": 1})
+                            "pool2d_backward": 1, **bn_sites(53)})
     for name in ("resident", "chunked", "control"):
         trainer = Trainer(build_model("resnet", setting, device=DEVICE))
         trainer._new_state()
@@ -4600,8 +5201,10 @@ def path_entries(totals):
     launches, pool2d_train by the pool2d_backward launches (one per train
     step's max pool)."""
     out = {k: totals.get(k, 0) for k in ("conv2d_fused", "max_pool2d", "conv2d_stats",
-                                          "conv2d_stats_reduce", "pool2d_backward")}
+                                          "conv2d_stats_reduce", "pool2d_backward",
+                                          "bn_act_forward")}
     out["conv_bn_relu_train"] = totals.get("conv2d_stats", 0)
+    out["bn_act_backward"] = totals.get("bn_act_backward_apply", 0)
     out["pool2d_train"] = totals.get("pool2d_backward", 0)
     return {k: v for k, v in out.items() if v}
 
@@ -5104,8 +5707,10 @@ def phase_zoo2(seed, card, summary, failures):
     total = {k: cli[k] + nobn[k] for k in cli}
     path = {k: total[k] for k in ("conv2d_fused", "grouped_conv2d_fused", "max_pool2d",
                                   "avg_pool2d", "conv2d_stats", "conv2d_stats_reduce",
-                                  "grouped_conv2d_stats", "pool2d_backward", "depthwise_conv2d")}
+                                  "grouped_conv2d_stats", "pool2d_backward", "depthwise_conv2d",
+                                  "bn_act_forward")}
     path.update(conv_bn_relu_train=total["conv2d_stats"],
+                bn_act_backward=total["bn_act_backward_apply"],
                 conv_bn_relu_train_grouped=total["grouped_conv2d_stats"],
                 conv2d_train=in_train("conv2d_fused"),
                 grouped_conv2d_train=in_train("grouped_conv2d_fused"),
@@ -5448,6 +6053,7 @@ def remat_launches(model):
                                      "plaindwconv", "maxpool", "avgpool")}
     return launches_of({"conv2d_stats": n["conv"], "grouped_conv2d_stats": n["gconv"],
                         "conv2d_stats_reduce": n["conv"] + n["gconv"],
+                        **bn_sites(n["conv"] + n["gconv"], backward=False),
                         "conv2d_fused": n["plainconv"], "grouped_conv2d_fused": n["plaingconv"],
                         "depthwise_conv2d": n["dwconv"] + n["plaindwconv"],
                         "max_pool2d": n["maxpool"], "avg_pool2d": n["avgpool"]})
@@ -5914,8 +6520,9 @@ def train_entries(totals):
     forwards."""
     out = {k: totals.get(k, 0) for k in ("conv2d_fused", "max_pool2d", "avg_pool2d",
                                           "conv2d_stats", "conv2d_stats_reduce",
-                                          "pool2d_backward")}
+                                          "pool2d_backward", "bn_act_forward")}
     out.update(conv_bn_relu_train=totals.get("conv2d_stats", 0),
+               bn_act_backward=totals.get("bn_act_backward_apply", 0),
                conv2d_train=totals.get("conv2d_fused", 0),
                pool2d_train=totals.get("max_pool2d", 0),
                pool2d_train_avg=totals.get("avg_pool2d", 0))
@@ -6113,7 +6720,7 @@ def dp_world_one(seed, out_dir, card, failures):
         model = trainers["mesh"].model
         n = conv_count(model)
         per_step = launches_of({"conv2d_stats": n, "conv2d_stats_reduce": n, "max_pool2d": 1,
-                                "pool2d_backward": 1})
+                                "pool2d_backward": 1, **bn_sites(n)})
         per_eval = launches_of({"conv2d_fused": n, "max_pool2d": 1})
         replays = {g.kind: launches_summary(g.per_replay[0]) for g in graphs_of(trainers["mesh"])
                    if g.per_replay}
@@ -6121,8 +6728,10 @@ def dp_world_one(seed, out_dir, card, failures):
                     and all(c == per_step for c in calls["train"])
                     and all(c == per_eval for c in calls["eval"])
                     and replays.get("train") == launches_summary(per_step))
-        # one all-reduce per BN forward and per BN backward, one for the
-        # gradient bucket, one for Σw (loss_reduction "mean")
+        # one all-reduce per BN forward (the conv kernel's (2, C) row of Σy,
+        # Σy², in place) and per BN backward (bn_act_backward's reduced row of
+        # Σdz, Σdz·x̂, in place), one for the gradient bucket, one for Σw
+        # (loss_reduction "mean")
         want_ar = 2 * n + 2
         ok_ar = issued == [(WARMUP_STEPS + 1) * want_ar] + [0] * (DP_EPOCHS - 1)
         say(f"(i) launches: {len(calls['train'])} mesh train steps each "
@@ -6545,6 +7154,8 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                             "convnets_tpu/ops/pallas/conv.py:543"),
     "conv_bn_relu_train": ("convnets_tpu_torch/ops/kernels/fused.py",
                            "convnets_tpu/ops/pallas/fused.py:35"),
+    "bn_act_forward": ("convnets_tpu_torch/csrc/bn_act.cu", "convnets_tpu/ops/pallas/fused.py:49"),
+    "bn_act_backward": ("convnets_tpu_torch/csrc/bn_act.cu", "convnets_tpu/ops/pallas/fused.py:70"),
     "conv2d_train": ("convnets_tpu_torch/ops/kernels/conv.py", "convnets_tpu/ops/pallas/conv.py:675"),
     "pool2d_train": ("convnets_tpu_torch/ops/kernels/pool.py", "convnets_tpu/ops/pallas/pool.py:100"),
     "pool2d_train_avg": ("convnets_tpu_torch/ops/kernels/pool.py",
@@ -6577,9 +7188,15 @@ def main():
                     help="print the RN50@224 serving img/s of the live ServingModel of the "
                          "checkout at ROOT and exit, with no result line: run it over two "
                          "checkouts in turns (parent, change, change, parent) to compare them")
+    ap.add_argument("--train-profile", default=None, metavar="ROOT",
+                    help="print the RN50@224 bf16 b256 train step's ms and profiled device "
+                         "split (BN passes of the fused sites apart), the RN26@32 b256 "
+                         "step's img/s, the grouped fused sites' times and the world-of-one "
+                         "mesh's profile of the checkout at ROOT and exit, with no result "
+                         "line; run it over two checkouts in turns as --serve-rate")
     args = ap.parse_args()
 
-    sys.path.insert(0, os.path.abspath(args.serve_rate or HERE))
+    sys.path.insert(0, os.path.abspath(args.serve_rate or args.train_profile or HERE))
     try:
         import torch
         from convnets_tpu_torch.ops import kernels
@@ -6605,6 +7222,11 @@ def main():
         kernels.lib()
         say(json.dumps({"serve_rate": {"root": os.path.abspath(args.serve_rate), "card": card,
                                        **serve_rate(args.seed)}}))
+        return
+    if args.train_profile:
+        kernels.lib()
+        say(json.dumps({"train_profile": {"root": os.path.abspath(args.train_profile),
+                                          "card": card, **train_profile(args.seed)}}))
         return
 
     # phase 1: build
@@ -6663,6 +7285,8 @@ def main():
                             "conv2d_stats": fit["conv2d_stats"],
                             "conv2d_stats_reduce": fit["conv2d_stats_reduce"],
                             "conv_bn_relu_train": fit["conv2d_stats"],
+                            "bn_act_forward": fit["bn_act_forward"],
+                            "bn_act_backward": fit["bn_act_backward_apply"],
                             "pool2d_train": sum(c["max_pool2d"] for c in train_calls),
                             "pool2d_backward": fit["pool2d_backward"]}
 
@@ -6678,6 +7302,8 @@ def main():
                                   "conv2d_stats": fit["conv2d_stats"],
                                   "conv2d_stats_reduce": fit["conv2d_stats_reduce"],
                                   "conv_bn_relu_train": fit["conv2d_stats"],
+                                  "bn_act_forward": fit["bn_act_forward"],
+                                  "bn_act_backward": fit["bn_act_backward_apply"],
                                   "pool2d_train": sum(c["max_pool2d"] for c in fit_calls),
                                   "pool2d_backward": fit["pool2d_backward"]}
 
@@ -6703,6 +7329,7 @@ def main():
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
         "4": lambda: summary.update(phase_train_kernels(probe(), failures)),
         "4b": lambda: phase_b256_conv(probe(), summary),
+        "4c": lambda: phase_bn_act(probe(), summary, failures),
         "5": phase_5,
         "3": phase_3,
         "6": lambda: (summary.update(phase_zoo_kernels(failures)),
@@ -6727,7 +7354,7 @@ def main():
         if name in chosen:
             t0 = time.perf_counter()
             phases[name]()
-            if name == "4b":
+            if name == "4c":
                 state.pop("probe", None)  # RN50's probe model is not needed later
             say(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
     say(f"[all phases: {time.perf_counter() - t_all:.1f} s]")
@@ -6746,6 +7373,8 @@ def main():
                 "conv2d_stats": train["resnet"]["conv2d_stats"],
                 "conv2d_stats_reduce": train["resnet"]["conv2d_stats_reduce"],
                 "conv_bn_relu_train": train["resnet"]["conv2d_stats"],
+                "bn_act_forward": train["resnet"]["bn_act_forward"],
+                "bn_act_backward": train["resnet"]["bn_act_backward_apply"],
                 "pool2d_train": train["resnet"]["max_pool2d"],
                 "pool2d_train_avg": train["densenet"]["avg_pool2d"],
                 "pool2d_backward": train["resnet"]["pool2d_backward"],
@@ -6775,7 +7404,7 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ZOO2_KEYS + ZOO2_224_KEYS + ("serving_ms",) if k in summary[name]}}
+            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ("serving_ms",) if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

@@ -37,11 +37,15 @@ too.
 The trainable functions (`conv2d_train`, `grouped_conv2d_train`,
 `conv_bn_relu_train`, `depthwise_train`, `pool2d_train`) are
 `torch.autograd.Function`s: their forwards go through the wrappers above,
-and their backwards are plain PyTorch (cuDNN on the card), as the JAX
-package leaves its backwards to XLA, except the pool's: its max forward
-writes the tap of each window's first maximum and the `pool2d_backward`
-kernel gathers dx from it. `bottleneck_block` (a whole identity bottleneck
-in one launch) has no caller in the models, as in the JAX package.
+and their conv backwards are plain PyTorch (cuDNN on the card), as the JAX
+package leaves its backwards to XLA. Two backwards are kernels: the
+pool's (its max forward writes the tap of each window's first maximum and
+the `pool2d_backward` kernel gathers dx from it) and the BN part of
+`conv_bn_relu_train`, whose normalize + ReLU forward (`bn_act_forward`)
+and BN backward (`bn_act_backward`) run csrc/bn_act.cu on the route of
+`bn_act_plan`, counted per route in `ROUTE_LAUNCHES`. `bottleneck_block`
+(a whole identity bottleneck in one launch) has no caller in the models,
+as in the JAX package.
 
 The eval path's five kernels are also torch custom ops
 (`torch.ops.convnets_torch.*`, registered by `library.py` when this
@@ -73,12 +77,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
                              "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                              "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
-                             "bottleneck_block": 0, "pool2d_backward": 0}
+                             "bottleneck_block": 0, "pool2d_backward": 0,
+                             "bn_act_forward": 0, "bn_act_backward_sums": 0,
+                             "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0}
 # launches per route of the kernels whose route is chosen by shape: the
-# window kernels and the block
+# window kernels, the block and the BN passes of the fused conv sites
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
     **{name: {"vector": 0, "loop": 0}
-       for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")},
+       for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward",
+                    "bn_act_forward", "bn_act_backward_sums", "bn_act_backward_apply")},
     "bottleneck_block": {"wgmma": 0, "simt": 0}}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,6 +95,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
     # dh, dw, route, bm, bn, gather, relu, stream
@@ -115,6 +123,14 @@ _SIGNATURES = {
     "grouped_block_rows": [],
     # dtype, x, w1, w2, w3, sb, out, n, h, w, cin, cmid, relu_out, route, th, stream
     "bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # dtype, y, sums, scale, bias, out, mean, var, inv, m, c, n, eps, relu, route, tx,
+    # rowblocks, stream
+    "bn_act_forward_launch": [_I] + [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # dtype, g, y, mean, inv, scale, bias, partial, m, c, relu, route, tx, rowblocks, stream
+    "bn_act_sums_launch": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # dtype, g, y, mean, inv, scale, bias, sums, dy, m, c, n, relu, route, tx, rowblocks,
+    # stream
+    "bn_act_apply_launch": [_I] + [_P] * 8 + [_I] * 7 + [_P],
 }
 
 
@@ -127,7 +143,7 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, route: str) -> None:
-    """One launch of a window kernel or the block on `route`."""
+    """One launch of a window kernel, the block or a BN pass on `route`."""
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[name][route] += 1
 
@@ -272,6 +288,10 @@ from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
 from convnets_tpu_torch.ops.kernels.depthwise import (  # noqa: E402
     depthwise_conv2d, depthwise_conv2d_plain, depthwise_plan, depthwise_train,
 )
+from convnets_tpu_torch.ops.kernels.bn_act import (  # noqa: E402
+    BNActPlan, bn_act_backward, bn_act_backward_plain, bn_act_forward, bn_act_forward_plain,
+    bn_act_plan,
+)
 from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E402
 from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
     BlockPlan, block_plan, bottleneck_block, bottleneck_block_plain, fits_block,
@@ -279,11 +299,12 @@ from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
 from convnets_tpu_torch.ops.kernels import library  # noqa: E402,F401  (registers the ops)
 
 __all__ = [
-    "BlockPlan", "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES", "WindowPlan",
-    "avg_pool2d", "avg_pool2d_plain", "block_plan", "bottleneck_block",
-    "bottleneck_block_plain", "build", "conv2d_fused", "conv2d_fused_plain", "conv2d_stats",
-    "conv2d_stats_plain", "conv2d_train", "conv_bn_relu_train", "conv_plan", "count_launch",
-    "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train",
+    "BNActPlan", "BlockPlan", "ConvPlan", "GroupedPlan", "LAUNCHES", "ROUTE_LAUNCHES",
+    "WindowPlan", "avg_pool2d", "avg_pool2d_plain", "block_plan", "bn_act_backward",
+    "bn_act_backward_plain", "bn_act_forward", "bn_act_forward_plain", "bn_act_plan",
+    "bottleneck_block", "bottleneck_block_plain", "build", "conv2d_fused", "conv2d_fused_plain",
+    "conv2d_stats", "conv2d_stats_plain", "conv2d_train", "conv_bn_relu_train", "conv_plan",
+    "count_launch", "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train",
     "fits_block", "fits_conv", "fits_depthwise", "fits_grouped", "grouped_conv2d_fused",
     "grouped_conv2d_fused_plain", "grouped_conv2d_stats", "grouped_conv2d_stats_plain",
     "grouped_conv2d_train", "grouped_plan", "grouped_slices", "lib", "max_pool2d",

@@ -223,10 +223,11 @@ def _fused_plain(x, w, scale, shift, stride, padding, relu, groups, dilation=1):
 
 
 def _with_sums(y):
-    """(y, Σ, Σ²) over (N, OH, OW) of y.float(): the statistics kernels'
-    contract on the y their plain version gives."""
+    """(y, sums), sums the (2, Cout) row [Σ; Σ²] over (N, OH, OW) of
+    y.float(): the statistics kernels' contract on the y their plain
+    version gives."""
     yf = y.float()
-    return y, yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))
+    return y, torch.stack([yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))])
 
 
 def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, route=None,
@@ -259,7 +260,8 @@ def _launch_stats(name, x, w, stride, padding, groups=1, route=None, dilation=1)
     """Check the operands, then launch conv_stats_launch with its plan, or
     grouped_stats_launch with its (groups > 1; `route` forces one): y and
     per-CTA partial sums, one row per tile of output pixels; then the
-    fixed-order reduction kernel. Counts both. Returns (y, Σy, Σy²)."""
+    fixed-order reduction kernel. Counts both. Returns (y, sums): sums the
+    (2, Cout) fp32 row [Σy; Σy²] that the reduction writes."""
     geo = _conv_geometry(name, x, w, stride, padding, groups, dilation)
     n, _, _, _, oh, ow, cout = geo[:7]
     lib = _k.lib()
@@ -282,7 +284,7 @@ def _launch_stats(name, x, w, stride, padding, groups=1, route=None, dilation=1)
     rc = lib.stats_reduce_launch(partial.data_ptr(), sums.data_ptr(), blocks, cout, stream)
     _k.check_launch("conv2d_stats_reduce", rc)
     _k.LAUNCHES["conv2d_stats_reduce"] += 1
-    return y, sums[0], sums[1]
+    return y, sums
 
 
 def conv2d_fused_plain(x, w, scale: Optional[torch.Tensor] = None,
@@ -310,17 +312,19 @@ def conv2d_fused(x, w, scale: Optional[torch.Tensor] = None,
 
 def conv2d_stats_plain(x, w, *, stride=1, padding=0, dilation=1):
     """The statistics kernel's contract in plain PyTorch: y as
-    conv2d_fused_plain gives it, and Σ, Σ² over (N, OH, OW) of y.float()."""
+    conv2d_fused_plain gives it, and the (2, Cout) row of Σ, Σ² over
+    (N, OH, OW) of y.float()."""
     return _with_sums(conv2d_fused_plain(x, w, stride=stride, padding=padding,
                                          dilation=dilation))
 
 
 def conv2d_stats(x, w, *, stride=1, padding=0, dilation=1):
     """Conv forward plus the per-channel batch statistics of its STORED
-    output: returns (y, Σy, Σy²), y (N, OH, OW, Cout) in x.dtype, the sums
-    fp32 (Cout,) over N·OH·OW (conv.py:534-538: the sums of the rounded y
-    keep the fused path consistent with conv → BN over y). Two launches:
-    the conv with per-block partial sums, then their fixed-order sum."""
+    output: returns (y, sums), y (N, OH, OW, Cout) in x.dtype, sums the
+    fp32 (2, Cout) row [Σy; Σy²] over N·OH·OW (conv.py:534-538: the sums
+    of the rounded y keep the fused path consistent with conv → BN over
+    y), one buffer that a mesh all-reduces in place. Two launches: the
+    conv with per-block partial sums, then their fixed-order sum."""
     if x.device.type == "cpu":
         return conv2d_stats_plain(x, w, stride=stride, padding=padding, dilation=dilation)
     return _launch_stats("conv2d_stats", x, w, stride, padding, dilation=dilation)
@@ -355,9 +359,10 @@ def grouped_conv2d_stats_plain(x, w, groups: int, *, stride=1, padding=0, dilati
 
 
 def grouped_conv2d_stats(x, w, groups: int, *, stride=1, padding=0, dilation=1):
-    """conv2d_stats for a grouped conv: (y, Σy, Σy²) of the stored y. Two
-    launches: the grouped conv with per-block partial sums, then the same
-    fixed-order reduction kernel as conv2d_stats."""
+    """conv2d_stats for a grouped conv: (y, sums) of the stored y, sums the
+    (2, Cout) row [Σy; Σy²]. Two launches: the grouped conv with per-block
+    partial sums, then the same fixed-order reduction kernel as
+    conv2d_stats."""
     if x.device.type == "cpu":
         return grouped_conv2d_stats_plain(x, w, groups, stride=stride, padding=padding,
                                           dilation=dilation)

@@ -3,19 +3,20 @@ convnets_tpu/ops/pallas/fused.py:conv_bn_relu_train).
 
 Forward: the conv2d_stats kernel (grouped_conv2d_stats for groups > 1:
 the per-group sums, not the JAX package's block-diagonal weight, fused.py:
-51-53) gives y and the per-channel Σy, Σy²;
-mean, biased variance and rsqrt are per-channel fp32 work, and normalize
-+ ReLU is one elementwise pass in the compute dtype (_fused_fwd_impl,
-fused.py:49-60). Backward (_fused_bwd, :70-103): the ReLU mask is
-recomputed through the same _apply_norm as the forward, the two
-per-channel reductions run in fp32, and dx/dw come from transposed convs
-in plain PyTorch, as the JAX package leaves them to XLA.
+51-53) gives y and the (2, Cout) row of Σy, Σy²; the bn_act_forward kernel
+(csrc/bn_act.cu) finishes mean, biased variance and rsqrt from that row
+and writes normalize + ReLU in the compute dtype, one read of y and one
+write (_fused_fwd_impl, fused.py:49-60). Backward (_fused_bwd, :70-103):
+the bn_act_backward kernels recompute the ReLU mask and x̂ from y through
+the forward's own rounding, reduce the two per-channel sums in fp32 and
+write dy; dx/dw come from transposed convs in plain PyTorch, as the JAX
+package leaves them to XLA.
 
 Under an active data-parallel mesh (parallel/mesh.py) the statistics are
 the global batch's, as GSPMD reduces them over the sharded batch: the
-kernel's Σy and Σy² are summed over the data group as one 2·Cout buffer in
-one all-reduce, and n is the global count; the backward's Σdy and Σdy·x̂
-are summed likewise for dx (ops/norm.py:bn_input_grad), and dscale/dbias
+kernel's (2, Cout) row of Σy, Σy² is summed over the data group in place,
+in one all-reduce, and n is the global count; the backward's Σdz and
+Σdz·x̂ are summed likewise for dy (bn_act_backward), and dscale/dbias
 are returned as this rank's sums, which the train step's gradient
 all-reduce adds up once with dw. The JAX package leaves the fused kernel
 under a multi-device mesh, because its statistics would be per shard; the
@@ -28,28 +29,19 @@ import torch
 
 from convnets_tpu_torch.ops import kernels as _k
 from convnets_tpu_torch.ops.kernels.conv import conv2d_backward
-from convnets_tpu_torch.ops.norm import _apply_norm, bn_input_grad
-from convnets_tpu_torch.parallel.mesh import active_mesh, data_sum_
+from convnets_tpu_torch.parallel.mesh import data_sum_
 
 
 class _ConvBNReLUTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups, dilation):
         if groups == 1:
-            y, s1, s2 = _k.conv2d_stats(x, w, stride=stride, padding=padding, dilation=dilation)
+            y, sums = _k.conv2d_stats(x, w, stride=stride, padding=padding, dilation=dilation)
         else:
-            y, s1, s2 = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding,
-                                                dilation=dilation)
-        n = y.shape[0] * y.shape[1] * y.shape[2]
-        if active_mesh() is not None:
-            sums = torch.cat([s1, s2])
-            n = data_sum_(sums, n)
-            s1, s2 = sums.split(s1.shape[0])
-        mean = s1 / n
-        var = torch.clamp_min(s2 / n - mean * mean, 0.0)
-        inv = torch.rsqrt(var + eps)
-        z = _apply_norm(y, mean, inv, scale, bias).to(y.dtype)
-        out = torch.clamp_min(z, 0.0) if relu else z
+            y, sums = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding,
+                                              dilation=dilation)
+        n = data_sum_(sums, y.shape[0] * y.shape[1] * y.shape[2])
+        out, mean, var, inv = _k.bn_act_forward(y, sums, n, scale, bias, eps, relu)
         # y (the conv output), not out: x̂ and the ReLU mask are recomputed
         ctx.save_for_backward(x, w, scale, bias, y, mean, inv)
         ctx.conf = (stride, padding, relu, groups, dilation)
@@ -60,17 +52,8 @@ class _ConvBNReLUTrain(torch.autograd.Function):
     def backward(ctx, g, _dmean, _dvar):
         x, w, scale, bias, y, mean, inv = ctx.saved_tensors
         stride, padding, relu, groups, dilation = ctx.conf
-        cd = y.dtype
         n = y.shape[0] * y.shape[1] * y.shape[2]
-        xhat = (y - mean.to(cd)) * inv.to(cd)
-        if relu:
-            # the forward's own rounding of z: a mask flipped at z ≈ 0 would
-            # route the gradient unlike the forward activation
-            z = _apply_norm(y, mean, inv, scale, bias).to(cd)
-            dz = torch.where(z > 0, g, torch.zeros((), dtype=g.dtype, device=g.device)).to(cd)
-        else:
-            dz = g.to(cd)
-        dy, dscale, dbias = bn_input_grad(dz, xhat, scale, inv, n)
+        dy, dscale, dbias = _k.bn_act_backward(g, y, mean, inv, scale, bias, relu, n)
         dx, dw = conv2d_backward(x, w, dy, stride, padding, need=ctx.needs_input_grad[:2],
                                  groups=groups, dilation=dilation)
         return (dx, dw, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None,

@@ -54,22 +54,23 @@ def bn_input_grad(dy, xhat, scale, inv, n: int):
     Σdy); the last two are the scale and bias gradients in fp32. Under an
     active mesh dx takes the two sums over the data group (one all-reduce
     of a 2·C buffer) and the global count, while the returned sums stay
-    this rank's: the step's gradient all-reduce adds them up once."""
+    this rank's: the step's gradient all-reduce adds them up once (a copy
+    of the (2, C) row taken before the all-reduce)."""
     cd = dy.dtype
     axes = tuple(range(dy.ndim - 1))
     dyf = dy.float()
-    sum_dy = dyf.sum(axes)
-    sum_dy_xhat = (dyf * xhat.float()).sum(axes)
-    g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+    sums = dyf.new_empty((2, dy.shape[-1]))  # [Σdy; Σdy·x̂], all-reduced in place
+    torch.sum(dyf, axes, out=sums[0])
+    torch.sum(dyf * xhat.float(), axes, out=sums[1])
+    own = sums
     if active_mesh() is not None:
-        both = torch.cat([sum_dy, sum_dy_xhat])
-        n = data_sum_(both, n)
-        g_dy, g_dy_xhat = both.split(sum_dy.shape[0])
+        own = sums.clone()
+        n = data_sum_(sums, n)
     g = scale.float() * inv
     dx = (g.to(cd) * (dy
-                      - (g_dy / n).to(cd)
-                      - xhat * (g_dy_xhat / n).to(cd))).to(cd)
-    return dx, sum_dy_xhat, sum_dy
+                      - (sums[0] / n).to(cd)
+                      - xhat * (sums[1] / n).to(cd))).to(cd)
+    return dx, own[1], own[0]
 
 
 class _BNCore(torch.autograd.Function):
@@ -128,13 +129,15 @@ def batch_stats(x):
     statistics of DenseBlockFused, where every layer's BN would reduce the
     same concatenated blocks again. Under an active mesh the mean and
     E[x²] are the global batch's: this rank's pair, averaged over the data
-    group in one all-reduce."""
+    group in one all-reduce of the (2, C) row they are computed into. x
+    carries no gradient (the callers pass a detached tensor)."""
     axes = tuple(range(x.ndim - 1))
     xf = x.float()
-    mean, ex2 = xf.mean(axes), (xf * xf).mean(axes)
-    if active_mesh() is not None:
-        both = data_mean_(torch.cat([mean, ex2]))
-        mean, ex2 = both.split(mean.shape[0])
+    both = xf.new_empty((2, x.shape[-1]))  # [mean; E[x²]], averaged in place
+    torch.mean(xf, axes, out=both[0])
+    torch.mean(xf * xf, axes, out=both[1])
+    data_mean_(both)
+    mean, ex2 = both[0], both[1]
     return mean, torch.clamp_min(ex2 - mean * mean, 0.0)
 
 

@@ -29,6 +29,7 @@ over the same static buffers.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional, Sequence
 
@@ -78,9 +79,12 @@ class StepGraph:
     the StepGenerators the body draws from (registered before the
     capture); on_capture: called before the capture (the Trainer waits for
     its checkpoint writer there: no other thread may call CUDA during a
-    capture); capture_error_mode: torch.cuda.graph's, "thread_local" for a
-    step with NCCL collectives, whose process group's watchdog thread
-    queries events during the capture."""
+    capture), after which dead Python cycles are collected and the
+    collector is held off until the capture ends, so that no earlier graph
+    is freed during it; capture_error_mode:
+    torch.cuda.graph's, "thread_local" for a step with NCCL collectives,
+    whose process group's watchdog thread queries events during the
+    capture."""
 
     def __init__(self, kind: str, body: Callable, data: torch.Tensor, labels: torch.Tensor,
                  rows: int, batch: int, *, preds: bool = False,
@@ -117,6 +121,13 @@ class StepGraph:
     def _capture(self) -> None:
         if self.on_capture is not None:
             self.on_capture()
+        # a dead reference cycle that holds an earlier CUDA graph is freed
+        # now, and the collector is held off until the capture ends: freeing
+        # a graph and its memory pool in the capturing thread invalidates
+        # the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         if self.generators is not None:
@@ -129,6 +140,9 @@ class StepGraph:
         except Exception as e:
             raise RuntimeError(f"capturing the {self.kind} step as a CUDA graph failed: "
                                f"{e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         after = _launch_counts()
         self.per_replay = ({k: after[0][k] - before[0][k] for k in after[0]},

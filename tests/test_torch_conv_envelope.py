@@ -72,7 +72,7 @@ def test_plain_conv_matches_jax(n, h, w, cin, cout, k, s, p, d, groups, what):
         ys = kernels.grouped_conv2d_stats(tx, tw, groups, stride=s, padding=p, dilation=d)
     np.testing.assert_allclose(y.numpy(), want, atol=TOL, rtol=TOL)
     np.testing.assert_allclose(ys[0].numpy(), want, atol=TOL, rtol=TOL)
-    np.testing.assert_allclose(ys[1].numpy(), want.sum((0, 1, 2)), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(ys[1][0].numpy(), want.sum((0, 1, 2)), atol=1e-4, rtol=1e-4)
 
 
 def _jax_train_fn(kind, s, p, d, groups):

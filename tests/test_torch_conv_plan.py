@@ -152,6 +152,9 @@ def test_signature_matches_source(name):
     for i, (decl, argtype) in enumerate(zip(decls, want)):
         if "*" in decl:
             assert argtype is ctypes.c_void_p, f"{name} argument {i} ({decl}) is a pointer"
+        elif decl.startswith("float"):
+            assert re.fullmatch(r"float\s+\w+", decl), f"{name} argument {i}: {decl}"
+            assert argtype is ctypes.c_float, f"{name} argument {i} ({decl}) is a float"
         else:
             assert re.fullmatch(r"int\s+\w+", decl), f"{name} argument {i}: {decl}"
             assert argtype is ctypes.c_int, f"{name} argument {i} ({decl}) is an int"

@@ -85,7 +85,7 @@ def test_grouped_conv2d_stats_matches_jax_block_diagonal(groups, stride):
                             stride=stride, padding=1, interpret=True)
     got = kernels.grouped_conv2d_stats(_t(x), _t(w), groups, stride=stride, padding=1)
     np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-5, atol=1e-5)
-    for g, j in zip(got[1:], want[1:]):
+    for g, j in zip(got[1], want[1:]):
         assert g.dtype == torch.float32 and g.shape == (groups * 8,)
         np.testing.assert_allclose(_np(g), _np(j), rtol=1e-4, atol=1e-4)
 

@@ -188,11 +188,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
                                 "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                                 "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
-                                "bottleneck_block": 0, "pool2d_backward": 0}
+                                "bottleneck_block": 0, "pool2d_backward": 0,
+                                "bn_act_forward": 0, "bn_act_backward_sums": 0,
+                                "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0}
     assert {k: set(v) for k, v in kernels.ROUTE_LAUNCHES.items()} == {
         "depthwise_conv2d": {"vector", "loop"}, "max_pool2d": {"vector", "loop"},
         "avg_pool2d": {"vector", "loop"}, "pool2d_backward": {"vector", "loop"},
-        "bottleneck_block": {"wgmma", "simt"}}
+        "bn_act_forward": {"vector", "loop"}, "bn_act_backward_sums": {"vector", "loop"},
+        "bn_act_backward_apply": {"vector", "loop"}, "bottleneck_block": {"wgmma", "simt"}}
     assert all(n == 0 for routes in kernels.ROUTE_LAUNCHES.values() for n in routes.values())
 
 

@@ -49,7 +49,7 @@ def test_conv2d_stats_matches_jax(stride, padding, k, cin):
                             interpret=True)
     got = kernels.conv2d_stats(_t(x), _t(w), stride=stride, padding=padding)
     np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-5, atol=1e-5)
-    for g, j in zip(got[1:], want[1:]):
+    for g, j in zip(got[1], want[1:]):
         assert g.dtype == torch.float32 and g.shape == (16,)
         np.testing.assert_allclose(_np(g), _np(j), rtol=1e-4, atol=1e-4)
 
@@ -58,7 +58,7 @@ def test_conv2d_stats_sums_the_rounded_bf16_output():
     """bf16: Σ and Σ² are of the stored (rounded) y, conv.py:534-538."""
     x = _rand(2, (2, 16, 16, 8))
     w = _rand(3, (3, 3, 8, 16), 0.1)
-    y, s1, s2 = kernels.conv2d_stats(_t(x, torch.bfloat16), _t(w, torch.bfloat16),
+    y, (s1, s2) = kernels.conv2d_stats(_t(x, torch.bfloat16), _t(w, torch.bfloat16),
                                      stride=1, padding=1)
     assert y.dtype == torch.bfloat16
     yf = y.float()
