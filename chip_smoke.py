@@ -453,16 +453,19 @@ TRAIN_LAUNCHES = {
 WINDOW_ROUTED = ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward")
 OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_vec_kernel<",
                "pool_bwd_kernel<", "depthwise_kernel<", "depthwise_vec_kernel<",
-               "grouped_conv_kernel<", "bottleneck_kernel<", "bn_act_forward_kernel<",
-               "bn_act_sums_kernel<", "bn_act_apply_kernel<")
+               "grouped_conv_kernel<", "grouped_wide_kernel<", "bottleneck_kernel<",
+               "bn_act_forward_kernel<", "bn_act_sums_kernel<", "bn_act_apply_kernel<")
 # the window kernels as the profiler names them, for their share of a
 # request's or a step's device time
 WINDOW_KERNELS = (("depthwise", ("depthwise_kernel<", "depthwise_vec_kernel<")),
                   ("pool", ("pool_vec_kernel<", "pool_bwd_kernel<")))
 # the grouped conv's kernels as the profiler names them: the grouped mode of
-# conv_wgmma_kernel<64, STATS, true, CG> and the CUDA-core loop
+# conv_wgmma_kernel<64, STATS, true, CG>, the wide route's
+# grouped_wide_kernel<NW, STATS> and the CUDA-core loop
 GROUPED_KERNELS = tuple(f"conv_wgmma_kernel<64, {st}, true, {cg}>" for st in ("false", "true")
-                        for cg in (4, 8, 16, 32)) + ("grouped_conv_kernel<",)
+                        for cg in (4, 8, 16, 32)) + ("grouped_wide_kernel<", "grouped_conv_kernel<")
+# the grouped conv wrappers, whose launches ROUTE_LAUNCHES also counts per route
+GROUPED_ROUTED = ("grouped_conv2d_fused", "grouped_conv2d_stats")
 # phase 2a: every branch of conv_plan, (N, H, W, Cin, Cout, k, stride, pad, what)
 PLAN_SHAPES = (
     (1, 224, 224, 3, 64, 7, 2, 3, "7x7x3 stem at N=1 (scalar gather, K=147)"),
@@ -490,7 +493,11 @@ GROUPED_PLAN_SHAPES = (
     (2, 16, 16, 256, 256, 16, 3, 1, 0, "wgmma", "Cin/G=16, 3x3 p0"),
     (2, 14, 14, 128, 128, 16, 1, 1, 0, "wgmma", "1x1 Cin/G=8 (KT=1 < ring slots)"),
     (2, 14, 14, 64, 64, 32, 3, 1, 1, "simt", "Cin/G=2 (bf16 simt)"),
-    (2, 14, 14, 128, 256, 32, 3, 1, 1, "simt", "Cout/G=8 != Cin/G=4 (bf16 simt)"),
+    (2, 14, 14, 128, 256, 32, 3, 1, 1, "wgmma_wide", "Cout/G=8 != Cin/G=4, 3x3, 8 groups a tile"),
+    (2, 15, 15, 68, 248, 4, 3, 2, 1, "wgmma_wide", "odd Cin/G=17 (2-byte gather), 3x3 s2"),
+    (3, 9, 9, 200, 600, 2, 1, 1, 0, "wgmma_wide", "Cout/G=300: three pieces; 8-byte copies"),
+    (1, 5, 5, 96, 96, 24, 3, 1, 1, "wgmma_wide", "Cin=96, G=24 (Cin % 64 != 0), N=1"),
+    (2, 7, 7, 130, 90, 2, 3, 1, 1, "wgmma_wide", "odd Cin/G=65 over two stages, Cout/G=45"),
 )
 B256 = 256  # phases 4b, 8b: rows 1, 5 (RN50) and 1g, 5g (ResNeXt-50) at this batch
 B256_KEYS = ("ms_b256", "library_ms_b256", "bound_ms_b256")
@@ -540,10 +547,13 @@ _SLEEP_CYCLES_PER_S = []
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` back-to-back calls (CUDA events).
     A device-side sleep queued first, about 1.5× the host time the calls
-    take to enqueue (at most 0.2 s), lets the host queue them all before
-    the first starts, so a call that the host launches more slowly than the
-    card runs it (the wrappers at N=8) is timed on the card, not at the
-    host's pace."""
+    take to enqueue (at least 1 ms, at most 0.2 s), lets the host queue
+    them all before the first starts, so a call that the host launches
+    more slowly than the card runs it (the wrappers at N=8) is timed on the
+    card, not at the host's pace; the garbage collector is held off while
+    they are queued, so none of its pauses lands between two calls."""
+    import gc
+
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
@@ -560,11 +570,17 @@ def time_ms(fn, reps: int) -> float:
     fn()  # the host time of one call
     host = time.perf_counter() - t0
     sync()
-    torch.cuda._sleep(int(_SLEEP_CYCLES_PER_S[0] * min(0.2, 1.5 * reps * host)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda._sleep(int(_SLEEP_CYCLES_PER_S[0] * min(0.2, max(1e-3, 1.5 * reps * host))))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    finally:
+        if collecting:
+            gc.enable()
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -1370,9 +1386,10 @@ def sass_check(failures):
     """Phase 1b: HGMMA instructions in the SASS of each tensor-core conv
     instantiation of the built library (each must have some; the grouped
     mode's, CG > 0, at Cin/G = 4, 8, 16 and 32 with both epilogues, listed
-    apart), and no bf16 instantiation of the dense CUDA-core loop
-    `conv_kernel`. The grouped CUDA-core loop keeps its bf16 instantiation:
-    grouped_plan names the shapes it serves."""
+    apart; the wide route's grouped_wide_kernel<NW, STATS> at NW = 16, 32,
+    64 and 128 with both epilogues), and no bf16 instantiation of the dense
+    CUDA-core loop `conv_kernel`. The grouped CUDA-core loop keeps its bf16
+    instantiation: grouped_plan names the shapes it serves."""
     import re
     import shutil
 
@@ -1391,7 +1408,8 @@ def sass_check(failures):
             counts[fn] = wide[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-        elif fn is not None and re.search(r"\b(LDG|LDGSTS)\.E\S*\.128\b", line):
+        elif (fn is not None and ".128" in line  # the cheap test first: the SASS is long
+              and re.search(r"\b(LDG|LDGSTS)\.E\S*\.128\b", line)):
             wide[fn] += 1
     wgmma = {f: c for f, c in counts.items() if "conv_wgmma_kernel" in f}
     # conv_wgmma_kernel<BN, STATS, VEC_A, CG> in the mangled name
@@ -1412,6 +1430,18 @@ def sass_check(failures):
         failures.append(f"grouped wgmma instantiations and their HGMMA counts: {grouped}")
     if simt_bf16:
         failures.append(f"bf16 CUDA-core conv loop in the library: {simt_bf16}")
+    # the wide route, grouped_wide_kernel<NW, STATS>: one per accumulator
+    # width of a group (kernels.conv.WIDE_NW) and epilogue
+    wide_route = {}
+    for f, c in counts.items():
+        m = re.search(r"grouped_wide_kernelILi(\d+)ELb([01])E", f)
+        if m:
+            wide_route[(int(m.group(1)), "stats" if m.group(2) == "1" else "fused")] = c
+    say(f"SASS: HGMMA instructions per grouped_wide_kernel instantiation (NW, epilogue): "
+        f"{dict(sorted(wide_route.items()))}")
+    want = {(nw, e) for nw in kernels.conv.WIDE_NW for e in ("fused", "stats")}
+    if set(wide_route) != want or min(wide_route.values(), default=0) == 0:
+        failures.append(f"grouped_wide_kernel instantiations and their HGMMA counts: {wide_route}")
     # the block's tensor-core route, block_wgmma_kernel<Cmid, MB1>: one per
     # Cmid of kernels.block.WGMMA_CMID
     block = {}
@@ -2493,7 +2523,7 @@ def grouped_check(x, wt, groups, scale, shift, s, p, dname):
     return ok, errs, s_ok, y_err, e1, e2
 
 
-def grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, route, reps=REPS):
+def grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, route, reps=REPS, dilation=1):
     """Device ms of grouped_conv2d_fused (scale/shift, `relu`) and of
     grouped_conv2d_stats with their main loop forced to `route`, through
     the wrappers' launch path (the library refuses a route not built for
@@ -2501,9 +2531,9 @@ def grouped_route_ms(x, wt, groups, scale, shift, s, p, relu, route, reps=REPS):
     from convnets_tpu_torch.ops.kernels import conv as kconv
 
     f_ms = time_ms(lambda: kconv._launch_fused("grouped_conv2d_fused", x, wt, scale, shift, s,
-                                               p, relu, groups, route), reps)
+                                               p, relu, groups, route, dilation), reps)
     s_ms = time_ms(lambda: kconv._launch_stats("grouped_conv2d_stats", x, wt, s, p, groups,
-                                               route), reps)
+                                               route, dilation), reps)
     return f_ms, s_ms
 
 
@@ -4024,9 +4054,10 @@ def train_profile(seed):
     aten::convolution_backward; their kernels by name, kernels_under), the
     backward convs and the rest, and the device kernels per step; then
     the RN26@32 bf16 b256 step's img/s (step_loop_rate), the grouped
-    sites' times (grouped_site_times) and the world of one (mesh_profile).
-    Uses only what checkouts of the port since its data-parallel slice
-    have too."""
+    sites' times (grouped_site_times), ShuffleNet-v1-g4@224's step and
+    request (shuffle_profile) and the world of one (mesh_profile). Uses
+    only what checkouts of the port since its data-parallel slice have
+    too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -4103,6 +4134,7 @@ def train_profile(seed):
                           "launches_per_step": launches, **split},
             "rn26_32_b256_img_s": step_loop_rate(seed),
             "grouped_sites": grouped_site_times(seed),
+            "shufflenet_g4_224": shuffle_profile(seed),
             "world_of_one": mesh_profile(seed)}
 
 
@@ -4184,6 +4216,78 @@ def grouped_site_times(seed):
         f"shapes {sorted(shapes)} summed by uses {res['b256_ms']:.4f} ms; its device events "
         f"by name (ms, events per step of the grouped sites): {res['b256_kernels']}")
     del runs
+    torch.cuda.empty_cache()
+    return res
+
+
+SHUFFLE_SERVE_ITERS = 10  # --train-profile: timed b256 requests of ShuffleNet-g4@224
+
+
+def shuffle_profile(seed):
+    """--train-profile: ShuffleNet-v1-g4 at 3x224x224, 1000 classes, its
+    bf16 b256 train step with bench.py's settings (Adam, weight decay 1e-4,
+    dropout 0.5, a uint8 batch on the card): host ms per step (timed_steps
+    at TRAIN_PROFILE_DEPTH), then TRAIN_PROFILE_STEPS steps under
+    torch.profiler: device ms per step and, by name, the device kernels of
+    the grouped convs (every device event whose name has "grouped") per
+    step; then its b256 uint8 request to the live ServingModel: host ms
+    per request (SHUFFLE_SERVE_ITERS after two warm-ups, fenced) and one
+    profiled request's device ms, the grouped kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.serve import ServingModel
+    from convnets_tpu_torch.settings import Settings
+
+    setting = Settings(kind="g4", input_size=(3, IMAGE, IMAGE), num_classes=1000,
+                       batch_norm=True, init_params=True, dropout_rate=0.5, mixed_precision=True,
+                       seed=seed, learning_rate=0.01, weight_decay=1e-4, optimizer="adam")
+    model = build_model("shufflenet_v1", setting)
+    state, step = train_state(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 256, (B256, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 1000, (B256,), device=DEVICE, generator=gen)
+    seconds = timed_steps(step, state, x, y, gen, TRAIN_PROFILE_DEPTH)[0]
+
+    def device_ms(prof, per):
+        events = [e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA]
+        total = sum(float(getattr(e, "device_time_total", 0.0) or 0.0) for e in events)
+        grouped = {}
+        for e in events:
+            if "grouped" in e.name:
+                t = grouped.setdefault(e.name[:60], [0.0, 0])
+                t[0] += float(getattr(e, "device_time_total", 0.0) or 0.0) / 1e3 / per
+                t[1] += 1 / per
+        return total / 1e3 / per, grouped
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(state, x, y, generator=gen)
+        sync()
+    step_ms, step_grouped = device_ms(prof, TRAIN_PROFILE_STEPS)
+    model.eval()
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    req = np.random.default_rng(seed).integers(0, 256, (B256, IMAGE, IMAGE, 3), dtype=np.uint8)
+    serve_s = seconds_per_request(server, req, SHUFFLE_SERVE_ITERS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server(req)
+        sync()
+    serve_ms, serve_grouped = device_ms(prof, 1)
+    res = {"step_host_ms": 1e3 * seconds, "step_img_s": B256 / seconds,
+           "step_device_ms": step_ms, "step_grouped_kernels": step_grouped,
+           "step_grouped_ms": sum(v[0] for v in step_grouped.values()),
+           "request_host_ms": 1e3 * serve_s, "request_device_ms": serve_ms,
+           "request_grouped_kernels": serve_grouped,
+           "request_grouped_ms": sum(v[0] for v in serve_grouped.values())}
+    say(f"train profile: ShuffleNet-v1-g4@224 bf16 b{B256}: {res['step_host_ms']:.2f} host ms per "
+        f"step ({res['step_img_s']:.1f} img/s), device {step_ms:.3f} ms per step, of it the "
+        f"grouped kernels {res['step_grouped_ms']:.3f} ({step_grouped}); the b{B256} request "
+        f"{res['request_host_ms']:.2f} host ms, device {serve_ms:.3f} ms, of it the grouped "
+        f"kernels {res['request_grouped_ms']:.3f} ({serve_grouped})")
+    del model, state, step, server, x, y
     torch.cuda.empty_cache()
     return res
 
@@ -4404,6 +4508,33 @@ def model_launches(model):
                          **bn_sites(n["conv"] + n["gconv"])}))
 
 
+def grouped_routes_want(model):
+    """(per eval forward, per train step) bf16 launches of the grouped conv
+    wrappers per route, read off the model's grouped convs (model_layers)
+    through grouped_plan: per forward one grouped_conv2d_fused for each,
+    per step one grouped_conv2d_stats for each fused site and one
+    grouped_conv2d_fused for each grouped conv without BN."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    fwd = {name: {"wgmma": 0, "wgmma_wide": 0, "simt": 0} for name in GROUPED_ROUTED}
+    step = {name: dict(v) for name, v in fwd.items()}
+    for kind, _, _, cin, cout, _, _, _, _, g in model_layers(model):
+        if kind in ("gconv", "plaingconv"):
+            route = kernels.grouped_plan(torch.bfloat16, cin, cout, g).route
+            fwd["grouped_conv2d_fused"][route] += 1
+            step["grouped_conv2d_stats" if kind == "gconv" else "grouped_conv2d_fused"][route] += 1
+    return fwd, step
+
+
+def grouped_routes():
+    """The grouped conv wrappers' launches per route since the last reset."""
+    from convnets_tpu_torch.ops import kernels
+
+    return {name: dict(kernels.ROUTE_LAUNCHES[name]) for name in GROUPED_ROUTED}
+
+
 def zoo_model(arch, kind, image, seed, conv_gain=None, **kw):
     """The family at image² with 10 classes on the card, numpy weights from
     `seed` in the JAX layout loaded by the bridge (conv_gain: as
@@ -4425,8 +4556,9 @@ def zoo_family(arch, kind, image, seed, card, failures):
     """Phase 12 (i) for one family: fp32 eval logits kernel vs plain at
     b8, phase 5 (i)'s fp32 SGD step at b8, ten bf16 Adam steps on one batch
     of 32 (both paths; the kernel path's loss must fall; the launches of
-    its first step), the launches of one bf16 eval forward, and serving
-    img/s at b256 (uint8 requests, kernel and plain paths in turns).
+    its first step), the launches of one bf16 eval forward (the grouped
+    ones also per route, grouped_routes_want), and serving img/s at b256
+    (uint8 requests, kernel and plain paths in turns).
     The b256 request's logits are also held against the plain path's.
     Returns (summary, the fp32 model for the layer check)."""
     import torch
@@ -4438,6 +4570,7 @@ def zoo_family(arch, kind, image, seed, card, failures):
     res = {}
     model32 = zoo_model(arch, kind, image, seed, mixed_precision=False)
     want_fwd, want_step = model_launches(model32)
+    want_routes = grouped_routes_want(model32)
     gflop = forward_gflop(model32) + forward_linear_gflop(model32)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.rand(ZOO_BATCH, image, image, 3, device=DEVICE, generator=g)
@@ -4473,7 +4606,7 @@ def zoo_family(arch, kind, image, seed, card, failures):
             losses[path] = [float(step(state, xb, yb)[0])]
             sync()
             if path == "kernel":
-                step_launches = dict(kernels.LAUNCHES)
+                step_launches, step_routes = dict(kernels.LAUNCHES), grouped_routes()
             losses[path] += [float(step(state, xb, yb)[0]) for _ in range(LEARN_STEPS - 1)]
     falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
     say(f"{label}: {LEARN_STEPS} bf16 Adam steps (lr {ZOO_LEARN_LR:g}) on one batch of "
@@ -4491,15 +4624,22 @@ def zoo_family(arch, kind, image, seed, card, failures):
         kernels.reset_launches()
         model(xe)
         sync()
-    fwd_launches = dict(kernels.LAUNCHES)
+    fwd_launches, fwd_routes = dict(kernels.LAUNCHES), grouped_routes()
     ok = fwd_launches == want_fwd and step_launches == want_step
     say(f"{label}: launches per bf16 eval forward {launches_summary(fwd_launches)}, per train "
         f"step {launches_summary(step_launches)} (expected {launches_summary(want_fwd)} and "
         f"{launches_summary(want_step)}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{label} launches: forward {fwd_launches}, step {step_launches}")
+    routes = {"forward": fwd_routes, "step": step_routes}
+    if any(n for per in want_routes for v in per.values() for n in v.values()):
+        ok = (fwd_routes, step_routes) == want_routes
+        say(f"{label}: grouped launches per route, forward {fwd_routes}, step {step_routes} "
+            f"(expected {want_routes[0]} and {want_routes[1]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} grouped routes: forward {fwd_routes}, step {step_routes}")
     res.update(learn=losses, launches_forward=launches_summary(fwd_launches),
-               launches_step=launches_summary(step_launches))
+               launches_step=launches_summary(step_launches), grouped_routes=routes)
 
     server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
     req = rng.integers(0, 256, (ZOO_SERVE_BATCH, image, image, 3), dtype=np.uint8)
@@ -5220,19 +5360,25 @@ ZOO2_CLI = (("se_resnet", "26"), ("sk_resnet", "26"), ("shufflenet_v1", "g4"))  
 ZOO2_EXPORT = ("sk_resnet", "shufflenet_v1")  # (iii): exported, served by a fresh process
 ZOO2_CLI_BATCH = 256
 # (i): the dilated grouped shapes of these (arch, kind, image) at their
-# batches, the wide-group ones (Cin/G > 32) of ShuffleNet's kinds at 32² and
-# 224², AlexNet's stem at 224² and one dilated dense shape (N, H, W, Cin,
-# Cout, k, stride, pad, dilation)
+# batches, every grouped shape of ShuffleNet's kinds at 32² and 224² (wide:
+# Cin/G > 32, narrow: the rest), AlexNet's stem at 224² and one dilated
+# dense shape (N, H, W, Cin, Cout, k, stride, pad, dilation)
 ZOO2_DILATED = (("sknet", "26", 32), ("sk_resnet", "26", 32))
 ZOO2_DILATED_BATCHES = ((64, "float32"), (256, "bfloat16"))
 ZOO2_DILATED_224 = ("sknet", "50", 224)
-ZOO2_WIDE_KINDS = ("g2", "g3", "g4", "g8")
+ZOO2_SHUFFLE_KINDS = ("g2", "g3", "g4", "g8")
 ZOO2_STEM_BATCHES = (8, 256)
 ZOO2_DENSE_DILATED = (8, 28, 28, 64, 64, 3, 1, 2, 2)
-ZOO2_KEYS = ("zoo2_ms_b256", "zoo2_library_ms_b256", "zoo2_bound_ms_b256")
+# the timed b256 bf16 calls: the kernels' ms, cuDNN's, the bound and, for a
+# grouped call, the CUDA-core loop's ms on the same inputs (route "simt")
+ZOO2_KEYS = ("zoo2_ms_b256", "zoo2_library_ms_b256", "zoo2_bound_ms_b256", "zoo2_simt_ms_b256")
 # the same at 224² (rows 1g and 5g: SKNet-50's dilated grouped 3x3s and
-# ShuffleNet g2-g8's wide-group 1x1s at b256 bf16)
-ZOO2_224_KEYS = ("zoo2_224_ms_b256", "zoo2_224_library_ms_b256", "zoo2_224_bound_ms_b256")
+# ShuffleNet g2-g8's grouped 1x1s at b256 bf16)
+ZOO2_224_KEYS = ("zoo2_224_ms_b256", "zoo2_224_library_ms_b256", "zoo2_224_bound_ms_b256",
+                 "zoo2_224_simt_ms_b256")
+# rows 1g and 5g: their launches per route on phase 14's path and per
+# ShuffleNet-g4@32 forward and step (zoo_family)
+ROUTE_KEYS = ("zoo2_route_launches", "shufflenet_g4_route_launches")
 # device kernels whose name marks a library convolution (cuDNN's and
 # CUTLASS's forward, data-gradient and weight-gradient kernels); the port's
 # own (OUR_KERNELS) are left out
@@ -5241,9 +5387,9 @@ LIBRARY_CONV_MARKS = ("cudnn", "fprop", "dgrad", "wgrad", "implicit", "conv", "w
 
 def zoo2_shapes(arch, kind, image, want):
     """{(H, W, Cin, Cout, k, stride, pad, dilation, groups)} of the grouped
-    convs of the model that `want` picks, "dilated" (dilation > 1) or
-    "wide" (Cin/G > 32), read off its modules (built on the CPU: only its
-    shapes are read)."""
+    convs of the model that `want` picks, "dilated" (dilation > 1), "wide"
+    (Cin/G > 32) or "grouped" (all), read off its modules (built on the
+    CPU: only its shapes are read)."""
     from convnets_tpu_torch.models import build_model
     from convnets_tpu_torch.settings import Settings
 
@@ -5251,7 +5397,7 @@ def zoo2_shapes(arch, kind, image, want):
                                        num_classes=ZOO_CLASSES), device="cpu")
     return {(h, w, cin, cout, k, s, p, d, g)
             for layer, h, w, cin, cout, k, s, p, _, g, d in model_layers(model, with_dilation=True)
-            if layer.endswith("gconv") and ((want == "dilated" and d > 1)
+            if layer.endswith("gconv") and ((want == "dilated" and d > 1) or want == "grouped"
                                             or (want == "wide" and cin // g > 32))}
 
 
@@ -5269,9 +5415,10 @@ def zoo2_kernel_fns(groups):
 
 def zoo2_route(dtype, n, h, w, cin, cout, k, s, p, d, groups):
     """(the route the wrappers' plan gives the call, the route it must be:
-    bf16 on the tensor cores, dense always and grouped where Cin/G = Cout/G
-    in {4, 8, 16, 32} with Cin % 64 == 0, dilated or not; the rest and fp32
-    on the CUDA cores)."""
+    bf16 on the tensor cores, dense always ("wgmma"), grouped on the
+    grouped mode ("wgmma") where Cin/G = Cout/G in {4, 8, 16, 32} with Cin
+    % 64 == 0, dilated or not, on csrc/grouped_wgmma.cu ("wgmma_wide") at
+    every other Cin/G but 2; Cin/G = 2 and fp32 on the CUDA cores)."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
@@ -5280,11 +5427,13 @@ def zoo2_route(dtype, n, h, w, cin, cout, k, s, p, d, groups):
     if groups == 1:
         m = n * conv_out_size(h, k, s, p, d) * conv_out_size(w, k, s, p, d)
         got = kernels.conv_plan(dtype, m, cin, cout).route
-        tensor_cores = True
-    else:
-        got = kernels.grouped_plan(dtype, cin, cout, groups).route
-        tensor_cores = cin == cout and cin % 64 == 0 and cin // groups in GROUPED_WGMMA_CG
-    return got, ("wgmma" if tensor_cores and dtype == torch.bfloat16 else "simt")
+        return got, "wgmma" if dtype == torch.bfloat16 else "simt"
+    got = kernels.grouped_plan(dtype, cin, cout, groups).route
+    cg = cin // groups
+    if dtype != torch.bfloat16 or cg == 2:
+        return got, "simt"
+    return got, ("wgmma" if cin == cout and cin % 64 == 0 and cg in GROUPED_WGMMA_CG
+                 else "wgmma_wide")
 
 
 def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
@@ -5294,8 +5443,9 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
     the kernel's own stored y), with phase 2/4/8's bars, on the route the
     plan gives it. times: also the bf16 device ms of both kernels on that
     route, cuDNN's bf16 F.conv2d of the same stride, dilation and groups,
-    and the bound, added to the rows' zoo2_*_b256 (ZOO2_KEYS), or to the
-    keys `times` names. Returns the record."""
+    the bound and, for a grouped call, both kernels on the CUDA-core loop
+    (route "simt", the same inputs), added to the rows' zoo2_*_b256
+    (ZOO2_KEYS), or to the keys `times` names. Returns the record."""
     import torch
     import torch.nn.functional as F
 
@@ -5337,14 +5487,25 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
                        REPS)
         flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, groups, dilation=d)
         bound = 1e3 * max(flops / PEAK_BF16, (nbytes + 8 * cout) / HBM_BPS)
-        for name, ms in ((fname, f_ms), (sname, s_ms)):
+        simt = ((f_ms, s_ms) if groups == 1 or route == "simt" else
+                grouped_route_ms(x, wt, groups, scale, shift, s, p, True, "simt", dilation=d))
+        if groups > 1 and route == "simt":  # the plan's CUDA-core shapes on the tensor cores too
+            rec["wide_fused_ms"], rec["wide_stats_ms"] = grouped_route_ms(
+                x, wt, groups, scale, shift, s, p, True, "wgmma_wide", dilation=d)
+        for name, ms, loop in ((fname, f_ms, simt[0]), (sname, s_ms, simt[1])):
             row = entry(summary, name)
-            for key, v in zip(ZOO2_KEYS if times is True else times, (ms, c_ms, bound)):
+            for key, v in zip(ZOO2_KEYS if times is True else times,
+                              (ms, c_ms, bound) + ((loop,) if groups > 1 else ())):
                 row[key] = row.get(key, 0.0) + v
         rec.update(fused_ms=f_ms, stats_ms=s_ms, cudnn_ms=c_ms, bound_ms=bound,
                    tflops=flops / f_ms / 1e9)
         text = (f" | {f_ms:.4f} {s_ms:.4f} {c_ms:.4f} {bound:.4f} "
                 f"({flops / f_ms / 1e9:.1f} TFLOP/s)")
+        if groups > 1:
+            rec.update(simt_fused_ms=simt[0], simt_stats_ms=simt[1])
+            text += f" | simt {simt[0]:.4f} {simt[1]:.4f}"
+        if "wide_fused_ms" in rec:
+            text += f" | wgmma_wide {rec['wide_fused_ms']:.4f} {rec['wide_stats_ms']:.4f}"
     say(f"  {label} | {n} {' '.join(map(str, shape))} | {dname} {route} (want {want}) | "
         f"{errs[0]:.3e} / {errs[1]:.3e} ({atol:g}+{rtol:g}|ref|) | {y_err:.3e}, {e1:.2e}, "
         f"{e2:.2e} ({STATS_TOL[dname]:g}, own y) {'ok' if rec['ok'] else 'FAIL'}{text}")
@@ -5358,12 +5519,15 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
 def zoo2_kernels(summary, failures):
     """Phase 14 (i): the widened envelopes against their plain versions,
     fp32 (TF32 off) and bf16: every distinct dilated grouped shape of
-    SKNet-26 and SK-ResNet-26 at 32² (b64 fp32, b256 bf16, timed) and of
-    SKNet-50 at 224² (b8); every distinct wide-group shape of ShuffleNet-v1
-    g2, g3, g4, g8 at 32² and 224² (b8; the 32² ones also timed at b256
-    bf16); AlexNet's 11x11/4 stem at 224² (b8, b256, timed); one dilated
-    dense shape (b8, and timed at b256); then each train function at one
-    new shape, forward and gradients. Returns its records."""
+    SKNet-26 and SK-ResNet-26 at 32² (b64 fp32, b256 bf16, timed), and
+    SK-ResNet-26's undilated Cin/G = 2 ones alike (timed on both the
+    CUDA-core loop of their plan and the tensor-core route), and of
+    SKNet-50 at 224² (b8; b256 bf16, timed); every distinct grouped shape
+    of ShuffleNet-v1 g2, g3, g4, g8 at 32² and 224², wide (Cin/G > 32) and
+    narrow (b8 both dtypes; b256 bf16, timed, the CUDA-core loop beside);
+    AlexNet's 11x11/4 stem at 224² (b8, b256, timed); one dilated dense
+    shape (b8, and timed at b256); then each train function at one new
+    shape, forward and gradients. Returns its records."""
     import torch
 
     from convnets_tpu_torch.ops import kernels
@@ -5380,21 +5544,30 @@ def zoo2_kernels(summary, failures):
         for n, dname in ZOO2_DILATED_BATCHES:
             cases.append((f"dilated {'/'.join(where)}@32", n, shape, dtypes[dname],
                           dname == "bfloat16"))
+    # SK-ResNet's Cin/G = 2 paths that are not dilated (the dilated ones are
+    # above): the plan keeps Cin/G = 2 on the CUDA-core loop, timed beside
+    # the tensor-core route
+    for arch, kind, image in ZOO2_DILATED:
+        for shape in sorted(zoo2_shapes(arch, kind, image, "grouped")):
+            if shape[7] == 1 and shape[2] // shape[8] == 2:
+                cases += [(f"cg2 {arch}{kind}@{image}", n, shape, dtypes[dname],
+                           dname == "bfloat16") for n, dname in ZOO2_DILATED_BATCHES]
     arch, kind, image = ZOO2_DILATED_224
     for shape in sorted(zoo2_shapes(arch, kind, image, "dilated")):
         cases += [(f"dilated {arch}{kind}@{image}", KERNEL_BATCH, shape, dt, False)
                   for dt in (f32, bf16)]
         cases.append((f"dilated {arch}{kind}@{image}", B256, shape, bf16, ZOO2_224_KEYS))
-    wide = {}
-    for gk in ZOO2_WIDE_KINDS:
+    shuffle = {}
+    for gk in ZOO2_SHUFFLE_KINDS:
         for image in (32, IMAGE):
-            for shape in zoo2_shapes("shufflenet_v1", gk, image, "wide"):
-                wide.setdefault((image, shape), []).append(gk)
-    for (image, shape), where in sorted(wide.items()):
+            for shape in zoo2_shapes("shufflenet_v1", gk, image, "grouped"):
+                shuffle.setdefault((image, shape), []).append(gk)
+    for (image, shape), where in sorted(shuffle.items()):
+        label = (f"{'wide' if shape[2] // shape[8] > 32 else 'narrow'} {'/'.join(where)}"
+                 f"@{image}")
         for dt in (f32, bf16):
-            cases.append((f"wide {'/'.join(where)}@{image}", KERNEL_BATCH, shape, dt, False))
-        cases.append((f"wide {'/'.join(where)}@{image}", B256, shape, bf16,
-                      True if image == 32 else ZOO2_224_KEYS))
+            cases.append((label, KERNEL_BATCH, shape, dt, False))
+        cases.append((label, B256, shape, bf16, True if image == 32 else ZOO2_224_KEYS))
     stem = (IMAGE, IMAGE, 3, 64, 11, 4, 2, 1, 1)
     for n in ZOO2_STEM_BATCHES:
         cases += [("alexnet stem 11x11/4", n, stem, dt, n == B256 and dt == bf16)
@@ -5405,7 +5578,8 @@ def zoo2_kernels(summary, failures):
     cases.append(("dilated dense", B256, dense_shape, bf16, True))
     say(f"(i) the widened envelopes, {len(cases)} calls: what | N H W Cin Cout k s p d G | dtype "
         f"route | fused y err relu=0 / 1 (tol) | stats y err, Σ rel, Σ² rel (tol, own y) | at "
-        f"b{B256} bf16: fused ms, stats ms, cuDNN ms, bound ms")
+        f"b{B256} bf16: fused ms, stats ms, cuDNN ms, bound ms | grouped: the CUDA-core loop's "
+        f"fused ms, stats ms")
     records = [zoo2_conv_check(label, n, shape, dt, g, summary, failures, timed)
                for label, n, shape, dt, timed in cases]
     kinds = {}
@@ -5415,20 +5589,30 @@ def zoo2_kernels(summary, failures):
             kinds.setdefault(what.split(" ")[0] + "@" + what.rsplit("@", 1)[1] if "@" in what
                              else what, []).append(r)
     for kind, timed in kinds.items():
+        loop = ""
+        if all("wide_fused_ms" in r for r in timed):
+            loop = (f", the tensor-core route: fused {sum(r['wide_fused_ms'] for r in timed):.4f} "
+                    f"ms, stats {sum(r['wide_stats_ms'] for r in timed):.4f} ms")
+        if all("simt_fused_ms" in r for r in timed):
+            loop += (f", the CUDA-core loop: fused {sum(r['simt_fused_ms'] for r in timed):.3f} "
+                    f"ms, stats {sum(r['simt_stats_ms'] for r in timed):.3f} ms; fused / loop "
+                    f"per shape {min(r['fused_ms'] / r['simt_fused_ms'] for r in timed):.2f}-"
+                    f"{max(r['fused_ms'] / r['simt_fused_ms'] for r in timed):.2f}")
         say(f"(i) b{B256} bf16, {kind}: the {len(timed)} timed shapes summed: fused "
-            f"{sum(r['fused_ms'] for r in timed):.3f} ms, stats "
-            f"{sum(r['stats_ms'] for r in timed):.3f} ms, cuDNN "
-            f"{sum(r['cudnn_ms'] for r in timed):.3f} ms, bound "
+            f"{sum(r['fused_ms'] for r in timed):.4f} ms, stats "
+            f"{sum(r['stats_ms'] for r in timed):.4f} ms, cuDNN "
+            f"{sum(r['cudnn_ms'] for r in timed):.4f} ms, bound "
             f"{sum(r['bound_ms'] for r in timed):.4f} ms; fused / cuDNN per shape "
             f"{min(r['fused_ms'] / r['cudnn_ms'] for r in timed):.2f}-"
-            f"{max(r['fused_ms'] / r['cudnn_ms'] for r in timed):.2f}")
+            f"{max(r['fused_ms'] / r['cudnn_ms'] for r in timed):.2f}{loop}")
 
     say("(i) train functions at one new shape each: fn label | dtype | out max|Δ|/max|ref| (tol) "
         "| gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms "
         "plain_ms library_ms")
     # the largest output of each kind (the shapes sort by H first)
     dil = max(s_ for s_ in dilated if s_[5] == 2 and s_[2] // s_[8] >= 4)
-    wide_g4 = max(s_ for (im, s_), kinds in wide.items() if im == 32 and "g4" in kinds)
+    wide_g4 = max(s_ for (im, s_), kinds in shuffle.items()
+                  if im == 32 and "g4" in kinds and s_[2] // s_[8] > 32)
     trains = (("conv_bn_relu_train_grouped", dil), ("grouped_conv2d_train", wide_g4),
               ("conv2d_train", stem))
     for name, (h, w, cin, cout, k, s, p, d, groups) in trains:
@@ -5523,10 +5707,14 @@ def zoo2_nobn_step(arch, kind, seed, failures):
     loss, _, gnorm = step(state, x, y, generator=gen)
     sync()
     launches = dict(kernels.LAUNCHES)
+    launches["routes"] = grouped_routes()
     want = model_launches(model)[1]
-    ok = launches == want and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss))
+    ok = ({k: v for k, v in launches.items() if k != "routes"} == want
+          and launches["routes"] == grouped_routes_want(model)[1]
+          and bool(torch.isfinite(gnorm)) and bool(torch.isfinite(loss)))
     say(f"(ii) bf16 {arch}{kind}@32 batch_norm=False, one Adam step at b{NOBN_BATCH}: launches "
-        f"{launches_summary(launches)} (expected {launches_summary(want)}); loss "
+        f"{launches_summary(launches)} (expected {launches_summary(want)}, grouped per route "
+        f"{grouped_routes_want(model)[1]}); loss "
         f"{float(loss):.4f}, gradient global norm {float(gnorm):.4e} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{arch}{kind} no-BN step: launches {launches}, loss {float(loss)}, "
@@ -5627,6 +5815,7 @@ def zoo2_cli(seed, card, failures):
                 out[f"{arch}{kind}"] = res
         sync()
         launches = dict(kernels.LAUNCHES)
+        launches["routes"] = grouped_routes()
         # the fresh processes, all at once after the fits (each spends most
         # of its time importing torch), so none runs beside a timed epoch
         t0 = time.perf_counter()
@@ -5691,9 +5880,11 @@ def phase_zoo2(seed, card, summary, failures):
     out["served_kernels"] = {f"{arch}{kind}": served_no_library_conv(
         f"{arch}{kind}@32", zoo_model(arch, kind, 32, seed), 32, seed, failures)[2]
                              for arch, kind in ZOO2_NOBN}
-    nobn = {}
+    nobn, nobn_routes = {}, []
     for arch, kind in ZOO2_NOBN:
-        for k, v in zoo2_nobn_step(arch, kind, seed, failures).items():
+        launches = zoo2_nobn_step(arch, kind, seed, failures)
+        nobn_routes.append(launches.pop("routes"))
+        for k, v in launches.items():
             nobn[k] = nobn.get(k, 0) + v
     parts["ii"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5704,6 +5895,19 @@ def phase_zoo2(seed, card, summary, failures):
     def in_train(name):
         return sum(c[name] for c in rec["train"]) + nobn[name]
 
+    # rows 1g and 5g per route: the path's, and ShuffleNet-g4@32's per forward and step
+    parts = [cli.pop("routes")] + nobn_routes
+    route_sums = {name: {r: sum(part[name][r] for part in parts)
+                         for r in ("wgmma", "wgmma_wide", "simt")} for name in GROUPED_ROUTED}
+    shuffle = out["models"]["shufflenet_v1g4@32"]["grouped_routes"]
+    for name in GROUPED_ROUTED:
+        entry(summary, name).update(zoo2_route_launches=route_sums[name],
+                                    shufflenet_g4_route_launches={
+                                        per: shuffle[per][name] for per in ("forward", "step")})
+    say(f"zoo2 path: grouped launches per route {route_sums}; ShuffleNet-g4@32 per forward and "
+        f"step {shuffle}")
+    if not all(route_sums[name]["wgmma_wide"] > 0 for name in GROUPED_ROUTED):
+        failures.append(f"the wgmma_wide route: no launch on phase 14's path {route_sums}")
     total = {k: cli[k] + nobn[k] for k in cli}
     path = {k: total[k] for k in ("conv2d_fused", "grouped_conv2d_fused", "max_pool2d",
                                   "avg_pool2d", "conv2d_stats", "conv2d_stats_reduce",
@@ -5736,7 +5940,7 @@ FUSED_ENV = "CONVNETS_TPU_DENSENET_FUSED"
 REMAT_TURNS = (2, 4)  # (iii)'s b256 turns: (warm-up, timed) steps a run
 REMAT_FIT_TRAIN = 2048  # (iv): RN26@32 images, 8 steps of TRAINER_BATCH per epoch
 DEBUG_FIT_TRAIN = 2048  # (v)
-FEED_STEPS = 10  # (vi): RN50@224 b256 steps from a host DataLoader
+FEED_STEPS = 6  # (vi): RN50@224 b256 steps from a host DataLoader
 DROPOUT_REMAT = 0.5  # (iii): DN121's dropout inside the wrapped blocks
 # (vii): (N, H, W, C, output size) of adaptive_avg_pool2d, even bins (the
 # avg-pool kernel) and uneven ones (plain PyTorch)
@@ -7191,9 +7395,11 @@ def main():
     ap.add_argument("--train-profile", default=None, metavar="ROOT",
                     help="print the RN50@224 bf16 b256 train step's ms and profiled device "
                          "split (BN passes of the fused sites apart), the RN26@32 b256 "
-                         "step's img/s, the grouped fused sites' times and the world-of-one "
-                         "mesh's profile of the checkout at ROOT and exit, with no result "
-                         "line; run it over two checkouts in turns as --serve-rate")
+                         "step's img/s, the grouped fused sites' times, ShuffleNet-v1-g4@224's "
+                         "b256 step and request (device ms, the grouped kernels by name) and "
+                         "the world-of-one mesh's profile of the checkout at ROOT and exit, "
+                         "with no result line; run it over two checkouts in turns as "
+                         "--serve-rate")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.abspath(args.serve_rate or args.train_profile or HERE))
@@ -7404,7 +7610,8 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ("serving_ms",) if k in summary[name]}}
+            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ROUTE_KEYS + ("serving_ms",)
+            if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:
         for f in failures:

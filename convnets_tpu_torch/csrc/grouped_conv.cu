@@ -1,14 +1,15 @@
 // The CUDA-core grouped implicit-GEMM 2-D convolution: route "simt" of
-// ops/kernels/conv.py:grouped_plan. bf16 calls at Cin/G = Cout/G in {4, 8,
-// 16, 32} with Cin % 64 == 0 (every grouped layer of the ported ResNeXt
-// kinds) run on the tensor cores instead: route "wgmma", the grouped mode
-// of csrc/conv_wgmma.cu, which the entry points below call. This loop
-// serves fp32 (the fp32 checks) and the bf16 shapes outside that plan
-// (Cin/G = 2, Cout/G != Cin/G, Cin/G above 32 as in ShuffleNet's wide 1x1s,
-// Cin not a multiple of 64, a dilated SKConv path off that plan, a
-// misaligned operand), and it can be asked for on any shape of its envelope, so the
-// two routes can be timed on the same inputs. Two epilogues, chosen by a
-// template parameter over one main loop, with the contracts of
+// ops/kernels/conv.py:grouped_plan, and the entry points of every grouped
+// route. Its loop serves fp32 (the fp32 checks, which tensor-core TF32
+// would not hold) and can be asked for on any bf16 shape of the envelope,
+// so the routes can be timed on the same inputs. The bf16 plan runs on the
+// tensor cores: route "wgmma", the grouped mode of csrc/conv_wgmma.cu, at
+// Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64 == 0 and aligned operands
+// (every grouped layer of the ported ResNeXt kinds, SENet and SKNet); route
+// "wgmma_wide", csrc/grouped_wgmma.cu, at every other bf16 shape but Cin/G
+// = 2 (every grouped 1x1 of ShuffleNet-v1 g2-g8, Cin/G 12-400 and Cout/G
+// 12-400; the rest of the envelope, any alignment). Two epilogues, chosen
+// by a template parameter over one main loop, with the contracts of
 // conv_fused.cu:
 //
 //  * grouped_fused (STATS = false): fp32 scale/shift (inference BatchNorm
@@ -40,22 +41,23 @@
 // blocks), so the input channels the block reads are one contiguous slab of
 // gpb*cgi channels. For each tap (ky, kx) the block walks that depth in
 // chunks: one chunk of the whole slab where cgi <= MAX_CGI (then gpb*cgi <=
-// SLAB), else (the wide groups: ShuffleNet's 1x1s with Cin/G up to 400,
-// where gpb = 1) chunks of MAX_CGI channels of the one group and a partial
-// last chunk (68 = 32 + 32 + 4). Per chunk the block gathers its channels
-// of its BM pixels (A, zero outside the image) and the chunk's weight rows
-// of its columns (B) into shared memory; each thread then accumulates a
-// TM x TN micro-tile over the chunk's depth of its columns' group. A wide
-// group's Cout/G (17 to 400) may leave slots of its block unused (cw < BN)
-// or take several blocks (nq > 1).
+// SLAB), else (the wide groups, where gpb = 1) chunks of MAX_CGI channels
+// of the one group and a partial last chunk (68 = 32 + 32 + 4). Per chunk
+// the block gathers its channels of its BM pixels (A, zero outside the
+// image) and the chunk's weight rows of its columns (B) into shared memory;
+// each thread then accumulates a TM x TN micro-tile over the chunk's depth
+// of its columns' group. A wide group's Cout/G may leave slots of its block
+// unused (cw < BN) or take several blocks (nq > 1).
 //
 // What bounds it on the H100: per chunk a thread makes 32 shared-memory
 // stores of A and 8 of B against kc*TM*TN FMAs (kc: the chunk's depth),
-// one chunk per pair of barriers with no prefetch, so at cgi = 4 it is bound by the gather (load
-// instructions), not by FMAs or device memory; at cgi = 32 by the
-// CUDA-core FMA rate (67 TFLOP/s fp32), which alone keeps ResNeXt-50's 16
-// grouped layers at b256 above their 1.005 ms byte bound. That is why the
-// bf16 plan moved to the tensor cores; this loop is kept simple.
+// one chunk per pair of barriers with no prefetch, so at cgi = 4 it is
+// bound by the gather (load instructions), not by FMAs or device memory;
+// at cgi = 32 by the CUDA-core FMA rate (67 TFLOP/s fp32), which alone
+// keeps ResNeXt-50's 16 grouped layers at b256 above their 1.005 ms byte
+// bound, and ShuffleNet's wide 1x1s at 224^2 b256 ran 18.7x their bound
+// here (13.702 ms against 0.7344). That is why the bf16 plan runs on the
+// tensor cores; this loop is kept simple.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,6 +66,10 @@
 int conv_wgmma_grouped_run(int stats, int groups, const void* x, const void* w,
                            const void* scale, const void* shift, void* y, void* partial,
                            const int* geo, int relu, void* stream);
+// csrc/grouped_wgmma.cu
+int grouped_wide_run(int stats, int groups, const void* x, const void* w, const void* scale,
+                     const void* shift, void* y, void* partial, const int* geo, int relu,
+                     void* stream);
 
 namespace {
 
@@ -315,8 +321,9 @@ int launch_grouped(int dtype, const void* x, const void* w, const void* scale,
 }
 
 // route 0: this CUDA-core loop (fp32 or bf16); route 1: the bf16
-// tensor-core grouped mode of conv_wgmma.cu (its shapes only). Anything
-// else is refused with cudaErrorInvalidValue.
+// tensor-core grouped mode of conv_wgmma.cu (its shapes only); route 2: the
+// bf16 tensor-core loop of grouped_wgmma.cu (any shape). Anything else is
+// refused with cudaErrorInvalidValue.
 int run_route(bool stats, int dtype, int route, const void* x, const void* w,
               const void* scale, const void* shift, void* y, void* partial, int n, int h,
               int wd, int cin, int oh, int ow, int cout, int kh, int kw, int sh, int sw, int ph,
@@ -329,17 +336,20 @@ int run_route(bool stats, int dtype, int route, const void* x, const void* w,
                                          oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, groups,
                                          relu, stream);
   }
+  const int geo[15] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw};
   if (route == 1 && dtype == 1) {
-    const int geo[15] = {n, h, wd, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw};
     return conv_wgmma_grouped_run(stats, groups, x, w, scale, shift, y, partial, geo, relu,
                                   stream);
+  }
+  if (route == 2 && dtype == 1) {
+    return grouped_wide_run(stats, groups, x, w, scale, shift, y, partial, geo, relu, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Output pixels per block of both routes: grouped_stats writes
+// Output pixels per block of every route: grouped_stats writes
 // ceil(N*OH*OW / this) rows of partial sums.
 extern "C" int grouped_block_rows() { return BM; }
 

@@ -18,9 +18,12 @@ fed through a shared-memory ring, csrc/conv_wgmma.cu), fp32 on the CUDA
 cores (csrc/conv_fused.cu), which only the fp32 checks use. The grouped
 conv (`grouped_conv2d_fused`, `grouped_conv2d_stats`) runs the plan of
 `grouped_plan`: bf16 at Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64 ==
-0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), fp32 and
-the other bf16 shapes (among them the wide groups, Cin/G above 32) on the
-CUDA cores (csrc/grouped_conv.cu). Both conv families take any stride and
+0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu, route
+"wgmma"), the other bf16 shapes but Cin/G = 2 (ShuffleNet's grouped 1x1s
+among them) on the tensor cores too (csrc/grouped_wgmma.cu, route
+"wgmma_wide"), fp32 and bf16 at Cin/G = 2 on the CUDA cores
+(csrc/grouped_conv.cu, "simt"); `ROUTE_LAUNCHES` counts their launches
+per route. Both conv families take any stride and
 dilation: the kernels address the tap (ky, kx) of output pixel (oy, ox)
 at input row oy·sh − ph + ky·dh and column ox·sw − pw + kx·dw. The
 window kernels (`depthwise_conv2d`, `max_pool2d`, `avg_pool2d`,
@@ -81,12 +84,15 @@ LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_
                              "bn_act_forward": 0, "bn_act_backward_sums": 0,
                              "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0}
 # launches per route of the kernels whose route is chosen by shape: the
-# window kernels, the block and the BN passes of the fused conv sites
+# window kernels, the block, the grouped convs and the BN passes of the
+# fused conv sites
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
     **{name: {"vector": 0, "loop": 0}
        for name in ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backward",
                     "bn_act_forward", "bn_act_backward_sums", "bn_act_backward_apply")},
-    "bottleneck_block": {"wgmma": 0, "simt": 0}}
+    "bottleneck_block": {"wgmma": 0, "simt": 0},
+    **{name: {"wgmma": 0, "wgmma_wide": 0, "simt": 0}
+       for name in ("grouped_conv2d_fused", "grouped_conv2d_stats")}}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -143,7 +149,8 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str, route: str) -> None:
-    """One launch of a window kernel, the block or a BN pass on `route`."""
+    """One launch of a window kernel, the block, a grouped conv or a BN
+    pass on `route`."""
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[name][route] += 1
 
@@ -279,7 +286,7 @@ from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402
     ConvPlan, GroupedPlan, conv2d_fused, conv2d_fused_plain, conv2d_stats, conv2d_stats_plain,
     conv2d_train, conv_plan, grouped_conv2d_fused, grouped_conv2d_fused_plain,
     grouped_conv2d_stats, grouped_conv2d_stats_plain, grouped_conv2d_train, grouped_plan,
-    grouped_slices,
+    grouped_slices, grouped_wide_tiles,
 )
 from convnets_tpu_torch.ops.kernels.pool import (  # noqa: E402
     WindowPlan, avg_pool2d, avg_pool2d_plain, max_pool2d, max_pool2d_plain, pool2d_backward,
@@ -307,7 +314,8 @@ __all__ = [
     "count_launch", "depthwise_conv2d", "depthwise_conv2d_plain", "depthwise_plan", "depthwise_train",
     "fits_block", "fits_conv", "fits_depthwise", "fits_grouped", "grouped_conv2d_fused",
     "grouped_conv2d_fused_plain", "grouped_conv2d_stats", "grouped_conv2d_stats_plain",
-    "grouped_conv2d_train", "grouped_plan", "grouped_slices", "lib", "max_pool2d",
+    "grouped_conv2d_train", "grouped_plan", "grouped_slices", "grouped_wide_tiles", "lib",
+    "max_pool2d",
     "max_pool2d_plain", "pool2d_backward", "pool2d_backward_plain", "pool2d_train",
     "pool_plan", "reset_launches",
 ]

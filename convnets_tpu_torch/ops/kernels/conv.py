@@ -26,12 +26,18 @@ would not hold their bars.
 
 `grouped_plan` does the same for a grouped call. bf16 at Cin/G = Cout/G
 in {4, 8, 16, 32} with Cin % 64 == 0 runs the grouped mode of the same
-tensor-core loop: 64 output channels (whole groups) per CTA, one tap per
-stage, the block-diagonal weight built in shared memory only and MMAs
-only on its blocks that hold weights (`grouped_slices`). fp32, and bf16
-outside that plan (the wide groups of ShuffleNet among them), run the
-CUDA-core loop of csrc/grouped_conv.cu, which sums each group's own
-products, walking a wide group's input channels in chunks of 32.
+tensor-core loop ("wgmma"): 64 output channels (whole groups) per CTA, one
+tap per stage, the block-diagonal weight built in shared memory only and
+MMAs only on its blocks that hold weights (`grouped_slices`). Every other
+bf16 shape but Cin/G = 2 (ShuffleNet's grouped 1x1s among them: Cin/G
+12-400, Cout/G 12-400) runs csrc/grouped_wgmma.cuh ("wgmma_wide"):
+persistent CTAs, each keeping one column tile (whole groups packed up to
+128 accumulator columns, or one piece of a wider group) over row tiles of
+128 output pixels, each group its own chain of MMAs on its own depth
+padded to 16 (`grouped_wide_tiles`).
+fp32, and bf16 at Cin/G = 2, run the CUDA-core loop of
+csrc/grouped_conv.cu ("simt"), which sums each group's own products,
+walking a wide group's input channels in chunks of 32.
 
 Every conv kernel takes any dilation, and the dense ones any stride: the
 shape arguments of the C entry points (`geo`) are n, h, w, cin, oh, ow,
@@ -50,7 +56,7 @@ from convnets_tpu_torch import ops
 from convnets_tpu_torch.core.shapes import conv_out_size, to_pair
 from convnets_tpu_torch.ops import kernels as _k
 
-_ROUTES = {"simt": 0, "wgmma": 1}
+_ROUTES = {"simt": 0, "wgmma": 1, "wgmma_wide": 2}
 _GATHERS = {"scalar": 0, "vector": 1}
 _SMS = 132  # the H100 SXM's SMs: a layer with fewer 128-wide tiles takes 64-wide ones
 
@@ -115,11 +121,67 @@ def grouped_slices(cg: int):
     return tuple((kk, lo, hi, lo // 2) for kk, (lo, hi) in enumerate(cols))
 
 
+WIDE_NA = 128  # accumulator columns of a "wgmma_wide" CTA
+WIDE_NW = (16, 32, 64, 128)  # its accumulator columns per group
+
+
+class WideTile(NamedTuple):
+    """One column tile of the "wgmma_wide" route (csrc/grouped_wgmma.cuh):
+    its groups, the columns col0 .. col0+width-1 of each, the depth kp of
+    one group per tap (Cin/G padded with zeros to a multiple of 16), the
+    wgmma width nw of each group's MMAs (group j's accumulators start at
+    column j·nw), and the output channels c_lo .. c_hi-1 it writes, which
+    are contiguous in y."""
+
+    groups: tuple
+    col0: int
+    width: int
+    kp: int
+    nw: int
+    c_lo: int
+    c_hi: int
+
+
+def grouped_wide_tiles(cin: int, cout: int, groups: int):
+    """The column tiles of the "wgmma_wide" route, as csrc/grouped_wgmma.cuh
+    (wide_plan) cuts a grouped conv Cin → Cout in `groups` groups; a work
+    item is 128 output pixels of one tile, and a CTA keeps its tile over
+    several row tiles of pixels. Cout/G ≤ 128: tiles of whole
+    groups, nw the smallest of WIDE_NW that holds Cout/G, up to
+    WIDE_NA / nw groups a tile, balanced over the tiles. Wider groups:
+    ceil(Cout/G / 128) pieces of each group, each a multiple of 8 columns
+    (the last one the rest), nw 128."""
+    if groups < 1 or cin % groups or cout % groups:
+        raise ValueError(f"grouped_wide_tiles: Cin={cin}, Cout={cout} in {groups} groups")
+    cgi, cgo = cin // groups, cout // groups
+    kp = -(-cgi // 16) * 16
+    tiles = []
+    if cgo <= WIDE_NA:
+        nw = next(n for n in WIDE_NW if cgo <= n)
+        n_ct = -(-groups // (WIDE_NA // nw))
+        gp = -(-groups // n_ct)
+        for g0 in range(0, groups, gp):
+            gs = tuple(range(g0, min(groups, g0 + gp)))
+            tiles.append(WideTile(gs, 0, cgo, kp, nw, g0 * cgo, (gs[-1] + 1) * cgo))
+    else:
+        pieces = -(-cgo // WIDE_NA)
+        pwid = -(-(-(-cgo // pieces)) // 8) * 8
+        nw = next(n for n in WIDE_NW if pwid <= n)
+        for g in range(groups):
+            for p in range(pieces):
+                col0 = p * pwid
+                width = min(pwid, cgo - col0)
+                tiles.append(WideTile((g,), col0, width, kp, nw, g * cgo + col0,
+                                      g * cgo + col0 + width))
+    return tuple(tiles)
+
+
 class GroupedPlan(NamedTuple):
     """How a grouped conv kernel call runs. route: "wgmma" (bf16, the
-    grouped mode of csrc/conv_wgmma.cu) or "simt" (the CUDA-core loop of
+    grouped mode of csrc/conv_wgmma.cu), "wgmma_wide" (bf16,
+    csrc/grouped_wgmma.cu) or "simt" (the CUDA-core loop of
     csrc/grouped_conv.cu). cg = Cin/G. A CTA owns `bm` output pixels ×
-    `bn` output channels."""
+    `bn` output (wgmma_wide: accumulator) columns."""
 
     route: str
     cg: int
@@ -135,33 +197,41 @@ class GroupedPlan(NamedTuple):
         return (_ROUTES[self.route],)
 
     def slices(self):
-        """The k16 slice map of the wgmma route (`grouped_slices`); none for simt."""
+        """The k16 slice map of the wgmma route (`grouped_slices`); none for the others."""
         return grouped_slices(self.cg) if self.route == "wgmma" else ()
+
+
+def _route_plan(route: str, cg: int) -> GroupedPlan:
+    return GroupedPlan(route, cg, 128, WIDE_NA if route == "wgmma_wide" else 64)
 
 
 def grouped_plan(dtype, cin: int, cout: int, groups: int, aligned: bool = True) -> GroupedPlan:
     """The plan of a grouped conv, Cin → Cout in `groups` groups, in
     `dtype`, dilated or not. bf16 with Cin/G = Cout/G in GROUPED_WGMMA_CG,
-    Cin % 64 == 0 and x and w 16-byte aligned (`aligned`): the tensor
-    cores. fp32, and every other bf16 shape of `fits_grouped` (Cin/G = 2,
-    Cout/G ≠ Cin/G, Cin/G above 32, Cin not a multiple of 64, a misaligned
-    operand): the CUDA-core loop."""
+    Cin % 64 == 0 and x and w 16-byte aligned (`aligned`): the grouped mode
+    of the tensor-core loop ("wgmma"). Every other bf16 shape of
+    `fits_grouped` but Cin/G = 2 (Cout/G ≠ Cin/G, Cin/G above 32, Cin not a
+    multiple of 64, a misaligned operand): the tensor-core loop of
+    csrc/grouped_wgmma.cu ("wgmma_wide"). fp32, and bf16 at Cin/G = 2
+    (faster there on the CUDA cores), the CUDA-core loop ("simt")."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"grouped_plan: dtype {dtype} not supported (float32, bfloat16)")
     cg = cin // groups
-    if (dtype == torch.bfloat16 and cin == cout and cin % 64 == 0 and cin % groups == 0
-            and cg in GROUPED_WGMMA_CG and aligned):
-        return GroupedPlan("wgmma", cg)
-    return GroupedPlan("simt", cg)
+    if dtype == torch.float32:
+        return _route_plan("simt", cg)
+    if (cin == cout and cin % 64 == 0 and cin % groups == 0 and cg in GROUPED_WGMMA_CG
+            and aligned):
+        return _route_plan("wgmma", cg)
+    return _route_plan("simt" if cg == 2 else "wgmma_wide", cg)
 
 
 def _grouped_plan(x, w, geo, groups, route=None) -> GroupedPlan:
     """The plan of a grouped call; `route` forces one (the on-card
-    comparison of the two main loops), which the library refuses where it
-    is not built."""
+    comparison of the main loops), which the library refuses where it is
+    not built."""
     cin, cout = geo[3], geo[6]
     if route is not None:
-        return GroupedPlan(route, cin // groups)
+        return _route_plan(route, cin // groups)
     return grouped_plan(x.dtype, cin, cout, groups,
                         aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
@@ -230,6 +300,14 @@ def _with_sums(y):
     return y, torch.stack([yf.sum(dim=(0, 1, 2)), (yf * yf).sum(dim=(0, 1, 2))])
 
 
+def _count(name, plan, groups):
+    """One launch of `name`; a grouped one also under its route."""
+    if groups > 1:
+        _k.count_launch(name, plan.route)
+    else:
+        _k.LAUNCHES[name] += 1
+
+
 def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, route=None,
                   dilation=1):
     """Check the operands, then launch conv_fused_launch with its plan, or
@@ -243,16 +321,16 @@ def _launch_fused(name, x, w, scale, shift, stride, padding, relu, groups=1, rou
         _k.check_cuda_operand(f"{name} scale", scale, torch.float32)
         _k.check_cuda_operand(f"{name} shift", shift, torch.float32)
     y = torch.empty((n, oh, ow, cout), dtype=x.dtype, device=x.device)
-    symbol, extra = (("grouped_fused_launch",
-                      (int(groups), *_grouped_plan(x, w, geo, groups, route).args()))
-                     if groups > 1 else ("conv_fused_launch", _dense_plan(x, geo).args()))
+    plan = _grouped_plan(x, w, geo, groups, route) if groups > 1 else _dense_plan(x, geo)
+    symbol, extra = (("grouped_fused_launch", (int(groups), *plan.args())) if groups > 1
+                     else ("conv_fused_launch", plan.args()))
     rc = getattr(_k.lib(), symbol)(
         _k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if scale is None else scale.data_ptr(),
         None if shift is None else shift.data_ptr(), y.data_ptr(),
         *geo, *extra, int(relu), _k.stream_ptr(x))
     _k.check_launch(name, rc)
-    _k.LAUNCHES[name] += 1
+    _count(name, plan, groups)
     return y
 
 
@@ -280,7 +358,7 @@ def _launch_stats(name, x, w, stride, padding, groups=1, route=None, dilation=1)
     rc = getattr(lib, symbol)(_k.DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
                               y.data_ptr(), partial.data_ptr(), *geo, *extra, stream)
     _k.check_launch(name, rc)
-    _k.LAUNCHES[name] += 1
+    _count(name, plan, groups)
     rc = lib.stats_reduce_launch(partial.data_ptr(), sums.data_ptr(), blocks, cout, stream)
     _k.check_launch("conv2d_stats_reduce", rc)
     _k.LAUNCHES["conv2d_stats_reduce"] += 1

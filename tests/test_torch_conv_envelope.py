@@ -225,29 +225,33 @@ def _grouped_convs(arch, kind):
 
 
 # per family: (distinct grouped convs, of them dilated, those the bf16 plan
-# puts on the tensor cores)
-ROUTES = {("sknet", "26"): (14, 7, 14), ("sk_resnet", "26"): (14, 7, 12),
-          ("shufflenet_v1", "g2"): (11, 0, 0), ("shufflenet_v1", "g3"): (11, 0, 0),
-          ("shufflenet_v1", "g4"): (11, 0, 0), ("shufflenet_v1", "g8"): (11, 0, 0)}
+# puts on the grouped mode of the tensor-core loop, those it puts on the
+# tensor-core loop of csrc/grouped_wgmma.cu)
+ROUTES = {("sknet", "26"): (14, 7, 14, 0), ("sk_resnet", "26"): (14, 7, 12, 0),
+          ("shufflenet_v1", "g2"): (11, 0, 0, 11), ("shufflenet_v1", "g3"): (11, 0, 0, 11),
+          ("shufflenet_v1", "g4"): (11, 0, 0, 11), ("shufflenet_v1", "g8"): (11, 0, 0, 11)}
 
 
 @pytest.mark.parametrize("arch,kind", list(ROUTES))
 def test_grouped_plan_routes_the_new_shapes(arch, kind):
-    """bf16: the tensor cores where they took the shape before (Cin/G =
-    Cout/G in {4, 8, 16, 32}, Cin a multiple of 64), dilated or not; the
-    CUDA-core loop for the rest: SK-ResNet's Cin/G 2 paths and every
-    ShuffleNet grouped 1x1 (Cin ≠ Cout; Cin/G up to 400). fp32: the CUDA-core
-    loop. Every shape is inside fits_grouped."""
+    """bf16: the grouped mode of the tensor cores where it takes the shape
+    (Cin/G = Cout/G in {4, 8, 16, 32}, Cin a multiple of 64), dilated or
+    not; the CUDA-core loop for SK-ResNet's Cin/G 2 paths; the tensor-core
+    loop of csrc/grouped_wgmma.cu for every other shape, every ShuffleNet
+    grouped 1x1 among them (Cin ≠ Cout; Cin/G up to 400). fp32: the
+    CUDA-core loop. Every shape is inside fits_grouped."""
     convs = _grouped_convs(arch, kind)
-    wgmma = 0
+    wgmma = wide = 0
     for cin, cout, groups, dilation, stride in convs:
         assert kernels.fits_grouped(cin, cout, stride, dilation, groups)
         cg = cin // groups
         tensor_cores = cin == cout and cin % 64 == 0 and cg in kconv.GROUPED_WGMMA_CG
         plan = kernels.grouped_plan(torch.bfloat16, cin, cout, groups)
-        assert plan.route == ("wgmma" if tensor_cores else "simt"), (cin, cout, groups)
+        want = "wgmma" if tensor_cores else "simt" if cg == 2 else "wgmma_wide"
+        assert plan.route == want, (cin, cout, groups)
         assert kernels.grouped_plan(torch.float32, cin, cout, groups).route == "simt"
         wgmma += plan.route == "wgmma"
-    assert (len(convs), sum(c[3] > 1 for c in convs), wgmma) == ROUTES[(arch, kind)]
+        wide += plan.route == "wgmma_wide"
+    assert (len(convs), sum(c[3] > 1 for c in convs), wgmma, wide) == ROUTES[(arch, kind)]
     if arch == "shufflenet_v1":
         assert max(cin // groups for cin, _, groups, _, _ in convs) > 32

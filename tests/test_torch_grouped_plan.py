@@ -3,8 +3,10 @@ and the slice map of its tensor-core route, on the CPU.
 
 `grouped_plan` maps dtype and shape to the main loop that runs a grouped
 conv on the card: bf16 at Cin/G = Cout/G in {4, 8, 16, 32} with Cin % 64
-== 0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), fp32
-and the other bf16 shapes on the CUDA cores (csrc/grouped_conv.cu). The
+== 0 on the tensor cores (the grouped mode of csrc/conv_wgmma.cu), the
+other bf16 shapes but Cin/G = 2 on the tensor cores of
+csrc/grouped_wgmma.cu, fp32 and bf16 Cin/G = 2 on the CUDA cores
+(csrc/grouped_conv.cu). The
 card's kernels cannot run here; chip_smoke.py holds each route against
 the plain version there. These tests walk every grouped conv of the
 port's ResNeXt kinds at 224² (module shapes only, no weights), check the
@@ -71,16 +73,22 @@ def test_resnext_grouped_widths_reach_every_tensor_core_width():
     assert cgs == set(kconv.GROUPED_WGMMA_CG)
 
 
-@pytest.mark.parametrize("cin,cout,groups,aligned,why", [
-    (64, 64, 32, True, "Cin/G = 2"),
-    (128, 256, 32, True, "Cout/G != Cin/G"),
-    (96, 96, 24, True, "Cin not a multiple of 64"),
-    (128, 128, 32, False, "a misaligned operand"),
+@pytest.mark.parametrize("cin,cout,groups,aligned,why,route,code", [
+    (64, 64, 32, True, "Cin/G = 2", "simt", 0),
+    (128, 256, 32, True, "Cout/G != Cin/G", "wgmma_wide", 2),
+    (96, 96, 24, True, "Cin not a multiple of 64", "wgmma_wide", 2),
+    (128, 128, 32, False, "a misaligned operand", "wgmma_wide", 2),
+    (136, 544, 4, True, "Cin/G above 32 (ShuffleNet-g4)", "wgmma_wide", 2),
+    (68, 248, 4, True, "odd Cin/G (ShuffleNet-g4)", "wgmma_wide", 2),
 ])
-def test_bf16_shapes_off_the_plan_take_the_cuda_cores(cin, cout, groups, aligned, why):
+def test_bf16_shapes_off_the_plan_take_the_cuda_cores(cin, cout, groups, aligned, why, route,
+                                                      code):
+    """bf16 shapes off the grouped mode's plan: Cin/G = 2 stays on the
+    CUDA-core loop; every other one runs on the tensor cores of
+    csrc/grouped_wgmma.cu ("wgmma_wide")."""
     assert kernels.fits_grouped(cin, cout, 1, 1, groups)
     plan = kernels.grouped_plan(torch.bfloat16, cin, cout, groups, aligned=aligned)
-    assert plan.route == "simt" and plan.args() == (0,), why
+    assert plan.route == route and plan.args() == (code,), why
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

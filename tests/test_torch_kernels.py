@@ -195,7 +195,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
         "depthwise_conv2d": {"vector", "loop"}, "max_pool2d": {"vector", "loop"},
         "avg_pool2d": {"vector", "loop"}, "pool2d_backward": {"vector", "loop"},
         "bn_act_forward": {"vector", "loop"}, "bn_act_backward_sums": {"vector", "loop"},
-        "bn_act_backward_apply": {"vector", "loop"}, "bottleneck_block": {"wgmma", "simt"}}
+        "bn_act_backward_apply": {"vector", "loop"}, "bottleneck_block": {"wgmma", "simt"},
+        "grouped_conv2d_fused": {"wgmma", "wgmma_wide", "simt"},
+        "grouped_conv2d_stats": {"wgmma", "wgmma_wide", "simt"}}
     assert all(n == 0 for routes in kernels.ROUTE_LAUNCHES.values() for n in routes.values())
 
 
