@@ -329,6 +329,26 @@ final line:
      worker), its test argmax = an in-process Trainer.test's of the same
      checkpoint; (iv) dryrun_multichip(2, "cuda"). Prints the
      data_parallel JSON line.
+  17. every conv the JAX package's Conv2d accepts (ROADMAP item 8: more
+     than 64 groups, a stride of 3 or different strides per axis, a
+     depthwise channel multiplier, a dilated depthwise conv): (i) the
+     depthwise kernel at D1 (dilated 3x3 at 33², C 576 and 960: the vector
+     route, torch.equal to the loop route), D2 (multiplier 2) and D3
+     (dilated, multiplier 2), and the grouped kernels at G1 (128 groups,
+     stride 1 and 2), G2 (256 groups, Cin/G 2), G3 (1x1, 128 groups) and G4
+     (stride 3, stride (2, 1)), b8 fp32 and bf16 and b256 bf16, each against
+     its plain version under phase 2/4's bars on the route its plan gives
+     (counted), b256 timed beside cuDNN's F.conv2d and the bound; the
+     trainable functions at four new shapes; (ii) a network built as
+     template_net.py shows (build_envelope_net, registered for the phase
+     only: Builder.conv_block layers, one of each kind, a BN site on each)
+     through phase 12 (i)'s checks (fp32 b8 logits and SGD step against the
+     plain path, ten bf16 Adam steps with a falling loss, exact launches per
+     forward, step and route), a profiled b256 request with no library
+     convolution, and its path: a bf16 b256 step and request with exact
+     launches per kernel and route; (iii) its artifact served by a fresh
+     process, argmax against the live model. Prints the envelope JSON
+     line.
   --train-profile ROOT (no phases, no result line): RN50@224 bf16 b256's
      step ms and profiled device split (the fused sites' BN forward and
      backward apart, the backward nodes' kernels by name), RN26@32 b256's
@@ -338,7 +358,7 @@ final line:
      turns, device events by name) of the checkout at ROOT; run over the
      parent and the change in turns.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-16's paths (PATHS),
+  kernel: launches on its main path and on phases 10-17's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -408,8 +428,9 @@ LEARN_LR = {"resnet": 1e-3, "mobilenet_v1": 1e-3, "densenet": 1e-3, "resnext": 1
 SETTLE_STEPS, SETTLE_MOMENTUM = 1, 1.0
 # the b256 train turns' depth, (warm-up, timed) steps a run: bench.py's
 # protocol is 5 + 20; cut to 2 + 8 (phase 7 (iv)'s DN121 to 2 + 4) to hold
-# the whole run inside its time limit once phase 16 was added (~120 s)
-WARMUP, TIMED = 2, 8
+# the whole run inside its time limit once phase 16 was added (~120 s), to
+# 2 + 6 once phase 17 was added
+WARMUP, TIMED = 2, 6
 DN121_TURNS = (2, 4)
 # bench.py's batch per family (its first choice, 256, fits on an 80 GB card
 # for all three: RN50 13.5 GiB, PERF.md §6; bench.py falls back to 128, 64)
@@ -608,7 +629,8 @@ def check_routes(what, launches, failures):
 
 def model_layers(model, with_dilation=False, inside_remat=False):
     """(kind, H, W, Cin, Cout, k, stride, pad, relu, groups[, dilation]) of
-    every conv and pool of the model, in forward order, from its own
+    every conv and pool of the model (stride a pair where it differs per
+    axis), in forward order, from its own
     modules (SKConv's paths, descriptor and attention convs at their 1x1
     input, ShuffleUnit's convs and the pool of its identity among them,
     DenseBlockFused's convs). kind: "conv" (a fused ConvBNReLU), "gconv" (a
@@ -627,8 +649,9 @@ def model_layers(model, with_dilation=False, inside_remat=False):
             return
         if c.groups > 1:
             kind = kind[:-4] + ("dwconv" if c.groups == shape[3] else "gconv")
+        stride = c.stride[0] if c.stride[0] == c.stride[1] else tuple(c.stride)
         out.append((kind, shape[1], shape[2], shape[3], c.out_channels, c.kernel[0],
-                    c.stride[0], c.padding[0], relu, c.groups, c.dilation[0]))
+                    stride, c.padding[0], relu, c.groups, c.dilation[0]))
 
     def walk(mod, shape):
         if isinstance(mod, nn.ConvBNReLU):
@@ -689,10 +712,12 @@ def distinct_shapes(model, kinds=("conv",)):
 
 def conv_work(n, h, w, cin, cout, k, s, p, groups=1, itemsize=2, dilation=1):
     """(FLOPs, bytes) of one conv call: 2·M·(k²·Cin/G)·Cout multiply-adds,
-    and x and w read once, y written once, in the dtype of `itemsize`."""
+    and x and w read once, y written once, in the dtype of `itemsize`; s
+    an int or a pair (sh, sw)."""
     from convnets_tpu_torch.core.shapes import conv_out_size
 
-    oh, ow = conv_out_size(h, k, s, p, dilation), conv_out_size(w, k, s, p, dilation)
+    sh, sw = (s, s) if isinstance(s, int) else s
+    oh, ow = conv_out_size(h, k, sh, p, dilation), conv_out_size(w, k, sw, p, dilation)
     flops = 2 * n * oh * ow * cout * k * k * (cin // groups)
     return flops, itemsize * (n * h * w * cin + k * k * (cin // groups) * cout + n * oh * ow * cout)
 
@@ -1454,7 +1479,8 @@ def sass_check(failures):
     if set(block) != set(kernels.block.WGMMA_CMID) or min(block.values(), default=0) == 0:
         failures.append(f"block_wgmma_kernel instantiations and their HGMMA counts: {block}")
     # the window kernels' vector instantiations (8 channels per thread):
-    # depthwise_vec_kernel<T, K, S, R>, pool_vec_kernel<T, AVG, TAPS, 8, R>,
+    # depthwise_vec_kernel<T, K, S, D, R, RY> (2 dtypes, 2 strides, the
+    # dilations of VECTOR_DILATIONS), pool_vec_kernel<T, AVG, TAPS, 8, R>,
     # pool_bwd_kernel<T, AVG, 8>; each must move its data in 128-bit global
     # loads or 128-bit asynchronous copies (LDGSTS)
     vector = {f: wide[f] for f in wide
@@ -1463,7 +1489,8 @@ def sass_check(failures):
     kinds = {k: sorted(c for f, c in vector.items() if k in f)
              for k in ("depthwise_vec_kernel", "pool_vec_kernel", "pool_bwd_kernel")}
     say(f"SASS: 128-bit LDG / LDGSTS per vector instantiation of the window kernels: {kinds}")
-    if [len(v) for v in kinds.values()] != [4, 12, 4] or min(vector.values(), default=0) == 0:
+    want = [4 * len(kernels.depthwise.VECTOR_DILATIONS), 12, 4]
+    if [len(v) for v in kinds.values()] != want or min(vector.values(), default=0) == 0:
         failures.append(f"window kernels' vector instantiations without 128-bit loads: {kinds}")
 
 
@@ -3523,7 +3550,7 @@ y = served(x)
 torch.cuda.synchronize()
 print(json.dumps({"launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
                   "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
-                  "argmax": y.argmax(-1).tolist(),
+                  "argmax": y.argmax(-1).tolist(), "logits": y.float().cpu().tolist(),
                   "models_imported": "convnets_tpu_torch.models" in sys.modules,
                   "jax_imported": any(m == "jax" or m.startswith("jax.") for m in sys.modules)}))
 """
@@ -4453,6 +4480,8 @@ ZOO_LEARN_LR = 1e-3  # (i): Adam on one batch of LEARN_BATCH
 # step's median leaf norm instead of its own
 CANCELLED_LEAVES = {"shufflenet_v1": ("depthwise.1.bias",)}
 ZOO_SERVE_BATCH = 256
+# zoo_family's timed requests a turn (10 until phase 17 was added)
+ZOO_SERVE_ITERS = 6
 # (ii): the CINIC-shaped PNG tree the CLI reads: images per split, 10 classes
 CLI_SPLITS = (("train", 2560), ("valid", 640), ("test", 640))
 CLI_BATCH, CLI_EPOCHS, CLI_RESUME_EPOCHS = 256, 2, 3
@@ -4662,7 +4691,7 @@ def zoo_family(arch, kind, image, seed, card, failures):
     runs = {"kernel": [], "plain": []}
     for path in ("plain", "kernel", "kernel", "plain"):  # in turns, one card
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
-            runs[path].append(seconds_per_request(server, req))
+            runs[path].append(seconds_per_request(server, req, ZOO_SERVE_ITERS))
     rates = {p: ZOO_SERVE_BATCH / float(np.mean(v)) for p, v in runs.items()}
     say(f"{label}: serving bf16 b{ZOO_SERVE_BATCH} (uint8 requests from the host, live model): "
         f"kernel path {rates['kernel']:.1f} img/s (runs "
@@ -5445,9 +5474,13 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
     route, cuDNN's bf16 F.conv2d of the same stride, dilation and groups,
     the bound and, for a grouped call, both kernels on the CUDA-core loop
     (route "simt", the same inputs), added to the rows' zoo2_*_b256
-    (ZOO2_KEYS), or to the keys `times` names. Returns the record."""
+    (ZOO2_KEYS), or to the keys `times` names. The three checked calls
+    must each be counted once on the plan's route (ROUTE_LAUNCHES; dense:
+    LAUNCHES). Returns the record."""
     import torch
     import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
 
     h, w, cin, cout, k, s, p, d, groups = shape
     dname = dname_of(dtype)
@@ -5460,6 +5493,7 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
     fused, fused_plain, stats, stats_plain, lead = zoo2_kernel_fns(groups)
     route, want = zoo2_route(dtype, n, h, w, cin, cout, k, s, p, d, groups)
     errs, ok = [], route == want
+    kernels.reset_launches()
     for epi in (None, (scale, shift)):
         kw = dict(stride=s, padding=p, dilation=d, relu=epi is not None)
         got = fused(x, wt, *lead, *(epi or ()), **kw)
@@ -5471,6 +5505,16 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
     kw = dict(stride=s, padding=p, dilation=d)
     s_ok, y_err, e1, e2 = stats_check(stats(x, wt, *lead, **kw), stats_plain(x, wt, *lead, **kw),
                                       dname, own=True)
+    # the three kernel calls, each counted on the plan's route
+    if groups > 1:
+        counted = {name: dict(kernels.ROUTE_LAUNCHES[name]) for name in GROUPED_ROUTED}
+        counted_want = {name: {r: int(r == route) * (2 if name.endswith("fused") else 1)
+                               for r in ("wgmma", "wgmma_wide", "simt")}
+                        for name in GROUPED_ROUTED}
+    else:
+        counted = {k: kernels.LAUNCHES[k] for k in ("conv2d_fused", "conv2d_stats")}
+        counted_want = {"conv2d_fused": 2, "conv2d_stats": 1}
+    ok = ok and counted == counted_want
     rec = {"what": label, "n": n, "shape": list(shape), "dtype": dname, "route": route,
            "fused_err": errs, "stats_y_err": y_err, "sum_rel": e1, "sumsq_rel": e2,
            "ok": bool(ok and s_ok)}
@@ -5511,7 +5555,7 @@ def zoo2_conv_check(label, n, shape, dtype, g, summary, failures, times=False):
         f"{e2:.2e} ({STATS_TOL[dname]:g}, own y) {'ok' if rec['ok'] else 'FAIL'}{text}")
     if not rec["ok"]:
         failures.append(f"zoo2 {label} {n}x{shape} {dname} {route} (want {want}): fused {errs}, "
-                        f"stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}")
+                        f"stats y {y_err:.3e} Σ {e1:.2e} Σ² {e2:.2e}, launches {counted}")
     del x, wt
     return rec
 
@@ -7345,10 +7389,414 @@ def phase_data_parallel(seed, card, failures):
     return path_entries(path)
 
 
-# the paths of phases 10-16 whose launches the kernels line carries as
+# phase 17: every conv the JAX package's Conv2d accepts (ROADMAP item 8's
+# four kinds: more than 64 groups, a stride of 3 or different strides per
+# axis, a depthwise channel multiplier, a dilated depthwise conv). (i): the
+# kernels at these shapes on their planned routes, b8 both dtypes and b256
+# bf16 (timed beside cuDNN and the bound); (ii): a network built as
+# template_net.py shows, one of each kind, trained, served and exported.
+# depthwise: (what, (H, W, Cin, Cout, k, stride, pad, dilation))
+ENVELOPE_DEPTHWISE = (
+    ("D1 dilated, DeepLabv3+ MobileNetV2 os16", (33, 33, 576, 576, 3, 1, 2, 2)),
+    ("D1 dilated, DeepLabv3+ MobileNetV2 os16", (33, 33, 960, 960, 3, 1, 2, 2)),
+    ("D2 multiplier 2", (112, 112, 32, 64, 3, 1, 1, 1)),
+    ("D2 multiplier 2", (28, 28, 256, 512, 3, 2, 1, 1)),
+    ("D3 dilated, multiplier 2", (28, 28, 64, 128, 3, 1, 2, 2)),
+    ("D4 dilated, stride 2", (33, 33, 576, 576, 3, 2, 2, 2)),  # the vector route's S=2, D=2
+)
+# grouped: (what, (H, W, Cin, Cout, k, stride, pad, dilation, groups))
+ENVELOPE_GROUPED = (
+    ("G1 128 groups", (14, 14, 1024, 1024, 3, 1, 1, 1, 128)),
+    ("G1 128 groups", (14, 14, 1024, 1024, 3, 2, 1, 1, 128)),
+    ("G2 256 groups, Cin/G 2", (28, 28, 512, 512, 3, 1, 1, 1, 256)),
+    ("G3 1x1, 128 groups", (14, 14, 1024, 2048, 1, 1, 0, 1, 128)),
+    ("G4 stride 3", (30, 30, 256, 256, 3, 3, 1, 1, 32)),
+    ("G4 stride (2, 1)", (28, 28, 128, 128, 3, (2, 1), 1, 1, 32)),
+)
+# the route each kind's plan must give in bf16 (fp32: the grouped ones on
+# "simt"; a depthwise route does not depend on the dtype)
+ENVELOPE_ROUTES = {"D1": "vector", "D2": "loop", "D3": "loop", "D4": "vector", "G1": "wgmma",
+                   "G2": "simt", "G3": "wgmma_wide", "G4": "wgmma"}
+# the b256 bf16 calls' sums on rows 1g, 5g and 9: kernel ms, cuDNN's
+# F.conv2d ms, bound, and the other route on the same inputs (grouped: the
+# CUDA-core loop; depthwise D1: the loop route)
+ENVELOPE_KEYS = ("envelope_ms_b256", "envelope_library_ms_b256", "envelope_bound_ms_b256",
+                 "envelope_other_route_ms_b256")
+ENVELOPE_NET = "envelope_net"  # (ii): registered for this phase only
+ENVELOPE_PATH_BATCH = 256  # (ii): the path's bf16 train step and served request
+
+
+def envelope_dw_check(label, n, shape, dtype, g, summary, failures, times=False):
+    """One depthwise shape on the card: depthwise_conv2d against
+    depthwise_conv2d_plain (CONV_TOL), the launch counted on the route
+    depthwise_plan gives (which must be the kind's, ENVELOPE_ROUTES), and on
+    the vector route bit for bit against the loop route (torch.equal).
+    times: the b256 bf16 ms of the kernel, of the loop route for a vector
+    plan, of the plain version and of cuDNN's F.conv2d with the same
+    stride, dilation and groups, and the bound (x and w read, y written),
+    added to row 9's ENVELOPE_KEYS. Returns the record."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnets_tpu_torch.ops import kernels
+
+    h, w, cin, cout, k, s, p, d = shape
+    dname = dname_of(dtype)
+    atol, rtol = CONV_TOL[dname]
+    x = torch.randn(n, h, w, cin, device=DEVICE, generator=g).to(dtype)
+    wt = (torch.randn(k, k, 1, cout, device=DEVICE, generator=g) / k).to(dtype)
+    kw = dict(stride=s, padding=p, dilation=d)
+    plan = kernels.depthwise_plan(n, h, w, cin, k, k, s, p, dtype, dilation=d,
+                                  multiplier=cout // cin)
+    want = ENVELOPE_ROUTES[label[:2]]
+    kernels.reset_launches()
+    got = kernels.depthwise_conv2d(x, wt, **kw)
+    routes = dict(kernels.ROUTE_LAUNCHES["depthwise_conv2d"])
+    ref = kernels.depthwise_conv2d_plain(x, wt, **kw)
+    sync()
+    err = float((got.float() - ref.float()).abs().max())
+    same = (torch.equal(got, kernels.depthwise_conv2d(x, wt, **kw, route="loop"))
+            if plan.route == "vector" else None)
+    ok = (within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+          and plan.route == want and routes == {"vector": 0, "loop": 0, plan.route: 1}
+          and same is not False)
+    rec = {"what": label, "n": n, "shape": list(shape), "dtype": dname, "route": plan.route,
+           "err": err, "vector_equals_loop": same, "ok": bool(ok)}
+    row = entry(summary, "depthwise_conv2d")
+    row["err"] = max(row["err"], err)
+    text = ""
+    if times:
+        xc, wc = nchw(x), oihw(wt)
+        k_ms = time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw), REPS)
+        l_ms = (time_ms(lambda: kernels.depthwise_conv2d(x, wt, **kw, route="loop"), REPS)
+                if plan.route == "vector" else k_ms)
+        p_ms = time_ms(lambda: kernels.depthwise_conv2d_plain(x, wt, **kw), REPS)
+        c_ms = time_ms(lambda: F.conv2d(xc, wc, stride=s, padding=p, dilation=d, groups=cin),
+                       REPS)
+        flops, nbytes = conv_work(n, h, w, cin, cout, k, s, p, cin, dilation=d)
+        bound = 1e3 * max(flops / PEAK_OTHER, nbytes / HBM_BPS)
+        for key, v in zip(ENVELOPE_KEYS, (k_ms, c_ms, bound, l_ms)):
+            row[key] = row.get(key, 0.0) + v
+        rec.update(ms=k_ms, loop_ms=l_ms, plain_ms=p_ms, cudnn_ms=c_ms, bound_ms=bound)
+        text = (f" | {k_ms:.4f} loop {l_ms:.4f} plain {p_ms:.4f} cuDNN {c_ms:.4f} bound "
+                f"{bound:.4f} ({100 * bound / k_ms:.1f}%)")
+    say(f"  {label} | {n} {' '.join(map(str, shape))} | {dname} {plan.route} (want {want}) "
+        f"{routes} | {err:.3e} ({atol:g}+{rtol:g}|ref|) | vector == loop {same} "
+        f"{'ok' if ok else 'FAIL'}{text}")
+    if not ok:
+        failures.append(f"envelope {label} {n}x{shape} {dname}: route {plan.route} (want "
+                        f"{want}, launches {routes}), err {err:.3e}, vector == loop {same}")
+    del x, wt, got, ref
+    return rec
+
+
+def envelope_kernels(summary, failures):
+    """Phase 17 (i): every shape of ENVELOPE_DEPTHWISE and ENVELOPE_GROUPED
+    at b8 in fp32 and bf16 and at b256 in bf16 (timed) against its plain
+    version, each call on the route its plan gives (counted; the grouped
+    ones through zoo2_conv_check, both epilogues and the statistics
+    kernel); then each trainable function at one new shape, forward and
+    gradients against the plain path. Returns the records."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    runs = ((KERNEL_BATCH, f32, False), (KERNEL_BATCH, bf16, False), (B256, bf16, True))
+    say(f"(i) depthwise: what | N H W Cin Cout k s p d | dtype route (want) launches per route | "
+        f"max|Δ| (tol) | vector == loop | at b{B256} bf16: kernel ms, loop route, plain, cuDNN, "
+        f"bound (share)")
+    records = [envelope_dw_check(label, n, shape, dtype, g, summary, failures, timed)
+               for label, shape in ENVELOPE_DEPTHWISE for n, dtype, timed in runs]
+    say(f"(i) grouped: what | N H W Cin Cout k s p d G | dtype route (want) | fused y err "
+        f"relu=0 / 1 (tol) | stats y err, Σ rel, Σ² rel | at b{B256} bf16: fused ms, stats ms, "
+        f"cuDNN ms, bound ms | the CUDA-core loop's (simt plans: the tensor-core route's)")
+    for label, shape in ENVELOPE_GROUPED:
+        for n, dtype, timed in runs:
+            rec = zoo2_conv_check(label, n, shape, dtype, g, summary, failures,
+                                  ENVELOPE_KEYS if timed else False)
+            want = ENVELOPE_ROUTES[label[:2]] if dtype == bf16 else "simt"
+            if rec["route"] != want:
+                rec["ok"] = False
+                failures.append(f"envelope {label} {dname_of(dtype)}: route {rec['route']}, "
+                                f"want {want}")
+            records.append(rec)
+    for kind in ENVELOPE_ROUTES:
+        timed = [r for r in records if r["what"].startswith(kind) and "cudnn_ms" in r]
+        ms = sum(r.get("fused_ms", r.get("ms", 0.0)) for r in timed)
+        say(f"(i) b{B256} bf16, {kind} ({len(timed)} shapes): kernel {ms:.4f} ms, cuDNN "
+            f"{sum(r['cudnn_ms'] for r in timed):.4f} ms, bound "
+            f"{sum(r['bound_ms'] for r in timed):.4f} ms ({timed[0]['route']} route)")
+
+    say("(i) train functions at one new shape each: fn label | dtype | out max|Δ|/max|ref| (tol) "
+        "| gradients ‖Δ‖/‖g‖ (tol) [max|Δ|/max|g|] | ReLU mask flips | fwd+bwd kernel_ms "
+        "plain_ms library_ms")
+    shapes = dict(ENVELOPE_GROUPED)
+    dw = dict(ENVELOPE_DEPTHWISE)
+    trains = (("depthwise_train", dw["D3 dilated, multiplier 2"] + (64,)),
+              ("grouped_conv2d_train", ENVELOPE_GROUPED[1][1]),
+              ("conv_bn_relu_train_grouped", shapes["G4 stride (2, 1)"]),
+              ("conv_bn_relu_train_grouped", shapes["G2 256 groups, Cin/G 2"]))
+    for name, (h, w, cin, cout, k, s, p, d, groups) in trains:
+        cg = cin // groups
+        x32 = torch.randn(KERNEL_BATCH, h, w, cin, device=DEVICE, generator=g)
+        w32 = torch.randn(k, k, cg, cout, device=DEVICE, generator=g) / np.sqrt(k * k * cg)
+        sc = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        bi = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        work = conv_train_work(KERNEL_BATCH, h, w, cin, cout, k, s, p, groups, d)
+        label = f"{h} {cin} {cout} k{k} s{s} p{p} d{d} G{groups}"
+        for dtype in (f32, bf16):
+            dname = dname_of(dtype)
+            x, wt = x32.to(dtype), w32.to(dtype)
+            if name == "conv_bn_relu_train_grouped":
+                check_trainable(name, label, lambda a, b, c_, e: kernels.conv_bn_relu_train(
+                    a, b, c_, e, s, p, groups=groups, dilation=d)[0], [x, wt, sc, bi], dname, g,
+                    summary, failures, CONV_TOL[dname][1], work)
+            elif name == "grouped_conv2d_train":
+                check_trainable(name, label, lambda a, b: kernels.grouped_conv2d_train(
+                    a, b, groups, s, p, d), [x, wt], dname, g, summary, failures,
+                    CONV_TOL[dname][1], work, conv_lib(s, p, groups, d))
+            else:
+                check_trainable(name, label, lambda a, b: kernels.depthwise_train(a, b, s, p, d),
+                                [x, wt], dname, g, summary, failures, CONV_TOL[dname][1], work,
+                                conv_lib(s, p, groups, d))
+    return records
+
+
+def build_envelope_net(setting):
+    """The network a user who copies template_net.py would write with the
+    convs of ROADMAP item 8: Builder.conv_block layers, a BN site on each,
+    one of each kind at 3x32x32, each on its planned route in bf16 (D2 and
+    D3 loop, D1 vector; the grouped mode for the G4s and G1, the CUDA-core
+    loop for G2, the wide tensor-core route for G3).
+    tests/test_torch_conv_full_envelope.py holds a narrower one against
+    its JAX twin."""
+    from convnets_tpu_torch import nn
+    from convnets_tpu_torch.models.base import Builder, Model
+
+    b = Builder(setting)
+    layers = [
+        b.conv_block(64, kernel=3, padding=1),                              # dense stem
+        b.conv_block(128, kernel=3, padding=1, groups=64),                  # D2: multiplier 2
+        b.conv_block(128, kernel=3, padding=2, dilation=2, groups=128),     # D1: dilated
+        b.conv_block(256, kernel=3, padding=2, dilation=2, groups=128),     # D3: both
+        b.conv_block(256, kernel=3, stride=(2, 1), padding=1, groups=64),   # G4: per-axis stride
+        b.conv_block(256, kernel=3, stride=3, padding=1, groups=64),        # G4: stride 3
+        b.conv_block(1024, kernel=1),                                       # dense 1x1
+        b.conv_block(1024, kernel=3, stride=2, padding=1, groups=128),      # G1: 128 groups
+        b.conv_block(1024, kernel=3, padding=1, groups=512),                # G2: Cin/G 2
+        b.conv_block(2048, kernel=1, groups=128),                           # G3: 1x1
+        nn.GlobalAvgPool2d(),
+        b.linear(setting.num_classes)]
+    return Model("EnvelopeNet", setting, nn.Sequential(layers))
+
+
+@contextlib.contextmanager
+def envelope_registered():
+    """ENVELOPE_NET in the port's registry for the duration, as a copied
+    template_net.py registers its net."""
+    from convnets_tpu_torch.models import base
+
+    base._REGISTRY[ENVELOPE_NET] = build_envelope_net
+    try:
+        yield
+    finally:
+        base._REGISTRY.pop(ENVELOPE_NET, None)
+
+
+def window_routes_want(model, n):
+    """The depthwise launches per route of one bf16 forward of the model at
+    batch n, read off its depthwise convs (model_layers) through
+    depthwise_plan."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    want = {"vector": 0, "loop": 0}
+    for kind, h, w, cin, cout, k, s, p, _, g, d in model_layers(model, with_dilation=True):
+        if kind in ("dwconv", "plaindwconv"):
+            want[kernels.depthwise_plan(n, h, w, cin, k, k, s, p, torch.bfloat16, dilation=d,
+                                        multiplier=cout // cin).route] += 1
+    return want
+
+
+def envelope_path(seed, failures):
+    """Phase 17 (ii)'s path: one bf16 Adam step of the network at b256 and
+    one served b256 uint8 request, the counts set to 0 just before each and
+    read just after each; the step held to a step's launches read off the
+    model (model_launches) and the request to a forward's, each per route to
+    grouped_routes_want and depthwise_plan. Returns the path's launches per
+    kernels-line entry (depthwise_train: the step's own depthwise_conv2d
+    launches)."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import ServingModel
+
+    n = ENVELOPE_PATH_BATCH
+    model = zoo_model(ENVELOPE_NET, "0", 32, seed)
+    want_fwd, want_step = model_launches(model)
+    fwd_routes, step_routes = grouped_routes_want(model)
+    state, step = train_state(model, norm=True, stats=IMAGENET_STATS)
+    rng = np.random.default_rng(seed + 17)
+    x = torch.from_numpy(rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, ZOO_CLASSES, n)).to(DEVICE)
+    req = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    step(state, x, y)  # the first step builds the kernels' plans and cuDNN's backward
+    model.eval()
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    server(req)
+    model.train()
+    dw_want = window_routes_want(model, n)
+
+    def counted():
+        return dict(kernels.LAUNCHES), {**grouped_routes(), "depthwise_conv2d": dict(
+            kernels.ROUTE_LAUNCHES["depthwise_conv2d"])}
+
+    sync()
+    kernels.reset_launches()
+    loss = float(step(state, x, y)[0])
+    sync()
+    got_step, routes_step = counted()
+    model.eval()
+    kernels.reset_launches()
+    logits = server(req)
+    sync()
+    got_fwd, routes_fwd = counted()
+    finite = np.isfinite(loss) and bool(torch.isfinite(logits).all())
+    say(f"(ii) the path's step loss {loss:.4f}, request logits finite: "
+        f"{'ok' if finite else 'FAIL'}")
+    if not finite:
+        failures.append(f"envelope path: loss {loss}, logits finite "
+                        f"{bool(torch.isfinite(logits).all())}")
+    for what, got, want, routes, want_routes in (
+            ("step", got_step, want_step, routes_step, step_routes),
+            ("request", got_fwd, want_fwd, routes_fwd, fwd_routes)):
+        want_routes = {**want_routes, "depthwise_conv2d": dw_want}
+        fine = got == want and routes == want_routes
+        say(f"(ii) the path's {what} at b{n} (bf16 Adam step / served uint8 request): launches "
+            f"{launches_summary(got)} (expected {launches_summary(want)}); per route {routes} "
+            f"(expected {want_routes}) {'ok' if fine else 'FAIL'}")
+        if not fine:
+            failures.append(f"envelope path {what}: launches {got}, routes {routes}")
+    del model, state, server
+    got = {k: got_step.get(k, 0) + got_fwd.get(k, 0) for k in set(got_step) | set(got_fwd)}
+    return {"conv2d_fused": got["conv2d_fused"], "grouped_conv2d_fused": got["grouped_conv2d_fused"],
+            "depthwise_conv2d": got["depthwise_conv2d"], "conv2d_stats": got["conv2d_stats"],
+            "conv2d_stats_reduce": got["conv2d_stats_reduce"],
+            "grouped_conv2d_stats": got["grouped_conv2d_stats"],
+            "bn_act_forward": got["bn_act_forward"],
+            "bn_act_backward": got["bn_act_backward_apply"],
+            "conv_bn_relu_train": got["conv2d_stats"],
+            "conv_bn_relu_train_grouped": got["grouped_conv2d_stats"],
+            "depthwise_train": got_step["depthwise_conv2d"]}
+
+
+def envelope_artifact(seed, failures):
+    """Phase 17 (iii): the network exported (bf16, uint8 wire, symbolic
+    batch) and served by a fresh process (CHILD: no convnets_tpu_torch.models,
+    no jax), its argmax and logits against the live ServingModel's on the
+    same 8 images (the logits within the bf16 conv bar) and its launches
+    against a forward's. Returns the record."""
+    import torch
+
+    from convnets_tpu_torch.serve import ServingModel, save_artifact
+
+    model = zoo_model(ENVELOPE_NET, "0", 32, seed)
+    want = launches_summary(model_launches(model)[0])
+    x = np.random.default_rng(seed).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    live = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)(x)
+    sync()
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "envelope_net.bin")
+        t0 = time.perf_counter()
+        save_artifact(path, model, input_dtype="uint8", stats=IMAGENET_STATS)
+        export_s = time.perf_counter() - t0
+        proc = subprocess.run([sys.executable, "-c", CHILD, HERE, path, str(seed), "32"],
+                              capture_output=True, text=True, timeout=600)
+    rec = {"export_s": export_s, "child_rc": proc.returncode}
+    ok = proc.returncode == 0
+    if ok:
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        agree = float(np.mean(np.array(child["argmax"]) == live.argmax(-1).cpu().numpy()))
+        ref = live.float().cpu().numpy()
+        rel = float(np.abs(np.array(child["logits"]) - ref).max() / np.abs(ref).max())
+        ok = (agree >= ARGMAX_MIN and rel <= CONV_TOL["bfloat16"][1] and child["finite"]
+              and child["launches"] == want and not child["models_imported"]
+              and not child["jax_imported"])
+        rec.update(argmax_agreement=agree, logits_rel=rel, launches=child["launches"])
+        say(f"(iii) the artifact (exported in {export_s:.1f} s) served by a fresh process: "
+            f"argmax agreement with the live model {agree:.4f} (min {ARGMAX_MIN}), logits max "
+            f"|Δ| / max |logit| {rel:.3e} (tol {CONV_TOL['bfloat16'][1]:g}), launches "
+            f"{child['launches']} (expected {want}), models imported "
+            f"{child['models_imported']}, jax imported {child['jax_imported']} "
+            f"{'ok' if ok else 'FAIL'}")
+    else:
+        say(f"(iii) the fresh process failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    if not ok:
+        failures.append(f"envelope artifact: {rec}")
+    del model
+    return rec
+
+
+def phase_envelope(seed, card, summary, failures):
+    """Phase 17: (i) envelope_kernels; (ii) the network of
+    build_envelope_net through zoo_family (fp32 b8 eval logits and SGD step
+    against the plain path, ten bf16 Adam steps with a falling loss,
+    launches per forward and step, the b256 request against the plain
+    path), a profiled b256 request with exact launches and no library
+    convolution kernel, and envelope_path; (iii) envelope_artifact. Prints
+    the envelope JSON line; returns the path's launches."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+
+    out, parts = {"card": card}, {}
+    t0 = time.perf_counter()
+    records = envelope_kernels(summary, failures)
+    out["kernels"] = {"calls": len(records), "ok": sum(r["ok"] for r in records),
+                      "b256": [{k: r[k] for k in ("what", "shape", "route", "fused_ms", "stats_ms",
+                                                  "ms", "loop_ms", "simt_fused_ms",
+                                                  "wide_fused_ms", "cudnn_ms", "bound_ms")
+                                if k in r} for r in records if "cudnn_ms" in r]}
+    parts["i"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with envelope_registered():
+        res, model32 = zoo_family(ENVELOPE_NET, "0", 32, seed, card, failures)
+        del model32
+        out["model"] = res
+        model = zoo_model(ENVELOPE_NET, "0", 32, seed)
+        launches, names, share = served_no_library_conv(f"{ENVELOPE_NET}@32", model, 32, seed,
+                                                         failures)
+        routes = dict(kernels.ROUTE_LAUNCHES["depthwise_conv2d"])
+        want, want_dw = model_launches(model)[0], window_routes_want(model, ZOO_SERVE_BATCH)
+        ok = launches == want and routes == want_dw
+        say(f"(ii) the profiled b{ZOO_SERVE_BATCH} request: launches {launches_summary(launches)} "
+            f"(expected {launches_summary(want)}), depthwise per route {routes} (expected "
+            f"{want_dw}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"envelope request launches {launches}, depthwise routes {routes}")
+        out["served"] = {"launches": launches_summary(launches), "port_share": share,
+                         "device_kernels": len(names)}
+        del model
+        path = envelope_path(seed, failures)
+        parts["ii"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["artifact"] = envelope_artifact(seed, failures)
+        parts["iii"] = time.perf_counter() - t0
+    out["launches"] = path
+    out["seconds"] = parts
+    torch.cuda.empty_cache()
+    say(json.dumps({"envelope": out}, default=str))
+    return path
+
+
+# the paths of phases 10-17 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
-         "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel")
+         "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel",
+         "envelope")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -7530,6 +7978,9 @@ def main():
     def phase_16():
         state["data_parallel"] = phase_data_parallel(args.seed, card, failures)
 
+    def phase_17():
+        state["envelope"] = phase_envelope(args.seed, card, summary, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -7552,6 +8003,7 @@ def main():
         "14": phase_14,
         "15": phase_15,
         "16": phase_16,
+        "17": phase_17,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -7598,7 +8050,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-16's {path} path")
+                failures.append(f"{name}: no launch on phase 10-17's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -7610,7 +8062,7 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ROUTE_KEYS + ("serving_ms",)
+            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ROUTE_KEYS + ENVELOPE_KEYS + ("serving_ms",)
             if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:

@@ -1,12 +1,17 @@
-// Depthwise 2-D convolution over NHWC, channel multiplier 1.
+// Depthwise 2-D convolution over NHWC, any channel multiplier, stride and
+// dilation.
 //
 // Replaces convnets_tpu/ops/pallas/conv.py:depthwise_conv2d (_dw_kernel and
-// the slab-tiled _dw_tiled_kernel). Contract: x (N, H, W, C), weights
-// (kh*kw, C) in x's dtype (the JAX kernel casts w to x.dtype, conv.py:779),
-// y (N, OH, OW, C) in x's dtype; for each output element the fp32 products
-// x*w of its kh*kw taps are accumulated with one fmaf each in row-major
-// (ky, kx) order and the sum is rounded once to the output dtype. Strides
-// and padding are addressed in place: no padded copy of x.
+// the slab-tiled _dw_tiled_kernel), widened to the depthwise convs that the
+// JAX package runs on lax (a channel multiplier m > 1, dilation). Contract:
+// x (N, H, W, C), weights (kh*kw, m*C) in x's dtype (the JAX kernel casts w
+// to x.dtype, conv.py:779), y (N, OH, OW, m*C) in x's dtype; output channel
+// o reads input channel o / m (lax's feature_group_count order), and tap
+// (ky, kx) of output (oy, ox) reads row oy*sh - ph + ky*dh, column
+// ox*sw - pw + kx*dw. For each output element the fp32 products x*w of its
+// kh*kw taps are accumulated with one fmaf each in row-major (ky, kx) order
+// and the sum is rounded once to the output dtype. Strides, dilation and
+// padding are addressed in place: no padded copy of x.
 //
 // What bounds it on the H100: memory. A tap is one multiply-add per input
 // element it reads, far below the card's FLOP/byte balance, so the least
@@ -17,9 +22,10 @@
 // instruction throughput of that CTA and the halo's latency show. Two routes,
 // chosen by shape in ops/kernels/depthwise.py:depthwise_plan:
 //
-//  * "vector" (C % 8 == 0, 3x3, stride 1 or 2, any padding): the output is
-//    cut into tiles of TH rows x TW columns x CB channels. For each tile a
-//    CTA copies the input halo, ((TH-1)*s+3) x ((TW-1)*s+3) x CB, into
+//  * "vector" (m = 1, C % 8 == 0, 3x3, stride 1 or 2, dilation d of 1 or
+//    2, each the same along H and W, any padding): the output is cut
+//    into tiles of TH rows x TW columns x CB channels. For each tile a CTA
+//    copies the input halo, ((TH-1)*s+2d+1) x ((TW-1)*s+2d+1) x CB, into
 //    shared memory with 16-byte cp.async once, zeros in place of the
 //    padding taps (which then add 0*w, as the JAX kernel's zero padding
 //    does), so each input element crosses device memory about once. A
@@ -28,15 +34,17 @@
 //    it keeps its 9x8 weights in fp32 registers and streams the block's
 //    input rows and columns from shared memory, so a loaded 8-channel
 //    vector feeds every tap of the block that reads it (at stride 1 24
-//    loads for 8 outputs, where one output alone needs 9). The grid is
+//    loads for 8 outputs, where one output alone needs 9; dilated, the
+//    block's taps are d apart and the rows and columns no tap reads are not
+//    loaded: 48 loads for 8 outputs at d = 2). The grid is
 //    persistent (as many CTAs as stay resident) and each CTA double-buffers
 //    the halo: the next tile's copy is in flight while it computes this
 //    one, which keeps device memory busy (one buffer per CTA left the copies
 //    idle while the CTAs of an SM computed). Index arithmetic is 32-bit and
 //    done once per tile and per thread, not per element.
-//  * "loop" (every other shape, C % 8 != 0 first of all): one thread per
-//    output element with the channel innermost, the same fmaf chain with
-//    padding taps skipped. The vector route equals it bit for bit (a
+//  * "loop" (every other shape: C % 8 != 0, a multiplier, other windows,
+//    strides or dilations): one thread per output element with the output
+//    channel innermost, the same fmaf chain with padding taps skipped. The vector route equals it bit for bit (a
 //    padding tap adds +-0); chip_smoke.py checks that with torch.equal.
 //
 // Offsets are 32-bit: the wrapper refuses tensors of 2^31 elements or more.
@@ -57,30 +65,33 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// One thread per output element: output channel co of cout = m*c reads
+// input channel co / m.
 template <typename T>
 __global__ void depthwise_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-                                 T* __restrict__ y, int n, int h, int w, int c,
+                                 T* __restrict__ y, int n, int h, int w, int c, int cout,
                                  int oh, int ow, int kh, int kw, int sh, int sw,
-                                 int ph, int pw) {
-  const unsigned total = static_cast<unsigned>(n) * oh * ow * c;
+                                 int ph, int pw, int dh, int dw) {
+  const unsigned total = static_cast<unsigned>(n) * oh * ow * cout;
+  const int m = cout / c;
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += gridDim.x * blockDim.x) {
-    const int ci = static_cast<int>(i % c);
-    unsigned t = i / c;
+    const int co = static_cast<int>(i % cout);
+    unsigned t = i / cout;
     const int ox = static_cast<int>(t % ow);
     t /= ow;
     const int oy = static_cast<int>(t % oh);
     const int ni = static_cast<int>(t / oh);
-    const T* xn = x + static_cast<unsigned>(ni) * h * w * c + ci;
-    const T* wc = wt + ci;
+    const T* xn = x + static_cast<unsigned>(ni) * h * w * c + co / m;
+    const T* wc = wt + co;
     float acc = 0.0f;
     for (int ky = 0; ky < kh; ++ky) {
-      const int iy = oy * sh - ph + ky;
+      const int iy = oy * sh - ph + ky * dh;
       if (iy < 0 || iy >= h) continue;
       for (int kx = 0; kx < kw; ++kx) {
-        const int ix = ox * sw - pw + kx;
+        const int ix = ox * sw - pw + kx * dw;
         if (ix < 0 || ix >= w) continue;
-        acc = fmaf(to_f(xn[(iy * w + ix) * c]), to_f(wc[(ky * kw + kx) * c]), acc);
+        acc = fmaf(to_f(xn[(iy * w + ix) * c]), to_f(wc[(ky * kw + kx) * cout]), acc);
       }
     }
     y[i] = from_f<T>(acc);
@@ -138,15 +149,15 @@ struct Tiling {
 
 // One CTA's copy of tile t's input halo into shared memory, 16 bytes at a
 // time, zeros where the halo leaves the input (the padding taps), as one
-// cp.async group. Tiles are numbered channel block outermost, then image,
+// cp.async group. KD: the window's extent, (K-1)*D+1 for a dilated K x K. Tiles are numbered channel block outermost, then image,
 // tile row, tile column, so the tiles a grid works on at once are
 // neighbours that share halo rows in L2.
-template <typename T, int K, int S>
+template <typename T, int KD, int S>
 __device__ __forceinline__ void copy_halo(const T* __restrict__ x, T* halo, const Tiling& g,
                                           int n_img, int t, int v, int p0, int pstep) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte copy
-  const int hw = (g.tw - 1) * S + K;
-  const int npix = ((g.th - 1) * S + K) * hw;
+  const int hw = (g.tw - 1) * S + KD;
+  const int npix = ((g.th - 1) * S + KD) * hw;
   const int per_c = n_img * g.spatial();
   const int cblk = t / per_c;
   int rest = t - cblk * per_c;
@@ -176,17 +187,19 @@ __device__ __forceinline__ void copy_halo(const T* __restrict__ x, T* halo, cons
 // Persistent: the grid holds as many CTAs as the SMs keep resident, and
 // each walks the tiles t = blockIdx.x, + gridDim.x, ... with two halo
 // buffers, copying the next tile's halo while it computes this one. A
-// thread computes RY x R outputs (rows x columns) of 8 channels.
-template <typename T, int K, int S, int R, int RY>
+// thread computes RY x R outputs (rows x columns) of 8 channels; the taps
+// are D apart.
+template <typename T, int K, int S, int D, int R, int RY>
 __global__ void __launch_bounds__(256)
     depthwise_vec_kernel(const T* __restrict__ x, const T* __restrict__ wt, T* __restrict__ y,
                          int n_img, Tiling g) {
+  constexpr int KD = (K - 1) * D + 1;  // the window's extent
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int vb = g.cb / 8;  // 8-channel vectors per pixel of the tile
   const int ns = g.tw / R;  // strips per tile row
-  const int hw = (g.tw - 1) * S + K;
+  const int hw = (g.tw - 1) * S + KD;
   T* const halo = reinterpret_cast<T*>(smem_raw);  // two buffers of `hsize`
-  const int hsize = ((g.th - 1) * S + K) * hw * g.cb;
+  const int hsize = ((g.th - 1) * S + KD) * hw * g.cb;
   const int total = n_img * g.spatial() * (g.c / g.cb);
   // the thread's 8 channels, its place in the halo copy and in the tile,
   // once
@@ -197,12 +210,12 @@ __global__ void __launch_bounds__(256)
 
   int t = blockIdx.x;
   if (t >= total) return;
-  copy_halo<T, K, S>(x, halo, g, n_img, t, v, p0, pstep);
+  copy_halo<T, KD, S>(x, halo, g, n_img, t, v, p0, pstep);
   int cblk_w = -1;
   float wr[K * K][8];
   for (int i = 0; t < total; ++i, t += gridDim.x) {
     if (t + static_cast<int>(gridDim.x) < total) {
-      copy_halo<T, K, S>(x, halo + ((i + 1) & 1) * hsize, g, n_img, t + gridDim.x, v, p0,
+      copy_halo<T, KD, S>(x, halo + ((i + 1) & 1) * hsize, g, n_img, t + gridDim.x, v, p0,
                          pstep);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
@@ -231,22 +244,26 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
           for (int e = 0; e < 8; ++e) acc[q][r][e] = 0.0f;
       const T* base = halo + (i & 1) * hsize + (row * RY * S * hw + sx * R * S) * g.cb + v * 8;
-      // output (q, r) takes halo row jy at tap ky = jy - q*S and column j
-      // at kx = j - r*S: for each output the taps arrive in (ky, kx) order
+      // output (q, r) takes halo row jy at tap ky = (jy - q*S) / D and
+      // column j at kx = (j - r*S) / D where those divide: for each output
+      // the taps arrive in (ky, kx) order. A row or column no tap reads is
+      // not loaded (the unrolled load has no use)
 #pragma unroll
-      for (int jy = 0; jy < (RY - 1) * S + K; ++jy) {
+      for (int jy = 0; jy < (RY - 1) * S + KD; ++jy) {
 #pragma unroll
-        for (int j = 0; j < (R - 1) * S + K; ++j) {
+        for (int j = 0; j < (R - 1) * S + KD; ++j) {
           float xv[8];
           load8(base + (jy * hw + j) * g.cb, xv);
 #pragma unroll
           for (int q = 0; q < RY; ++q) {
-            const int ky = jy - q * S;
-            if (ky < 0 || ky >= K) continue;
+            const int dy = jy - q * S;
+            if (dy < 0 || dy % D != 0 || dy / D >= K) continue;
+            const int ky = dy / D;
 #pragma unroll
             for (int r = 0; r < R; ++r) {
-              const int kx = j - r * S;
-              if (kx >= 0 && kx < K) {
+              const int dx = j - r * S;
+              const int kx = dx / D;
+              if (dx >= 0 && dx % D == 0 && kx < K) {
 #pragma unroll
                 for (int e = 0; e < 8; ++e)
                   acc[q][r][e] = fmaf(xv[e], wr[ky * K + kx][e], acc[q][r][e]);
@@ -270,17 +287,18 @@ __global__ void __launch_bounds__(256)
 
 constexpr int MAX_HALO = 48 * 1024;  // bytes of one halo buffer (depthwise_plan)
 
-template <typename T, int S, int R, int RY>
+template <typename T, int S, int D, int R, int RY>
 int launch_vec(const void* x, const void* w, void* y, int n, Tiling g, cudaStream_t st) {
   constexpr int K = 3;
-  auto kernel = depthwise_vec_kernel<T, K, S, R, RY>;
+  constexpr int KD = (K - 1) * D + 1;
+  auto kernel = depthwise_vec_kernel<T, K, S, D, R, RY>;
   if (g.cb % 8 != 0 || g.c % g.cb != 0 || g.tw % R != 0 || g.th < 1 ||
       g.th % RY != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long threads = static_cast<long long>(g.cb / 8) * (g.th / RY) * (g.tw / R);
   const long long halo =
-      static_cast<long long>((g.th - 1) * S + K) * ((g.tw - 1) * S + K) * g.cb * sizeof(T);
+      static_cast<long long>((g.th - 1) * S + KD) * ((g.tw - 1) * S + KD) * g.cb * sizeof(T);
   if (threads < 1 || threads > 256 || halo > MAX_HALO) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -315,55 +333,69 @@ int launch_vec(const void* x, const void* w, void* y, int n, Tiling g, cudaStrea
   return static_cast<int>(cudaGetLastError());
 }
 
+// the vector route at stride S (2 x 4 outputs per thread at 1, 1 x 2 at 2)
+// and dilation d in {1, 2}
+template <typename T, int S, int R, int RY>
+int launch_vec_d(int d, const void* x, const void* w, void* y, int n, const Tiling& g,
+                 cudaStream_t st) {
+  switch (d) {
+    case 1: return launch_vec<T, S, 1, R, RY>(x, w, y, n, g, st);
+    case 2: return launch_vec<T, S, 2, R, RY>(x, w, y, n, g, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int launch(int route, const void* x, const void* w, void* y, int n, int h, int wd, int c, int oh,
-           int ow, int kh, int kw, int sh, int sw, int ph, int pw, int cb, int th, int tw, int r,
-           int ry, cudaStream_t st) {
-  if (route == 1) {  // vector: 3x3, stride 1 (2 x 4 outputs per thread) or 2 (1 x 2)
-    if (kh != 3 || kw != 3 || sh != sw || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(w) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+int launch(int route, const void* x, const void* w, void* y, int n, int h, int wd, int c,
+           int cout, int oh, int ow, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+           int dw, int cb, int th, int tw, int r, int ry, cudaStream_t st) {
+  if (route == 1) {  // vector: multiplier 1, 3x3, stride 1 or 2, dilation 1 or 2
+    if (cout != c || kh != 3 || kw != 3 || sh != sw || dh != dw ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(y) % 16 != 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const Tiling g{h, wd, c, oh, ow, ph, pw, cb, th, tw, 0, 0};
-    if (sh == 1 && r == 4 && ry == 2) return launch_vec<T, 1, 4, 2>(x, w, y, n, g, st);
-    if (sh == 2 && r == 2 && ry == 1) return launch_vec<T, 2, 2, 1>(x, w, y, n, g, st);
+    if (sh == 1 && r == 4 && ry == 2) return launch_vec_d<T, 1, 4, 2>(dh, x, w, y, n, g, st);
+    if (sh == 2 && r == 2 && ry == 1) return launch_vec_d<T, 2, 2, 1>(dh, x, w, y, n, g, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * oh * ow * c;
+  if (route != 0 || c < 1 || cout % c != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * oh * ow * cout;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
   if (blocks < 1) blocks = 1;
   depthwise_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), n, h, wd, c, oh,
-      ow, kh, kw, sh, sw, ph, pw);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), n, h, wd, c, cout,
+      oh, ow, kh, kw, sh, sw, ph, pw, dh, dw);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. route: 0 = loop, 1 = vector with the
-// tile cb x th x tw and ry x r outputs per thread (depthwise_plan).
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. cout: m*c for the channel multiplier
+// m. route: 0 = loop, 1 = vector with the tile cb x th x tw and ry x r
+// outputs per thread (depthwise_plan). Returns cudaGetLastError() after the
+// launch.
 extern "C" int depthwise_launch(int dtype, const void* x, const void* w, void* y,
-                                int n, int h, int wd, int c, int oh, int ow,
-                                int kh, int kw, int sh, int sw, int ph, int pw,
+                                int n, int h, int wd, int c, int oh, int ow, int cout,
+                                int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
                                 int route, int cb, int th, int tw, int r, int ry,
                                 void* stream) {
-  const long long total = static_cast<long long>(n) * oh * ow * c;
+  const long long total = static_cast<long long>(n) * oh * ow * cout;
   const long long in_total = static_cast<long long>(n) * h * wd * c;
   if (total >= (1LL << 31) || in_total >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(route, x, w, y, n, h, wd, c, oh, ow, kh, kw, sh, sw, ph, pw, cb, th,
-                         tw, r, ry, st);
+    return launch<float>(route, x, w, y, n, h, wd, c, cout, oh, ow, kh, kw, sh, sw, ph, pw, dh,
+                         dw, cb, th, tw, r, ry, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(route, x, w, y, n, h, wd, c, oh, ow, kh, kw, sh, sw, ph, pw,
-                                 cb, th, tw, r, ry, st);
+    return launch<__nv_bfloat16>(route, x, w, y, n, h, wd, c, cout, oh, ow, kh, kw, sh, sw, ph,
+                                 pw, dh, dw, cb, th, tw, r, ry, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

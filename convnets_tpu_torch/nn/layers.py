@@ -11,16 +11,15 @@ model, the Trainer's eval step and an exported program run the same graph;
 in train mode conv_bn_relu_train (conv2d_stats
 or grouped_conv2d_stats), conv2d_train, grouped_conv2d_train,
 depthwise_train and pool2d_train. A conv is dense, depthwise or grouped
-(`_check_conv_envelope`, tested in the JAX package's order): a dense conv
-of any stride and dilation, a depthwise one (undilated), or a grouped one
-with Cin/G >= 2, at most 64 groups, stride 1 or 2, any dilation. A
-depthwise ConvBNReLU runs unfused, as in the JAX package: the depthwise
-kernel, then BatchNorm2d, then ReLU; a grouped one runs fused, as a dense
-one, dilated or not. Train mode updates the BN running statistics in
-place, once per forward (not again in a Remat recompute). What no kernel
-takes (a grouped conv whose channels do not divide, with Cin/G = 1 but not
-depthwise, more than 64 groups or stride 3 and up; a dilated depthwise
-conv) raises NotImplementedError.
+(`_check_conv_envelope`, tested in the JAX package's order), each of any
+stride and dilation per axis: a dense conv, a depthwise one (groups = Cin,
+any channel multiplier), or a grouped one (Cin/G >= 2, any number of
+groups). So every conv the JAX package's Conv2d takes, one whose groups
+divide both channel counts, runs on a kernel. A depthwise ConvBNReLU runs
+unfused, as in the JAX package: the depthwise kernel, then BatchNorm2d,
+then ReLU; a grouped one runs fused, as a dense one. Train mode updates
+the BN running statistics in place, once per forward (not again in a
+Remat recompute).
 """
 
 from __future__ import annotations
@@ -45,29 +44,24 @@ from convnets_tpu_torch.parallel.mesh import global_count
 _OPS = getattr(torch.ops, library.NAMESPACE)
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
-
-
 DENSE, DEPTHWISE, GROUPED = "dense", "depthwise", "grouped"
 
 
 def _check_conv_envelope(conv: "Conv2d", cin: int) -> str:
     """Which kernel family takes the conv: DENSE (conv2d_fused),
     DEPTHWISE (depthwise_conv2d) or GROUPED (the grouped kernels), tested
-    in the JAX package's order (nn/layers.py:91-105); raises for what no
-    ported kernel takes."""
+    in the JAX package's order (nn/layers.py:91-105). Every conv whose
+    groups divide both channel counts has one; any other is no conv (lax
+    refuses it in the JAX package too) and raises ValueError."""
     if kernels.fits_conv(conv.stride, conv.dilation, conv.groups):
         return DENSE
     if kernels.fits_depthwise(cin, conv.out_channels, conv.dilation, conv.groups):
         return DEPTHWISE
     if kernels.fits_grouped(cin, conv.out_channels, conv.stride, conv.dilation, conv.groups):
         return GROUPED
-    raise not_ported(f"a conv with groups={conv.groups}, Cin={cin}, Cout={conv.out_channels}, "
-                     f"stride {conv.stride}, dilation {conv.dilation}, outside every kernel's "
-                     f"envelope (fits_grouped: Cin/G >= 2, channels that divide, at most 64 "
-                     f"groups, stride 1 or 2; fits_depthwise: undilated, multiplier 1)",
-                     "modules item 8, convs outside the kernels' envelopes")
+    raise ValueError(f"a conv with groups={conv.groups}, Cin={cin}, Cout={conv.out_channels}, "
+                     f"stride {conv.stride}, dilation {conv.dilation}: the groups must divide "
+                     f"both channel counts, stride and dilation must be >= 1")
 
 
 class Conv2d(Module):
@@ -117,9 +111,9 @@ class Conv2d(Module):
         x, w = x.to(cd), self.weight.to(cd)
         geo = (list(self.stride), list(self.padding))
         if family == DEPTHWISE and self.training:
-            y = kernels.depthwise_train(x, w, self.stride, self.padding)
+            y = kernels.depthwise_train(x, w, self.stride, self.padding, self.dilation)
         elif family == DEPTHWISE:
-            y = _OPS.depthwise_conv2d(x, w, *geo)
+            y = _OPS.depthwise_conv2d(x, w, *geo, list(self.dilation))
         elif family == GROUPED and self.training:
             y = kernels.grouped_conv2d_train(x, w, self.groups, self.stride, self.padding,
                                              self.dilation)
@@ -479,13 +473,16 @@ class ConvBNReLU(Sequential):
     for a grouped conv; batch statistics, ReLU) and then the running update
     of the JAX layer (:574-583). Children stay '0' Conv2d, '1'
     BatchNorm2d, ('2' ReLU), so the variable tree is the unfused one. A
-    conv with a bias, and a depthwise conv (which fits neither fused kernel
-    in the JAX package either, :539-547), runs the unfused composition. A
-    dilated conv runs fused too (SKConv's second path), where the JAX
-    package runs it unfused on XLA (conv, then BatchNorm2d): the values
-    agree in fp32; in bf16 the fused path rounds y once (train: the stored
-    y the statistics are taken from; eval: after the folded epilogue)
-    where the JAX package rounds the conv output and then the BN output."""
+    conv with a bias, and a depthwise conv of any multiplier and dilation
+    (which fits neither fused kernel in the JAX package either, :539-547),
+    runs the unfused composition. A dilated conv, and a grouped conv
+    outside JAX's Pallas envelope (more than 64 groups, Cin/G above 32, a
+    stride other than 1 or 2 or different strides per axis), runs fused
+    too, where the JAX package runs it unfused on XLA (conv, then
+    BatchNorm2d): the values agree in fp32; in bf16 the fused path rounds y
+    once (train: the stored y the statistics are taken from; eval: after
+    the folded epilogue) where the JAX package rounds the conv output and
+    then the BN output."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]

@@ -22,9 +22,9 @@ def conv2d(x, w, *, stride=1, padding=0, dilation=1, groups=1):
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def conv2d_depthwise(x, w, *, stride=1, padding=0):
+def conv2d_depthwise(x, w, *, stride=1, padding=0, dilation=1):
     """One filter per input channel (groups = C): w (kh, kw, 1, C·multiplier)."""
-    return conv2d(x, w, stride=stride, padding=padding, groups=x.shape[-1])
+    return conv2d(x, w, stride=stride, padding=padding, dilation=dilation, groups=x.shape[-1])
 
 
 def linear(x, w, b=None):

@@ -24,9 +24,10 @@ among them) on the tensor cores too (csrc/grouped_wgmma.cu, route
 "wgmma_wide"), fp32 and bf16 at Cin/G = 2 on the CUDA cores
 (csrc/grouped_conv.cu, "simt"); `ROUTE_LAUNCHES` counts their launches
 per route. Both conv families take any stride and
-dilation: the kernels address the tap (ky, kx) of output pixel (oy, ox)
-at input row oy·sh − ph + ky·dh and column ox·sw − pw + kx·dw. The
-window kernels (`depthwise_conv2d`, `max_pool2d`, `avg_pool2d`,
+dilation, and the grouped one any number of groups: the kernels address
+the tap (ky, kx) of output pixel (oy, ox) at input row oy·sh − ph + ky·dh
+and column ox·sw − pw + kx·dw. The window kernels (`depthwise_conv2d`,
+any channel multiplier and dilation; `max_pool2d`, `avg_pool2d`,
 `pool2d_backward`) run on the CUDA cores on the route that
 `depthwise_plan` / `pool_plan` pick by shape: "vector" (8 channels per
 thread in 16-byte vectors) or "loop" (one thread per element);
@@ -117,9 +118,9 @@ _SIGNATURES = {
     "avg_pool_launch": [_I, _P, _P] + [_I] * 14 + [_P],
     # dtype, mode, g, taps, dx, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, stream
     "pool_backward_launch": [_I, _I, _P, _P, _P] + [_I] * 13 + [_P],
-    # dtype, x, w, y, n, h, w, c, oh, ow, kh, kw, sh, sw, ph, pw, route, cb, th, tw, r, ry,
-    # stream
-    "depthwise_launch": [_I, _P, _P, _P] + [_I] * 18 + [_P],
+    # dtype, x, w, y, n, h, w, c, oh, ow, cout, kh, kw, sh, sw, ph, pw, dh, dw, route, cb,
+    # th, tw, r, ry, stream
+    "depthwise_launch": [_I, _P, _P, _P] + [_I] * 21 + [_P],
     # dtype, x, w, scale, shift, y, n, h, w, cin, oh, ow, cout, kh, kw, sh, sw, ph, pw,
     # dh, dw, groups, route, relu, stream
     "grouped_fused_launch": [_I, _P, _P, _P, _P, _P] + [_I] * 18 + [_P],
@@ -263,23 +264,25 @@ def fits_conv(stride, dilation, groups: int) -> bool:
 
 def fits_grouped(cin: int, cout: int, stride, dilation, groups: int) -> bool:
     """Envelope of the grouped kernels (grouped_conv2d_fused/_stats and
-    grouped_conv2d_train): the JAX package's grouped path
+    grouped_conv2d_train): every grouped conv the JAX package's Conv2d
+    takes that is not depthwise. JAX's Pallas path
     (ops/pallas/__init__.py:fits_grouped: 2 <= Cin/G <= 32, at most 64
-    groups, undilated, stride 1 or 2) widened by dilation (SKConv's second
-    path) and by Cin/G above 32 (ShuffleNet's grouped 1x1s): any Cin/G >= 2
-    whose channels divide, at most 64 groups, stride 1 or 2, any dilation
-    >= 1."""
-    sh, sw = to_pair(stride)
-    return (1 < groups <= 64 and cin % groups == 0 and cout % groups == 0
-            and cin // groups >= 2 and min(to_pair(dilation)) >= 1
-            and (sh, sw) in ((1, 1), (2, 2)))
+    groups, undilated, stride 1 or 2) widened by dilation, by Cin/G above
+    32, by any number of groups and by any stride per axis (the rest runs
+    on lax there): groups > 1 dividing Cin and Cout, Cin/G >= 2, stride and
+    dilation >= 1."""
+    return (groups > 1 and cin % groups == 0 and cout % groups == 0 and cin // groups >= 2
+            and min(*to_pair(stride), *to_pair(dilation)) >= 1)
 
 
 def fits_depthwise(cin: int, cout: int, dilation, groups: int) -> bool:
-    """Envelope of depthwise_conv2d: one filter per channel, multiplier 1
-    (cout == cin), undilated; any stride."""
-    dh, dw = to_pair(dilation)
-    return groups == cin and cout == cin and (dh, dw) == (1, 1)
+    """Envelope of depthwise_conv2d: one group per input channel (groups ==
+    Cin), Cout a multiple m >= 1 of Cin (the channel multiplier), any
+    dilation >= 1 and stride. JAX's Pallas path (fits_depthwise there:
+    multiplier 1, undilated) widened by the multiplier and dilation it
+    leaves to lax."""
+    return (groups == cin and cout % cin == 0 and cout >= cin
+            and min(to_pair(dilation)) >= 1)
 
 
 from convnets_tpu_torch.ops.kernels.conv import (  # noqa: E402

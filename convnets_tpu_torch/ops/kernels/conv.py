@@ -39,8 +39,8 @@ fp32, and bf16 at Cin/G = 2, run the CUDA-core loop of
 csrc/grouped_conv.cu ("simt"), which sums each group's own products,
 walking a wide group's input channels in chunks of 32.
 
-Every conv kernel takes any dilation, and the dense ones any stride: the
-shape arguments of the C entry points (`geo`) are n, h, w, cin, oh, ow,
+Every conv kernel takes any stride and dilation per axis, and the grouped
+ones any number of groups: the shape arguments of the C entry points (`geo`) are n, h, w, cin, oh, ow,
 cout, kh, kw, sh, sw, ph, pw, dh, dw, and the tap (ky, kx) of output
 pixel (oy, ox) reads input row oy·sh − ph + ky·dh, column ox·sw − pw +
 kx·dw.
@@ -263,12 +263,12 @@ def _conv_geometry(name, x, w, stride, padding, groups=1, dilation=1):
     sh, sw = to_pair(stride)
     ph, pw = to_pair(padding)
     dh, dw = to_pair(dilation)
-    if groups > 1 and not _k.fits_grouped(cin, cout, (sh, sw), (dh, dw), groups):
-        raise NotImplementedError(f"{name}: groups={groups} with Cin={cin}, Cout={cout}, "
-                                  f"stride {(sh, sw)}, dilation {(dh, dw)} is outside the "
-                                  f"grouped kernel's envelope")
+    if groups > 1 and (cout % groups or wc < 2):
+        raise ValueError(f"{name}: groups={groups} with Cin={cin}, Cout={cout}: the grouped "
+                         f"kernels take groups dividing Cout and Cin/G >= 2 (Cin/G = 1 is "
+                         f"depthwise_conv2d's)")
     if not _k.fits_conv((sh, sw), (dh, dw), 1):
-        raise NotImplementedError(f"{name}: stride {(sh, sw)}, dilation {(dh, dw)} (each >= 1)")
+        raise ValueError(f"{name}: stride {(sh, sw)}, dilation {(dh, dw)} (each >= 1)")
     _k.check_cuda_operand(f"{name} x", x)
     _k.check_cuda_operand(f"{name} w", w, x.dtype)
     oh = conv_out_size(h, kh, sh, ph, dh)
@@ -421,8 +421,9 @@ def grouped_conv2d_fused(x, w, groups: int, scale: Optional[torch.Tensor] = None
                          relu: bool = False, dilation=1):
     """conv2d_fused for a grouped conv: x (N, H, W, Cin), w (kh, kw, Cin/G,
     Cout) in x.dtype, output channel c reading group c // (Cout/G) only.
-    Envelope `fits_grouped` (Cin/G >= 2, stride 1 or 2, any dilation); the
-    main loop is the one `grouped_plan` picks. Returns (N, OH, OW, Cout)."""
+    Envelope `fits_grouped` (Cin/G >= 2, any number of groups, stride and
+    dilation); the main loop is the one `grouped_plan` picks. Returns (N,
+    OH, OW, Cout)."""
     if x.device.type == "cpu":
         return grouped_conv2d_fused_plain(x, w, groups, scale, shift, stride=stride,
                                           padding=padding, relu=relu, dilation=dilation)

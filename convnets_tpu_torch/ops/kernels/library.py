@@ -20,7 +20,7 @@ Each op has two implementations and no other:
 There is no composite or default implementation: a tensor on any other
 device raises, and a CUDA tensor never reaches a plain version.
 
-The two conv ops take the dilation as their last argument, with the
+The three conv ops take the dilation as their last argument, with the
 default [1, 1] in their schema, so a program saved before the argument
 existed still loads and runs undilated.
 
@@ -94,16 +94,18 @@ def _(x, w, groups, scale, shift, stride, padding, relu, dilation=(1, 1)):
     return _conv_fake(x, w, stride, padding, dilation)
 
 
-@custom_op(f"{NAMESPACE}::depthwise_conv2d", mutates_args=(), device_types=("cpu", "cuda"))
-def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, stride: List[int],
-                     padding: List[int]) -> torch.Tensor:
-    """ops/kernels/depthwise.py:depthwise_conv2d as an op: w (kh, kw, 1, C)."""
-    return _k.depthwise_conv2d(x, w, stride=stride, padding=padding)
+@custom_op(f"{NAMESPACE}::depthwise_conv2d", mutates_args=(), device_types=("cpu", "cuda"),
+           schema=f"(Tensor x, Tensor w, int[] stride, int[] padding, {_DILATION}) -> Tensor")
+def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, stride: List[int], padding: List[int],
+                     dilation: List[int] = (1, 1)) -> torch.Tensor:
+    """ops/kernels/depthwise.py:depthwise_conv2d as an op: w (kh, kw, 1,
+    m·C), m the channel multiplier."""
+    return _k.depthwise_conv2d(x, w, stride=stride, padding=padding, dilation=dilation)
 
 
 @depthwise_conv2d.register_fake
-def _(x, w, stride, padding):
-    return _pool_fake(x, w.shape[:2], stride, padding)
+def _(x, w, stride, padding, dilation=(1, 1)):
+    return _conv_fake(x, w, stride, padding, dilation)
 
 
 @custom_op(f"{NAMESPACE}::max_pool2d", mutates_args=(), device_types=("cpu", "cuda"))

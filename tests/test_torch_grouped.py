@@ -155,10 +155,12 @@ def test_grouped_conv_bn_relu_train_matches_jax(stride, relu):
 
 
 def test_fits_grouped_is_the_jax_envelope():
-    """The port's grouped envelope is the JAX package's (ops/pallas/
-    __init__.py:fits_grouped) widened by dilation (SKConv's second path)
-    and by Cin/G above 32 (ShuffleNet's grouped 1x1s, Cin/G up to 400): it
-    contains JAX's, and takes exactly what JAX's takes once those two
+    """The port's grouped envelope is the JAX package's Pallas one
+    (ops/pallas/__init__.py:fits_grouped) widened to every grouped conv
+    its Conv2d takes off the depthwise kernel: by dilation (SKConv's second
+    path), by Cin/G above 32 (ShuffleNet's grouped 1x1s, Cin/G up to 400),
+    by more than 64 groups and by any stride per axis (3, (2, 1)). It
+    contains JAX's, and takes exactly what JAX's takes once those four
     limits are lifted."""
     from convnets_tpu.ops.pallas import fits_grouped as jax_fits_grouped
 
@@ -166,13 +168,16 @@ def test_fits_grouped_is_the_jax_envelope():
              (128, 128, 1, 2, 32), (128, 128, 3, 1, 32), (4, 4, 1, 1, 4), (96, 96, 1, 1, 3),
              (4096, 4096, 1, 1, 128), (128, 130, 1, 1, 32), (16, 16, 1, 1, 1),
              (272, 68, 1, 1, 4), (800, 200, 1, 1, 2), (68, 248, 1, 1, 4), (256, 256, 2, 2, 32),
-             (128, 128, 3, 2, 32), (6, 8, 1, 1, 2)]
+             (128, 128, 3, 2, 32), (6, 8, 1, 1, 2), (512, 512, 1, 1, 256),
+             (256, 256, (2, 1), 1, 32), (64, 64, (1, 3), (2, 1), 8), (128, 256, 1, 1, 128)]
     for cin, cout, stride, dilation, groups in cases:
         port = kernels.fits_grouped(cin, cout, stride, dilation, groups)
         if jax_fits_grouped(cin, cout, stride, dilation, groups):
             assert port, (cin, cout, stride, dilation, groups)
-        # JAX's test with the dilation and the Cin/G <= 32 cap lifted
-        widened = (jax_fits_grouped(2 * groups, 2 * groups, stride, 1, groups)
+        # JAX's test with the dilation, the Cin/G <= 32 cap, the 64-group
+        # cap and the stride set lifted
+        widened = (jax_fits_grouped(2 * min(groups, 64), 2 * min(groups, 64), 1, 1,
+                                    min(groups, 64))
                    and cin % groups == 0 and cout % groups == 0 and cin // groups >= 2)
         assert port == widened, (cin, cout, stride, dilation, groups)
 

@@ -240,8 +240,17 @@ def test_fits_conv(stride, dilation, groups, fits):
     (32, 32, 1, 32, True), (1024, 1024, (1, 1), 1024, True), (32, 64, 1, 32, False),
     (32, 32, 2, 32, False), (32, 32, 1, 16, False), (8, 8, 1, 1, False)])
 def test_fits_depthwise(cin, cout, dilation, groups, fits):
-    """The envelope of convnets_tpu/ops/pallas/__init__.py:fits_depthwise."""
-    assert kernels.fits_depthwise(cin, cout, dilation, groups) is fits
+    """The envelope of convnets_tpu/ops/pallas/__init__.py:fits_depthwise
+    (`fits`: its answer) widened by the channel multiplier and the dilation
+    that JAX leaves to lax: it contains JAX's, and takes exactly JAX's test
+    with both limits lifted (groups == Cin, Cout a multiple of Cin)."""
+    from convnets_tpu.ops.pallas import fits_depthwise as jax_fits_depthwise
+
+    assert jax_fits_depthwise(cin, cout, dilation, groups) is fits
+    port = kernels.fits_depthwise(cin, cout, dilation, groups)
+    assert port or not fits
+    widened = cout % cin == 0 and jax_fits_depthwise(cin, cin, 1, groups)
+    assert port is widened
 
 
 def test_nothing_is_built_on_import_or_cpu_use():

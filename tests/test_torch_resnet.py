@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from convnets_tpu import ops as jax_ops
 from convnets_tpu.models import build_model as jax_build_model
 from convnets_tpu.serve.export import _metadata as jax_metadata
 from convnets_tpu.serve.export import _serving_forward as jax_serving_forward
@@ -191,13 +192,13 @@ def test_rn50_at_224_has_the_jax_variable_layout(arch, kind, conv_bn_relus):
 def test_remat_trains_the_fused_densenet_builds_and_the_rest_runs_or_raises(monkeypatch):
     """Train mode runs, Remat in train mode too (its recompute: tests/
     test_torch_remat.py), and CONVNETS_TPU_DENSENET_FUSED=1 builds the
-    shared-statistics blocks (tests/test_torch_densenet_fused.py); a conv
-    outside every kernel's envelope (Cin/G = 1 with a channel multiplier of
-    2) raises, naming ROADMAP.md, in eval and train. The dilated grouped
-    conv and the one with 64 input channels per group, which raised before
-    the grouped envelope was widened, now run and equal the plain conv → BN
-    → ReLU. Mixup is ported: its step builds, and refuses to run without
-    the step's DataRng."""
+    shared-statistics blocks (tests/test_torch_densenet_fused.py). The
+    dilated grouped conv and the one with 64 input channels per group now
+    run and equal the plain conv → BN → ReLU; the depthwise conv with a
+    channel multiplier of 2, which raised before the depthwise envelope was
+    widened, equals JAX's lax conv → BN → ReLU in eval and train. Mixup is
+    ported: its step builds, and refuses to run without the step's
+    DataRng."""
     remat = build_model("resnet", Settings(kind="18", input_size=(3, 32, 32), num_classes=10,
                                            mixed_precision=False, remat=True), device="cpu")
     assert sum(isinstance(m, nn.Remat) for m in remat.modules()) == 8
@@ -239,6 +240,20 @@ def test_remat_trains_the_fused_densenet_builds_and_the_rest_runs_or_raises(monk
                                        atol=TOL)
     multiplier = nn.conv_block(16, 3, padding=1, groups=8)
     multiplier.init(gen, (1, 8, 8, 8))
-    for mode in (multiplier.eval(), multiplier.train()):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            mode(torch.zeros(1, 8, 8, 8))
+    conv, bn = multiplier._modules["0"], multiplier._modules["1"]
+    with torch.no_grad():
+        bn.running_mean.copy_(0.1 * torch.randn(16, generator=gen))
+        bn.running_var.uniform_(0.7, 1.3, generator=gen)
+    xm = torch.randn(2, 8, 8, 8, generator=gen)
+    y = torch.from_numpy(np.array(jax_ops.conv2d(
+        jnp.asarray(xm.numpy()), jnp.asarray(conv.weight.detach().numpy()), padding=1,
+        groups=8)))
+    with torch.no_grad():
+        want = ops.relu(ops.batch_norm_inference(y, bn.running_mean, bn.running_var,
+                                                 bn.weight, bn.bias))
+        np.testing.assert_allclose(multiplier.eval()(xm).numpy(), want.numpy(), rtol=TOL,
+                                   atol=TOL)
+        want = ops.relu(ops.batch_norm_train(y, bn.running_mean, bn.running_var, bn.weight,
+                                             bn.bias)[0])
+        np.testing.assert_allclose(multiplier.train()(xm).numpy(), want.numpy(), rtol=TOL,
+                                   atol=TOL)
