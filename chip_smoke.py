@@ -349,6 +349,30 @@ final line:
      launches per kernel and route; (iii) its artifact served by a fresh
      process, argmax against the live model. Prints the envelope JSON
      line.
+  18. the Winograd path (CONVNETS_TPU_WINOGRAD = 2 or 4: every dense 3x3
+     stride-1 conv, bare or BN-fused, through csrc/winograd.cu's input and
+     output transforms with the batched cuBLAS product between them): (i)
+     at every such shape of RN50@224 and VGG-16@32 (Cin 3 included), m = 2
+     and 4, b8 fp32 and bf16: the input kernel's V and the output kernel's
+     three epilogues (bias; scale/shift/ReLU; y with Σy, Σy² of its own
+     stored y) against their plain versions on the card (CONV_TOL,
+     STATS_TOL), the whole conv against conv2d_fused within JAX's Winograd
+     bars (fp32 max|Δ| / max|ref| ≤ 2e-5 / 3e-4; bf16 the error band of
+     tests/test_winograd.py against the fp32 direct conv); RN50's four
+     shapes at b256 bf16, the kernels first against their plain versions
+     as at b8, then stage by stage beside conv2d_fused, cuDNN's F.conv2d
+     and the bound, with the V and M temporaries' peak; (ii) RN50@224 bf16
+     b256 with bench.py's settings, the gate off, 2, 4 in turns: launches
+     per step (13 + 13 transform launches, 40 conv2d_stats, 53
+     reductions) and per served request exact, a gated request's argmax =
+     the plain path's on ≥ 0.99, img/s, peak memory and the profiled
+     device ms per step; at each gate the fp32 b8 SGD step against the plain path
+     beside the perturbed control and ten bf16 Adam steps with a falling
+     loss; (iii) VGG-16@32 with gate 4 through the CLI on a phase 12 PNG
+     tree: a 2-epoch fit with exact launches per call, the exported
+     artifact's request (profiled: no library convolution) and a fresh
+     process with the gate unset serving it, argmax = Trainer.test's on
+     ≥ 0.99. Prints the winograd JSON line.
   --train-profile ROOT (no phases, no result line): RN50@224 bf16 b256's
      step ms and profiled device split (the fused sites' BN forward and
      backward apart, the backward nodes' kernels by name), RN26@32 b256's
@@ -358,7 +382,7 @@ final line:
      turns, device events by name) of the checkout at ROOT; run over the
      parent and the change in turns.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-17's paths (PATHS),
+  kernel: launches on its main path and on phases 10-18's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -372,6 +396,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -475,7 +500,8 @@ WINDOW_ROUTED = ("depthwise_conv2d", "max_pool2d", "avg_pool2d", "pool2d_backwar
 OUR_KERNELS = ("conv_wgmma_kernel<", "conv_kernel<", "stats_reduce_kernel", "pool_vec_kernel<",
                "pool_bwd_kernel<", "depthwise_kernel<", "depthwise_vec_kernel<",
                "grouped_conv_kernel<", "grouped_wide_kernel<", "bottleneck_kernel<",
-               "bn_act_forward_kernel<", "bn_act_sums_kernel<", "bn_act_apply_kernel<")
+               "bn_act_forward_kernel<", "bn_act_sums_kernel<", "bn_act_apply_kernel<",
+               "winograd_input_kernel<", "winograd_output_kernel<")
 # the window kernels as the profiler names them, for their share of a
 # request's or a step's device time
 WINDOW_KERNELS = (("depthwise", ("depthwise_kernel<", "depthwise_vec_kernel<")),
@@ -810,7 +836,9 @@ PLAIN = {"conv2d_fused": "conv2d_fused_plain", "conv2d_stats": "conv2d_stats_pla
          "grouped_conv2d_fused": "grouped_conv2d_fused_plain",
          "grouped_conv2d_stats": "grouped_conv2d_stats_plain",
          "bottleneck_block": "bottleneck_block_plain",
-         "bn_act_forward": "bn_act_forward_plain", "bn_act_backward": "bn_act_backward_plain"}
+         "bn_act_forward": "bn_act_forward_plain", "bn_act_backward": "bn_act_backward_plain",
+         "winograd_conv2d": "winograd_conv2d_plain",
+         "winograd_conv2d_stats": "winograd_conv2d_stats_plain"}
 
 
 @contextlib.contextmanager
@@ -4748,6 +4776,24 @@ def write_cli_tree(root, seed):
             Image.fromarray(img).save(os.path.join(root, split, f"class{label}", f"{j:05d}.png"))
 
 
+_CLI_TREES: dict = {}
+
+
+def cli_tree(seed):
+    """The root of write_cli_tree's PNG tree for `seed`, written once per
+    run and shared by the phases that read it (12, 14, 16, 18), removed when
+    the script exits."""
+    if seed not in _CLI_TREES:
+        import atexit
+
+        tmp = tempfile.mkdtemp()
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+        root = os.path.join(tmp, "cinic_like")
+        write_cli_tree(root, seed)
+        _CLI_TREES[seed] = root
+    return _CLI_TREES[seed]
+
+
 @contextlib.contextmanager
 def recorded_trainers(rec):
     """Every Trainer built inside (by the drivers): into rec["trainers"];
@@ -4849,8 +4895,7 @@ def phase_cli(seed, card, failures):
     n_train = CLI_SPLITS[0][1]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        root = os.path.join(tmp, "cinic_like")
-        write_cli_tree(root, seed)
+        root = cli_tree(seed)
         parts["tree"] = time.perf_counter() - t0
         common = ["--input-size", "3,32,32", "--num-classes", str(ZOO_CLASSES), "--data-root",
                   root, "--seed", str(seed)]
@@ -5787,8 +5832,7 @@ def zoo2_cli(seed, card, failures):
     n_train, n_test = CLI_SPLITS[0][1], CLI_SPLITS[2][1]
     rec = new_record()
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "cinic_like")
-        write_cli_tree(root, seed)
+        root = cli_tree(seed)
         common = ["--input-size", "3,32,32", "--num-classes", str(ZOO_CLASSES), "--data-root",
                   root, "--seed", str(seed), "--batch-size", str(ZOO2_CLI_BATCH)]
         sync()
@@ -7284,8 +7328,7 @@ def dp_torchrun_cli(seed, out_dir, card, failures):
     from convnets_tpu_torch.train import Trainer
     from convnets_tpu_torch.train import checkpoint as ckpt
 
-    root = os.path.join(out_dir, "cli_tree")
-    write_cli_tree(root, seed)
+    root = cli_tree(seed)
     site = os.path.join(out_dir, "site")
     os.makedirs(site)
     with open(os.path.join(site, "sitecustomize.py"), "w") as f:
@@ -7792,11 +7835,623 @@ def phase_envelope(seed, card, summary, failures):
     return path
 
 
-# the paths of phases 10-17 whose launches the kernels line carries as
+# phase 18: the Winograd path (ops/winograd.py, gate CONVNETS_TPU_WINOGRAD):
+# the two transform kernels of csrc/winograd.cu with the batched cuBLAS
+# product between them, on every dense 3x3 stride-1 conv, bare or BN-fused
+WINOGRAD_GATE = "CONVNETS_TPU_WINOGRAD"
+WINOGRAD_M = (2, 4)
+WINOGRAD_KERNELS = ("winograd_input", "winograd_output")
+# the JAX package's bars of Winograd against the direct conv
+# (tests/test_winograd.py): fp32 max|Δ| / max|ref| per m (the test's atol =
+# rtol, taken against the largest output); bf16 its error band: mean |Δ| /
+# mean |ref| against the fp32 direct conv below WINOGRAD_BAND × the bf16
+# direct conv's (at least 1e-3) and below 2.5%
+WINOGRAD_FP32_TOL = {2: 2e-5, 4: 3e-4}
+WINOGRAD_BAND, WINOGRAD_BAND_MAX = {2: 2.5, 4: 8.0}, 0.025
+VGG_KIND, WINOGRAD_CLI_M = "16", 4  # (iii): VGG-16@32 (the reference's CINIC configuration)
+WINOGRAD_KEYS = ("ms_m2", "plain_ms_m2", "bound_ms_m2", "ms_b256", "bound_ms_b256",
+                 "ms_b256_m2", "bound_ms_b256_m2", "conv_ms_b256", "conv_ms_b256_m2",
+                 "conv_bound_ms_b256", "direct_ms_b256", "cudnn_ms_b256", "stage_bytes_b256",
+                 "stage_bytes_b256_m2", "winograd_rn50_launches")
+
+
+@contextlib.contextmanager
+def winograd_gate(value):
+    """CONVNETS_TPU_WINOGRAD set to `value` (None: unset) inside."""
+    old = os.environ.get(WINOGRAD_GATE)
+    if value is None:
+        os.environ.pop(WINOGRAD_GATE, None)
+    else:
+        os.environ[WINOGRAD_GATE] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(WINOGRAD_GATE, None)
+        else:
+            os.environ[WINOGRAD_GATE] = old
+
+
+def winograd_sites(model):
+    """{(H, W, Cin, Cout, pad): uses} of the model's dense 3x3 stride-1
+    undilated convs, fused or bare (model_layers), and the total count."""
+    sites = {}
+    for kind, h, w, cin, cout, k, s, p, _, g, d in model_layers(model, with_dilation=True):
+        if kind in ("conv", "plainconv") and (k, s, g, d) == (3, 1, 1, 1):
+            sites[(h, w, cin, cout, p)] = sites.get((h, w, cin, cout, p), 0) + 1
+    return sites, sum(sites.values())
+
+
+def winograd_launches(model):
+    """(per eval forward, per train step) launches of the model with the
+    gate on: model_launches, each Winograd site's conv2d_fused (forward,
+    and conv2d_train's forward in a step) or conv2d_stats (a fused site's
+    step) traded for one winograd_input and one winograd_output; a fused
+    site keeps its reduction and BN passes."""
+    fwd, step = (dict(d) for d in model_launches(model))
+    for kind, _, _, _, _, k, s, _, _, g, d in model_layers(model, with_dilation=True):
+        if kind not in ("conv", "plainconv") or (k, s, g, d) != (3, 1, 1, 1):
+            continue
+        fwd["conv2d_fused"] -= 1
+        step["conv2d_stats" if kind == "conv" else "conv2d_fused"] -= 1
+        for launches in (fwd, step):
+            for name in WINOGRAD_KERNELS:
+                launches[name] += 1
+    return fwd, step
+
+
+def transform_work(m, tiles, c, o, itemsize):
+    """(input FLOPs, input bytes, output FLOPs, output bytes) of the two
+    transforms: Bᵀ d B as the kernel computes it (a rows of Bᵀ's nonzeros
+    on each axis) per tile and channel, x read and V written once; Aᵀ M A
+    likewise, M (fp32) read and y written once (tiles·m² outputs, an upper
+    bound where the last tiles reach past the output)."""
+    from convnets_tpu_torch.ops import winograd
+
+    a = m + 2
+    nnz_b, nnz_a = int((winograd._BT[m] != 0).sum()), int((winograd._AT[m] != 0).sum())
+    in_flops = 2 * 2 * a * nnz_b * tiles * c
+    out_flops = 2 * (a * nnz_a + nnz_a * m) * tiles * o
+    return (in_flops, itemsize * a * a * tiles * c, out_flops,
+            4 * a * a * tiles * o + itemsize * tiles * m * m * o)
+
+
+def winograd_band(win, direct, oracle):
+    """(error, direct error) as tests/test_winograd.py:87-97 takes them:
+    mean |Δ| / mean |oracle| of the bf16 Winograd and the bf16 direct conv
+    against the fp32 direct conv."""
+    scale = float(oracle.abs().mean())
+    return (float((win.float() - oracle).abs().mean()) / scale,
+            float((direct.float() - oracle).abs().mean()) / scale)
+
+
+def winograd_kernel_checks(summary, failures):
+    """Phase 18 (i): at every dense 3x3 stride-1 shape of RN50@224 and
+    VGG-16@32 (Cin 3 included), m = 2 and 4, b8 fp32 and bf16: the input
+    kernel against its plain version (V), the output kernel's three
+    epilogues against theirs on one M (bias; scale/shift/ReLU; y and the
+    sums of its own stored y within STATS_TOL), the whole conv against
+    conv2d_fused within JAX's Winograd bars; the bf16 b8 times into the
+    kernels line (RN50's 13 sites, m = 4; m = 2 under *_m2); at b256 bf16
+    RN50's four shapes timed stage by stage beside conv2d_fused and cuDNN's
+    F.conv2d. Returns the b256 records."""
+    import torch
+
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels, winograd
+    from convnets_tpu_torch.ops.kernels import winograd as wk
+    from convnets_tpu_torch.settings import Settings
+
+    rn50 = build_model("resnet", model_setting("resnet", 0, True), device=DEVICE)
+    vgg = build_model("vggnet", Settings(kind=VGG_KIND, input_size=(3, 32, 32),
+                                      num_classes=ZOO_CLASSES), device=DEVICE)
+    (rn_sites, n_rn), (vgg_sites, n_vgg) = winograd_sites(rn50), winograd_sites(vgg)
+    del rn50, vgg
+    if (n_rn, n_vgg) != (13, 13):
+        failures.append(f"winograd sites: RN50 {n_rn}, VGG-16 {n_vgg} (13 each)")
+    rows = {name: entry(summary, name) for name in WINOGRAD_KERNELS}
+    for row in rows.values():
+        row.update({k: 0.0 for k in WINOGRAD_KEYS[:-1] if not k.startswith("stage")})
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    n, records, checked = KERNEL_BATCH, [], 0
+    say(f"(i) Winograd at N={n}: H W Cin Cout p m dtype | V err, out err (bias / affine / "
+        f"stats y, Σ, Σ²), vs conv2d_fused | kernel ms in / out, plain ms in / out")
+    for (h, w, cin, cout, p), uses, model in ([(*kv, "rn50") for kv in rn_sites.items()]
+                                              + [(*kv, "vgg") for kv in vgg_sites.items()]):
+        x32 = torch.randn(n, h, w, cin, device=DEVICE, generator=g)
+        w32 = torch.randn(3, 3, cin, cout, device=DEVICE, generator=g) * np.sqrt(2 / (9 * cin))
+        b32 = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+        oracle = kernels.conv2d_fused(x32, w32, padding=p)
+        direct_bf16 = kernels.conv2d_fused(x32.bfloat16(), w32.bfloat16(), padding=p)
+        for m in WINOGRAD_M:
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = dname_of(dtype)
+                atol, rtol = CONV_TOL[dname]
+                x, wt, b = x32.to(dtype), w32.to(dtype), b32.to(dtype)
+                geo = wk.geometry(x.shape, cout, p, m)
+                v = kernels.winograd_input(x, m, p)
+                vp = winograd.input_transform_plain(x, m, (p, p))
+                e_in = float((v.float() - vp.float()).abs().max())
+                a = m + 2
+                u = winograd.transform_weight(wt, m, dtype).reshape(a * a, cin, cout)
+                mm = winograd.batched_product(vp, u)
+                outs = [(kernels.winograd_output(mm, geo, dtype, bias=b),
+                         winograd.output_transform_plain(mm, n, geo.oh, geo.ow, m, dtype, bias=b)),
+                        (kernels.winograd_output(mm, geo, dtype, scale=scale, shift=shift,
+                                                 relu=True),
+                         winograd.output_transform_plain(mm, n, geo.oh, geo.ow, m, dtype,
+                                                         scale=scale, shift=shift, relu=True))]
+                stats = kernels.winograd_output_stats(mm, geo, dtype)
+                plain_y = winograd.output_transform_plain(mm, n, geo.oh, geo.ow, m, dtype)
+                yf = plain_y.float()
+                s_ok, s_err, e1, e2 = stats_check(
+                    stats, (plain_y, torch.stack([yf.sum((0, 1, 2)), (yf * yf).sum((0, 1, 2))])),
+                    dname, own=True)
+                e_out = max(float((o.float() - r.float()).abs().max()) for o, r in outs)
+                ok = (e_in <= atol + rtol * float(vp.float().abs().max())
+                      and all(within(o, r, atol, rtol) for o, r in outs) and s_ok
+                      and all(bool(torch.isfinite(o).all()) for o, _ in outs))
+                win = kernels.winograd_conv2d(x, wt, padding=p, m=m)
+                if dtype == torch.float32:
+                    vs = rel_err(win, oracle)
+                    d_ok = vs <= WINOGRAD_FP32_TOL[m]
+                    d_txt = f"{vs:.2e} (tol {WINOGRAD_FP32_TOL[m]:g})"
+                else:
+                    err, err_d = winograd_band(win, direct_bf16, oracle)
+                    d_ok = (err < WINOGRAD_BAND[m] * max(err_d, 1e-3)
+                            and err < WINOGRAD_BAND_MAX)
+                    d_txt = (f"band {err:.2e} vs direct {err_d:.2e} (< {WINOGRAD_BAND[m]:g}× "
+                             f"and {WINOGRAD_BAND_MAX:g})")
+                ok = ok and d_ok
+                checked += 1
+                times = ""
+                if dtype == torch.bfloat16:
+                    k_in = time_ms(lambda: kernels.winograd_input(x, m, p), REPS)
+                    p_in = time_ms(lambda: winograd.input_transform_plain(x, m, (p, p)), REPS)
+                    k_out = time_ms(lambda: kernels.winograd_output(mm, geo, dtype), REPS)
+                    p_out = time_ms(lambda: winograd.output_transform_plain(
+                        mm, n, geo.oh, geo.ow, m, dtype), REPS)
+                    times = f" | {k_in:.4f} / {k_out:.4f}, {p_in:.4f} / {p_out:.4f}"
+                    if model == "rn50":
+                        fi, bi, fo, bo = transform_work(m, geo.tiles, cin, cout, 2)
+                        for name, k_ms, p_ms, flops, nbytes in (
+                                ("winograd_input", k_in, p_in, fi, 2 * x.numel() + bi),
+                                ("winograd_output", k_out, p_out, fo, bo)):
+                            row = rows[name]
+                            if m == 4:
+                                add_times(row, uses, k_ms, p_ms, flops, nbytes, None, PEAK_OTHER)
+                            else:
+                                row["ms_m2"] += uses * k_ms
+                                row["plain_ms_m2"] += uses * p_ms
+                                row["bound_ms_m2"] += uses * max(1e3 * flops / PEAK_OTHER,
+                                                                 1e3 * nbytes / HBM_BPS)
+                rows["winograd_input"]["err"] = max(rows["winograd_input"]["err"], e_in)
+                rows["winograd_output"]["err"] = max(rows["winograd_output"]["err"], e_out,
+                                                     s_err)
+                say(f"  {h} {w} {cin} {cout} {p} F({m},3) {dname} | {e_in:.2e}, {e_out:.2e} "
+                    f"(Σ {e1:.1e}, Σ² {e2:.1e}), {d_txt} {'ok' if ok else 'FAIL'}{times}")
+                if not ok:
+                    failures.append(f"winograd {h}x{w} {cin}->{cout} m={m} {dname}: V {e_in:.2e}, "
+                                    f"out {e_out:.2e}, stats {s_ok}, vs direct {d_txt}")
+    for (h, w, cin, cout, p), uses in rn_sites.items():
+        records.append(winograd_b256(h, w, cin, cout, p, uses, rows, g, failures))
+    say(f"(i) {checked} checked calls; RN50's 13 sites at N=8 bf16, F(4,3): input kernel "
+        f"{rows['winograd_input']['ms']:.4f} ms (bound {rows['winograd_input']['bound_ms']:.4f}), "
+        f"output kernel {rows['winograd_output']['ms']:.4f} ms (bound "
+        f"{rows['winograd_output']['bound_ms']:.4f}); F(2,3) "
+        f"{rows['winograd_input']['ms_m2']:.4f} / {rows['winograd_output']['ms_m2']:.4f} ms")
+    return records
+
+
+def winograd_b256(h, w, cin, cout, p, uses, rows, g, failures):
+    """One RN50 shape at b256 bf16, m = 2 and 4: first the kernels at the
+    main path's shape against their plain versions on the same inputs (V
+    within CONV_TOL of input_transform_plain; on one M, each of the three
+    epilogues within CONV_TOL of output_transform_plain, the statistics
+    epilogue's sums within STATS_TOL of those of its own stored y); then
+    each stage's device ms (input kernel, batched product, output kernel),
+    the whole conv (winograd_conv2d: weight transform included),
+    conv2d_fused and cuDNN's F.conv2d, the conv's bound max((x + w + y
+    bytes) / HBM, a²·P·C·O·2 / 989 TFLOP/s) and each stage's bytes; added
+    `uses` times to the rows."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels, winograd
+    from convnets_tpu_torch.ops.kernels import winograd as wk
+
+    n = B256
+    x = torch.randn(n, h, w, cin, device=DEVICE, generator=g).bfloat16()
+    wt = (torch.randn(3, 3, cin, cout, device=DEVICE, generator=g) / np.sqrt(9 * cin)).bfloat16()
+    direct_ms = time_ms(lambda: kernels.conv2d_fused(x, wt, padding=p), REPS)
+    lib = conv_lib(1, p)
+    cudnn_ms = time_ms(lambda: lib(x, wt), REPS)
+    bias = (0.1 * torch.randn(cout, device=DEVICE, generator=g)).bfloat16()
+    scale = 1.0 + 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+    shift = 0.1 * torch.randn(cout, device=DEVICE, generator=g)
+    atol, rtol = CONV_TOL["bfloat16"]
+    rec = {"shape": (n, h, w, cin, cout, p), "uses": uses, "direct_ms": direct_ms,
+           "cudnn_ms": cudnn_ms}
+    _, direct_bytes = conv_work(n, h, w, cin, cout, 3, 1, p)
+    for m in WINOGRAD_M:
+        a = m + 2
+        geo = wk.geometry(x.shape, cout, p, m)
+        u = winograd.transform_weight(wt, m, torch.bfloat16).reshape(a * a, cin, cout)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        v = kernels.winograd_input(x, m, p)
+        mm = winograd.batched_product(v, u)
+        kernels.winograd_output(mm, geo, torch.bfloat16)
+        sync()
+        temps = torch.cuda.max_memory_allocated() - base
+        # the kernels against their plain versions at this shape, before timing
+        vp = winograd.input_transform_plain(x, m, (p, p))
+        e_in = float((v.float() - vp.float()).abs().max())
+        in_ok = e_in <= atol + rtol * float(vp.float().abs().max())
+        del vp
+        errs = {}
+        for epi, kw in (("bias", dict(bias=bias)),
+                        ("affine", dict(scale=scale, shift=shift, relu=True))):
+            got = kernels.winograd_output(mm, geo, torch.bfloat16, **kw)
+            ref = winograd.output_transform_plain(mm, n, geo.oh, geo.ow, m, torch.bfloat16, **kw)
+            errs[epi] = (float((got.float() - ref.float()).abs().max()),
+                         within(got, ref, atol, rtol) and bool(torch.isfinite(got).all()))
+            del got, ref
+        plain_y = winograd.output_transform_plain(mm, n, geo.oh, geo.ow, m, torch.bfloat16)
+        s_ok, s_err, e1, e2 = stats_check(kernels.winograd_output_stats(mm, geo, torch.bfloat16),
+                                          (plain_y, (None, None)), "bfloat16", own=True)
+        del plain_y
+        e_out = max([e for e, _ in errs.values()] + [s_err])
+        ok = in_ok and s_ok and all(o for _, o in errs.values())
+        rows["winograd_input"]["err"] = max(rows["winograd_input"]["err"], e_in)
+        rows["winograd_output"]["err"] = max(rows["winograd_output"]["err"], e_out)
+        say(f"  b{n} bf16 {h}x{w} {cin}->{cout} F({m},3) vs plain: V {e_in:.2e}, out bias "
+            f"{errs['bias'][0]:.2e} / affine {errs['affine'][0]:.2e} / stats y {s_err:.2e} "
+            f"(Σ {e1:.1e}, Σ² {e2:.1e}; tol {atol:g}+{rtol:g}|ref|, sums "
+            f"{STATS_TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"winograd b{n} {h}x{w} {cin}->{cout} m={m} bf16 vs plain: V "
+                            f"{e_in:.2e}, out {errs}, stats {s_ok} ({s_err:.2e}, {e1:.1e}, "
+                            f"{e2:.1e})")
+        t_in = time_ms(lambda: kernels.winograd_input(x, m, p), REPS)
+        t_mm = time_ms(lambda: winograd.batched_product(v, u), REPS)
+        t_out = time_ms(lambda: kernels.winograd_output(mm, geo, torch.bfloat16), REPS)
+        t_conv = time_ms(lambda: kernels.winograd_conv2d(x, wt, padding=p, m=m), REPS)
+        del v, mm
+        flops = 2 * a * a * geo.tiles * cin * cout
+        bound = max(1e3 * direct_bytes / HBM_BPS, 1e3 * flops / PEAK_BF16)
+        fi, bi, fo, bo = transform_work(m, geo.tiles, cin, cout, 2)
+        stage_bytes = {"input": 2 * x.numel() + bi,
+                       "product": bi + 2 * u.numel() + 4 * a * a * geo.tiles * cout, "output": bo}
+        b_in = max(1e3 * fi / PEAK_OTHER, 1e3 * stage_bytes["input"] / HBM_BPS)
+        b_out = max(1e3 * fo / PEAK_OTHER, 1e3 * bo / HBM_BPS)
+        suffix = "" if m == 4 else "_m2"
+        for name, t, b in (("winograd_input", t_in, b_in), ("winograd_output", t_out, b_out)):
+            rows[name]["ms_b256" + suffix] += uses * t
+            rows[name]["bound_ms_b256" + suffix] += uses * b
+            rows[name]["conv_ms_b256" + suffix] += uses * t_conv
+            rows[name].setdefault("stage_bytes_b256" + suffix, {})[f"{h}x{w}x{cin}"] = stage_bytes
+        if m == 4:
+            for name in WINOGRAD_KERNELS:
+                rows[name]["conv_bound_ms_b256"] += uses * bound
+                rows[name]["direct_ms_b256"] += uses * direct_ms
+                rows[name]["cudnn_ms_b256"] += uses * cudnn_ms
+        rec[f"m{m}"] = {"input_ms": t_in, "product_ms": t_mm, "output_ms": t_out,
+                        "conv_ms": t_conv, "bound_ms": bound, "stage_bytes": stage_bytes,
+                        "temporaries_bytes": temps, "err_input": e_in, "err_output": e_out,
+                        "sums_err": [e1, e2]}
+        say(f"  b{n} bf16 {h}x{w} {cin}->{cout} F({m},3): input {t_in:.4f} + product "
+            f"{t_mm:.4f} + output {t_out:.4f} ms, whole conv {t_conv:.4f} ms (bound "
+            f"{bound:.4f}, {t_conv / bound:.1f}×); conv2d_fused {direct_ms:.4f}, cuDNN "
+            f"{cudnn_ms:.4f}; stage bytes {stage_bytes}; V and M peak {temps / 2 ** 30:.3f} GiB")
+    return rec
+
+
+def winograd_rn50(seed, failures):
+    """Phase 18 (ii): RN50@224 bf16 b256 with bench.py's settings, the gate
+    off, 2, 4 in turns, WARMUP + TIMED steps a run: launches per step exact
+    (13 Winograd sites: 13 + 13 transform launches, 40 conv2d_stats, 53
+    reductions; off: TRAIN_LAUNCHES), img/s and peak memory; then three
+    steps a gate under the profiler (CUDA activity), the device ms per step; one served b256 request
+    per gate (launches per forward exact), a gated one's argmax = the plain
+    path's (plain_kernels) on >= ARGMAX_MIN. Returns (the record, the gated
+    runs' launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import ServingModel
+
+    batch, out, path = TRAIN_BATCH["resnet"], {}, {}
+    model = make_model("resnet", seed, True)
+    fwd_on, step_on = winograd_launches(model)
+    want = {None: (launches_of(SERVE_LAUNCHES["resnet"]), launches_of(TRAIN_LAUNCHES["resnet"])),
+            2: (fwd_on, step_on), 4: (fwd_on, step_on)}
+    state, step = train_state(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, IMAGE, IMAGE, 3), dtype=torch.uint8, device=DEVICE,
+                      generator=gen)
+    y = torch.randint(0, 1000, (batch,), device=DEVICE, generator=gen)
+    runs = {}
+    for m in (None, 2, 4):
+        with winograd_gate(m):
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            seconds, loss = timed_steps(step, state, x, y, gen)
+            sync()
+            got = {k: v / sum((WARMUP, TIMED)) for k, v in kernels.LAUNCHES.items()}
+            if m is not None:
+                for k, v in kernels.LAUNCHES.items():
+                    path[k] = path.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    step(state, x, y, generator=gen)
+                sync()
+        device, ours, _ = device_split(prof, OUR_KERNELS)
+        runs[m] = {"img_s": batch / seconds, "peak_gib": peak, "loss": float(loss),
+                   "device_ms_per_step": device / 3e3, "kernels_ms_per_step": ours / 3e3}
+        ok = got == want[m][1] and np.isfinite(float(loss))
+        say(f"(ii) RN50@224 bf16 b{batch} train, gate {m or 'off'} ({WARMUP} + {TIMED} steps): "
+            f"img/s {runs[m]['img_s']:.1f}, peak {peak:.2f} GiB; device ms per step (profiler, "
+            f"CUDA activity, 3 steps) {runs[m]['device_ms_per_step']:.3f}: the port's kernels "
+            f"{runs[m]['kernels_ms_per_step']:.3f}; launches per step {launches_summary(got)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"winograd RN50 b{batch} gate {m}: launches per step "
+                            f"{launches_summary(got)} (expected {launches_summary(want[m][1])}), "
+                            f"loss {float(loss)}")
+    out["train"] = {str(m): r for m, r in runs.items()}
+    model.eval()
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    req = np.random.default_rng(seed + 18).integers(0, 256, (batch, IMAGE, IMAGE, 3),
+                                                    dtype=np.uint8)
+    served, vs_plain = {}, {}
+    for m in (None, 2, 4):
+        with winograd_gate(m):
+            server(req)
+            sync()
+            kernels.reset_launches()
+            logits = server(req)
+            sync()
+            got = dict(kernels.LAUNCHES)
+            if m is not None:
+                for k, v in got.items():
+                    path[k] = path.get(k, 0) + v
+                with plain_kernels():
+                    ref = server(req).float()
+                sync()
+        served[m] = logits.float()
+        ok = got == want[m][0] and bool(torch.isfinite(logits).all())
+        txt = ""
+        if m is not None:
+            agree = float((served[m].argmax(-1) == ref.argmax(-1)).float().mean())
+            vs_plain[m] = {"argmax_agreement": agree,
+                           "max_abs_diff": float((served[m] - ref).abs().max()),
+                           "max_abs_logit": float(ref.abs().max())}
+            ok = ok and agree >= ARGMAX_MIN
+            txt = (f"; logits vs the plain path: argmax agreement {agree:.4f} (min {ARGMAX_MIN}), "
+                   f"max |Δ| {vs_plain[m]['max_abs_diff']:.4e} (max |logit| "
+                   f"{vs_plain[m]['max_abs_logit']:.4e})")
+        say(f"(ii) served b{batch} uint8 request, gate {m or 'off'}: launches "
+            f"{launches_summary(got)}{txt} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"winograd RN50 request gate {m}: {launches_summary(got)}, vs plain "
+                            f"{vs_plain.get(m)}")
+    agree = {m: float((served[m].argmax(-1) == served[None].argmax(-1)).float().mean())
+             for m in (2, 4)}
+    say(f"    argmax of the gated requests = the ungated's on {agree} (recorded, no bar: "
+        f"random weights)")
+    out["served_vs_plain"] = vs_plain
+    out["served_argmax_agreement"] = agree
+    del server, model, state
+    return out, path
+
+
+def winograd_rn50_checks(seed, failures):
+    """Phase 18 (ii)'s untimed checks at each gate: the fp32 b8 SGD step
+    against the plain path (its Winograd wrappers by winograd_conv2d_plain)
+    beside the perturbed control, and ten bf16 Adam steps of RN50 with a
+    falling loss."""
+    out = {}
+    for m in WINOGRAD_M:
+        with winograd_gate(m):
+            out[f"step_m{m}"] = step_check("resnet", seed, failures)
+            out[f"learn_m{m}"] = winograd_learn(seed, failures, m)
+    return out
+
+
+def winograd_learn(seed, failures, m):
+    """Ten bf16 Adam steps of RN50@224 at LEARN_BATCH on one batch with the
+    gate at m: the loss falls."""
+    import torch
+
+    rng = np.random.default_rng(seed + 3)
+    x = torch.from_numpy(rng.integers(0, 256, (LEARN_BATCH, IMAGE, IMAGE, 3),
+                                      dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, 1000, LEARN_BATCH)).to(DEVICE)
+    model = make_model("resnet", seed, True, dropout_rate=0.0, learning_rate=LEARN_LR["resnet"])
+    state, step = train_state(model, norm=True, stats=IMAGENET_STATS)
+    losses = [float(step(state, x, y)[0]) for _ in range(LEARN_STEPS)]
+    falls = losses[-1] < losses[0] and all(np.isfinite(losses))
+    say(f"(ii) gate {m}: {LEARN_STEPS} bf16 Adam steps of RN50 (b{LEARN_BATCH}), loss "
+        f"{[round(v, 3) for v in losses]} falls: {'ok' if falls else 'FAIL'}")
+    if not falls:
+        failures.append(f"winograd gate {m}: bf16 loss did not fall {losses}")
+    return losses
+
+
+def winograd_vgg_cli(seed, card, failures):
+    """Phase 18 (iii): VGG-16@32 (10 classes) with the gate at
+    WINOGRAD_CLI_M through the CLI on phase 12's PNG tree: a
+    CLI_FAMILY_EPOCHS fit at CLI_FAMILY_BATCH (replayed graphs), every call's
+    launches exact (winograd_launches), the loss falls; export --bake-norm,
+    load --testing; the artifact loaded in process, one profiled b256
+    request with no library convolution kernel; and served by a fresh
+    process with the gate unset (CLI_CHILD) on the test split: its argmax
+    = Trainer.test's on >= ARGMAX_MIN. The fresh process is started last
+    and left running (most of its time is importing torch), so other work
+    goes on beside it; returns finish(), which waits for it, checks it,
+    removes the files and returns (the record, the path's launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnets_tpu_torch.__main__ import main as cli_main
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import load_artifact
+
+    out, seconds = {}, {}
+    n_test = CLI_SPLITS[2][1]
+    rec = new_record()
+    tmp = tempfile.mkdtemp()
+    with contextlib.ExitStack() as undo, winograd_gate(WINOGRAD_CLI_M):
+        undo.callback(shutil.rmtree, tmp, ignore_errors=True)  # unless the child starts
+        t0 = time.perf_counter()
+        root = cli_tree(seed)
+        seconds["tree"] = time.perf_counter() - t0
+        args = ["--arch", "vggnet", "--kind", VGG_KIND, "--input-size", "3,32,32", "--num-classes",
+                str(ZOO_CLASSES), "--data-root", root, "--seed", str(seed), "--batch-size",
+                str(CLI_FAMILY_BATCH), "--output-dir", os.path.join(tmp, "vgg")]
+        art = os.path.join(tmp, "vgg16.bin")
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with recorded_trainers(rec):
+            rc = cli_main(["fit", *args, "--epochs", str(CLI_FAMILY_EPOCHS)])
+            sync()
+            trainer = rec["trainers"][-1]
+            loss = list(trainer.epoch_results["train_loss"])
+            fwd, step = winograd_launches(trainer.model)
+            seconds["fit"] = time.perf_counter() - t0
+            rc_e = cli_main(["export", *args, "--bake-norm", "--out", art])
+            rec["capture"] = True
+            rc_t = cli_main(["load", *args, "--testing"])
+            rec["capture"] = False
+            sync()
+        launches = dict(kernels.LAUNCHES)
+        seconds["export_test"] = time.perf_counter() - t0 - seconds["fit"]
+        ok_fit = (rc == 0 and rc_e == 0 and rc_t == 0 and len(loss) == CLI_FAMILY_EPOCHS
+                  and all(np.isfinite(loss)) and loss[-1] < loss[0])
+        say(f"(iii) CLI fit VGG-16@32 gate {WINOGRAD_CLI_M}, b{CLI_FAMILY_BATCH}, "
+            f"{CLI_FAMILY_EPOCHS} epochs: exit {rc}, train loss {loss}, export {rc_e}, load "
+            f"--testing {rc_t} {'ok' if ok_fit else 'FAIL'}")
+        if not ok_fit:
+            failures.append(f"winograd VGG CLI: exits {rc}/{rc_e}/{rc_t}, loss {loss}")
+        ok_calls = check_calls("VGG-16@32 gated CLI", rec, step, fwd, failures)
+        batches = -(-n_test // CLI_FAMILY_BATCH)
+        timed = rec["eval_io"][-batches:]  # test()'s timed loop
+        xs = torch.cat([xb[wb > 0] for xb, _, wb in timed]).numpy()
+        tested = torch.cat([pb[wb > 0] for _, pb, wb in timed]).numpy()
+        # the artifact in process: one profiled b256 request
+        served = load_artifact(art)
+        req = xs[:ZOO_SERVE_BATCH].astype(np.float32) / 255.0
+        served(req)
+        sync()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            logits = served(req)
+            sync()
+        req_launches = dict(kernels.LAUNCHES)
+        for k, v in req_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        bad = library_convs(prof)
+        ok_req = (not bad and req_launches == fwd and bool(torch.isfinite(logits).all()))
+        say(f"(iii) the artifact's b{ZOO_SERVE_BATCH} request in process under the profiler: "
+            f"launches {launches_summary(req_launches)} (expected {launches_summary(fwd)}), "
+            f"library convolution kernels {bad} {'ok' if ok_req else 'FAIL'}")
+        if not ok_req:
+            failures.append(f"winograd VGG artifact request: launches {req_launches}, "
+                            f"library convs {bad}")
+        del served
+        xfile = os.path.join(tmp, "vgg_test_x.npy")
+        np.save(xfile, xs)
+        env = {k: v for k, v in os.environ.items() if k != WINOGRAD_GATE}
+        t_child = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", CLI_CHILD, HERE, art, xfile],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        undo.pop_all()
+    done = []
+
+    def finish():
+        if done:
+            return done[0]
+        try:
+            child = finished(proc, 600)
+        finally:
+            if proc.poll() is None:  # none outlives the phase
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+        seconds["fresh_process"] = time.perf_counter() - t_child
+        res = json.loads(child.stdout.strip().splitlines()[-1]) if child.returncode == 0 else {}
+        agree = (float((np.asarray(res.get("argmax", [])) == tested).mean())
+                 if len(res.get("argmax", [])) == len(tested) else 0.0)
+        requests = -(-len(tested) // 256)
+        want_child = launches_summary({k: v * requests for k, v in fwd.items()})
+        ok_art = (child.returncode == 0 and agree >= ARGMAX_MIN and len(tested) == n_test
+                  and res.get("launches") == want_child)
+        say(f"(iii) the artifact served by a fresh process (gate unset) on the {len(tested)} "
+            f"test images: argmax = Trainer.test's on {agree:.4f} (min {ARGMAX_MIN}), launches "
+            f"{res.get('launches')} (expected {want_child}) {'ok' if ok_art else 'FAIL'}")
+        if not ok_art:
+            failures.append(f"winograd VGG artifact: rc {child.returncode}, agreement {agree}, "
+                            f"launches {res.get('launches')}, {child.stderr[-2000:]}")
+        out.update({"train_loss": loss, "launches_ok": ok_calls,
+                    "launches_per_train_step": launches_summary(step),
+                    "launches_per_eval_call": launches_summary(fwd), "argmax_agreement": agree,
+                    "epoch_img_s": [CLI_SPLITS[0][1] / t for t in rec["epoch_s"]],
+                    "library_convs": bad, "seconds": seconds, "card": card})
+        done.append((out, launches))
+        return done[0]
+
+    return finish
+
+
+def phase_winograd(seed, card, summary, failures):
+    """Phase 18: (i) winograd_kernel_checks; (ii) winograd_rn50 and
+    winograd_rn50_checks; (iii) winograd_vgg_cli, started first so that
+    (i) and (ii)'s checks run beside its fresh process. Prints the winograd
+    JSON line; returns the launches of (ii)'s gated runs and of (iii)'s
+    path."""
+    import torch
+
+    out, parts = {"card": card}, {}
+    t0 = time.perf_counter()
+    finish_cli = winograd_vgg_cli(seed, card, failures)
+    parts["iii"] = time.perf_counter() - t0
+    try:
+        # beside (iii)'s fresh process: the kernel checks and (ii)'s
+        # untimed steps; the timed turns after it has finished
+        t0 = time.perf_counter()
+        out["b256"] = winograd_kernel_checks(summary, failures)
+        parts["i"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checks = winograd_rn50_checks(seed, failures)
+        parts["ii_checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["vgg_cli"], cli_path = finish_cli()
+        parts["iii_fresh_process_wait"] = time.perf_counter() - t0
+    finally:
+        finish_cli()
+    t0 = time.perf_counter()
+    out["rn50"], rn50_path = winograd_rn50(seed, failures)
+    out["rn50"].update(checks)
+    parts["ii"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    for name in WINOGRAD_KERNELS:
+        summary[name]["winograd_rn50_launches"] = rn50_path[name]
+    torch.cuda.empty_cache()
+    say(json.dumps({"winograd": out}, default=str))
+    return rn50_path, cli_path
+
+
+# the paths of phases 10-18 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
          "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel",
-         "envelope")
+         "envelope", "winograd_vgg_cli")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -7827,6 +8482,10 @@ SOURCES = {  # kernel: (source, TPU kernel it replaces)
                                    "convnets_tpu/ops/pallas/fused.py:35"),
     "bottleneck_block": ("convnets_tpu_torch/csrc/block_wgmma.cu",
                          "convnets_tpu/ops/pallas/block.py:122"),
+    # no Pallas kernel: the transform stages of the einsum composition
+    "winograd_input": ("convnets_tpu_torch/csrc/winograd.cu", "convnets_tpu/ops/winograd.py:149"),
+    "winograd_output": ("convnets_tpu_torch/csrc/winograd.cu",
+                        "convnets_tpu/ops/winograd.py:162"),
 }
 
 
@@ -7981,6 +8640,18 @@ def main():
     def phase_17():
         state["envelope"] = phase_envelope(args.seed, card, summary, failures)
 
+    def phase_18():
+        rn50, cli = phase_winograd(args.seed, card, summary, failures)
+        state["winograd_rn50"] = rn50
+        # each kernel's launches on the gated VGG-16@32 CLI path (the
+        # trainable functions by their kernels)
+        state["winograd_vgg_cli"] = {
+            "winograd_input": cli["winograd_input"], "winograd_output": cli["winograd_output"],
+            "conv2d_stats_reduce": cli["conv2d_stats_reduce"],
+            "conv_bn_relu_train": cli["bn_act_forward"], "bn_act_forward": cli["bn_act_forward"],
+            "bn_act_backward": cli["bn_act_backward_apply"], "max_pool2d": cli["max_pool2d"],
+            "pool2d_backward": cli["pool2d_backward"]}
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -8004,6 +8675,7 @@ def main():
         "15": phase_15,
         "16": phase_16,
         "17": phase_17,
+        "18": phase_18,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -8043,14 +8715,16 @@ def main():
                 "grouped_conv2d_stats": train["resnext"]["grouped_conv2d_stats"],
                 "grouped_conv2d_train": nobn["resnext"]["grouped_conv2d_fused"],
                 "conv_bn_relu_train_grouped": train["resnext"]["grouped_conv2d_stats"],
-                "bottleneck_block": state["block"]}
+                "bottleneck_block": state["block"],
+                "winograd_input": state["winograd_rn50"]["winograd_input"],
+                "winograd_output": state["winograd_rn50"]["winograd_output"]}
     for name in SOURCES:
         if launches[name] <= 0:
             failures.append(f"{name}: no launch on its main path")
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-17's {path} path")
+                failures.append(f"{name}: no launch on phase 10-18's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -8062,7 +8736,8 @@ def main():
          "library_ms": summary[name]["library_ms"],
          **{f"{path}_launches": state[path][name] for path in PATHS if name in state[path]},
          **{k: summary[name][k] for k in B256_KEYS + (PLAIN_B256, LOOP_B256) + SIMT_KEYS
-            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ROUTE_KEYS + ENVELOPE_KEYS + ("serving_ms",)
+            + ZOO2_KEYS + ZOO2_224_KEYS + BN_KEYS + ROUTE_KEYS + ENVELOPE_KEYS + WINOGRAD_KEYS
+            + ("serving_ms",)
             if k in summary[name]}}
         for name, (src, rep) in SOURCES.items()]}))
     if failures:

@@ -19,7 +19,9 @@ divide both channel counts, runs on a kernel. A depthwise ConvBNReLU runs
 unfused, as in the JAX package: the depthwise kernel, then BatchNorm2d,
 then ReLU; a grouped one runs fused, as a dense one. Train mode updates
 the BN running statistics in place, once per forward (not again in a
-Remat recompute).
+Remat recompute). With CONVNETS_TPU_WINOGRAD set (ops/winograd.py, read on
+every forward), a dense 3x3 stride-1 conv, bare or BN-fused, runs Winograd
+F(2,3) or F(4,3) instead (ops/kernels/winograd.py), in both modes.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from convnets_tpu_torch.nn.module import (
     MaskTape, Module, current_generator, current_tape, recomputing,
 )
 from convnets_tpu_torch.ops import initializers as init
-from convnets_tpu_torch.ops import kernels
+from convnets_tpu_torch.ops import kernels, winograd
 from convnets_tpu_torch.ops.kernels import library
 from convnets_tpu_torch.ops.norm import running_update
 from convnets_tpu_torch.parallel.mesh import global_count
@@ -62,6 +64,15 @@ def _check_conv_envelope(conv: "Conv2d", cin: int) -> str:
     raise ValueError(f"a conv with groups={conv.groups}, Cin={cin}, Cout={conv.out_channels}, "
                      f"stride {conv.stride}, dilation {conv.dilation}: the groups must divide "
                      f"both channel counts, stride and dilation must be >= 1")
+
+
+def _winograd_m(conv: "Conv2d", x) -> Optional[int]:
+    """The Winograd gate of the JAX layer (nn/layers.py:126-146): F(m,3)'s
+    m for a dense 3x3 stride-1 conv that ops/winograd.py:route sends there,
+    else None (the direct kernels). Read on every call."""
+    if not winograd.fits(conv.kernel, conv.stride, conv.dilation, conv.groups):
+        return None
+    return winograd.route(x.shape[1], x.shape[-1], conv.out_channels)
 
 
 class Conv2d(Module):
@@ -109,6 +120,13 @@ class Conv2d(Module):
         family = _check_conv_envelope(self, x.shape[-1])
         cd = self.policy.compute_dtype
         x, w = x.to(cd), self.weight.to(cd)
+        m = _winograd_m(self, x)
+        if m is not None:
+            # the bias rounded to cd, then added in fp32 inside (JAX's b.astype(cd))
+            b = None if self.bias is None else self.bias.to(cd)
+            if self.training:
+                return kernels.winograd_conv2d_train(x, w, b, self.padding, m)
+            return _OPS.winograd_conv2d(x, w, b, None, None, list(self.padding), False, m)
         geo = (list(self.stride), list(self.padding))
         if family == DEPTHWISE and self.training:
             y = kernels.depthwise_train(x, w, self.stride, self.padding, self.dilation)
@@ -482,7 +500,13 @@ class ConvBNReLU(Sequential):
     BatchNorm2d): the values agree in fp32; in bf16 the fused path rounds y
     once (train: the stored y the statistics are taken from; eval: after
     the folded epilogue) where the JAX package rounds the conv output and
-    then the BN output."""
+    then the BN output. A conv that the Winograd gate takes (`_winograd_m`)
+    runs the Winograd kernels at this site: in train mode
+    conv_bn_relu_train with the output transform's statistics epilogue in
+    place of conv2d_stats, in eval mode its folded-BN epilogue in place of
+    conv2d_fused's. The JAX package runs that conv unfused (Winograd conv,
+    then BatchNorm2d), so in bf16 the port rounds once where it rounds
+    twice, as for a dilated conv."""
 
     def __init__(self, conv: Conv2d, bn: BatchNorm2d, act: bool):
         layers: List[Module] = [conv, bn]
@@ -498,13 +522,16 @@ class ConvBNReLU(Sequential):
             return super().forward(x)
         cd = conv.policy.compute_dtype
         x, w = x.to(cd), conv.weight.to(cd)
+        m = _winograd_m(conv, x)
         if self.training:
             out, mean, var = kernels.conv_bn_relu_train(
                 x, w, bn.weight, bn.bias, conv.stride, conv.padding, bn.eps, self.act,
-                groups=conv.groups, dilation=conv.dilation)
+                groups=conv.groups, dilation=conv.dilation, winograd=m)
             bn.update_running(mean, var, global_count(out.shape[0] * out.shape[1] * out.shape[2]))
             return out
         s, sh = bn.folded()
+        if m is not None:
+            return _OPS.winograd_conv2d(x, w, None, s, sh, list(conv.padding), self.act, m)
         geo = (list(conv.stride), list(conv.padding), self.act, list(conv.dilation))
         if family == GROUPED:
             return _OPS.grouped_conv2d_fused(x, w, conv.groups, s, sh, *geo)

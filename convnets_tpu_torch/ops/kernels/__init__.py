@@ -51,7 +51,14 @@ and BN backward (`bn_act_backward`) run csrc/bn_act.cu on the route of
 (a whole identity bottleneck in one launch) has no caller in the models,
 as in the JAX package.
 
-The eval path's five kernels are also torch custom ops
+The Winograd F(2,3) / F(4,3) path of the dense 3x3 stride-1 convs
+(`winograd_conv2d`, `winograd_conv2d_stats`, `winograd_conv2d_train`;
+opt-in through CONVNETS_TPU_WINOGRAD, ops/winograd.py) runs its input and
+output transforms on csrc/winograd.cu (`winograd_input`,
+`winograd_output`, the latter with the bias, folded-BN or statistics
+epilogue) and its batched product on cuBLAS.
+
+The eval path's five kernels, and the Winograd conv, are also torch custom ops
 (`torch.ops.convnets_torch.*`, registered by `library.py` when this
 package is imported), which the eval-mode layers call, so `torch.export`
 can trace and save a model that runs them.
@@ -83,7 +90,8 @@ LAUNCHES: Dict[str, int] = {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_
                              "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
                              "bottleneck_block": 0, "pool2d_backward": 0,
                              "bn_act_forward": 0, "bn_act_backward_sums": 0,
-                             "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0}
+                             "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0,
+                             "winograd_input": 0, "winograd_output": 0}
 # launches per route of the kernels whose route is chosen by shape: the
 # window kernels, the block, the grouped convs and the BN passes of the
 # fused conv sites
@@ -138,6 +146,11 @@ _SIGNATURES = {
     # dtype, g, y, mean, inv, scale, bias, sums, dy, m, c, n, relu, route, tx, rowblocks,
     # stream
     "bn_act_apply_launch": [_I] + [_P] * 8 + [_I] * 7 + [_P],
+    # dtype, x, v, n, h, w, c, th, tw, ph, pw, m, vec, stream
+    "winograd_input_launch": [_I, _P, _P] + [_I] * 10 + [_P],
+    # dtype, mm, y, scale, shift, partial, n, oh, ow, o, th, tw, m, vec, epi, relu, tx, ty,
+    # stream
+    "winograd_output_launch": [_I] + [_P] * 5 + [_I] * 12 + [_P],
 }
 
 
@@ -306,6 +319,10 @@ from convnets_tpu_torch.ops.kernels.fused import conv_bn_relu_train  # noqa: E40
 from convnets_tpu_torch.ops.kernels.block import (  # noqa: E402
     BlockPlan, block_plan, bottleneck_block, bottleneck_block_plain, fits_block,
 )
+from convnets_tpu_torch.ops.kernels.winograd import (  # noqa: E402
+    winograd_conv2d, winograd_conv2d_plain, winograd_conv2d_stats, winograd_conv2d_stats_plain,
+    winograd_conv2d_train, winograd_input, winograd_output, winograd_output_stats,
+)
 from convnets_tpu_torch.ops.kernels import library  # noqa: E402,F401  (registers the ops)
 
 __all__ = [
@@ -320,5 +337,7 @@ __all__ = [
     "grouped_conv2d_train", "grouped_plan", "grouped_slices", "grouped_wide_tiles", "lib",
     "max_pool2d",
     "max_pool2d_plain", "pool2d_backward", "pool2d_backward_plain", "pool2d_train",
-    "pool_plan", "reset_launches",
+    "pool_plan", "reset_launches", "winograd_conv2d", "winograd_conv2d_plain",
+    "winograd_conv2d_stats", "winograd_conv2d_stats_plain", "winograd_conv2d_train",
+    "winograd_input", "winograd_output", "winograd_output_stats",
 ]

@@ -454,10 +454,15 @@ def conv2d_backward(x, w, g, stride, padding, need=(True, True), groups=1, dilat
     x.dtype; an entry is None where `need` says so. Plain PyTorch
     (aten.convolution_backward on channels_last views; cuDNN on the card):
     the JAX package leaves these transposed convs to XLA (conv.py:688-695,
-    :712-719, fused.py:99-102), outside any Pallas kernel."""
+    :712-719, fused.py:99-102), outside any Pallas kernel. g and x are made
+    dense NHWC first: a cotangent that autograd hands back as a slice of a
+    concat along C (DenseNet's, e.g. (2, 1, 1, 32) with strides (1024,
+    1024, 1024, 1)) is no channels_last tensor, and ATen's backward must
+    not be given one."""
     wc = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
+    g, x = g.to(x.dtype).contiguous(), x.contiguous()
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        g.to(x.dtype).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None,
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), wc, None,
         list(to_pair(stride)), list(to_pair(padding)), list(to_pair(dilation)), False, [0, 0],
         groups,
         [bool(need[0]), bool(need[1]), False])

@@ -21,6 +21,12 @@ are returned as this rank's sums, which the train step's gradient
 all-reduce adds up once with dw. The JAX package leaves the fused kernel
 under a multi-device mesh, because its statistics would be per shard; the
 port keeps the kernel and reduces its sums.
+
+A site the Winograd gate takes (`winograd` = m) gets (y, sums) from
+winograd_conv2d_stats (ops/kernels/winograd.py: the output transform's
+statistics epilogue, then the same reduction kernel) instead of
+conv2d_stats; the rest is unchanged, its backward included (the direct
+conv's transposed convs).
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ from convnets_tpu_torch.parallel.mesh import data_sum_
 
 class _ConvBNReLUTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups, dilation):
-        if groups == 1:
+    def forward(ctx, x, w, scale, bias, stride, padding, eps, relu, groups, dilation, winograd):
+        if winograd is not None:
+            y, sums = _k.winograd_conv2d_stats(x, w, padding=padding, m=winograd)
+        elif groups == 1:
             y, sums = _k.conv2d_stats(x, w, stride=stride, padding=padding, dilation=dilation)
         else:
             y, sums = _k.grouped_conv2d_stats(x, w, groups, stride=stride, padding=padding,
@@ -57,17 +65,18 @@ class _ConvBNReLUTrain(torch.autograd.Function):
         dx, dw = conv2d_backward(x, w, dy, stride, padding, need=ctx.needs_input_grad[:2],
                                  groups=groups, dilation=dilation)
         return (dx, dw, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None, None, None,
-                None, None)
+                None, None, None)
 
 
 def conv_bn_relu_train(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1,
-                       dilation=1):
+                       dilation=1, winograd=None):
     """x (N, H, W, Cin) and w (kh, kw, Cin/groups, Cout) in the compute
     dtype, scale/bias (Cout,) fp32; groups > 1 within `fits_grouped`; any
     dilation (SKConv's second path). Returns (out, mean, var): out in
     x.dtype, mean and biased var fp32 (Cout,) for the caller's running
     update (they carry no gradient; the global batch's under an active
     mesh). At 1x1 spatial (SKConv's descriptor)
-    the statistics are over the N values of each channel."""
+    the statistics are over the N values of each channel. winograd: m
+    of F(m,3) for a dense 3x3 stride-1 conv the gate takes, else None."""
     return _ConvBNReLUTrain.apply(x, w, scale, bias, stride, padding, eps, relu, groups,
-                                  dilation)
+                                  dilation, winograd)

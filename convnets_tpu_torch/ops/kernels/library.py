@@ -1,6 +1,7 @@
 """The eval path's kernels as torch custom ops, in the `convnets_torch`
 namespace: conv2d_fused, grouped_conv2d_fused, depthwise_conv2d,
-max_pool2d and avg_pool2d.
+max_pool2d, avg_pool2d and winograd_conv2d (the Winograd path of a gated
+3x3 stride-1 conv: bias, or folded BN and ReLU).
 
 `torch.export` cannot trace a ctypes launch: the wrappers read
 `data_ptr()`, which a fake tensor does not have. As custom ops the kernels
@@ -20,7 +21,7 @@ Each op has two implementations and no other:
 There is no composite or default implementation: a tensor on any other
 device raises, and a CUDA tensor never reaches a plain version.
 
-The three conv ops take the dilation as their last argument, with the
+The three direct conv ops take the dilation as their last argument, with the
 default [1, 1] in their schema, so a program saved before the argument
 existed still loads and runs undilated.
 
@@ -38,7 +39,8 @@ from convnets_tpu_torch.core.shapes import conv_out_size, to_pair
 from convnets_tpu_torch.ops import kernels as _k
 
 NAMESPACE = "convnets_torch"
-OPS = ("conv2d_fused", "grouped_conv2d_fused", "depthwise_conv2d", "max_pool2d", "avg_pool2d")
+OPS = ("conv2d_fused", "grouped_conv2d_fused", "depthwise_conv2d", "max_pool2d", "avg_pool2d",
+       "winograd_conv2d")
 
 
 def _out_hw(x, kernel, stride, padding, dilation=1):
@@ -130,6 +132,22 @@ def avg_pool2d(x: torch.Tensor, kernel: List[int], stride: List[int],
 @avg_pool2d.register_fake
 def _(x, kernel, stride, padding):
     return _pool_fake(x, kernel, stride, padding)
+
+
+@custom_op(f"{NAMESPACE}::winograd_conv2d", mutates_args=(), device_types=("cpu", "cuda"),
+           schema="(Tensor x, Tensor w, Tensor? bias, Tensor? scale, Tensor? shift, "
+                  "int[] padding, bool relu, int m) -> Tensor")
+def winograd_conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                    scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+                    padding: List[int], relu: bool, m: int) -> torch.Tensor:
+    """ops/kernels/winograd.py:winograd_conv2d as an op: w (3, 3, Cin,
+    Cout), stride 1; the bias (in x.dtype) or the fp32 scale/shift; F(m,3)."""
+    return _k.winograd_conv2d(x, w, bias, scale, shift, padding=padding, m=m, relu=relu)
+
+
+@winograd_conv2d.register_fake
+def _(x, w, bias, scale, shift, padding, relu, m):
+    return _conv_fake(x, w, 1, padding, 1)
 
 
 def pool_args(kernel, stride, padding):

@@ -30,6 +30,7 @@ from convnets_tpu_torch.serve import load_artifact
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from convnets_tpu_torch.train import checkpoint as ckpt
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 ARGS = ["--arch", "lenet", "--kind", "0", "--input-size", "3,16,16", "--num-classes", "2",
         "--batch-size", "8", "--no-mixed-precision"]

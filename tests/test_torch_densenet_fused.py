@@ -32,6 +32,7 @@ from convnets_tpu_torch.models.densenet import DenseBlockFused
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from test_torch_zoo_attention import numpy_variables
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 SIZE, GROWTH, C0 = 3, 8, 16
 SHAPE = (4, 8, 8, C0)

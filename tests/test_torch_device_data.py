@@ -24,6 +24,7 @@ from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from convnets_tpu_torch.train.engine import _make_preprocess
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 STATS = ((0.49, 0.48, 0.45), (0.25, 0.24, 0.26))
 

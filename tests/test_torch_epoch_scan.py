@@ -29,6 +29,7 @@ from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from convnets_tpu_torch.train.graph import StepGraph
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 LOSS_RTOL = 1e-3  # the scanned BN fit's epoch losses against JAX (tests/test_torch_trainer.py)
 N, BATCH = 64, 16  # 4 full batches; BATCH 24 leaves a last batch of 16 real rows

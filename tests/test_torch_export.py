@@ -32,6 +32,7 @@ from convnets_tpu_torch.serve import (
 )
 from convnets_tpu_torch.serve.export import MAGIC
 from convnets_tpu_torch.train import Trainer
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 STATS = (np.array([0.49, 0.48, 0.45], np.float32), np.array([0.25, 0.24, 0.26], np.float32))
@@ -227,7 +228,18 @@ def _op_args():
         "depthwise_conv2d": [(x, w(3, 3, 1, 8), [2, 2], [1, 1])],
         "max_pool2d": [(x, [3, 3], [2, 2], [1, 1])],
         "avg_pool2d": [(x, [2, 2], [2, 2], [0, 0])],
+        "winograd_conv2d": [(x, w(3, 3, 8, 16), w(16), None, None, [1, 1], False, 4),
+                            (x.bfloat16(), w(3, 3, 8, 4).bfloat16(), None, w(4), w(4), [0, 0],
+                             True, 2)],
     }
+
+
+def _winograd_plain(a):
+    from convnets_tpu_torch.ops import winograd
+
+    x, w, b, scale, shift, padding, relu, m = a
+    return winograd.conv2d_winograd_plain(x, w, b, padding=padding, m=m, scale=scale,
+                                          shift=shift, relu=relu)
 
 
 @pytest.mark.parametrize("name", library.OPS)
@@ -248,5 +260,6 @@ def test_opcheck_each_op(name):
                  "depthwise_conv2d": lambda a: kernels.depthwise_conv2d_plain(
                      *a[:2], stride=a[2], padding=a[3]),
                  "max_pool2d": lambda a: kernels.max_pool2d_plain(*a),
-                 "avg_pool2d": lambda a: kernels.avg_pool2d_plain(*a)}[name](args)
+                 "avg_pool2d": lambda a: kernels.avg_pool2d_plain(*a),
+                 "winograd_conv2d": _winograd_plain}[name](args)
         assert torch.equal(got, plain)

@@ -185,12 +185,20 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(kernels.pool2d_backward("max", y, taps, (16, 16), torch.float32, 3, 2, 1),
                        kernels.pool2d_backward_plain("max", y, taps, (16, 16), torch.float32,
                                                      3, 2, 1))
+    for m in (2, 4):
+        assert torch.equal(kernels.winograd_conv2d(xt, wt, None, st, sh, padding=1, m=m, relu=True),
+                           kernels.winograd_conv2d_plain(xt, wt, None, st, sh, padding=1, m=m,
+                                                         relu=True))
+        for a, b in zip(kernels.winograd_conv2d_stats(xt, wt, padding=1, m=m),
+                        kernels.winograd_conv2d_stats_plain(xt, wt, padding=1, m=m)):
+            assert torch.equal(a, b)
     assert kernels.LAUNCHES == {"conv2d_fused": 0, "conv2d_stats": 0, "conv2d_stats_reduce": 0,
                                 "max_pool2d": 0, "avg_pool2d": 0, "depthwise_conv2d": 0,
                                 "grouped_conv2d_fused": 0, "grouped_conv2d_stats": 0,
                                 "bottleneck_block": 0, "pool2d_backward": 0,
                                 "bn_act_forward": 0, "bn_act_backward_sums": 0,
-                                "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0}
+                                "bn_act_backward_reduce": 0, "bn_act_backward_apply": 0,
+                                "winograd_input": 0, "winograd_output": 0}
     assert {k: set(v) for k, v in kernels.ROUTE_LAUNCHES.items()} == {
         "depthwise_conv2d": {"vector", "loop"}, "max_pool2d": {"vector", "loop"},
         "avg_pool2d": {"vector", "loop"}, "pool2d_backward": {"vector", "loop"},

@@ -53,6 +53,7 @@ from convnets_tpu_torch.train import Trainer
 
 from test_torch_zoo_attention import numpy_variables
 from torch_parallel_ranks import _flat
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RANK_TIMEOUT = 120

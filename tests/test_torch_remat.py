@@ -24,6 +24,7 @@ from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import build_train_step, create_train_state
 from test_torch_epoch_scan import _assert_same_weights, _dataset, _loaders, _twins
 from test_torch_train import _check_variables, _run_both
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TINY_DENSENET = (8, [2, 2], 16)  # growth 8, two blocks of two layers, 16 stem channels
 

@@ -24,6 +24,7 @@ from convnets_tpu_torch import bridge, nn, ops
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.serve import ServingModel
 from convnets_tpu_torch.train import build_train_step, create_train_state, load_jax_checkpoint
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 STATS = (np.array([0.49, 0.48, 0.45], np.float32), np.array([0.25, 0.24, 0.26], np.float32))

@@ -37,6 +37,7 @@ from convnets_tpu_torch.nn import trace
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from test_torch_zoo_attention import numpy_variables
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 STAT_TOL = 1e-5
 WITNESS_FACTOR = 10.0

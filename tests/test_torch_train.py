@@ -34,6 +34,7 @@ from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.ops.norm import batch_norm_train
 from convnets_tpu_torch.train import build_train_step, create_train_state, optim
 from convnets_tpu_torch.train.engine import data_rng
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 RNG = np.random.RandomState(0)
 

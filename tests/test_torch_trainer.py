@@ -49,6 +49,7 @@ from convnets_tpu_torch.train import Trainer, build_eval_step
 from convnets_tpu_torch.train import checkpoint as ckpt
 from convnets_tpu_torch.train import metrics
 from convnets_tpu_torch.train import scheduler as sched
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 N_TRAIN, N_VALID, BATCH = 32, 20, 8  # the valid split's last batch: 4 real rows, 4 padded
 BN_TRAIN, BN_BATCH = 64, 32  # the BN net's fit (see the module docstring)

@@ -22,6 +22,7 @@ from convnets_tpu_torch.data import ArrayDataset, DataLoader, synthetic_dataset
 from convnets_tpu_torch.models import build_model
 from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 BATCH = 8
 

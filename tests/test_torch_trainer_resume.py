@@ -6,7 +6,11 @@ Split from tests/test_torch_trainer.py, whose tests share the
 module-scoped `fits` fixture, so that pytest-xdist's loadfile
 distribution can run the two files on two workers. These tests need no
 `fits`: each fits its own RN18@32 at batch 8 in fp32 from the settings and
-loaders of test_torch_trainer.py (`_kw`, `_loaders`, `_pair`).
+loaders of test_torch_trainer.py (`_kw`, `_loaders`), except the
+uninterrupted fit that both resume cases compare against, which the
+module-scoped `straight_fit` runs once. The Adam-state test's JAX
+Trainer takes numpy weights in the layout jax.eval_shape gives, not a JAX
+init (10 s of the file's CPU time).
 """
 
 import copy
@@ -17,7 +21,11 @@ import pytest
 import jax
 import torch
 
+from convnets_tpu.models import build_model as jax_build_model
+from convnets_tpu.settings import Settings as JSettings
+from convnets_tpu.train import Trainer as JTrainer
 from convnets_tpu.train import checkpoint as jckpt
+from convnets_tpu.train.state import create_train_state as jax_train_state
 from convnets_tpu_torch import bridge
 from convnets_tpu_torch.data import DeviceCacheLoader
 from convnets_tpu_torch.models import build_model
@@ -26,11 +34,19 @@ from convnets_tpu_torch.settings import Settings
 from convnets_tpu_torch.train import Trainer
 from convnets_tpu_torch.train import checkpoint as ckpt
 from convnets_tpu_torch.train.graph import StepGraph
-from test_torch_trainer import BATCH, _arrays, _flat, _kw, _loaders, _pair
+from test_torch_trainer import BATCH, _arrays, _flat, _kw, _loaders
+from test_torch_zoo_attention import numpy_variables
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 
 def test_adam_state_crosses_both_ways(tmp_path):
-    jt, tt = _pair(tmp_path, optimizer="adam")
+    jt = JTrainer(jax_build_model("resnet", JSettings(**_kw(tmp_path / "jax", optimizer="adam"))),
+                  use_mesh=False)
+    variables = numpy_variables(jax.eval_shape(jt.model.init, jax.random.key(0)), 18)
+    jt.state = jax_train_state(variables, jt.setting, "adam")
+    tt = Trainer(build_model("resnet", Settings(**_kw(tmp_path / "port", optimizer="adam")),
+                             device="cpu"))
+    bridge.load_jax_variables(tt.model, variables)
     jt.init_optimizer()
     rng = np.random.RandomState(4)
     jt.state = jt.state._replace(opt_state=jt.state.opt_state._replace(
@@ -56,23 +72,41 @@ def _state_of(trainer):
             {k: v.clone() for k, v in trainer.state.opt_state.momentum.items()})
 
 
+RESUME_KW = dict(dropout_rate=0.5, batch_norm=True)
+STRAIGHT = 3  # the longest uninterrupted fit of the resume cases
+
+
+@pytest.fixture(scope="module")
+def straight_fit(tmp_path_factory):
+    """The uninterrupted fit of STRAIGHT epochs, run once for both resume
+    cases: its states at the end of each epoch (read in the epoch hook) and
+    its per-epoch history. The schedule (step decay per epoch), the shuffle
+    and the dropout masks of an epoch do not depend on the number of
+    epochs, so its first epochs are those of any shorter fit."""
+    ends = {}
+    a = Trainer(build_model("resnet", Settings(**_kw(tmp_path_factory.mktemp("a"),
+                                                      epochs=STRAIGHT, **RESUME_KW)),
+                            device="cpu"))
+    a.epoch_hook = lambda trainer, epoch: ends.__setitem__(epoch, _state_of(trainer))
+    a.fit(*_loaders("port"))
+    a.close()
+    return ends, a.epoch_results
+
+
 @pytest.mark.parametrize("straight,first", [(2, 1), (3, 2)])
-def test_resume_is_bit_identical_to_an_uninterrupted_fit(tmp_path, straight, first):
+def test_resume_is_bit_identical_to_an_uninterrupted_fit(tmp_path, straight_fit, straight,
+                                                          first):
     """Fit `straight` epochs, or fit `first` and resume for 1 in a fresh
     Trainer on fresh loaders: the resumed epoch ends with every parameter,
     buffer and momentum leaf equal to the uninterrupted fit's at the same
     epoch, with dropout on (the port's counterpart of
     tests/test_resume_order.py). Resume starts from the best epoch of the
     first fit, so that is the epoch compared; the states are read in the
-    epoch hook (at its end fit reloads the best checkpoint)."""
-    kw = dict(dropout_rate=0.5, batch_norm=True)
-    ends = {}
-    a = Trainer(build_model("resnet", Settings(**_kw(tmp_path / "a", epochs=straight, **kw)),
-                            device="cpu"))
-    a.epoch_hook = lambda trainer, epoch: ends.__setitem__(("a", epoch), _state_of(trainer))
-    a.fit(*_loaders("port"))
-    a.close()
-
+    epoch hook (at its end fit reloads the best checkpoint). The
+    uninterrupted fit is `straight_fit`'s, of STRAIGHT >= `straight`
+    epochs, compared at an epoch before `straight`."""
+    kw = RESUME_KW
+    ends, a_results = straight_fit
     b = Trainer(build_model("resnet", Settings(**_kw(tmp_path / "b", epochs=first, **kw)),
                             device="cpu"))
     b.fit(*_loaders("port"))
@@ -86,15 +120,15 @@ def test_resume_is_bit_identical_to_an_uninterrupted_fit(tmp_path, straight, fir
     train, valid = _loaders("port")
     c.fit(train, valid, resume=True)
     c.close()
-    assert train.epoch == best + 1
-    (sa, ma), (sc, mc) = ends["a", best], ends["c", 0]
+    assert train.epoch == best + 1 and best < straight <= STRAIGHT
+    (sa, ma), (sc, mc) = ends[best], ends["c", 0]
     assert set(sa) == set(sc) and set(ma) == set(mc)
     for k in sa:
         assert torch.equal(sa[k], sc[k]), k
     for k in ma:
         assert torch.equal(ma[k], mc[k]), k
     for k in ("train_loss", "valid_loss", "learning_rate"):
-        assert a.epoch_results[k][:best + 1] == c.epoch_results[k], k
+        assert a_results[k][:best + 1] == c.epoch_results[k], k
 
 
 def _scripted_eval(trainer, losses):

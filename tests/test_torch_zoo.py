@@ -30,6 +30,7 @@ from convnets_tpu_torch.ops import kernels
 from convnets_tpu_torch.serve import ServingModel
 from test_torch_resnet import STATS, _randomize_bn
 from test_torch_train import _check_moments, _check_variables, _run_both, _settings
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 LR = 5e-5

@@ -35,6 +35,7 @@ from convnets_tpu_torch.serve import ServingModel
 from convnets_tpu_torch.train import build_train_step, create_train_state
 from test_torch_resnet import STATS, _randomize_bn
 from test_torch_train import _check_moments, _check_variables, _flat, _settings, _t
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 LR = 5e-5
@@ -263,10 +264,12 @@ def _exact_conv_bn_relu_train(fp32_fn, conditioning):
     dtypes go to `fp32_fn`. Appends each call's largest mean²/var to
     `conditioning`, the factor by which a one-pass E[y²] - E[y]² variance
     multiplies the rounding of its sums."""
-    def fn(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1, dilation=1):
+    def fn(x, w, scale, bias, stride=1, padding=0, eps=1e-5, relu=True, groups=1, dilation=1,
+           winograd=None):
         if x.dtype != torch.float64:
             return fp32_fn(x, w, scale, bias, stride, padding, eps, relu, groups=groups,
-                           dilation=dilation)
+                           dilation=dilation, winograd=winograd)
+        assert winograd is None  # the twin runs with the Winograd gate unset
         y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                                        stride=stride, padding=padding, dilation=dilation,
                                        groups=groups)

@@ -32,6 +32,7 @@ from convnets_tpu_torch.serve import ServingModel, load_artifact, save_artifact
 from test_torch_train import _check_variables, _flat, _settings
 from test_torch_zoo_attention import count_dispatch, numpy_variables
 from test_torch_zoo_classic import _run_both
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 LR = 5e-5
