@@ -10,9 +10,9 @@ convnets_tpu_torch) and the tuner, and AlexNet, SENet, SE-ResNet, SKNet,
 SK-ResNet and ShuffleNet-v1 on the widened conv kernels (dilation, wide
 groups, any dense stride), and DenseNet's shared-statistics block,
 train-mode Remat, the debug trace, the side-stream host feed and
-adaptive_avg_pool2d, and data parallel (a world of one rank over NCCL, two
-ranks sharing the card over gloo, the CLI under torchrun), on one NVIDIA
-GPU.
+adaptive_avg_pool2d, data parallel (a world of one rank over NCCL, two
+ranks sharing the card over gloo, the CLI under torchrun), the Winograd
+path, and the native image codec on the card's host, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -373,6 +373,28 @@ final line:
      artifact's request (profiled: no library convolution) and a fresh
      process with the gate unset serving it, argmax = Trainer.test's on
      ≥ 0.99. Prints the winograd JSON line.
+  19. the native image codec (convnets_tpu_torch/native: libpng, libjpeg
+     and Pillow's BILINEAR resize in C++, built with g++ at first use) on
+     the card's host: (i) whether it built (a build that fails for a
+     missing png.h, jpeglib.h, -lpng or -ljpeg is reported with g++'s
+     error and what the toolchain finds, and the data path then decodes
+     with PIL; any other failure fails the phase); every image of phase
+     12's PNG tree (3,840 at 32²) and of a JPEG tree written here (256 at
+     500x375, quality 90, synthetic_dataset from --seed) through
+     ImageFolderDataset with CONVNETS_TPU_NATIVE_DECODE on and off, at
+     native size and the JPEGs also at 224²: the route counters exact
+     (native.DECODES), the cache tags, the two routes within the CPU
+     tests' bars (PNG bit for bit, JPEG mean |Δ| ≤ 1 per image); (ii)
+     decode img/s on one thread and through the DataLoader at the CLI's 16
+     threads (the PNG tree's valid split and the JPEG tree), the gate in
+     turns (off, on, on, off; where the codec did not build both gates
+     decode with PIL, and one turn of each runs), beside nproc; (iii)
+     RN26@32 bf16 b256 fitted 2 epochs from a host DataLoader over the
+     undecoded PNG tree (cache off), the gate in those turns from the same
+     weights: exact launches per step and eval batch, every decode on its
+     route, the fits' epoch losses bit for bit, epoch img/s and the
+     device-idle share of each fit's last epoch (profiled). Prints the
+     codec JSON line.
   --train-profile ROOT (no phases, no result line): RN50@224 bf16 b256's
      step ms and profiled device split (the fused sites' BN forward and
      backward apart, the backward nodes' kernels by name), RN26@32 b256's
@@ -382,7 +404,7 @@ final line:
      turns, device events by name) of the checkout at ROOT; run over the
      parent and the change in turns.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-18's paths (PATHS),
+  kernel: launches on its main path and on phases 10-19's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -8447,11 +8469,343 @@ def phase_winograd(seed, card, summary, failures):
     return rn50_path, cli_path
 
 
-# the paths of phases 10-18 whose launches the kernels line carries as
+# phase 19: the native image codec (convnets_tpu_torch/native) on the card's host
+CODEC_GATE = "CONVNETS_TPU_NATIVE_DECODE"
+CODEC_JPEG = (256, 375, 500)  # images, height, width: ImageNet-shaped JPEGs (500x375)
+CODEC_JPEG_QUALITY = 90
+CODEC_RESIZE = (224, 224)
+# the CPU tests' bars against PIL (tests/test_torch_native_codec.py): PNG
+# decode exact; JPEG mean |Δ| per image (IDCT rounding may differ between
+# libjpeg builds)
+CODEC_JPEG_MEAN = 1.0
+# a build that fails for lack of one of these is the host's installation:
+# reported, and the data path then decodes with PIL
+CODEC_MISSING = ("png.h", "jpeglib.h", "-lpng", "-ljpeg")
+# the gate of each timed turn: PIL, native, native, PIL; where the codec did
+# not build, both gates decode with PIL and one turn of each runs
+CODEC_TURNS = ("0", "1", "1", "0")
+CODEC_TURNS_UNBUILT = ("0", "1")
+CODEC_WORKERS = 16  # the CLI's DataLoader decode threads (Settings.DEF_NUM_WORKERS)
+CODEC_LOADER_BATCH = 16  # (ii): the DataLoader's batch, so that all its threads have work
+
+
+@contextlib.contextmanager
+def codec_gate(value):
+    """CONVNETS_TPU_NATIVE_DECODE set to `value` inside, restored after."""
+    old = os.environ.get(CODEC_GATE)
+    os.environ[CODEC_GATE] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(CODEC_GATE, None)
+        else:
+            os.environ[CODEC_GATE] = old
+
+
+def write_jpeg_tree(root, seed):
+    """CODEC_JPEG's images of synthetic_dataset(learnable=True) from seed +
+    30 as JPEGs of quality CODEC_JPEG_QUALITY under root/class<label>/."""
+    from PIL import Image
+
+    from convnets_tpu_torch.data import synthetic_dataset
+
+    n, h, w = CODEC_JPEG
+    ds = synthetic_dataset(n, (h, w, 3), ZOO_CLASSES, seed=seed + 30, learnable=True)
+    images, labels = (ds.images * 255).round().astype(np.uint8), ds.labels
+    for c in range(ZOO_CLASSES):
+        os.makedirs(os.path.join(root, f"class{c}"))
+    for j, (img, label) in enumerate(zip(images, labels)):
+        Image.fromarray(img).save(os.path.join(root, f"class{label}", f"{j:05d}.jpg"),
+                                  quality=CODEC_JPEG_QUALITY)
+
+
+def codec_toolchain():
+    """Which of CODEC_MISSING this host's g++ finds: each header by
+    preprocessing an #include of it, each library by linking against it."""
+    found = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for item in CODEC_MISSING:
+            if item.endswith(".h"):
+                cmd = ["g++", "-E", "-x", "c++", "-", "-o", os.devnull]
+                src = f"#include <{item}>\n"
+            else:
+                cmd = ["g++", "-shared", "-x", "c++", "-", item, "-o",
+                       os.path.join(tmp, "probe.so")]
+                src = "int probe() { return 0; }\n"
+            try:
+                found[item] = subprocess.run(cmd, input=src, capture_output=True, text=True,
+                                             timeout=60).returncode == 0
+            except (OSError, subprocess.SubprocessError):
+                found[item] = False
+    return found
+
+
+def codec_status(failures):
+    """(i) whether the codec built here, its build error, and what the
+    toolchain finds. A build that fails for a missing header or library of
+    CODEC_MISSING is reported (the data path then decodes with PIL); any
+    other failure fails the phase."""
+    from convnets_tpu_torch import native
+
+    t0 = time.perf_counter()
+    with codec_gate("1"):
+        have = native.available()
+    seconds = time.perf_counter() - t0
+    error = native.build_error()
+    found = codec_toolchain()
+    named = [m for m in CODEC_MISSING if error and m in error and not found[m]]
+    ok = have or bool(named)
+    tail = (error or "").strip().splitlines()[-3:]
+    say(f"(i) codec: {'built' if have else 'NOT built'} in {seconds:.2f} s "
+        f"({native.LIB_PATH}); the toolchain finds {found}"
+        + ("" if have else f"; g++'s error names {named}: {tail}") + (" ok" if ok else " FAIL"))
+    if not ok:
+        failures.append(f"codec build failed, not for a missing codec header or library: "
+                        f"{error}")
+    return have, {"built": have, "build_seconds": seconds, "toolchain": found,
+                  "build_error_tail": tail, "missing_named": named}
+
+
+def load_all(ds):
+    """ds.load_raw over every index, in os.cpu_count() threads (both decode
+    routes release the GIL); the images in index order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunks = np.array_split(np.arange(len(ds)), os.cpu_count() or 1)
+    with ThreadPoolExecutor(len(chunks)) as ex:
+        return np.concatenate(list(ex.map(lambda idx: ds.load_raw(idx)[0], chunks)))
+
+
+def codec_parity(png_roots, jpeg_root, have, failures):
+    """(i) every image of each tree through ImageFolderDataset.load_raw
+    with the gate on and off: the route counters exact (native on every
+    image where the codec built, else PIL), the cache tag, and the two
+    routes' images within the CPU tests' bars (PNG bit for bit; JPEG
+    mean |Δ| ≤ CODEC_JPEG_MEAN per image, at native size and at 224²)."""
+    from convnets_tpu_torch import native
+    from convnets_tpu_torch.data import ImageFolderDataset
+
+    cases = ([(f"png 32² {os.path.basename(r)}", r, None) for r in png_roots]
+             + [("jpeg 500x375", jpeg_root, None), ("jpeg -> 224²", jpeg_root, CODEC_RESIZE)])
+    out = {}
+    for label, root, size in cases:
+        images, counts, tags = {}, {}, {}
+        for gate in ("1", "0"):
+            with codec_gate(gate):
+                ds = ImageFolderDataset(root, image_size=size, cache=False)
+                native.reset_decodes()
+                images[gate] = load_all(ds)
+                counts[gate], tags[gate] = dict(native.DECODES), ds._decoder_id()
+        n = len(ds)
+        want = {"1": {"native": n, "pil": 0} if have else {"native": 0, "pil": n},
+                "0": {"native": 0, "pil": n}}
+        want_tags = ({"1": "any", "0": "any"} if size is None
+                     else {"1": "native" if have else "pil", "0": "pil"})
+        d = np.abs(images["1"].astype(np.int16) - images["0"].astype(np.int16))
+        per_image = d.reshape(n, -1).mean(1)
+        if label.startswith("png"):
+            close = not d.any()
+        else:
+            close = bool(per_image.max() <= CODEC_JPEG_MEAN)
+        ok = close and counts == want and tags == want_tags
+        say(f"    {label}: {n} images, native route against PIL max |Δ| {int(d.max())}, "
+            f"largest per-image mean |Δ| {per_image.max():.4f}; decodes gate=1 {counts['1']}, "
+            f"gate=0 {counts['0']}; cache tags {tags} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"codec parity {label}: max {d.max()}, mean {per_image.max()}, "
+                            f"decodes {counts} (want {want}), tags {tags} (want {want_tags})")
+        out[label] = {"images": n, "max_abs": int(d.max()), "max_image_mean_abs":
+                      float(per_image.max()), "decodes": counts, "tags": tags}
+    return out
+
+
+def codec_rates(png_root, jpeg_root, turns):
+    """(ii) decode img/s on the host, the gate in `turns`: one thread
+    decoding every image of the tree in order, then the port's DataLoader
+    over it with the CLI's CODEC_WORKERS threads; with the route counters
+    of each turn."""
+    from convnets_tpu_torch import native
+    from convnets_tpu_torch.data import DataLoader, ImageFolderDataset
+
+    out = {}
+    for label, root, size in (("png 32²", png_root, None), ("jpeg 500x375", jpeg_root, None),
+                              ("jpeg -> 224²", jpeg_root, CODEC_RESIZE)):
+        runs = []
+        for gate in turns:
+            with codec_gate(gate):
+                ds = ImageFolderDataset(root, image_size=size, cache=False)
+                native.reset_decodes()
+                t0 = time.perf_counter()
+                for i in range(len(ds)):
+                    ds._decode(i)
+                one = len(ds) / (time.perf_counter() - t0)
+                loader = DataLoader(ds, CODEC_LOADER_BATCH, num_workers=CODEC_WORKERS)
+                t0 = time.perf_counter()
+                for _ in loader:
+                    pass
+                many = len(ds) / (time.perf_counter() - t0)
+                runs.append({"gate": gate, "one_thread_img_s": one, "loader_img_s": many,
+                             "decodes": dict(native.DECODES)})
+        out[label] = runs
+        say(f"(ii) {label}, {len(ds)} images: img/s one thread / DataLoader "
+            f"({CODEC_WORKERS} threads, batch {CODEC_LOADER_BATCH}) per turn "
+            + "; ".join(f"gate={t['gate']} {t['one_thread_img_s']:.1f} / "
+                        f"{t['loader_img_s']:.1f} ({t['decodes']})" for t in runs))
+    return out
+
+
+def profile_last_epoch(trainer, out):
+    """Run the fit's last train epoch under torch.profiler (device
+    activity); append (device µs, host s) of it to `out`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = trainer._run_train_epoch
+
+    def profiled(loader, epoch_index):
+        if epoch_index != trainer.setting.epochs - 1:
+            return run(loader, epoch_index)
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = run(loader, epoch_index)
+            sync()
+            host = time.perf_counter() - t0
+        out.append((device_split(prof, OUR_KERNELS)[0], host))
+        return result
+
+    trainer._run_train_epoch = profiled
+
+
+def codec_fit(seed, have, turns, failures):
+    """(iii) RN26@32 bf16 b256 (phase 10's settings) fitted 2 epochs from a
+    host DataLoader (CODEC_WORKERS threads) over ImageFolderDataset(...,
+    cache=False) of phase 12's PNG tree, so that every epoch decodes every
+    image, the gate in `turns`, each fit from the same weights: every train
+    step 29 conv2d_stats + 29 reductions + 1 max_pool2d + 1 pool2d_backward
+    + the BN passes, every eval batch 29 conv2d_fused + 1 max_pool2d; the
+    decodes' routes; the epoch losses of the fits equal bit for bit; epoch
+    img/s and the device-idle share of the last epoch (profiled). Returns
+    (results, the path's launches)."""
+    from convnets_tpu_torch import native
+    from convnets_tpu_torch.data import DataLoader, ImageFolderDataset
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.train import Trainer
+
+    root = cli_tree(seed)
+    rec, runs, first = new_record(), [], None
+    with tempfile.TemporaryDirectory() as out_dir:
+        sync()
+        kernels.reset_launches()
+        for turn, gate in enumerate(turns):
+            with codec_gate(gate):
+                setting = trainer_setting(seed, os.path.join(out_dir, str(turn)))
+                model = build_model("resnet", setting, device=DEVICE)
+                if first is None:
+                    first = {k: v.clone() for k, v in model.state_dict().items()}
+                model.load_state_dict(first)
+                trainer = Trainer(model)
+                n = conv_count(trainer.model)
+                count_calls(trainer, rec)
+                epoch_s, profiled = [], []
+                profile_last_epoch(trainer, profiled)
+                timed_train_epochs(trainer, epoch_s)
+                train_ds, valid_ds = (ImageFolderDataset(os.path.join(root, split), cache=False)
+                                      for split in ("train", "valid"))
+                train = DataLoader(train_ds, TRAINER_BATCH, shuffle=True, seed=seed,
+                                   num_workers=CODEC_WORKERS)
+                valid = DataLoader(valid_ds, TRAINER_BATCH)
+                native.reset_decodes()
+                sync()
+                t0 = time.perf_counter()
+                trainer.fit(train, valid)
+                sync()
+                host = time.perf_counter() - t0
+                trainer.close()
+                (device, epoch_host), = profiled
+                r = trainer.epoch_results
+                runs.append({"gate": gate, "decodes": dict(native.DECODES),
+                             "train_loss": list(r["train_loss"]),
+                             "valid_loss": list(r["valid_loss"]),
+                             "epoch_img_s": [len(train_ds) / s for s in epoch_s],
+                             "fit_s": host, "profiled_epoch_host_ms": 1e3 * epoch_host,
+                             "profiled_epoch_device_ms": device / 1e3,
+                             "idle_share": 1.0 - device / 1e6 / epoch_host})
+        sync()
+        totals = dict(kernels.LAUNCHES)
+    check_routes("decoded fit", totals, failures)
+    per_step = launches_of({"conv2d_stats": 29, "conv2d_stats_reduce": 29, "max_pool2d": 1,
+                            "pool2d_backward": 1, **bn_sites(29)})
+    per_eval = launches_of({"conv2d_fused": 29, "max_pool2d": 1})
+    check_calls("(iii) decoded fits", rec, per_step, per_eval, failures)
+    images = TRAINER_EPOCHS * (len(train_ds) + len(valid_ds))
+    route = "native" if have else "pil"
+    want = {"native": 0, "pil": 0, route: images}
+    ok_routes = all(run["decodes"] == (want if run["gate"] == "1" else
+                                       {"native": 0, "pil": images}) for run in runs)
+    losses = [(run["train_loss"], run["valid_loss"]) for run in runs]
+    ok_losses = all(l == losses[0] for l in losses)
+    for run in runs:
+        say(f"    gate={run['gate']}: decodes {run['decodes']}, train loss {run['train_loss']}, "
+            f"valid loss {run['valid_loss']}, epoch img/s "
+            f"{[round(v, 1) for v in run['epoch_img_s']]} (the last one profiled), fit "
+            f"{run['fit_s']:.2f} s; last epoch device {run['profiled_epoch_device_ms']:.1f} ms of "
+            f"{run['profiled_epoch_host_ms']:.1f} ms host, idle share {run['idle_share']:.4f}")
+    say(f"(iii) {len(runs)} fits of RN26@32 bf16 b{TRAINER_BATCH} over the decoded PNG tree "
+        f"({n} convs): decodes per fit on the {route} route with the gate on {want}: "
+        f"{'ok' if ok_routes else 'FAIL'}; epoch losses bit for bit across the decoders: "
+        f"{'ok' if ok_losses else 'FAIL'}")
+    if n != 29:
+        failures.append(f"decoded fit: {n} convs, not RN26's 29")
+    if not ok_routes:
+        failures.append(f"decoded fit decodes: {[run['decodes'] for run in runs]}")
+    if not ok_losses:
+        failures.append(f"decoded fit losses differ across the decoders: {losses}")
+    return ({"runs": runs, "launches_per_train_step": {k: v for k, v in per_step.items() if v},
+             "launches_per_eval_batch": {k: v for k, v in per_eval.items() if v},
+             "decodes_per_fit": images, "fit_launches": {k: v for k, v in totals.items() if v}},
+            path_launches(totals, rec))
+
+
+def phase_codec(seed, card, failures):
+    """Phase 19: the native image codec on the card's host. (i) whether it
+    built, and parity on phase 12's PNG tree and a JPEG tree written here;
+    (ii) decode img/s; (iii) RN26@32 fitted over the decoded tree under
+    both decoders. Prints the codec JSON line; returns the launches of
+    (iii)'s path."""
+    parts, out = {}, {"card": card, "nproc": os.cpu_count(),
+                      "cpus_usable": len(os.sched_getaffinity(0))}
+    say(f"codec host: {out['nproc']} CPUs ({out['cpus_usable']} usable), {card}")
+    t0 = time.perf_counter()
+    have, out["status"] = codec_status(failures)
+    turns = CODEC_TURNS if have else CODEC_TURNS_UNBUILT
+    png_roots = [os.path.join(cli_tree(seed), split) for split, _ in CLI_SPLITS]
+    parts["i_status_tree"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        jpeg_root = os.path.join(tmp, "jpeg")
+        write_jpeg_tree(jpeg_root, seed)
+        parts["jpeg_tree"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["parity"] = codec_parity(png_roots, jpeg_root, have, failures)
+        parts["i_parity"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["rates"] = codec_rates(png_roots[1], jpeg_root, turns)
+        parts["ii"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fit"], path = codec_fit(seed, have, turns, failures)
+    parts["iii"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    say(json.dumps({"codec": out}, default=str))
+    return path
+
+
+# the paths of phases 10-19 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
          "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel",
-         "envelope", "winograd_vgg_cli")
+         "envelope", "winograd_vgg_cli", "decoded_fit")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -8652,6 +9006,9 @@ def main():
             "bn_act_backward": cli["bn_act_backward_apply"], "max_pool2d": cli["max_pool2d"],
             "pool2d_backward": cli["pool2d_backward"]}
 
+    def phase_19():
+        state["decoded_fit"] = phase_codec(args.seed, card, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -8676,6 +9033,7 @@ def main():
         "16": phase_16,
         "17": phase_17,
         "18": phase_18,
+        "19": phase_19,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -8724,7 +9082,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-18's {path} path")
+                failures.append(f"{name}: no launch on phase 10-19's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

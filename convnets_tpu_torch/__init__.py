@@ -9,7 +9,8 @@ Ported so far: the serving and train paths of ten families (ResNet,
 MobileNet-v1, DenseNet, ResNeXt, LeNet, ConvNet, the template net, VGG,
 SqueezeNet, InceptionNet-v1), the Trainer with its host feed and the
 device data path, the single-file serving artifact, the CLI with its
-drivers, the tuner, and data parallel over a mesh of processes.
+drivers, the tuner, data parallel over a mesh of processes, the Winograd
+path and the native image codec.
   settings.py   run configuration (a copy of the JAX package's)
   core/      dtype policy, shape math, random-number streams
   ops/       plain tensor ops (NHWC), the CPU oracles of the kernels
@@ -26,7 +27,9 @@ drivers, the tuner, and data parallel over a mesh of processes.
   tune/      ParameterSampler and the random-search Tuner
   parallel/  the data-parallel DeviceMesh, sync-BN sums over its data group,
              init_distributed, dryrun_multichip
-  viz/       plots (matplotlib, imported only where a driver plots)
+  viz/       plots (matplotlib, imported only where a driver plots) and
+             the reference repo's published results table
+  native/    the PNG/JPEG decode + resize codec (host C++, g++ at first use)
   bridge.py  JAX variables and optimizer state <-> port tensors, by path
   drivers.py process_fit / process_tune / process_load / process_export /
              process_eval; utils.py split, set_reproducible_mode,

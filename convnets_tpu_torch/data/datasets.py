@@ -3,11 +3,11 @@ port imports nothing of the JAX package).
 
 ImageFolderDataset is the torchvision ImageFolder equivalent the reference
 feeds into its DataLoaders (reference mngrdata.py:139-215): a directory of
-`<root>/<class>/<image>` files. Images are decoded on demand with PIL by a
-host thread pool in the DataLoader; everything downstream of decode
+`<root>/<class>/<image>` files. Images are decoded on demand by a host
+thread pool in the DataLoader, with the native codec (native/: libpng,
+libjpeg and Pillow's BILINEAR resize in C++) first and PIL for a file the
+codec cannot read or when it is off; everything downstream of decode
 (dequantize, normalize) runs on the device, in the train and eval steps.
-The JAX package's native decoder is not copied: PIL's decode is
-bit-identical to it without a resize (tests/test_native_codec.py).
 
 ArrayDataset serves in-memory numpy (MNIST/CIFAR-style arrays, synthetic
 test data, pre-decoded caches).
@@ -20,6 +20,8 @@ import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from convnets_tpu_torch import native
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".webp")
 
@@ -212,19 +214,32 @@ class ImageFolderDataset(Dataset):
         return x.astype(np.float32) / 255.0, y
 
     def _decoder_id(self) -> str:
-        """Identity of the decode path for the disk-cache sidecar tag:
-        "any" without a resize (PIL and the JAX package's native decoder
-        agree bit for bit there), "pil" for a resized cache."""
-        return "any" if self._size is None else "pil"
+        """Identity of the decode path for the disk-cache sidecar tag.
+        Without a resize the native codec and PIL decode bit for bit alike,
+        so the cache is decoder-agnostic ("any"); a resized cache carries
+        the resampler that produced it ("native" or "pil", whose resizes
+        part by up to 2 levels), the tags the JAX package writes."""
+        if self._size is None:
+            return "any"
+        return "native" if native.available() else "pil"
 
     def _decode(self, i: int) -> np.ndarray:
+        # the native codec first (bit-identical decode, resize within 2
+        # levels of PIL's); PIL for the formats it lacks or when it is off
+        if native.available():
+            out = native.decode_image(self._paths[int(i)], self._size)
+            if out is not None:
+                return out
+
         from PIL import Image
 
         with Image.open(self._paths[int(i)]) as im:
             im = im.convert("RGB")
             if self._size is not None and im.size != (self._size[1], self._size[0]):
                 im = im.resize((self._size[1], self._size[0]), Image.BILINEAR)
-            return np.asarray(im, np.uint8)
+            out = np.asarray(im, np.uint8)
+        native.count_decode("pil")
+        return out
 
     def load_raw(self, indices):
         if self._cache is not None:

@@ -42,7 +42,8 @@ def test_the_port_has_modules_to_scan():
                    "drivers.py", "utils.py", "tune/sampler.py", "tune/tuner.py",
                    "viz/plots.py", "models/convnet.py", "models/template_net.py",
                    "models/vggnet.py", "models/squeezenet.py", "models/inceptionnet_v1.py",
-                   "parallel/__init__.py", "parallel/mesh.py", "parallel/dryrun.py"):
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/dryrun.py",
+                   "native/__init__.py", "viz/reference_results.py"):
         assert f"convnets_tpu_torch/{module}" in names
     assert len(names) >= 15
 
