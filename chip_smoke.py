@@ -12,7 +12,9 @@ groups, any dense stride), and DenseNet's shared-statistics block,
 train-mode Remat, the debug trace, the side-stream host feed and
 adaptive_avg_pool2d, data parallel (a world of one rank over NCCL, two
 ranks sharing the card over gloo, the CLI under torchrun), the Winograd
-path, and the native image codec on the card's host, on one NVIDIA GPU.
+path, the native image codec on the card's host, and the public API
+(the summaries, a user's Builder network, conv2d_winograd), on one NVIDIA
+GPU.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -395,6 +397,29 @@ final line:
      route, the fits' epoch losses bit for bit, epoch img/s and the
      device-idle share of each fit's last epoch (profiled). Prints the
      codec JSON line.
+  20. the public API: (i) each family of FAMILIES, ZOO and ZOO2 at its
+     kind and size (all sixteen registry names) built on the card, one
+     bf16 b8 eval forward with a forward hook on every module of its
+     Model.summary(batch_size=8): every line's printed output shape
+     against what the module produced (a fused ConvBNReLU's conv, BN and
+     ReLU, which its fused forward does not call, against the site's
+     output), Model.out_shape(8) against the logits, Model.num_params()
+     against the parameters' numel and the summary's total line, the
+     forward's launches exact; (ii) a user's Builder network at 224²
+     (build_public_net: the max-pool stem, ShuffleNet-v1-g4's widths 272 /
+     544 / 1088, grouped (g = 4) conv_blocks, nn.ChannelShuffle, an
+     nn.Concat of two b.conv(..., set_output=False) branches, a depthwise
+     block, nn.Sigmoid; registered for the phase only): phase 14's fp32
+     step check at b8, three bf16 Adam steps at b64 against the same
+     network with its weights copied on the plain path (each loss within
+     1e-2, the kernel path's falling, each step's launches and grouped
+     routes exact: wgmma_wide), fp32 b8 eval logits against plain within
+     1e-4 and a served bf16 b64 request's argmax against plain; (iii)
+     ops.winograd.conv2d_winograd at RN50's 56²×64, b256 bf16, m = 4 and 2,
+     against conv2d_winograd_plain within CONV_TOL and the fp32 direct conv
+     within phase 18's band, timed beside the plain composition. Prints
+     the public_api JSON line; the kernels line carries the path's
+     launches as public_api_launches.
   --train-profile ROOT (no phases, no result line): RN50@224 bf16 b256's
      step ms and profiled device split (the fused sites' BN forward and
      backward apart, the backward nodes' kernels by name), RN26@32 b256's
@@ -404,7 +429,7 @@ final line:
      turns, device events by name) of the checkout at ROOT; run over the
      parent and the change in turns.
   last lines: the card's name and power limit, the kernels JSON line (per
-  kernel: launches on its main path and on phases 10-19's paths (PATHS),
+  kernel: launches on its main path and on phases 10-20's paths (PATHS),
   max error against the plain version,
   kernel, plain and library-call ms (device time, time_ms), and the bound: the larger of the
   bytes it must move over 3.35 TB/s and its operations over the peak rate
@@ -7658,16 +7683,16 @@ def build_envelope_net(setting):
 
 
 @contextlib.contextmanager
-def envelope_registered():
-    """ENVELOPE_NET in the port's registry for the duration, as a copied
-    template_net.py registers its net."""
+def registered(name, build):
+    """`build` in the port's registry under `name` for the duration, as a
+    copied template_net.py registers its net."""
     from convnets_tpu_torch.models import base
 
-    base._REGISTRY[ENVELOPE_NET] = build_envelope_net
+    base._REGISTRY[name] = build
     try:
         yield
     finally:
-        base._REGISTRY.pop(ENVELOPE_NET, None)
+        base._REGISTRY.pop(name, None)
 
 
 def window_routes_want(model, n):
@@ -7827,7 +7852,7 @@ def phase_envelope(seed, card, summary, failures):
                                 if k in r} for r in records if "cudnn_ms" in r]}
     parts["i"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with envelope_registered():
+    with registered(ENVELOPE_NET, build_envelope_net):
         res, model32 = zoo_family(ENVELOPE_NET, "0", 32, seed, card, failures)
         del model32
         out["model"] = res
@@ -8801,11 +8826,360 @@ def phase_codec(seed, card, failures):
     return path
 
 
-# the paths of phases 10-19 whose launches the kernels line carries as
+# phase 20: the public API on the card. (i) each family that FAMILIES, ZOO
+# and ZOO2 build, at their kinds and sizes (the registry's sixteen names);
+# (ii) a user's Builder network with the layers and Builder calls of ROADMAP
+# item 10 and fault F1 at ShuffleNet-v1-g4's stage widths; (iii) the public
+# ops.winograd.conv2d_winograd at RN50's first 3x3 shape
+PUBLIC_FAMILIES = tuple(dict.fromkeys(
+    [(arch, kind, IMAGE) for arch, kind in FAMILIES.items()] + list(ZOO) + list(ZOO2)))
+PUBLIC_BATCH = 8  # (i): the bf16 eval forward of each family
+PUBLIC_NET = "public_api_net"  # (ii): registered for this phase only
+# ShuffleNet-v1-g4's stage widths (convnets_tpu/models/shufflenet_v1.py:20)
+PUBLIC_WIDTHS = (272, 544, 1088)
+PUBLIC_GROUPS = 4
+PUBLIC_NET_IMAGE, PUBLIC_NET_BATCH, PUBLIC_NET_STEPS = 224, 64, 3  # (ii): bf16 Adam steps
+# (ii)'s bar on the bf16 steps' losses, kernel path against the plain path
+# with the same weights: phase 10's ceiling on a kernel-vs-plain loss (the
+# fp32 step beside them is held to phase 14's bars, step_check)
+PUBLIC_LOSS_BAR = TRAINER_MAX_BAR
+PUBLIC_WINOGRAD = (256, 56, 64, 64, 1)  # (iii): N, H = W, Cin, Cout, pad (RN50's 56²×64)
+
+
+def summary_modules(module):
+    """The modules of nn.summarize's lines, in its order (pre-order over
+    summary_children), each with its parent."""
+    out = []
+
+    def walk(mod, parent):
+        out.append((mod, parent))
+        for kid in mod.summary_children().values():
+            walk(kid, mod)
+
+    walk(module, None)
+    return out
+
+
+def printed_shapes(text):
+    """The out=(...) shape of each layer line of a Model.summary text (the
+    last " out=" of a line: a label may hold "out=" too)."""
+    import ast
+
+    return [ast.literal_eval(line.rsplit(" out=", 1)[1].split(")", 1)[0] + ")")
+            for line in text.splitlines()[1:-1]]
+
+
+def summary_check(arch, kind, image, seed, path, failures):
+    """Phase 20 (i) for one family: built on the card (bf16, 10 classes,
+    the setting's seeded init), one b8 eval forward with a forward hook on
+    every module of its summary: each line's shape against the output the
+    module produced (a fused ConvBNReLU's conv, BN and ReLU, which its fused
+    forward does not call, against the site's output); Model.out_shape(8)
+    against the logits; Model.num_params() against the parameters' numel
+    and the summary's total line; the forward's launches against those
+    read off its modules (model_launches), counted into `path`."""
+    import torch
+
+    from convnets_tpu_torch import nn
+    from convnets_tpu_torch.models import build_model
+    from convnets_tpu_torch.settings import Settings
+
+    label = f"{arch}{kind}@{image}"
+    model = build_model(arch, Settings(kind=kind, input_size=(3, image, image),
+                                       num_classes=ZOO_CLASSES, mixed_precision=True, seed=seed),
+                        device=DEVICE)
+    text = model.summary(batch_size=PUBLIC_BATCH)
+    mods, shapes = summary_modules(model.module), printed_shapes(text)
+    seen, hooks = {}, []
+    for mod, _ in mods:
+        hooks.append(mod.register_forward_hook(
+            lambda m, i, o: seen.setdefault(id(m), []).append(tuple(o.shape))))
+    x = torch.rand(PUBLIC_BATCH, image, image, 3, device=DEVICE,
+                   generator=torch.Generator(device=DEVICE).manual_seed(seed))
+    counts = {}
+    with torch.inference_mode():
+        logits = counted_run(lambda: model(x), counts)
+    for h in hooks:
+        h.remove()
+    got = launches_of(counts)
+    for k, v in counts.items():
+        path[k] = path.get(k, 0) + v
+    bad, fused = [], 0
+    for (mod, parent), shape in zip(mods, shapes):
+        if id(mod) in seen:
+            if any(s != shape for s in seen[id(mod)]):
+                bad.append(f"{mod.summary_label()}: printed {shape}, ran {seen[id(mod)]}")
+        elif isinstance(parent, nn.ConvBNReLU) and id(parent) in seen:
+            fused += 1
+            if seen[id(parent)][0] != shape:
+                bad.append(f"{mod.summary_label()} in a fused site: printed {shape}, the site "
+                           f"ran {seen[id(parent)][0]}")
+        else:
+            bad.append(f"{mod.summary_label()}: printed {shape}, never ran")
+    total = text.splitlines()[-1]
+    n_params = sum(p.numel() for p in model.parameters())
+    counts_ok = (model.num_params() == n_params
+                 and total.startswith(f"total params: {n_params:,}   total state: ")
+                 and model.out_shape(PUBLIC_BATCH) == tuple(logits.shape)
+                 and len(mods) == len(shapes) and bool(torch.isfinite(logits).all()))
+    ok = counts_ok and not bad and got == model_launches(model)[0]
+    say(f"(i) {label}: {len(shapes)} summary lines, {len(shapes) - fused} against the module's "
+        f"own output, {fused} inside fused sites; out_shape {model.out_shape(PUBLIC_BATCH)} vs "
+        f"logits {tuple(logits.shape)}; num_params {model.num_params():,} vs numel {n_params:,} "
+        f"and '{total}'; forward launches {launches_summary(got)} "
+        f"{'ok' if ok else 'FAIL'}" + "".join(f"\n    {b}" for b in bad[:4]))
+    if not ok:
+        failures.append(f"public API (i) {label}: shapes {bad[:4]}, counts {counts_ok}, "
+                        f"launches {launches_summary(got)}")
+    return {"lines": len(shapes), "fused_lines": fused, "params": n_params,
+            "launches": launches_summary(got)}
+
+
+def build_public_net(setting):
+    """A user's network written as template_net.py shows, with the names
+    this slice ports: the max-pool stem, ShuffleNet-v1-g4's stage widths, a
+    grouped (g = 4) 1x1 conv_block and nn.ChannelShuffle(4), an nn.Concat of
+    two bare b.conv(..., set_output=False) branches after which in_channels
+    is set to their sum (as InceptionNet-v1 does with conv_block), a
+    depthwise block whose groups come from in_channels, nn.Sigmoid, a
+    grouped 1x1 to the last width. tests/test_torch_summary.py holds a
+    narrower one against its JAX twin."""
+    from convnets_tpu_torch import nn
+    from convnets_tpu_torch.models.base import Builder, Model
+
+    w1, w2, w3 = PUBLIC_WIDTHS
+    g = PUBLIC_GROUPS
+    b = Builder(setting)
+    layers = [b.conv_block(24, kernel=3, stride=2, padding=1),
+              nn.MaxPool2d(3, stride=2, padding=1),
+              b.conv_block(w1, kernel=1),
+              b.conv_block(w1, kernel=1, groups=g),                         # row 1g / 5g
+              nn.ChannelShuffle(g),
+              nn.Concat([b.conv(w1, kernel=1, set_output=False),
+                         b.conv(w2 - w1, kernel=3, padding=1, set_output=False)])]
+    b.in_channels = w2
+    layers += [b.conv_block_depthwise(stride=2, padding=1),                # row 9
+               nn.Sigmoid(),
+               b.conv_block(w3, kernel=1, groups=g),                        # row 1g / 5g
+               nn.GlobalAvgPool2d(),
+               b.linear(setting.num_classes)]
+    return Model("PublicApiNet", setting, nn.Sequential(layers))
+
+
+def public_net_check(seed, failures, step_path, fwd_path):
+    """Phase 20 (ii): the Builder network (build_public_net) at 224², 10
+    classes, BN on. (a) phase 14's step check: the fp32 SGD step at b8,
+    kernel vs plain path, beside its control (step_check). (b) PUBLIC_NET_STEPS
+    bf16 Adam steps at b64 on the kernels, each step's launches exact
+    (model_launches) with the grouped ones on the routes grouped_plan gives
+    (wgmma_wide) and the window kernels on the vector route, counted into
+    `step_path`; the same steps of the same network with its weights copied,
+    on the plain path; every step's loss within PUBLIC_LOSS_BAR of the
+    plain path's, the kernel path's loss falling. (c) one eval forward
+    through the custom ops: fp32 b8 logits against the plain path's within
+    ZOO_FP32_TOL × max|logit|, and the trained bf16 model's served b64 uint8
+    request (counted into `fwd_path`, its launches and grouped routes exact)
+    against the plain path's: argmax agreement ≥ ARGMAX_MIN."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels
+    from convnets_tpu_torch.serve import ServingModel
+
+    n, image = PUBLIC_NET_BATCH, PUBLIC_NET_IMAGE
+    label = f"{PUBLIC_NET}@{image}"
+    res = {}
+    res["step"] = step_check(label, seed, failures, batch=ZOO_BATCH, image=image,
+                             classes=ZOO_CLASSES,
+                             make=lambda **kw: zoo_model(PUBLIC_NET, "0", image, seed, **kw))
+    models = {p: zoo_model(PUBLIC_NET, "0", image, seed, dropout_rate=0.0)
+              for p in ("kernel", "plain")}
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    want_fwd, want_step = model_launches(models["kernel"])
+    routes_fwd, routes_step = grouped_routes_want(models["kernel"])
+    rng = np.random.default_rng(seed + 20)
+    x = torch.from_numpy(rng.integers(0, 256, (n, image, image, 3), dtype=np.uint8)).to(DEVICE)
+    y = torch.from_numpy(rng.integers(0, ZOO_CLASSES, n)).to(DEVICE)
+    losses, steps_ok = {}, True
+    for path in ("plain", "kernel"):
+        state, step = train_state(models[path], norm=True, stats=IMAGENET_STATS)
+        losses[path] = []
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            for i in range(PUBLIC_NET_STEPS):
+                counts = {}
+                losses[path].append(float(counted_run(lambda: step(state, x, y)[0], counts)))
+                if path == "kernel":
+                    got = launches_of(counts)
+                    fine = got == want_step and grouped_routes() == routes_step
+                    if i == 0:
+                        check_routes(f"(ii) {label} bf16 step", got, failures)
+                        say(f"(ii) {label}: launches per bf16 b{n} Adam step "
+                            f"{launches_summary(got)}, grouped per route {grouped_routes()} "
+                            f"(expected {launches_summary(want_step)}, {routes_step}) "
+                            f"{'ok' if fine else 'FAIL'}")
+                    steps_ok &= fine
+                    for k, v in counts.items():
+                        step_path[k] = step_path.get(k, 0) + v
+    rel = [abs(k - p) / abs(p) for k, p in zip(losses["kernel"], losses["plain"])]
+    falls = losses["kernel"][-1] < losses["kernel"][0] and all(np.isfinite(losses["kernel"]))
+    ok = steps_ok and falls and max(rel) <= PUBLIC_LOSS_BAR
+    say(f"(ii) {label}: {PUBLIC_NET_STEPS} bf16 Adam steps (b{n}, lr {ZOO_LEARN_LR:g}), loss "
+        f"kernel {[round(v, 5) for v in losses['kernel']]}, plain (weights copied) "
+        f"{[round(v, 5) for v in losses['plain']]}: worst rel {max(rel):.3e} (bar "
+        f"{PUBLIC_LOSS_BAR:g}), falls {falls}, every step's launches exact {steps_ok} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"public API (ii) bf16 steps: rel {rel}, falls {falls}, launches {steps_ok}")
+    res.update(losses=losses, loss_rel=rel)
+
+    model32 = zoo_model(PUBLIC_NET, "0", image, seed, mixed_precision=False)
+    x32 = torch.rand(ZOO_BATCH, image, image, 3, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(seed + 21))
+    with torch.inference_mode():
+        y32 = model32(x32)
+        with plain_kernels():
+            r32 = model32(x32)
+    rel32 = float((y32 - r32).abs().max() / r32.abs().max())
+    ok32 = rel32 <= ZOO_FP32_TOL and bool(torch.isfinite(y32).all())
+    del model32
+    model = models["kernel"].eval()
+    server = ServingModel(model, input_dtype="uint8", stats=IMAGENET_STATS)
+    req = rng.integers(0, 256, (n, image, image, 3), dtype=np.uint8)
+    server(req)  # warm: the plans of the request's shapes
+    counts = {}
+    got = counted_run(lambda: server(req), counts)
+    fwd_launches, fwd_routes = launches_of(counts), grouped_routes()
+    with plain_kernels():
+        ref = server(req)
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    fine = (ok32 and agree >= ARGMAX_MIN and bool(torch.isfinite(got).all())
+            and fwd_launches == want_fwd and fwd_routes == routes_fwd)
+    say(f"(ii) {label}: fp32 b{ZOO_BATCH} eval logits vs plain: max |Δ| / max |logit| "
+        f"{rel32:.3e} (tol {ZOO_FP32_TOL:g}); served bf16 b{n} uint8 request vs plain: argmax "
+        f"agreement {agree:.4f} (min {ARGMAX_MIN}), max |Δlogit| "
+        f"{float((got - ref).abs().max()):.4e} of max |logit| {float(ref.abs().max()):.4e}; "
+        f"launches {launches_summary(fwd_launches)}, grouped per route {fwd_routes} (expected "
+        f"{launches_summary(want_fwd)}, {routes_fwd}) {'ok' if fine else 'FAIL'}")
+    if not fine:
+        failures.append(f"public API (ii) eval: fp32 rel {rel32:.3e}, argmax {agree:.4f}, "
+                        f"launches {launches_summary(fwd_launches)}, routes {fwd_routes}")
+    for k, v in counts.items():
+        fwd_path[k] = fwd_path.get(k, 0) + v
+    res.update(fp32_logits_rel=rel32, served_argmax_agreement=agree,
+               launches_step=launches_summary(want_step),
+               launches_forward=launches_summary(fwd_launches))
+    del models, model, server, state
+    return res
+
+
+def public_winograd_check(seed, failures, path):
+    """Phase 20 (iii): ops.winograd.conv2d_winograd, the public entry, at
+    RN50's 56²×64 at b256 in bf16, m = 4 and 2, its calls counted into
+    `path` (one winograd_input and one winograd_output each): with a bias
+    against conv2d_winograd_plain on the same inputs within phase 18's
+    kernel bar (CONV_TOL), without one against the fp32 direct conv within
+    phase 18's error band (WINOGRAD_BAND), and device ms of both beside the
+    plain composition's; a 5x5 weight raises ValueError on the card too."""
+    import torch
+
+    from convnets_tpu_torch.ops import kernels, winograd
+
+    n, h, cin, cout, p = PUBLIC_WINOGRAD
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 22)
+    x32 = torch.randn(n, h, h, cin, device=DEVICE, generator=g)
+    w32 = torch.randn(3, 3, cin, cout, device=DEVICE, generator=g) / np.sqrt(9 * cin)
+    x, w = x32.bfloat16(), w32.bfloat16()
+    b = (0.1 * torch.randn(cout, device=DEVICE, generator=g)).bfloat16()
+    # phase 18's oracle: the direct conv of the fp32 draws, before their rounding to bf16
+    oracle = kernels.conv2d_fused(x32, w32, padding=p)
+    direct = kernels.conv2d_fused(x, w, padding=p)
+    del x32, w32
+    atol, rtol = CONV_TOL["bfloat16"]
+    out = {}
+    for m in (4, 2):
+        counts = {}
+        got, got_nb = counted_run(lambda: (winograd.conv2d_winograd(x, w, b, padding=p, m=m),
+                                           winograd.conv2d_winograd(x, w, padding=p, m=m)),
+                                  counts)
+        ref = winograd.conv2d_winograd_plain(x, w, b, padding=p, m=m)
+        err = float((got.float() - ref.float()).abs().max())
+        band, band_direct = winograd_band(got_nb, direct, oracle)
+        launched = {k: v for k, v in counts.items() if v}
+        ok = (within(got, ref, atol, rtol) and bool(torch.isfinite(got).all())
+              and band < WINOGRAD_BAND[m] * max(band_direct, 1e-3) and band < WINOGRAD_BAND_MAX
+              and launched == {"winograd_input": 2, "winograd_output": 2})
+        del ref, got, got_nb
+        ms = time_ms(lambda: winograd.conv2d_winograd(x, w, b, padding=p, m=m), REPS)
+        plain_ms = time_ms(lambda: winograd.conv2d_winograd_plain(x, w, b, padding=p, m=m), REPS)
+        say(f"(iii) conv2d_winograd b{n} bf16 {h}x{h} {cin}->{cout} F({m},3): vs plain max |Δ| "
+            f"{err:.3e} (tol {atol:g}+{rtol:g}|ref|); no bias vs the fp32 direct conv: band "
+            f"{band:.3e} vs direct bf16 {band_direct:.3e} (< {WINOGRAD_BAND[m]:g}× and "
+            f"{WINOGRAD_BAND_MAX:g}); launches {launched}; {ms:.4f} ms (plain {plain_ms:.4f}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"public API (iii) conv2d_winograd m={m}: err {err:.3e}, band "
+                            f"{band:.3e} / {band_direct:.3e}, launches {launched}")
+        for k, v in counts.items():
+            path[k] = path.get(k, 0) + v
+        out[f"m{m}"] = {"err_vs_plain": err, "band": band, "band_direct": band_direct, "ms": ms,
+                        "plain_ms": plain_ms}
+    try:
+        winograd.conv2d_winograd(x, torch.zeros(5, 5, cin, cout, device=DEVICE,
+                                                dtype=torch.bfloat16), padding=2)
+        refused = False
+    except ValueError:
+        refused = True
+    say(f"(iii) conv2d_winograd with a 5x5 weight on the card raises ValueError: "
+        f"{'ok' if refused else 'FAIL'}")
+    if not refused:
+        failures.append("public API (iii): a 5x5 weight did not raise")
+    return out
+
+
+def phase_public_api(seed, card, failures):
+    """Phase 20: the public API on the card, (i) summary_check over
+    PUBLIC_FAMILIES, (ii) public_net_check, (iii) public_winograd_check.
+    Prints the public_api JSON line; returns the path's launches per
+    kernels-line entry: the eval forwards' (i, ii) and the bf16 steps' (ii)
+    kernels, the trainable functions by their kernels, and (iii)'s
+    transforms."""
+    fwd, step, wino, parts, out = {}, {}, {}, {}, {"card": card}
+    t0 = time.perf_counter()
+    out["families"] = {f"{arch}{kind}@{image}": summary_check(arch, kind, image, seed, fwd,
+                                                              failures)
+                       for arch, kind, image in PUBLIC_FAMILIES}
+    parts["i"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with registered(PUBLIC_NET, build_public_net):
+        out["builder_net"] = public_net_check(seed, failures, step, fwd)
+    parts["ii"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["conv2d_winograd"] = public_winograd_check(seed, failures, wino)
+    parts["iii"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    path = {k: fwd.get(k, 0) for k in ("conv2d_fused", "grouped_conv2d_fused", "depthwise_conv2d",
+                                        "max_pool2d", "avg_pool2d")}
+    path.update({k: step.get(k, 0) for k in ("conv2d_stats", "conv2d_stats_reduce",
+                                             "grouped_conv2d_stats", "bn_act_forward",
+                                             "pool2d_backward")})
+    path.update(bn_act_backward=step.get("bn_act_backward_apply", 0),
+                conv_bn_relu_train=step.get("conv2d_stats", 0),
+                conv_bn_relu_train_grouped=step.get("grouped_conv2d_stats", 0),
+                conv2d_train=step.get("conv2d_fused", 0),
+                depthwise_train=step.get("depthwise_conv2d", 0),
+                pool2d_train=step.get("max_pool2d", 0),
+                winograd_input=wino.get("winograd_input", 0),
+                winograd_output=wino.get("winograd_output", 0))
+    out["launches"] = path
+    say(f"public_api path: launches {path}")
+    say(json.dumps({"public_api": out}, default=str))
+    return path
+
+
+# the paths of phases 10-20 whose launches the kernels line carries as
 # <path>_launches beside the main path's
 PATHS = ("trainer", "artifact", "augmented_fit", "cli", "zoo", "graphed_epoch", "chunked_epoch",
          "zoo2", "fused_densenet", "remat_debug_feed", "adaptive_pool", "data_parallel",
-         "envelope", "winograd_vgg_cli", "decoded_fit")
+         "envelope", "winograd_vgg_cli", "decoded_fit", "public_api")
 SOURCES = {  # kernel: (source, TPU kernel it replaces)
     "conv2d_fused": ("convnets_tpu_torch/csrc/conv_wgmma.cu", "convnets_tpu/ops/pallas/conv.py:391"),
     "max_pool2d": ("convnets_tpu_torch/csrc/pool.cu", "convnets_tpu/ops/pallas/pool.py:88"),
@@ -9009,6 +9383,9 @@ def main():
     def phase_19():
         state["decoded_fit"] = phase_codec(args.seed, card, failures)
 
+    def phase_20():
+        state["public_api"] = phase_public_api(args.seed, card, failures)
+
     phases = {
         "2a": lambda: phase_conv_plans(failures),
         "2": lambda: summary.update(phase_kernels(probe(), failures)),
@@ -9034,6 +9411,7 @@ def main():
         "17": phase_17,
         "18": phase_18,
         "19": phase_19,
+        "20": phase_20,
     }
     chosen = list(phases) if args.phases is None else args.phases.split(",")
     if any(p not in phases for p in chosen) or ("3" in chosen and "5" not in chosen):
@@ -9082,7 +9460,7 @@ def main():
     for path in PATHS:
         for name, count in state[path].items():
             if count <= 0:
-                failures.append(f"{name}: no launch on phase 10-19's {path} path")
+                failures.append(f"{name}: no launch on phase 10-20's {path} path")
     say(card)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

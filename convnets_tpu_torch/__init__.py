@@ -37,3 +37,5 @@ path and the native image codec.
 """
 
 __version__ = "0.1.0"
+
+from convnets_tpu_torch.settings import HyperParams, HyperParamsDistrib, Settings  # noqa: F401

@@ -96,6 +96,13 @@ def load_jax_variables(model, variables) -> None:
             dst.copy_(src)
 
 
+def jax_tensors(model) -> dict:
+    """The model's own tensors (not copies) as the JAX `{"params",
+    "state"}` tree."""
+    tree = _nest({path: getattr(mod, tname) for path, (mod, tname) in jax_layout(model).items()})
+    return {"params": tree.get("params", {}), "state": tree.get("state", {})}
+
+
 def export_jax_variables(model, tensors: Optional[Dict[Path, torch.Tensor]] = None) -> dict:
     """The port model's tensors as the JAX `{"params", "state"}` tree of
     fp32 numpy arrays (the inverse of load_jax_variables). tensors: {JAX

@@ -9,6 +9,8 @@ draws cannot equal JAX's bits: the generators differ.
 
 from __future__ import annotations
 
+import random
+
 import numpy as np
 import torch
 
@@ -76,3 +78,14 @@ class StepGenerators:
 
     def __getitem__(self, stream: str) -> torch.Generator:
         return self.generators[stream]
+
+
+def set_reproducible_mode(seed: int, deterministic: bool = False) -> None:
+    """Seed the host RNGs (random, numpy) and torch's default generators.
+    The port's own draws (dropout masks, augmentation) come from the
+    streams above and do not depend on them; `deterministic` is the JAX
+    package's argument, accepted and ignored as there."""
+    del deterministic
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

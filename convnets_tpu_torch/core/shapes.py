@@ -46,3 +46,12 @@ def pool2d_out_shape(in_shape, kernel, stride=None, padding=0) -> Tuple[int, ...
     ph, pw = to_pair(padding)
     *lead, h, w, c = in_shape
     return (*lead, conv_out_size(h, kh, sh, ph), conv_out_size(w, kw, sw, pw), c)
+
+
+def num_flat_features(in_shape) -> int:
+    """The fan-in of a classifier after a flatten: the product of the last
+    three dimensions (H·W·C)."""
+    n = 1
+    for d in in_shape[-3:]:
+        n *= int(d)
+    return n

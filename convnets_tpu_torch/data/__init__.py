@@ -5,5 +5,6 @@ from convnets_tpu_torch.data.datasets import (  # noqa: F401
 from convnets_tpu_torch.data.loader import (  # noqa: F401
     DataLoader, DeviceCacheLoader, device_prefetch,
 )
+from convnets_tpu_torch.data.augment import augment_batch, normalize  # noqa: F401
 from convnets_tpu_torch.data.manager import DataMngr  # noqa: F401
 from convnets_tpu_torch.data.stream import ShardRotationLoader  # noqa: F401

@@ -37,29 +37,35 @@ class Model(torch.nn.Module):
     def batch_shape(self, batch_size: int):
         return (batch_size, *self.input_shape_nhwc)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> "Model":
-        """(Re-)create every parameter; default generator seeded from setting.seed."""
+    def init(self, generator: Optional[torch.Generator] = None,
+             batch_size: int = 1) -> "Model":
+        """(Re-)create every parameter for inputs of `batch_shape(batch_size)`
+        (no parameter depends on the batch); default generator seeded from
+        setting.seed."""
         if generator is None:
             generator = torch.Generator().manual_seed(int(getattr(self.setting, "seed", 0)))
         device = next(self.parameters(), torch.empty(0)).device
-        self.module.init(generator, self.batch_shape(1))
+        self.module.init(generator, self.batch_shape(batch_size))
         return self.to(device)
 
     def forward(self, x):
         """NHWC input → logits in the output dtype (fp32)."""
         return self.module(x).to(self.policy.output_dtype)
 
-    def summary(self) -> str:
-        """The top-level children with their output shapes and parameter
-        counts, and the total (Trainer.print_summary)."""
-        shape = self.batch_shape(1)
-        lines = [f"=== {self.model_name} (input {shape}) ==="]
-        for name, child in self.module.named_children():
-            shape = child.out_shape(shape)
-            count = sum(p.numel() for p in child.parameters())
-            lines.append(f"{name:>4} {type(child).__name__:<16} out {shape}  params {count:,}")
-        lines.append(f"total params {sum(p.numel() for p in self.parameters()):,}")
-        return "\n".join(lines)
+    def out_shape(self, batch_size: int = 1):
+        """The logits' shape for a batch of `batch_size`."""
+        return self.module.out_shape(self.batch_shape(batch_size))
+
+    def num_params(self, variables=None) -> int:
+        """The number of parameter values: the model's own, or those of
+        `variables`' params tree (JAX layout) where given."""
+        return nn.count_params(self.module if variables is None else variables["params"])
+
+    def summary(self, variables=None, batch_size: int = 1) -> str:
+        """The header and `nn.summarize`'s layer-by-layer text
+        (Trainer.print_summary): the JAX Model.summary's, line for line."""
+        head = f"=== {self.model_name} (input {self.batch_shape(batch_size)}) ==="
+        return head + "\n" + nn.summarize(self.module, self.batch_shape(batch_size), variables)
 
 
 class Builder:
@@ -74,10 +80,13 @@ class Builder:
         self.conv_init = "he" if init_params else "default"
         self.linear_init = "normal" if init_params else "default"
 
-    def conv(self, num_filters, **kw) -> nn.Conv2d:
-        """A bare conv, bias off iff BN on."""
-        self.in_channels = num_filters
-        return nn.Conv2d(num_filters, bias=not self.bn, init_mode=self.conv_init, **kw)
+    def conv(self, num_filters, set_output=True, **kw) -> nn.Conv2d:
+        """A bare conv, bias off iff BN on; `set_output` makes its width the
+        current channel count (False for a branch, as in conv_block)."""
+        layer = nn.Conv2d(num_filters, bias=not self.bn, init_mode=self.conv_init, **kw)
+        if set_output:
+            self.in_channels = num_filters
+        return layer
 
     def conv_block(self, num_filters, activation=True, set_output=True, groups=1,
                    kernel=3, stride=1, padding=0, dilation=1) -> nn.Sequential:

@@ -56,6 +56,9 @@ class SEUnit(Module):
     def extra_repr(self):
         return f"C={self.channels}, r→{self.reduced}"
 
+    def summary_label(self):
+        return f"SEUnit({self.extra_repr()})"
+
 
 class SKConv(Module):
     """Selective-Kernel convolution over `num_paths` dilated grouped 3x3
@@ -96,13 +99,26 @@ class SKConv(Module):
     def out_shape(self, in_shape):
         return self._paths()[0].out_shape(tuple(in_shape))
 
+    def shape_flow(self, in_shape):
+        """Each child's input shape: the paths take the block's input, the
+        descriptor the paths' pooled sum (N, 1, 1, C), the attention convs
+        the descriptor's output (N, 1, 1, d)."""
+        n = self.out_shape(in_shape)[0]
+        flows = {f"kernel{i}": tuple(in_shape) for i in range(self.num_paths)}
+        flows["descriptor"] = (n, 1, 1, self.channels)
+        flows.update({f"att{i}": (n, 1, 1, self.desc_size) for i in range(self.num_paths)})
+        return flows
+
     def forward(self, x):
         stacked = torch.stack([path(x) for path in self._paths()], dim=-2)  # (N, H', W', P, C)
         fused = stacked.sum(dim=-2)
         desc = self.descriptor(ops.global_avg_pool2d(fused, keepdims=True))  # (N, 1, 1, d)
         att = torch.stack([a(desc) for a in self._attentions()], dim=-2)  # (N, 1, 1, P, C)
-        att = ops.softmax(att.float(), dim=-2).to(stacked.dtype)
+        att = ops.softmax(att.float(), axis=-2).to(stacked.dtype)
         return (stacked * att).sum(dim=-2)
 
     def extra_repr(self):
         return f"C={self.channels}, paths={self.num_paths}, s={self.stride}"
+
+    def summary_label(self):
+        return f"SKConv({self.extra_repr()})"

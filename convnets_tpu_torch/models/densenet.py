@@ -167,6 +167,15 @@ class DenseBlockFused(nn.Module):
     def extra_repr(self):
         return f"size={self.size}, growth={self.growth}"
 
+    def summary_children(self):
+        """The JAX block's children: its convs alone, conv1_i and conv2_i
+        in layer order (bn1_i, bn2_i and the banks are tensors there)."""
+        return {name: self._modules[name] for i in range(self.size)
+                for name in (f"conv1_{i}", f"conv2_{i}")}
+
+    def summary_label(self):
+        return f"DenseBlockFused({self.extra_repr()})"
+
 
 def _dense_layer(b: Builder, growth: int, bottleneck_factor: int) -> nn.Concat:
     body = nn.Sequential([

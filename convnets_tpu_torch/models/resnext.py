@@ -18,6 +18,7 @@ bottleneck kinds are usable.
 from __future__ import annotations
 
 from convnets_tpu_torch import nn
+from convnets_tpu_torch.core.shapes import num_flat_features  # noqa: F401  (as the JAX module)
 from convnets_tpu_torch.models.base import Builder, Model, register
 
 # copied from convnets_tpu/models/resnext.py (importing it would pull in jax)

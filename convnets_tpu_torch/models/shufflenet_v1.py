@@ -77,6 +77,14 @@ class ShuffleUnit(Module):
     def extra_repr(self):
         return f"out={self.out_channels}, g={self.groups}, s={self.stride}"
 
+    def summary_children(self):
+        """The JAX unit's children: compress, depthwise, expand (its
+        identity pool is a function there)."""
+        return {"compress": self.compress, "depthwise": self.depthwise, "expand": self.expand}
+
+    def summary_label(self):
+        return f"ShuffleUnit({self.extra_repr()})"
+
 
 @register("shufflenet_v1")
 def build_shufflenet_v1(setting) -> Model:

@@ -26,7 +26,6 @@ F(2,3) or F(4,3) instead (ops/kernels/winograd.py), in both modes.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -150,6 +149,9 @@ class Conv2d(Module):
         return (f"{self.out_channels}, k={self.kernel}, s={self.stride}, "
                 f"p={self.padding}, d={self.dilation}, g={self.groups}")
 
+    def summary_label(self):
+        return f"Conv2d({self.extra_repr()})"
+
 
 class BatchNorm2d(Module):
     """torch-parity batch norm (eps 1e-5, momentum 0.1, unbiased running
@@ -197,6 +199,9 @@ class BatchNorm2d(Module):
         return ops.batch_norm_inference(x, self.running_mean, self.running_var,
                                         self.weight, self.bias, eps=self.eps)
 
+    def summary_label(self):
+        return "BatchNorm2d()"
+
 
 def write_running(mod, new_mean, new_var) -> None:
     """Copy new running statistics into `mod`'s buffers, except in a Remat
@@ -241,10 +246,18 @@ class Linear(Module):
         return ops.linear(x.to(cd), self.weight.to(cd),
                           None if self.bias is None else self.bias.to(cd))
 
+    def summary_label(self):
+        return f"Linear({self.out_features})"
+
 
 class ReLU(Module):
     def forward(self, x):
         return ops.relu(x)
+
+
+class Sigmoid(Module):
+    def forward(self, x):
+        return ops.sigmoid(x)
 
 
 def dropout(x, rate: float, train: bool):
@@ -271,6 +284,9 @@ class Dropout(Module):
     def forward(self, x):
         return dropout(x, self.rate, self.training)
 
+    def summary_label(self):
+        return f"Dropout({self.rate})"
+
 
 def _pool2d(x, mode, kernel, stride, padding, train):
     """The pool kernels: pool2d_train in train mode, else the max- or
@@ -293,6 +309,9 @@ class _Pool2d(Module):
 
     def forward(self, x):
         return _pool2d(x, self.MODE, self.kernel, self.stride, self.padding, self.training)
+
+    def summary_label(self):
+        return f"{type(self).__name__}(k={self.kernel}, s={self.stride}, p={self.padding})"
 
 
 class MaxPool2d(_Pool2d):
@@ -328,22 +347,42 @@ class AdaptiveAvgPool2d(Module):
 
 
 class GlobalAvgPool2d(Module):
+    """The mean over H and W: (N, C), or (N, 1, 1, C) with keepdims."""
+
+    def __init__(self, keepdims=False):
+        super().__init__()
+        self.keepdims = keepdims
+
     def out_shape(self, in_shape):
         *lead, h, w, c = in_shape
-        return (*lead, c)
+        return (*lead, 1, 1, c) if self.keepdims else (*lead, c)
 
     def forward(self, x):
-        return ops.global_avg_pool2d(x)
+        return ops.global_avg_pool2d(x, keepdims=self.keepdims)
 
 
 class Flatten(Module):
     """(N, H, W, C) → (N, H·W·C) in NHWC order (nn/layers.py:Flatten)."""
 
     def out_shape(self, in_shape):
-        return (in_shape[0], math.prod(in_shape[1:]))
+        return (in_shape[0], shapes.num_flat_features(in_shape))
 
     def forward(self, x):
         return ops.flatten(x)
+
+
+class ChannelShuffle(Module):
+    """ShuffleNet's channel shuffle (ops.channel_shuffle) as a layer."""
+
+    def __init__(self, groups):
+        super().__init__()
+        self.groups = int(groups)
+
+    def forward(self, x):
+        return ops.channel_shuffle(x, self.groups)
+
+    def summary_label(self):
+        return f"ChannelShuffle(g={self.groups})"
 
 
 class Identity(Module):
@@ -368,6 +407,9 @@ class Lambda(Module):
         return self.fn(x)
 
     def extra_repr(self):
+        return self._name
+
+    def summary_label(self):
         return self._name
 
 
@@ -401,6 +443,9 @@ class Sequential(Module):
         for layer in self._modules.values():
             x = layer(x)
         return x
+
+    def summary_label(self):
+        return f"Sequential[{len(self._modules)}]"
 
 
 class Remat(Module):
@@ -437,6 +482,9 @@ class Remat(Module):
                 self.child, x, use_reentrant=False, preserve_rng_state=False,
                 context_fn=lambda: (tape.recording(), tape.replaying()))
 
+    def summary_label(self):
+        return f"Remat({self.child.summary_label()})"
+
 
 class _MultiBranch(Module):
     """Parallel branches over one input, children named '0', '1', …"""
@@ -450,6 +498,10 @@ class _MultiBranch(Module):
         for branch in self._modules.values():
             branch.init(generator, in_shape)
 
+    def shape_flow(self, in_shape):
+        """Every branch takes the block's input."""
+        return {name: tuple(in_shape) for name in self._modules}
+
 
 class Concat(_MultiBranch):
     """Parallel branches concatenated on the channel (last) axis in branch order."""
@@ -460,6 +512,9 @@ class Concat(_MultiBranch):
 
     def forward(self, x):
         return torch.cat([branch(x) for branch in self._modules.values()], dim=-1)
+
+    def summary_label(self):
+        return f"Concat[{len(self._modules)}]"
 
 
 class Add(_MultiBranch):
@@ -480,6 +535,9 @@ class Add(_MultiBranch):
         if self.post_relu:
             y = ops.relu(y)
         return y
+
+    def summary_label(self):
+        return f"Add[{len(self._modules)}]{'+ReLU' if self.post_relu else ''}"
 
 
 class ConvBNReLU(Sequential):
@@ -536,6 +594,9 @@ class ConvBNReLU(Sequential):
         if family == GROUPED:
             return _OPS.grouped_conv2d_fused(x, w, conv.groups, s, sh, *geo)
         return _OPS.conv2d_fused(x, w, s, sh, *geo)
+
+    def summary_label(self):
+        return f"ConvBNReLU({self._modules['0'].summary_label()}){'+ReLU' if self.act else ''}"
 
 
 def conv_block(out_channels, kernel, stride=1, padding=0, dilation=1, groups=1,

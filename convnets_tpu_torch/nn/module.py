@@ -15,6 +15,12 @@ handed to the step with `use_generator`, the counterpart of the JAX
 package's per-step `rng` key; there is no global RNG. A train-mode
 `Remat` keeps the dropout masks its child draws (`MaskTape`), so the
 recompute in the backward reuses them and draws nothing.
+
+`summarize` is the JAX package's layer-by-layer summary, line for line:
+each module's `summary_label()` is its JAX `__repr__` (torch's own
+`repr`, which `print(model)` shows, is left as it is),
+`summary_children()` its JAX `children()`, and a container with
+`shape_flow` gives each child its input shape, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from convnets_tpu_torch import bridge
 from convnets_tpu_torch.core.precision import DEFAULT_POLICY, Policy
 
 _POLICY_STACK = [DEFAULT_POLICY]
@@ -129,3 +137,90 @@ class Module(torch.nn.Module):
 
     def out_shape(self, in_shape: Sequence[int]) -> Tuple[int, ...]:
         return tuple(in_shape)
+
+    def summary_children(self) -> Dict[str, torch.nn.Module]:
+        """The children `summarize` walks, in the JAX module's order and
+        under its names (its `children()`): by default every child."""
+        return dict(self.named_children())
+
+    def summary_label(self) -> str:
+        """This module's line label in `summarize`: the JAX module's
+        `__repr__` (by default the class name)."""
+        return type(self).__name__
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def _count(tree) -> int:
+    return int(sum(int(np.prod(tuple(leaf.shape))) for leaf in _leaves(tree)))
+
+
+def count_params(params) -> int:
+    """The number of parameter values: of a module's parameters, or of the
+    leaves of a tree of arrays (a JAX-layout params tree, whose leaves may
+    be tensors, numpy arrays or anything else with a shape)."""
+    if isinstance(params, torch.nn.Module):
+        return int(sum(p.numel() for p in params.parameters()))
+    return _count(params)
+
+
+def count_state(state) -> int:
+    """The number of state values: of the buffers of a module that the JAX
+    state holds (BN's running mean and var), or of the leaves of a tree of
+    arrays (a JAX-layout state tree)."""
+    if isinstance(state, torch.nn.Module):
+        return _count(bridge.jax_tensors(state)["state"])
+    return _count(state)
+
+
+def summarize(module: torch.nn.Module, in_shape, variables=None) -> str:
+    """Layer-by-layer summary: each module's label, output shape, and the
+    parameters and state of each leaf, then the totals
+    (convnets_tpu/nn/module.py:summarize, line for line).
+
+    variables: a JAX-layout {"params", "state"} tree to count instead of
+    the module's own tensors (the JAX package's variables, their
+    `jax.eval_shape`, or `bridge.export_jax_variables` of a model); its
+    leaves need only a shape. A child's counts are read at its JAX path,
+    so the children of a Remat, whose variables sit at the child's own
+    paths, count 0 as they do in the JAX package."""
+    if variables is None:
+        variables = bridge.jax_tensors(module)
+    lines = []
+    total = [0, 0]
+
+    def walk(mod, params, state, shape, prefix):
+        kids = mod.summary_children()
+        out = mod.out_shape(shape)
+        own_p = count_params(params) if not kids else 0
+        own_s = count_state(state) if not kids else 0
+        lines.append(
+            f"{prefix}{mod.summary_label():<30} out={tuple(int(d) for d in out)!s:<22}"
+            f" params={own_p:,}" + (f" state={own_s:,}" if own_s else "")
+        )
+        total[0] += own_p
+        total[1] += own_s
+        if kids:
+            if hasattr(mod, "shape_flow"):
+                flows = mod.shape_flow(shape)
+            else:
+                flows, s = {}, shape
+                for name, kid in kids.items():
+                    flows[name] = s
+                    s = kid.out_shape(s)
+            for name, kid in kids.items():
+                walk(kid, params.get(name, {}), state.get(name, {}), flows[name], prefix + "  ")
+        return out
+
+    walk(module, variables.get("params", {}), variables.get("state", {}), tuple(in_shape), "")
+    lines.append(f"total params: {total[0]:,}   total state: {total[1]:,}")
+    return "\n".join(lines)

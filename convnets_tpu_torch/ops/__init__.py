@@ -14,3 +14,4 @@ from convnets_tpu_torch.ops.norm import (  # noqa: F401
 from convnets_tpu_torch.ops.pool import (  # noqa: F401
     adaptive_avg_pool2d, avg_pool2d, global_avg_pool2d, max_pool2d,
 )
+from convnets_tpu_torch.ops import initializers  # noqa: F401

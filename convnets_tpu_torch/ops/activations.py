@@ -15,8 +15,8 @@ def sigmoid(x):
     return torch.sigmoid(x)
 
 
-def softmax(x, dim=-1):
-    return torch.softmax(x, dim=dim)
+def softmax(x, axis=-1):
+    return torch.softmax(x, dim=axis)
 
 
 def channel_shuffle(x, groups: int):

@@ -43,3 +43,15 @@ def normal_linear(shape, generator, dtype=torch.float32, std=0.01):
 def linear_default(shape, generator, dtype=torch.float32):
     """torch Linear constructor default on (in, out): U(-b, b), b = sqrt(1 / in)."""
     return _uniform(shape, math.sqrt(1.0 / shape[0]), generator, dtype)
+
+
+def zeros(shape, generator=None, dtype=torch.float32):
+    """Zeros (the generator, the JAX initializers' key, is not used)."""
+    del generator
+    return torch.zeros(shape, dtype=dtype)
+
+
+def ones(shape, generator=None, dtype=torch.float32):
+    """Ones (the generator, the JAX initializers' key, is not used)."""
+    del generator
+    return torch.ones(shape, dtype=dtype)

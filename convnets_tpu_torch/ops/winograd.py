@@ -18,7 +18,9 @@ F(m,3) computes an m×m output tile from an (m+2)×(m+2) input tile with
 rounding points; the CPU runs it and it is the card's reference. On the
 card the two transforms are the kernels of ops/kernels/winograd.py
 (csrc/winograd.cu) and the product a batched cuBLAS call, as the JAX
-package leaves its einsum to XLA.
+package leaves its einsum to XLA. `conv2d_winograd` is the public entry
+(the JAX function's signature): the kernels for a CUDA tensor, the plain
+composition for a CPU one.
 
 Gate (read on every forward call by nn/layers.py Conv2d and ConvBNReLU,
 so a CUDA-graph capture freezes what it read):
@@ -213,3 +215,28 @@ def conv2d_winograd_plain(x: torch.Tensor, w: torch.Tensor, b=None, *, padding=0
     u = transform_weight(w, m, x.dtype).reshape(a * a, w.shape[2], w.shape[3])
     return output_transform_plain(batched_product(v, u), n, oh, ow, m, x.dtype, b, scale, shift,
                                   relu)
+
+
+def conv2d_winograd(x: torch.Tensor, w: torch.Tensor, b=None, *, padding=0,
+                    m: int = 4) -> torch.Tensor:
+    """3x3 stride-1 dense conv via Winograd F(m,3)
+    (convnets_tpu/ops/winograd.py:conv2d_winograd): ops.conv2d(x, w, b,
+    padding=padding)'s semantics. x (N, H, W, C); w (3, 3, C, O); b (O,)
+    or None, added in fp32 before the one cast to x.dtype; padding int or
+    (ph, pw). A CUDA tensor runs the Winograd kernels
+    (ops/kernels/winograd.py:winograd_conv2d: the input kernel, the
+    batched product, the output kernel with the bias in its epilogue), a
+    CPU one `conv2d_winograd_plain`; neither falls back to a direct conv.
+    A weight that is not (3, 3, C, O) raises ValueError, as JAX's einsum
+    does (JAX broadcasts a 1x1 weight where the port raises), and so does
+    an m other than 2 or 4 (a KeyError of JAX's table there)."""
+    if w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[-1]:
+        raise ValueError(f"conv2d_winograd: weight {tuple(w.shape)} for input "
+                         f"{tuple(x.shape)}: (3, 3, Cin, Cout)")
+    if m not in _BT:
+        raise ValueError(f"conv2d_winograd: m={m} (F(2,3) or F(4,3))")
+    if x.device.type == "cpu":
+        return conv2d_winograd_plain(x, w, b, padding=padding, m=m)
+    from convnets_tpu_torch.ops import kernels
+
+    return kernels.winograd_conv2d(x, w, b, padding=padding, m=m)

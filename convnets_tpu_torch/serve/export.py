@@ -82,7 +82,7 @@ class _ServingForward(torch.nn.Module):
             x = (x - self.mean) / self.std
         y = self.net(x.to(self.compute_dtype)).float()
         if self.output == "probs":
-            y = softmax(y, dim=-1)
+            y = softmax(y, axis=-1)
         return y
 
 

@@ -97,8 +97,8 @@ def sgd_update(grads: Tensors, state: SGDState, params: Tensors, *, lr, weight_d
     return new_p, SGDState(momentum=new_v)
 
 
-def global_norm(grads: Tensors) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(g.float())) for g in grads.values()]
+def global_norm(tree: Tensors) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(g.float())) for g in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 

@@ -13,12 +13,10 @@ get_models_scores():      cross-model score loader for the comparison plots:
 from __future__ import annotations
 
 import os
-import random
 import re
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
-import torch
+from convnets_tpu_torch.core import rng
 
 
 def split(array, part_size: int) -> List:
@@ -29,14 +27,9 @@ def split(array, part_size: int) -> List:
 
 
 def set_reproducible_mode(seed: int = 21, deterministic: bool = True) -> None:
-    """Pin the host RNGs and torch's default generators. The port's own
-    random draws (dropout masks, augmentation) come from per-step
-    generators (core/rng.py) and do not depend on this; `deterministic` is
-    the JAX package's argument, which it ignores too."""
-    del deterministic
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    """Pin the host RNGs and torch's default generators
+    (core.set_reproducible_mode, with the JAX utils' defaults)."""
+    rng.set_reproducible_mode(seed, deterministic)
 
 
 def get_models_scores(
